@@ -1,0 +1,222 @@
+"""DQN actor-learner for dense Q-networks (counterpart of
+``dronerl_tpu/agents/dqn.py``, dense networks only).
+
+Parameters keep flax's layout: layer i has ``kernel`` (in, out) and
+``bias`` (out,), so weights carry across from the JAX package unchanged
+(``interop/from_jax.py``) and the fused tick kernel reads them as they
+are. The feature-major forward is ``kernelᵀ @ x + bias``.
+
+The optimizer is Adam written out in optax's ``scale_by_adam`` order;
+``torch.optim.Adam`` orders the same math differently.
+"""
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from dronerl_tpu_torch import resolve_device
+from dronerl_tpu_torch.constants import NUM_ACTIONS
+from dronerl_tpu_torch.env.types import EnvParams
+
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+ADAM_EPS = 1e-8
+
+
+@dataclass(frozen=True)
+class DQNConfig:
+    """Static agent hyper-parameters (dense networks)."""
+
+    hidden_layers: Tuple[int, ...] = (32, 32)
+    gamma: float = 0.95
+    epsilon_start: float = 1.0
+    epsilon_decay: float = 0.999
+    epsilon_end: float = 0.01
+    epsilon_decay_every: Optional[int] = None
+    learning_rate: float = 1e-3
+    target_update_interval: int = 5
+    tau: float = 1.0  # 1.0 = hard target copy; < 1 = EMA
+
+    def __post_init__(self):
+        object.__setattr__(self, "hidden_layers", tuple(self.hidden_layers))
+
+
+class DenseQNet(nn.Module):
+    """(Dense + ReLU)* → Dense(num_actions), weights in flax layout."""
+
+    def __init__(self, obs_dim: int, hidden_layers: Tuple[int, ...],
+                 device=None):
+        super().__init__()
+        widths = (obs_dim, *hidden_layers, NUM_ACTIONS)
+        self.kernels = nn.ParameterList([
+            nn.Parameter(torch.zeros(i, o, device=device))
+            for i, o in zip(widths[:-1], widths[1:])])
+        self.biases = nn.ParameterList([
+            nn.Parameter(torch.zeros(o, device=device)) for o in widths[1:]])
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.kernels)
+
+    def flat(self) -> List[torch.Tensor]:
+        """[kernel_0, bias_0, kernel_1, bias_1, ...] (optax leaf order)."""
+        out = []
+        for w, b in zip(self.kernels, self.biases):
+            out += [w, b]
+        return out
+
+    def forward_t(self, obs_t: torch.Tensor) -> torch.Tensor:
+        """Feature-major forward: (obs_dim, B) → (num_actions, B)."""
+        x = obs_t
+        for idx, (w, b) in enumerate(zip(self.kernels, self.biases)):
+            x = torch.matmul(w.t(), x) + b[:, None]
+            if idx < self.n_layers - 1:
+                x = torch.relu(x)
+        return x
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        """Row-major forward: (B, obs_dim) → (B, num_actions)."""
+        return self.forward_t(obs.reshape(obs.shape[0], -1).t()).t()
+
+
+@dataclass
+class AdamState:
+    """optax ``ScaleByAdamState``: step count and per-leaf moments."""
+
+    count: int
+    mu: List[torch.Tensor]
+    nu: List[torch.Tensor]
+
+
+@dataclass
+class DQNState:
+    params: DenseQNet
+    target_params: DenseQNet
+    opt_state: AdamState
+    epsilon: torch.Tensor  # 0-d float32 on the state's device
+
+
+def _he_init(net: DenseQNet, generator: torch.Generator) -> None:
+    """flax init: he_normal hidden kernels, lecun_normal output kernel
+    (both truncated normal on ±2σ, σ rescaled by 0.8796), zero biases."""
+    with torch.no_grad():
+        for idx, w in enumerate(net.kernels):
+            scale = 2.0 if idx < net.n_layers - 1 else 1.0
+            std = float(np.sqrt(scale / w.shape[0]) / 0.87962566103423978)
+            cpu = torch.empty(w.shape)
+            nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            w.copy_(cpu)
+            net.biases[idx].zero_()
+
+
+class DQN:
+    """Dense DQN: static topology plus state-transition methods."""
+
+    def __init__(self, config: DQNConfig, env_params: EnvParams,
+                 device="cuda"):
+        self.config = config
+        self.env_params = env_params
+        self.device = resolve_device(device)
+        h, w, c = env_params.obs_shape
+        self.obs_dim = h * w * c
+
+    def make_net(self) -> DenseQNet:
+        return DenseQNet(self.obs_dim, self.config.hidden_layers, self.device)
+
+    def init_state(self, generator: torch.Generator) -> DQNState:
+        """Online and target nets initialised independently from one
+        explicit generator; Adam moments zero; ε at its start value."""
+        params, target = self.make_net(), self.make_net()
+        _he_init(params, generator)
+        _he_init(target, generator)
+        return DQNState(
+            params=params,
+            target_params=target,
+            opt_state=AdamState(
+                count=0,
+                mu=[torch.zeros_like(p) for p in params.flat()],
+                nu=[torch.zeros_like(p) for p in params.flat()]),
+            epsilon=torch.tensor(self.config.epsilon_start,
+                                 dtype=torch.float32, device=self.device),
+        )
+
+    def q_values_t(self, params: DenseQNet,
+                   obs_t: torch.Tensor) -> torch.Tensor:
+        """(obs_dim, B) observations → (num_actions, B) Q-values."""
+        return params.forward_t(obs_t)
+
+    def train_step_t(
+        self, state: DQNState, batch: Dict[str, torch.Tensor],
+    ) -> Tuple[DQNState, torch.Tensor]:
+        """TD(0) MSE step with Adam on a feature-major batch.
+
+        ``batch``: obs / next_obs (obs_dim, B) float32; actions (B,) int;
+        rewards and dones (B,) float32. Updates the online parameters and
+        the moments in place and returns ``(state, loss)``.
+        """
+        cfg = self.config
+        params = state.params.flat()
+        with torch.no_grad():
+            next_q = self.q_values_t(state.target_params, batch["next_obs"])
+            bootstrap = next_q.max(dim=0).values
+            target = batch["rewards"] + cfg.gamma * bootstrap * (
+                1 - batch["dones"])
+        with torch.enable_grad():
+            q = self.q_values_t(state.params, batch["obs"])
+            taken = q.gather(0, batch["actions"].long()[None, :])[0]
+            loss = torch.mean(torch.square(taken - target))
+            grads = torch.autograd.grad(loss, params)
+
+        adam = state.opt_state
+        count = adam.count + 1
+        b1, b2 = np.float32(ADAM_B1), np.float32(ADAM_B2)
+        bc1 = float(np.float32(1.0) - b1 ** np.float32(count))
+        bc2 = float(np.float32(1.0) - b2 ** np.float32(count))
+        # optax's formulas, one op at a time over every leaf at once (a
+        # foreach op is one launch for all leaves).
+        with torch.no_grad():
+            mu = torch._foreach_add(torch._foreach_mul(grads, 1 - ADAM_B1),
+                                    torch._foreach_mul(adam.mu, ADAM_B1))
+            nu = torch._foreach_add(
+                torch._foreach_mul(torch._foreach_mul(grads, grads),
+                                   1 - ADAM_B2),
+                torch._foreach_mul(adam.nu, ADAM_B2))
+            torch._foreach_copy_(adam.mu, mu)
+            torch._foreach_copy_(adam.nu, nu)
+            denom = torch._foreach_add(
+                torch._foreach_sqrt(torch._foreach_div(nu, bc2)), ADAM_EPS)
+            update = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+            torch._foreach_add_(
+                params, torch._foreach_mul(update, -cfg.learning_rate))
+        adam.count = count
+        return state, loss.detach()
+
+    def should_decay_epsilon(self, step: int, done: torch.Tensor):
+        """Decay every N steps if configured, else at episode boundaries."""
+        if self.config.epsilon_decay_every is None:
+            return done
+        return step % self.config.epsilon_decay_every == 0
+
+    def apply_schedules(self, state: DQNState, step: int,
+                        done: torch.Tensor) -> DQNState:
+        """Target sync every ``target_update_interval`` steps (EMA with
+        ``tau``, a hard copy at 1.0) and the ε decay, in place."""
+        cfg = self.config
+        with torch.no_grad():
+            if step % cfg.target_update_interval == 0:
+                target = state.target_params.flat()
+                torch._foreach_copy_(target, torch._foreach_add(
+                    torch._foreach_mul(state.params.flat(), cfg.tau),
+                    torch._foreach_mul(target, 1.0 - cfg.tau)))
+            do_e = self.should_decay_epsilon(step, done)
+            decayed = torch.clamp(state.epsilon * cfg.epsilon_decay,
+                                  min=cfg.epsilon_end)
+            if isinstance(do_e, torch.Tensor):
+                state.epsilon = torch.where(do_e, decayed, state.epsilon)
+            elif do_e:
+                state.epsilon = decayed
+        return state

@@ -1,0 +1,387 @@
+"""The ring-engine training tick's env side: one kernel launch per tick.
+
+Counterpart of ``dronerl_tpu/ops/fused_tick.py`` (ring launch,
+``full_tick_fused_ring`` without the in-kernel TD branch). One launch
+does, for every env: the per-env threefry keys, the ε-greedy dense-Q
+actor reading the replay ring at ``read_slot``, the physics, respawns and
+window observation, the periodic reset, and the write of the next
+observation into the ring at ``write_slot`` (in place; other slots keep
+their contents).
+
+State is feature-major (field, env): ground (C, E) int8, drone fields
+(N, E). On CUDA tensors :func:`full_tick_fused_ring` launches the
+hand-written kernel in ``csrc/full_tick.cu``; on CPU tensors it runs
+:func:`full_tick_ring_plain`, the same function in plain PyTorch.
+
+Key contract (as ``dronerl_tpu/ops/fused_tick.py``'s docstring): with
+``S = split(step_key, E + 2)``, env e steps with key ``S[e]``, the actor
+draws its (N+1, E) uniform field from ``S[E]`` (row 0 gates exploration,
+rows 1..N are random actions ``floor(u * NUM_ACTIONS)``), and the
+periodic reset is ``core.reset_batch(S[E+1], params, E)``.
+
+The observation's charge channel (``charge / 100``) may differ from the
+JAX package by 1 ULP, where XLA turns the divide into a reciprocal
+multiply; every other output is bit-identical.
+"""
+
+import ctypes
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from dronerl_tpu_torch import rng
+from dronerl_tpu_torch.agents.dqn import DenseQNet
+from dronerl_tpu_torch.constants import NUM_ACTIONS, NUM_OBS_CHANNELS
+from dronerl_tpu_torch.env import core
+from dronerl_tpu_torch.env.types import EnvParams, EnvState
+from dronerl_tpu_torch.ops import _build
+
+# Limits of the CUDA kernel (csrc/full_tick.cu), as the JAX package's
+# fused_tick.supports() states them for the TPU kernel.
+MAX_CELLS = 256
+MAX_DRONES = 32
+MAX_LAYERS = _build.MAX_LAYERS
+
+
+class TState(NamedTuple):
+    """EnvState in feature-major layout (leading axis = field)."""
+
+    ground: torch.Tensor    # (C, E) int8
+    air_x: torch.Tensor     # (N, E) int32
+    air_y: torch.Tensor     # (N, E) int32
+    carrying: torch.Tensor  # (N, E) int8
+    charge: torch.Tensor    # (N, E) float32
+
+
+def to_tstate(state: EnvState) -> TState:
+    num_envs = state.ground.shape[0]
+    return TState(
+        ground=state.ground.reshape(num_envs, -1).t().contiguous(),
+        air_x=state.air_x.t().contiguous(),
+        air_y=state.air_y.t().contiguous(),
+        carrying=state.carrying_package.to(torch.int8).t().contiguous(),
+        charge=state.charge.t().contiguous(),
+    )
+
+
+def from_tstate(tstate: TState, params: EnvParams) -> EnvState:
+    g = params.grid_size
+    num_envs = tstate.ground.shape[1]
+    return EnvState(
+        ground=tstate.ground.t().reshape(num_envs, g, g),
+        air_x=tstate.air_x.t(),
+        air_y=tstate.air_y.t(),
+        carrying_package=tstate.carrying.t() != 0,
+        charge=tstate.charge.t(),
+    )
+
+
+def obs_rows(params: EnvParams) -> int:
+    """Rows of one observation in the ring (the flattened window)."""
+    h, w, _ = params.obs_shape
+    return h * w * NUM_OBS_CHANNELS
+
+
+def kernel_problems(params: EnvParams, num_envs: int,
+                    hidden_layers=()) -> list:
+    """What the CUDA kernel does not take in this configuration."""
+    problems = []
+    if params.wrapper != "window":
+        problems.append(f"wrapper={params.wrapper!r} (window only)")
+    if params.num_cells > MAX_CELLS:
+        problems.append(f"{params.num_cells} cells > {MAX_CELLS}")
+    if params.n_drones > MAX_DRONES:
+        problems.append(f"n_drones={params.n_drones} > {MAX_DRONES}")
+    if params.num_packets < params.n_drones:
+        problems.append("num_packets < n_drones")
+    if len(hidden_layers) + 1 > MAX_LAYERS:
+        problems.append(f"{len(hidden_layers) + 1} layers > {MAX_LAYERS}")
+    if num_envs < 1:
+        problems.append("num_envs < 1")
+    return problems
+
+
+# --- plain version ---------------------------------------------------------
+
+def actor_uniforms(actor_key: torch.Tensor, n: int, num_envs: int):
+    """(N+1, E) uniforms from the actor key: row 0 gates exploration,
+    rows 1..N give random actions. Returns (u, random_actions (N, E))."""
+    u_act = rng.uniform(actor_key, (n + 1, num_envs))
+    rand = torch.floor(u_act[1:] * float(NUM_ACTIONS)).to(torch.int32)
+    return u_act, rand.clamp(0, NUM_ACTIONS - 1)
+
+
+def plain_actions(actor_key: torch.Tensor, obs_ring: torch.Tensor,
+                  read_slot: int, net_params: DenseQNet,
+                  epsilon: torch.Tensor, params: EnvParams, num_envs: int):
+    """The ε-greedy actor of the plain version: ``(actions (N, E) int32,
+    q (A, E))``. Greedy is the lowest-index argmax of the Q forward of the
+    ring's observations at ``read_slot``, cast to f32."""
+    u_act, rand = actor_uniforms(actor_key, params.n_drones, num_envs)
+    with torch.no_grad():
+        obs_t = obs_ring[:obs_rows(params), read_slot:read_slot + num_envs]
+        q = net_params.forward_t(obs_t.to(torch.float32))
+    greedy = torch.argmax(q, dim=0).to(torch.int32)  # first max wins
+    a0 = torch.where(u_act[0] < epsilon, rand[0], greedy)
+    return torch.cat([a0[None], rand[1:]], dim=0), q
+
+
+def full_tick_ring_plain(
+    step_key: torch.Tensor,
+    tstate: TState,
+    obs_ring: torch.Tensor,
+    read_slot: int,
+    write_slot: int,
+    net_params: DenseQNet,
+    epsilon: torch.Tensor,
+    do_reset: bool,
+    params: EnvParams,
+    actions_override: Optional[torch.Tensor] = None,
+):
+    """The kernel's function in plain PyTorch, on any device.
+
+    ``actions_override`` (N, E) replaces the actor's actions (the env
+    side is then checked bitwise against the kernel's, independently of
+    near-tie Q-values). Writes the ring in place; returns
+    ``(tstate', rewards (N, E), dones (N, E) bool, actions (N, E) int32,
+    obs_ring)``.
+    """
+    device = tstate.ground.device
+    num_envs = tstate.ground.shape[1]
+    obs_dim = obs_rows(params)
+    keys = rng.split(step_key.to(device), num_envs + 2)
+
+    if actions_override is None:
+        actions, _ = plain_actions(keys[num_envs], obs_ring, read_slot,
+                                   net_params, epsilon, params, num_envs)
+    else:
+        actions = actions_override.to(device=device, dtype=torch.int32)
+
+    state = from_tstate(tstate, params)
+    stepped, rewards, dones = core.step_batch(
+        keys[:num_envs], state, actions.t(), params)
+    if do_reset:
+        stepped = core.reset_batch(keys[num_envs + 1], params, num_envs)
+    obs = core.observe_batch(stepped, params, 1).reshape(num_envs, obs_dim)
+    obs_ring[:obs_dim, write_slot:write_slot + num_envs] = obs.t().to(
+        obs_ring.dtype)
+    return (to_tstate(stepped), rewards.t().contiguous(),
+            dones.t().contiguous(), actions.contiguous(), obs_ring)
+
+
+# --- the kernel's wrapper ----------------------------------------------------
+
+class _TickArgs(ctypes.Structure):
+    """Mirror of ``TickArgs`` in csrc/full_tick.cu (field order matters)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "ring", "ground_in", "ax_in", "ay_in", "carry_in", "charge_in", "eps",
+        "ground_out", "ax_out", "ay_out", "carry_out", "charge_out",
+        "rewards", "dones", "actions")] + [
+        ("w", ctypes.c_void_p * MAX_LAYERS),
+        ("b", ctypes.c_void_p * MAX_LAYERS),
+        ("ring_ld", ctypes.c_longlong),
+        ("read_col", ctypes.c_longlong),
+        ("write_col", ctypes.c_longlong),
+        ("num_envs", ctypes.c_int),
+        ("ring_bf16", ctypes.c_int),
+        ("key0", ctypes.c_uint32),
+        ("key1", ctypes.c_uint32),
+        ("do_reset", ctypes.c_int),
+        ("pickup_reward", ctypes.c_float),
+        ("delivery_reward", ctypes.c_float),
+        ("crash_reward", ctypes.c_float),
+        ("charge_reward", ctypes.c_float),
+    ]
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def net_widths(net_params: DenseQNet) -> Tuple[int, ...]:
+    """(obs_dim, hidden..., num_actions) of a dense Q-net."""
+    return (net_params.kernels[0].shape[0],
+            *(w.shape[1] for w in net_params.kernels))
+
+
+def kernel_defines(params: EnvParams, net_params: DenseQNet):
+    """The kernel's compile-time configuration (see ops/_build.py)."""
+    return _build.tick_defines(params, net_widths(net_params))
+
+
+def prepare_kernel(params: EnvParams, net_params: DenseQNet):
+    """Build (or load) the CUDA kernel for this configuration before the
+    first tick, so that the build stays out of any timed region."""
+    return _build.load(kernel_defines(params, net_params))
+
+
+def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
+                 write_slot: int, net_params: DenseQNet, epsilon,
+                 do_reset: bool, params: EnvParams):
+    """Check the inputs, allocate the outputs and fill the launch's
+    argument block. Returns ``(args, (tstate', rewards, dones,
+    actions))``."""
+    device = tstate.ground.device
+    num_envs = tstate.ground.shape[1]
+    n = params.n_drones
+    obs_dim = obs_rows(params)
+    widths = net_widths(net_params)
+    problems = kernel_problems(params, num_envs, widths[1:-1])
+    if problems:
+        raise ValueError("the CUDA tick kernel does not take this "
+                         "configuration: " + "; ".join(problems))
+    _check(tstate.ground, "ground", torch.int8, (params.num_cells, num_envs),
+           device)
+    for name, t, dt in (("air_x", tstate.air_x, torch.int32),
+                        ("air_y", tstate.air_y, torch.int32),
+                        ("carrying", tstate.carrying, torch.int8),
+                        ("charge", tstate.charge, torch.float32)):
+        _check(t, name, dt, (n, num_envs), device)
+    if obs_ring.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"ring dtype {obs_ring.dtype} (float32 or bfloat16)")
+    capacity = obs_ring.shape[-1]
+    _check(obs_ring, "obs_ring", obs_ring.dtype, (obs_dim, capacity), device)
+    for name, slot in (("read_slot", read_slot), ("write_slot", write_slot)):
+        if not 0 <= slot <= capacity - num_envs:
+            raise ValueError(f"{name}={slot} out of the ring")
+    if read_slot != write_slot and abs(read_slot - write_slot) < num_envs:
+        raise ValueError("the read and write columns overlap")
+    _check(epsilon, "epsilon", torch.float32, (), device)
+    if widths[0] != obs_dim or widths[-1] != NUM_ACTIONS:
+        raise ValueError(f"Q-net widths {widths}: expected {obs_dim} inputs "
+                         f"and {NUM_ACTIONS} outputs")
+    for i, (w, b) in enumerate(zip(net_params.kernels, net_params.biases)):
+        _check(w, f"kernel_{i}", torch.float32, (widths[i], widths[i + 1]),
+               device)
+        _check(b, f"bias_{i}", torch.float32, (widths[i + 1],), device)
+    if step_key.device.type != "cpu" or tuple(step_key.shape) != (2,):
+        raise ValueError("step_key must be a host key of shape (2,)")
+
+    out = TState(*(torch.empty_like(t) for t in tstate))
+    rewards = torch.empty((n, num_envs), dtype=torch.float32, device=device)
+    dones = torch.empty((n, num_envs), dtype=torch.bool, device=device)
+    actions = torch.empty((n, num_envs), dtype=torch.int32, device=device)
+
+    a = _TickArgs()
+    a.ring = obs_ring.data_ptr()
+    (a.ground_in, a.ax_in, a.ay_in, a.carry_in, a.charge_in) = (
+        t.data_ptr() for t in tstate)
+    a.eps = epsilon.data_ptr()
+    (a.ground_out, a.ax_out, a.ay_out, a.carry_out, a.charge_out) = (
+        t.data_ptr() for t in out)
+    a.rewards, a.dones, a.actions = (
+        rewards.data_ptr(), dones.data_ptr(), actions.data_ptr())
+    for i, (w, b) in enumerate(zip(net_params.kernels, net_params.biases)):
+        a.w[i] = w.data_ptr()
+        a.b[i] = b.data_ptr()
+    a.ring_ld = capacity
+    a.read_col = read_slot
+    a.write_col = write_slot
+    a.num_envs = num_envs
+    a.ring_bf16 = int(obs_ring.dtype == torch.bfloat16)
+    a.key0, a.key1 = (int(v) for v in step_key.tolist())
+    a.do_reset = int(bool(do_reset))
+    a.pickup_reward = params.pickup_reward
+    a.delivery_reward = params.delivery_reward
+    a.crash_reward = params.crash_reward
+    a.charge_reward = params.charge_reward
+
+    return a, (out, rewards, dones, actions)
+
+
+def _launch_kernel(step_key, tstate: TState, obs_ring, read_slot: int,
+                   write_slot: int, net_params: DenseQNet, epsilon,
+                   do_reset: bool, params: EnvParams):
+    args, (out, rewards, dones, actions) = _kernel_args(
+        step_key, tstate, obs_ring, read_slot, write_slot, net_params,
+        epsilon, do_reset, params)
+    lib = _build.load(kernel_defines(params, net_params))
+    stream = torch.cuda.current_stream(tstate.ground.device).cuda_stream
+    err = lib.full_tick_ring_launch(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError("full_tick_ring kernel launch failed: "
+                           + _build.error_string(lib, err))
+    full_tick_fused_ring.launches += 1
+    return out, rewards, dones, actions, obs_ring
+
+
+def full_tick_fused_ring(
+    step_key: torch.Tensor,
+    tstate: TState,
+    obs_ring: torch.Tensor,
+    read_slot: int,
+    write_slot: int,
+    net_params: DenseQNet,
+    epsilon: torch.Tensor,
+    do_reset: bool,
+    params: EnvParams,
+    collect: int = 1,
+):
+    """One training tick's env side, writing the next obs into the ring.
+
+    ``step_key`` is a host key (2,); ``read_slot``/``write_slot`` are
+    ring columns; ``do_reset`` is a host bool. The ring is written in
+    place (only columns ``write_slot:write_slot+E``). Returns
+    ``(tstate', rewards (N, E) f32, dones (N, E) bool, actions (N, E)
+    int32, obs_ring)``.
+
+    CUDA tensors launch the kernel (and count the launch in
+    ``full_tick_fused_ring.launches``); CPU tensors run the plain
+    version. There is no fallback between the two.
+    """
+    if collect != 1:
+        raise NotImplementedError("collect_drones > 1 is not ported yet")
+    if tstate.ground.is_cuda:
+        return _launch_kernel(step_key, tstate, obs_ring, read_slot,
+                              write_slot, net_params, epsilon, do_reset,
+                              params)
+    return full_tick_ring_plain(step_key, tstate, obs_ring, read_slot,
+                                write_slot, net_params, epsilon, do_reset,
+                                params)
+
+
+full_tick_fused_ring.launches = 0
+
+
+# --- ring companions ---------------------------------------------------------
+
+def ring_scalar_writes(a_ring, r_ring, d_ring, actions_t, rewards_t, dones_t,
+                       read_slot: int):
+    """Record drone 0's scalars at the slot of this tick's input obs
+    (in place; ``collect_drones`` = 1 layout)."""
+    num_envs = actions_t.shape[1]
+    a_ring[read_slot:read_slot + num_envs] = actions_t[0]
+    r_ring[read_slot:read_slot + num_envs] = rewards_t[0]
+    d_ring[read_slot:read_slot + num_envs] = dones_t[0].to(torch.int8)
+    return a_ring, r_ring, d_ring
+
+
+def ring_gather_batch(sample_key, ring, a_ring, r_ring, d_ring, valid: int,
+                      base_step: int, *, num_envs: int, capacity: int,
+                      batch_size: int) -> Dict[str, torch.Tensor]:
+    """Uniform replay sample over ``valid`` columns from ``base_step``'s
+    slot; next_obs is the column one env-batch later. The indices are
+    drawn on the host from ``sample_key`` (``jax.random.randint``)."""
+    nb = capacity // num_envs
+    base_slot = (base_step % nb) * num_envs
+    raw = rng.randint(sample_key, (batch_size,), 0, max(valid, 1))
+    phys = (base_slot + raw.to(torch.int64)) % capacity
+    nxt = (phys + num_envs) % capacity
+    idx = torch.cat([phys, nxt]).to(ring.device, non_blocking=True)
+    both = ring[:, idx].to(torch.float32)
+    phys = idx[:batch_size]
+    return {
+        "obs": both[:, :batch_size],
+        "next_obs": both[:, batch_size:],
+        "actions": a_ring[phys],
+        "rewards": r_ring[phys],
+        "dones": d_ring[phys].to(torch.float32),
+    }

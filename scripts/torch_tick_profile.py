@@ -1,0 +1,165 @@
+"""Where one tick of the PyTorch port's main path spends its time, on a card.
+
+Runs the ring-engine trainer (``dronerl_tpu_torch.train``) at the bench
+configuration (grid 9, 4 drones, radius 3, 65,536 envs, ring of 131,072
+bf16 columns, batch 8, reset every 100) and reports:
+
+* wall time per tick (host clock around ticks ending in a synchronise);
+* host wall time per phase of the tick (the fused kernel's wrapper, the
+  replay gather with its randint, the learner step, the schedules, the
+  host rng split), timed by wrapping each phase's function;
+* under ``torch.profiler``: device time per kernel, launches per tick,
+  and the device's busy share of the unprofiled tick.
+
+Run on a machine with a CUDA card, from the repository root:
+
+    python scripts/torch_tick_profile.py --hidden 16 16
+    python scripts/torch_tick_profile.py --hidden 128 64 --trace out.json
+"""
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from dronerl_tpu_torch import rng, train  # noqa: E402
+from dronerl_tpu_torch.agents import dqn  # noqa: E402
+from dronerl_tpu_torch.env.types import EnvParams  # noqa: E402
+from dronerl_tpu_torch.ops import fused_tick  # noqa: E402
+
+PHASES = {
+    "kernel": (fused_tick, "full_tick_fused_ring"),
+    "gather": (fused_tick, "ring_gather_batch"),
+    "scalar_writes": (fused_tick, "ring_scalar_writes"),
+    "learner": (dqn.DQN, "train_step_t"),
+    "schedules": (dqn.DQN, "apply_schedules"),
+    "rng_split": (rng, "split"),
+}
+
+
+@contextlib.contextmanager
+def phase_timers(totals):
+    """Add each phase's host wall time (outermost calls only: the split
+    inside the gather's randint counts to the gather) into ``totals``."""
+    saved, depth = {}, [0]
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    totals[name] = (totals.get(name, 0.0)
+                                    + time.perf_counter() - t0)
+        wrapper.__dict__.update(fn.__dict__)
+        return wrapper
+
+    for name, (owner, attr) in PHASES.items():
+        saved[(owner, attr)] = getattr(owner, attr)
+        setattr(owner, attr, timed(name, saved[(owner, attr)]))
+    try:
+        yield
+    finally:
+        for (owner, attr), fn in saved.items():
+            setattr(owner, attr, fn)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--hidden", nargs="+", type=int, default=[16, 16])
+    p.add_argument("--num_envs", type=int, default=65536)
+    p.add_argument("--ticks", type=int, default=50)
+    p.add_argument("--profile_ticks", type=int, default=20)
+    p.add_argument("--trace", default=None,
+                   help="write the profiler's chrome trace here")
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("torch_tick_profile: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+    params = EnvParams(grid_size=9, n_drones=4, window_radius=3)
+    agent = dqn.DQN(dqn.DQNConfig(hidden_layers=tuple(args.hidden),
+                                  epsilon_decay_every=5,
+                                  target_update_interval=10, gamma=0.9),
+                    params, device="cuda")
+    num_envs = args.num_envs
+    capacity = max(-(-100_000 // num_envs) * num_envs, 2 * num_envs)
+    tick = train.build_train_step_ring(agent, params, num_envs, capacity, 8,
+                                       100)
+    carry = train.init_ring_carry(agent, params, num_envs, capacity,
+                                  rng.PRNGKey(0), obs_dtype=torch.bfloat16)
+    fused_tick.prepare_kernel(params, carry[3].params)
+    for _ in range(10):
+        carry, _ = tick(carry)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for _ in range(args.ticks):
+        carry, _ = tick(carry)
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) / args.ticks * 1e3
+
+    n = args.ticks
+    totals = {}
+    with phase_timers(totals):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            carry, _ = tick(carry)
+        torch.cuda.synchronize()
+        timed_tick_ms = (time.perf_counter() - t0) / n * 1e3
+    host_ms = {k: v / n * 1e3 for k, v in totals.items()}
+    host_ms["other"] = timed_tick_ms - sum(host_ms.values())
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(args.profile_ticks):
+            carry, _ = tick(carry)
+        torch.cuda.synchronize()
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+    # Device time: the kernels and copies on the card's timeline only.
+    per_kernel = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel.setdefault(ev.name, [0.0, 0])
+            per_kernel[ev.name][0] += ev.time_range.elapsed_us() / 1e3
+            per_kernel[ev.name][1] += 1
+    m = args.profile_ticks
+    kernels = sorted(((k, v[0] / m, v[1] / m) for k, v in per_kernel.items()),
+                     key=lambda k: -k[1])
+    device_ms = sum(k[1] for k in kernels)
+    result = {
+        "card": card,
+        "hidden": args.hidden,
+        "num_envs": num_envs,
+        "tick_ms": tick_ms,
+        "obs_per_sec": num_envs / tick_ms * 1e3,
+        "device_ms_per_tick": device_ms,
+        "device_busy_share": device_ms / tick_ms,
+        "device_launches_per_tick": sum(k[2] for k in kernels),
+        "host_ms_per_tick_by_phase": host_ms,
+        "phase_timed_tick_ms": timed_tick_ms,
+        "top_device_kernels_ms_per_tick": [
+            {"name": k[0][:90], "ms": k[1], "calls": k[2]}
+            for k in kernels[:10]],
+    }
+    print(json.dumps(result, indent=1))
+
+
+if __name__ == "__main__":
+    main()
