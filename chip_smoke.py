@@ -8,22 +8,39 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero, and no phase carries on after one):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. build the fused tick kernel (ops/csrc/full_tick.cu) from the sources,
-   both nets' configurations at once;
-3. hold the kernel against its plain PyTorch version on the card, at the
-   bench width (65,536 envs, grid 9, 4 drones, window radius 3), for the
-   (16,16) and (128,64) nets and f32 and bf16 rings, over 8 ticks with a
-   reset tick: env outputs bitwise (the charge channel within 1.3e-7),
+2. build the tick kernel (ops/csrc/full_tick.cu) and the learner kernel
+   (ops/csrc/td_adam.cu) from the sources, both nets' libraries in one
+   ``nvcc`` wave, and print their ptxas lines;
+3. hold the tick kernel against its plain PyTorch version on the card, at
+   the bench width (65,536 envs, grid 9, 4 drones, window radius 3), for
+   the (16,16) and (128,64) nets and f32 and bf16 rings, over 8 ticks with
+   a reset tick: env outputs bitwise (the charge channel within 1.3e-7),
    actions equal wherever the plain Q-values are not a near tie;
+3b. hold the learner kernel against its plain version (``td_adam_plain``)
+   for both nets at batch 8: 6 learner ticks (learn off at tick 2, sync on
+   even ticks, decay every third), each from the kernel's state after the
+   tick before: ε bitwise, the Adam count equal, the loss within rtol 1e-5
+   (exactly -1 when not learning), params / mu / nu / target within rtol
+   1e-5, atol 1e-6 except where the plain gradient is a cancellation
+   (counted and printed), untouched leaves bitwise where a flag is off;
+   then one tick of the in-kernel TD path (``full_tick_fused_ring`` with
+   ``td_hparams``) against the two plain versions;
 4. drive the trainer's main path (``dronerl_tpu_torch.train``) at the
-   bench configuration for both nets: the kernel's launch count must equal
-   the ticks, losses be finite, params move and ε decay; report obs/s, the
-   kernel's time per launch and its plain version's;
+   bench configuration for both nets: the tick kernel's launch count must
+   equal the ticks, losses be finite, params move and ε decay; report
+   obs/s, the tick kernel's time per launch and its plain version's;
+4b. drive the ``in_kernel_td`` main path the same way: both kernels'
+   launch counts equal the ticks, the loss -1 at tick 0 and finite and
+   >= 0 after, the Adam count ticks - 1; report its obs/s beside phase
+   4's, the learner kernel's time per launch (learn, and learn + sync),
+   its plain version's, and the autograd learner's (``train_step_t`` +
+   ``apply_schedules``) host and device time on the same batch;
 5. print the kernel table line, the card line, and the result line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 
+import copy
 import json
 import os
 import statistics
@@ -39,13 +56,19 @@ RESET_EVERY = 100
 NETS = ((16, 16), (128, 64))
 COMPARE_TICKS = 8
 COMPARE_RESET_TICK = 4
+LEARNER_TICKS = 6
 WARMUP_TICKS = 10
 REPEATS = 3
 TICKS_PER_REPEAT = 100
 TIMED_LAUNCHES = 20
 PLAIN_LAUNCHES = 3
+LEARNER_LAUNCHES = 200
+LEARNER_PLAIN_LAUNCHES = 100
+PROFILED_CALLS = 20
 CHARGE_ATOL = 1.3e-7
 NEAR_TIE = 1e-5
+LEARNER_RTOL, LEARNER_ATOL = 1e-5, 1e-6
+TD_HPARAMS = (0.9, 1e-3, 0.9, 0.999, 1e-8)  # gamma, lr, Adam b1, b2, eps
 # H100 SXM published peaks: HBM bytes/s and
 # f32 FLOP/s on the CUDA cores. Integer hash operations are counted at
 # the f32 rate too, a rate no lower than the card's int32 rate, so the
@@ -53,6 +76,8 @@ NEAR_TIE = 1e-5
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 OPS_PER_HASH = 79          # threefry2x32-20: 20 rounds x 3 + 5 x 3 + 4
+ADAM_OPS = 13              # per parameter: m 3, v 4, the update 6
+SYNC_OPS = 3               # per parameter: tau p + (1 - tau) t
 
 
 def fail(msg: str) -> None:
@@ -88,7 +113,7 @@ def main() -> None:
     from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
     from dronerl_tpu_torch.env import core
     from dronerl_tpu_torch.env.types import EnvParams
-    from dronerl_tpu_torch.ops import _build, fused_tick
+    from dronerl_tpu_torch.ops import _build, fused_tick, learner_kernel
     from dronerl_tpu_torch.train import build_train_step_ring, init_ring_carry
 
     device = torch.device("cuda", 0)
@@ -100,16 +125,20 @@ def main() -> None:
     # --- 2. build ------------------------------------------------------------
     params = EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
     obs_dim = fused_tick.obs_rows(params)
-    configs = [_build.tick_defines(params, (obs_dim, *h, 5)) for h in NETS]
+    widths = {h: (obs_dim, *h, 5) for h in NETS}
+    configs = ([_build.tick_config(params, widths[h]) for h in NETS]
+               + [_build.learner_config(widths[h]) for h in NETS])
     t0 = time.perf_counter()
     built = _build.build(configs)
     log(f"built {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f}s (per build: "
         f"{[round(s, 1) for s in built.values()]})")
-    for hidden, cfg in zip(NETS, configs):
+    for cfg in configs:
         ptxas = [ln.strip() for ln in _build.build_log(cfg).splitlines()
                  if "registers" in ln or "spill" in ln]
-        log(f"ptxas {hidden}: " + " | ".join(ptxas))
+        hidden = tuple(int(v) for k, v in cfg[1]
+                       if k.startswith("DR_DIM") and v != "0")[1:-1]
+        log(f"ptxas {cfg[0]} {hidden}: " + " | ".join(ptxas))
 
     def make_agent(hidden, seed):
         cfg = DQNConfig(hidden_layers=hidden, epsilon_decay_every=5,
@@ -126,7 +155,41 @@ def main() -> None:
             NUM_ENVS, obs_dim).t().to(dtype)
         return fused_tick.to_tstate(state), ring
 
-    # --- 3. kernel against its plain version ------------------------------
+    def check_env(tag, out_k, out_p, ring, ring_plain, read, write,
+                  step_key, net, eps):
+        """Phase 3's contract for one tick: returns (charge error, near
+        ties)."""
+        for name, a, b in zip(fused_tick.TState._fields, out_k[0], out_p[0]):
+            if not torch.equal(a, b):
+                fail(f"{tag}: state {name} differs")
+        for name, i in (("rewards", 1), ("dones", 2)):
+            if not torch.equal(out_k[i], out_p[i]):
+                fail(f"{tag}: {name} differ")
+        obs_k = ring[:, write:write + NUM_ENVS].float().reshape(
+            -1, 6, NUM_ENVS)
+        obs_p = ring_plain[:, write:write + NUM_ENVS].float().reshape(
+            -1, 6, NUM_ENVS)
+        ch = torch.arange(6, device=device) != 4
+        if not torch.equal(obs_k[:, ch], obs_p[:, ch]):
+            fail(f"{tag}: observation channels differ")
+        charge_err = float((obs_k[:, 4] - obs_p[:, 4]).abs().max())
+        if charge_err > CHARGE_ATOL:
+            fail(f"{tag}: charge channel off by {charge_err}")
+        if not torch.equal(ring[:, read:read + NUM_ENVS],
+                           ring_plain[:, read:read + NUM_ENVS]):
+            fail(f"{tag}: the read columns changed")
+        keys = rng.split(step_key.to(device), NUM_ENVS + 2)
+        act_p, q = fused_tick.plain_actions(
+            keys[NUM_ENVS], ring_plain, read, net, eps, params, NUM_ENVS)
+        top2 = q.topk(2, dim=0).values
+        tie = (top2[0] - top2[1]) <= NEAR_TIE * q.abs().amax(dim=0)
+        differ = (out_k[3] != act_p).any(dim=0)
+        if bool((differ & ~tie).any()):
+            fail(f"{tag}: {int((differ & ~tie).sum())} actions differ "
+                 "outside near ties")
+        return charge_err, int(tie.sum())
+
+    # --- 3. the tick kernel against its plain version ----------------------
     max_err = {}
     for hidden in NETS:
         max_err[hidden] = 0.0
@@ -149,58 +212,171 @@ def main() -> None:
                     step_key, tstate, ring_plain, read, write, ag.params,
                     eps, do_reset, params, actions_override=out_k[3])
                 torch.cuda.synchronize()
-                for name, a, b in zip(
-                        fused_tick.TState._fields, out_k[0], out_p[0]):
-                    if not torch.equal(a, b):
-                        fail(f"{tag} tick {t}: state {name} differs")
-                for name, i in (("rewards", 1), ("dones", 2)):
-                    if not torch.equal(out_k[i], out_p[i]):
-                        fail(f"{tag} tick {t}: {name} differ")
-                obs_k = ring[:, write:write + NUM_ENVS].float().reshape(
-                    -1, 6, NUM_ENVS)
-                obs_p = ring_plain[:, write:write + NUM_ENVS].float(
-                ).reshape(-1, 6, NUM_ENVS)
-                ch = torch.arange(6, device=device) != 4
-                if not torch.equal(obs_k[:, ch], obs_p[:, ch]):
-                    fail(f"{tag} tick {t}: observation channels differ")
-                charge_err = float((obs_k[:, 4] - obs_p[:, 4]).abs().max())
-                max_err[hidden] = max(max_err[hidden], charge_err)
-                if charge_err > CHARGE_ATOL:
-                    fail(f"{tag} tick {t}: charge channel off by "
-                         f"{charge_err}")
-                if not torch.equal(ring[:, read:read + NUM_ENVS],
-                                   ring_plain[:, read:read + NUM_ENVS]):
-                    fail(f"{tag} tick {t}: the read columns changed")
-                keys = rng.split(step_key.to(device), NUM_ENVS + 2)
-                act_p, q = fused_tick.plain_actions(
-                    keys[NUM_ENVS], ring_plain, read, ag.params, eps, params,
-                    NUM_ENVS)
-                top2 = q.topk(2, dim=0).values
-                tie = (top2[0] - top2[1]) <= NEAR_TIE * q.abs().amax(dim=0)
-                differ = (out_k[3] != act_p).any(dim=0)
-                if bool((differ & ~tie).any()):
-                    fail(f"{tag} tick {t}: {int((differ & ~tie).sum())} "
-                         "actions differ outside near ties")
-                near_ties += int(tie.sum())
+                err, ties = check_env(f"{tag} tick {t}", out_k, out_p, ring,
+                                      ring_plain, read, write, step_key,
+                                      ag.params, eps)
+                max_err[hidden] = max(max_err[hidden], err)
+                near_ties += ties
                 tstate = out_k[0]
             log(f"kernel == plain: {tag}, {COMPARE_TICKS} ticks (reset at "
                 f"{COMPARE_RESET_TICK}); env bitwise, charge <= "
                 f"{CHARGE_ATOL}; near-tie envs {near_ties}")
 
-    # --- 4. the main path --------------------------------------------------
-    kernels = []
+    # --- 3b. the learner kernel against its plain version ------------------
+    def make_batch(seed):
+        """A batch in the replay gather's layout (obs and next_obs column
+        slices of one (obs_dim, 2B) tensor), from a fixed seed."""
+        g = torch.Generator().manual_seed(seed)
+        both = (torch.rand((obs_dim, 2 * BATCH), generator=g) < 0.3).float()
+        rewards = torch.tensor([-1.0, 0.0, 1.0, -0.1])[
+            torch.randint(0, 4, (BATCH,), generator=g)]
+        both, rewards = both.to(device), rewards.to(device)
+        return {
+            "obs": both[:, :BATCH], "next_obs": both[:, BATCH:],
+            "actions": torch.randint(0, 5, (BATCH,), generator=g,
+                                     dtype=torch.int32).to(device),
+            "rewards": rewards,
+            "dones": (torch.rand(BATCH, generator=g) < 0.2).float().to(
+                device),
+        }
+
+    def leaves(st):
+        return [x.detach() for x in st.params.flat() + st.target_params.flat()
+                + st.opt_state.mu + st.opt_state.nu]
+
+    def check_learner(tag, st, ref, before, cancelled, flags):
+        """The learner's contract for one tick, kernel state ``st`` against
+        plain state ``ref``, both from ``before``: returns (max abs error,
+        cancelled elements beyond the tolerance)."""
+        learn, sync = flags
+        if st.opt_state.count != ref.opt_state.count:
+            fail(f"{tag}: Adam count {st.opt_state.count} != "
+                 f"{ref.opt_state.count}")
+        n = len(cancelled)
+        err, outliers = 0.0, 0
+        for i, (k, p, b) in enumerate(zip(leaves(st), leaves(ref),
+                                          leaves(before))):
+            name = ("params", "target", "mu", "nu")[i // n] + f"_{i % n}"
+            if ((i // n == 1 and not sync) or (i // n != 1 and not learn)) \
+                    and not torch.equal(k, b):
+                fail(f"{tag}: {name} changed with its flag off")
+            diff = (k - p).abs()
+            bad = diff > LEARNER_ATOL + LEARNER_RTOL * p.abs()
+            if bool((bad & ~cancelled[i % n]).any()):
+                fail(f"{tag}: {name}: {int((bad & ~cancelled[i % n]).sum())}"
+                     f" elements beyond rtol {LEARNER_RTOL}, atol "
+                     f"{LEARNER_ATOL} (max {float(diff.max())})")
+            outliers += int(bad.sum())
+            err = max(err, float(diff.max()))
+        return err, outliers
+
+    def check_loss(tag, loss, ref_loss, learn):
+        if not learn:
+            if float(loss) != -1.0:
+                fail(f"{tag}: loss {float(loss)} with learn off")
+            return 0.0
+        lk, lp = float(loss), float(ref_loss)
+        if not abs(lk - lp) <= LEARNER_RTOL * abs(lp):
+            fail(f"{tag}: loss {lk} vs plain {lp}")
+        return abs(lk - lp)
+
+    learner_err = {}
     for hidden in NETS:
+        agent, st = make_agent(hidden, 6)
+        cfg = agent.config
+        err, outliers, cancelled_total = 0.0, 0, 0
+        for t in range(LEARNER_TICKS):
+            tag = f"learner net {hidden} tick {t}"
+            learn, sync, dec = t != 2, t % 2 == 0, t % 3 == 0
+            batch = make_batch(100 + t)
+            _, grads, scales = learner_kernel.td_gradients(
+                batch, st.params, st.target_params, cfg.gamma,
+                with_scales=True)
+            cancelled = learner_kernel.cancellations(grads, scales)
+            cancelled_total += sum(int(c.sum()) for c in cancelled)
+            before, ref = copy.deepcopy(st), copy.deepcopy(st)
+            ref_loss = learner_kernel.td_adam_plain(
+                batch, ref.params, ref.target_params, ref.opt_state.mu,
+                ref.opt_state.nu, ref.opt_state.count, learn=learn,
+                sync_target=sync, decay_eps=dec, epsilon=ref.epsilon,
+                gamma=cfg.gamma, lr=cfg.learning_rate, tau=cfg.tau,
+                eps_decay=cfg.epsilon_decay, eps_end=cfg.epsilon_end)
+            if learn:
+                ref.opt_state.count += 1
+            st, loss = learner_kernel.learn_tick_fused(
+                batch, st, learn, sync, dec, cfg)
+            torch.cuda.synchronize()
+            if not torch.equal(st.epsilon, ref.epsilon):
+                fail(f"{tag}: epsilon {float(st.epsilon)} vs plain "
+                     f"{float(ref.epsilon)}")
+            if torch.equal(st.epsilon, before.epsilon) == dec:
+                fail(f"{tag}: epsilon decay flag {dec} not honoured")
+            e, o = check_learner(tag, st, ref, before, cancelled,
+                                 (learn, sync))
+            err = max(err, e, check_loss(tag, loss, ref_loss, learn))
+            outliers += o
+        log(f"learner kernel == plain: net {hidden}, {LEARNER_TICKS} ticks "
+            f"(learn/sync/decay flags as tests/test_learner_kernel.py); max "
+            f"abs err {err:.3e}; cancellation elements {cancelled_total}, of "
+            f"which beyond the tolerance {outliers}")
+
+        # One tick of the in-kernel TD path: the tick kernel, then the
+        # learner kernel, against the two plain versions.
+        tag = f"td tick net {hidden} ring bfloat16"
+        tstate, ring = fresh_env(5, torch.bfloat16)
+        eps = torch.tensor(0.5, device=device)
+        step_key = rng.PRNGKey(8)
+        batch = make_batch(200)
+        _, grads, scales = learner_kernel.td_gradients(
+            batch, st.params, st.target_params, TD_HPARAMS[0],
+            with_scales=True)
+        cancelled = learner_kernel.cancellations(grads, scales)
+        before, ref = copy.deepcopy(st), copy.deepcopy(st)
+        ring_plain = ring.clone()
+        adam = st.opt_state
+        out_k = fused_tick.full_tick_fused_ring(
+            step_key, tstate, ring, 0, NUM_ENVS, st.params, eps, False,
+            params, td_hparams=TD_HPARAMS, td_batch=batch,
+            td_aux=(st.target_params, adam.mu, adam.nu, True, adam.count))
+        out_p = fused_tick.full_tick_ring_plain(
+            step_key, tstate, ring_plain, 0, NUM_ENVS, ref.params, eps,
+            False, params, actions_override=out_k[3])
+        gamma, lr, b1, b2, adam_eps = TD_HPARAMS
+        ref_loss = learner_kernel.td_adam_plain(
+            batch, ref.params, ref.target_params, ref.opt_state.mu,
+            ref.opt_state.nu, ref.opt_state.count, learn=True,
+            sync_target=False, decay_eps=False, epsilon=None, gamma=gamma,
+            lr=lr, b1=b1, b2=b2, adam_eps=adam_eps)
+        torch.cuda.synchronize()
+        charge_err, ties = check_env(tag, out_k, out_p, ring, ring_plain, 0,
+                                     NUM_ENVS, step_key, before.params, eps)
+        max_err[hidden] = max(max_err[hidden], charge_err)
+        e, o = check_learner(tag, st, ref, before, cancelled, (True, False))
+        e = max(e, check_loss(tag, out_k[8], ref_loss, True))
+        learner_err[hidden] = max(err, e)
+        log(f"td tick == plain pair: net {hidden}; env bitwise, charge "
+            f"{charge_err:.3e}, near-tie envs {ties}; learner max abs err "
+            f"{e:.3e}, cancellations beyond the tolerance {o}")
+
+    # --- 4. the main path, and 4b. the in_kernel_td main path --------------
+    def drive(hidden, in_kernel_td):
+        """Run the trainer's main path: returns (agent, carry, losses,
+        median tick seconds, repeats, launch counts)."""
         agent, _ = make_agent(hidden, 0)
         tick = build_train_step_ring(agent, params, NUM_ENVS, CAPACITY,
-                                     BATCH, RESET_EVERY)
+                                     BATCH, RESET_EVERY,
+                                     in_kernel_td=in_kernel_td)
         carry = init_ring_carry(agent, params, NUM_ENVS, CAPACITY,
-                                rng.PRNGKey(0), obs_dtype=torch.bfloat16)
-        p0 = [p.detach().clone() for p in carry[3].params.flat()]
-        fused_tick.prepare_kernel(params, carry[3].params)
+                                rng.PRNGKey(0), obs_dtype=torch.bfloat16,
+                                batch_size=BATCH, in_kernel_td=in_kernel_td)
+        fused_tick.prepare_kernel(params, carry[3].params,
+                                  in_kernel_td=in_kernel_td)
         torch.cuda.synchronize()
 
         fused_tick.full_tick_fused_ring.launches = 0
+        learner_kernel.td_adam.launches = 0
         losses, seconds = [], []
+        p0 = [p.detach().clone() for p in carry[3].params.flat()]
         for _ in range(WARMUP_TICKS):
             carry, (rewards, eps, loss) = tick(carry)
             losses.append(loss)
@@ -212,27 +388,38 @@ def main() -> None:
                 losses.append(loss)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
-        launches = fused_tick.full_tick_fused_ring.launches
+        launches = (fused_tick.full_tick_fused_ring.launches,
+                    learner_kernel.td_adam.launches)
         ticks = WARMUP_TICKS + REPEATS * TICKS_PER_REPEAT
-        if launches != ticks:
-            fail(f"net {hidden}: {launches} kernel launches in {ticks} ticks")
+        tag = f"net {hidden}" + (" in_kernel_td" if in_kernel_td else "")
+        if launches[0] != ticks:
+            fail(f"{tag}: {launches[0]} tick kernel launches in {ticks} "
+                 "ticks")
         if carry[-1] != ticks:
-            fail(f"net {hidden}: step counter {carry[-1]} != {ticks}")
+            fail(f"{tag}: step counter {carry[-1]} != {ticks}")
         losses = torch.stack(losses)
-        if not bool(torch.isfinite(losses).all()) or bool((losses < 0).any()):
-            fail(f"net {hidden}: a loss is not finite or a tick did not train")
+        if not bool(torch.isfinite(losses).all()):
+            fail(f"{tag}: a loss is not finite")
         if not bool(torch.isfinite(rewards).all()):
-            fail(f"net {hidden}: non-finite rewards")
+            fail(f"{tag}: non-finite rewards")
         if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
-            fail(f"net {hidden}: the params did not move")
+            fail(f"{tag}: the params did not move")
         if not float(eps) < 1.0:
-            fail(f"net {hidden}: epsilon did not decay")
+            fail(f"{tag}: epsilon did not decay")
         tick_s = statistics.median(seconds) / TICKS_PER_REPEAT
-        log(f"main path net {hidden}: {ticks} ticks, {launches} launches, "
+        log(f"main path {tag}: {ticks} ticks, launches {launches}, "
             f"loss {float(losses[-1]):.5f}, eps {float(eps):.4f}, "
             f"obs/s {NUM_ENVS / tick_s:.1f} (median of {REPEATS} x "
             f"{TICKS_PER_REPEAT} ticks; tick {1e3 * tick_s:.4f} ms; "
             f"repeats {[round(s, 4) for s in seconds]} s) on {card}")
+        return agent, carry, losses, tick_s, ticks, launches
+
+    kernels, learners, obs_per_s = [], [], {}
+    for hidden in NETS:
+        agent, carry, losses, tick_s, ticks, launches = drive(hidden, False)
+        obs_per_s[hidden] = NUM_ENVS / tick_s
+        if bool((losses < 0).any()):
+            fail(f"net {hidden}: a tick did not train")
         ms, plain_ms, bound_ms, bound_by = time_kernel(
             torch, fused_tick, rng, agent, carry, hidden, card)
         kernels.append({
@@ -240,7 +427,7 @@ def main() -> None:
             "route": "cuda",
             "source": "dronerl_tpu_torch/ops/csrc/full_tick.cu",
             "replaces": "dronerl_tpu/ops/fused_tick.py:757 (_full_kernel)",
-            "launches": launches,
+            "launches": launches[0],
             "max_abs_err": max_err[hidden],
             "ms": ms,
             "plain_ms": plain_ms,
@@ -249,11 +436,53 @@ def main() -> None:
             "library_ms": None,
         })
 
-    print(json.dumps({"kernels": kernels}), flush=True)
+    for hidden in NETS:
+        agent, carry, losses, tick_s, ticks, launches = drive(hidden, True)
+        tag = f"net {hidden} in_kernel_td"
+        if launches[1] != ticks:
+            fail(f"{tag}: {launches[1]} learner launches in {ticks} ticks")
+        if float(losses[0]) != -1.0 or bool((losses[1:] < 0).any()):
+            fail(f"{tag}: tick 0 trained or a later tick did not")
+        if carry[3].opt_state.count != ticks - 1:
+            fail(f"{tag}: Adam count {carry[3].opt_state.count} != "
+                 f"{ticks - 1}")
+        log(f"obs/s {tag} {NUM_ENVS / tick_s:.1f} vs the default path "
+            f"{obs_per_s[hidden]:.1f} (one run, {card})")
+        timing = time_learner(torch, learner_kernel, agent, carry,
+                              make_batch(300), card)
+        learners.append({
+            "name": "td_adam_" + "x".join(str(h) for h in hidden),
+            "route": "cuda",
+            "source": "dronerl_tpu_torch/ops/csrc/td_adam.cu",
+            "replaces": ("dronerl_tpu/ops/fused_tick.py:893 (_full_kernel "
+                         "TD branch); dronerl_tpu/ops/learner_kernel.py:44 "
+                         "(_learner_kernel)"),
+            "launches": launches[1],
+            "max_abs_err": learner_err[hidden],
+            **timing,
+            "library_ms": None,
+        })
+
+    print(json.dumps({"kernels": kernels + learners}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def cuda_ms(torch, fn, count):
+    """Device time per call of ``fn`` over ``count`` calls, by CUDA
+    events, after one warm-up call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(count):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / count
 
 
 def time_kernel(torch, fused_tick, rng, agent, carry, hidden, card):
@@ -266,21 +495,10 @@ def time_kernel(torch, fused_tick, rng, agent, carry, hidden, card):
     eps = torch.tensor(0.0, device=ring.device)
     args = (rng.PRNGKey(7), tstate, ring, 0, NUM_ENVS, ag.params, eps,
             False, params)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-
-    def timed(fn, count):
-        fn(*args)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(count):
-            fn(*args)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / count
-
-    ms = timed(fused_tick.full_tick_fused_ring, TIMED_LAUNCHES)
-    plain_ms = timed(fused_tick.full_tick_ring_plain, PLAIN_LAUNCHES)
+    ms = cuda_ms(torch, lambda: fused_tick.full_tick_fused_ring(*args),
+                 TIMED_LAUNCHES)
+    plain_ms = cuda_ms(torch, lambda: fused_tick.full_tick_ring_plain(*args),
+                       PLAIN_LAUNCHES)
 
     widths = (ring.shape[0], *hidden, 5)
     weight_bytes = 4 * sum(i * o + o for i, o in zip(widths, widths[1:]))
@@ -299,6 +517,132 @@ def time_kernel(torch, fused_tick, rng, agent, carry, hidden, card):
         f"{hashes} hash -> {t_ops:.4f} ms); on {card}")
     return ms, plain_ms, max(t_bytes, t_ops), (
         "bytes" if t_bytes >= t_ops else "operations")
+
+
+def learner_bound(widths, batch, sync):
+    """The least time of one learner step on the card: each parameter
+    read as params, target, mu and nu and written as params, mu, nu (and
+    target with ``sync``), the batch read once, the loss written; the
+    operations of two forwards, the backward and the Adam pass."""
+    io = [i * o for i, o in zip(widths, widths[1:])]
+    p = sum(io) + sum(widths[1:])
+    total_bytes = (4 * p * (7 + sync) + 2 * widths[0] * batch * 4
+                   + 3 * batch * 4 + 4)
+    flops = (batch * (2 * 2 * sum(io) + 2 * sum(io) + 2 * sum(io[1:]))
+             + (ADAM_OPS + SYNC_OPS * sync) * p)
+    t_bytes = total_bytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32 * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", total_bytes, flops)
+
+
+def device_ms(torch, fn, count, name=None):
+    """Device time per call of ``fn`` from the profiler's CUDA events
+    (those whose name holds ``name``, or all), and launches per call."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(count):
+            fn()
+        torch.cuda.synchronize()
+    events = [ev for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and (name is None or name in ev.name)]
+    total_us = sum(ev.time_range.elapsed_us() for ev in events)
+    return total_us / (1e3 * count), len(events) / count
+
+
+def host_ms(torch, fn, count):
+    """Host wall time per call over ``count`` calls ending in a
+    synchronise (the host's issue time where the host is the slower)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(count):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / count * 1e3
+
+
+def time_learner(torch, learner_kernel, agent, carry, batch, card):
+    """Time the learner kernel at the main path's shapes (learn, and learn
+    + sync), its plain version, and the autograd learner (train_step_t +
+    apply_schedules, a sync tick) on the same batch, on copies of the
+    main path's final state; work out the kernel's bound.
+
+    The wrapper's checks and argument block take longer on the host than
+    the kernel on the card, so back-to-back wrapper calls time the host.
+    The kernel's time is taken over launches of one prebuilt argument
+    block (CUDA events, ``LEARNER_LAUNCHES`` back to back), beside the
+    profiler's kernel duration and the wrapper's host time per call."""
+    import ctypes
+
+    from dronerl_tpu_torch.ops import _build
+
+    cfg = agent.config
+    widths = (agent.obs_dim, *cfg.hidden_layers, 5)
+
+    def operands(st, sync):
+        return ((batch, st.params, st.target_params, st.opt_state.mu,
+                 st.opt_state.nu, st.opt_state.count),
+                dict(learn=True, sync_target=sync, decay_eps=False,
+                     epsilon=None, gamma=cfg.gamma, lr=cfg.learning_rate,
+                     tau=cfg.tau, eps_decay=1.0, eps_end=0.0,
+                     b1=0.9, b2=0.999, adam_eps=1e-8))
+
+    times = {}
+    lib = _build.load(learner_kernel.kernel_config(carry[3].params))
+    stream = torch.cuda.current_stream().cuda_stream
+    for sync in (False, True):
+        st = copy.deepcopy(carry[3])
+        args, kw = operands(st, sync)
+        block, _loss = learner_kernel._learner_args(*args, **kw)
+        err = lib.td_adam_launch(ctypes.byref(block), stream)
+        if err != 0:
+            fail(f"learner launch failed: {_build.error_string(lib, err)}")
+
+        def launch():
+            lib.td_adam_launch(ctypes.byref(block), stream)
+
+        times[("kernel", sync)] = cuda_ms(torch, launch, LEARNER_LAUNCHES)
+        times[("profiled", sync)] = device_ms(
+            torch, launch, PROFILED_CALLS, "td_adam")[0]
+        times[("wrapper_host", sync)] = host_ms(
+            torch, lambda: learner_kernel.td_adam(*args, **kw),
+            LEARNER_LAUNCHES)
+        times[("plain", sync)] = cuda_ms(
+            torch, lambda: learner_kernel.td_adam_plain(*args, **kw),
+            LEARNER_PLAIN_LAUNCHES)
+
+    st = copy.deepcopy(carry[3])
+
+    def autograd_step():
+        agent.apply_schedules(agent.train_step_t(st, batch)[0], 0,
+                              torch.tensor(False, device=batch["obs"].device))
+
+    autograd_host = host_ms(torch, autograd_step, LEARNER_PLAIN_LAUNCHES)
+    autograd_device, autograd_launches = device_ms(torch, autograd_step,
+                                                   PROFILED_CALLS)
+
+    bound_ms, bound_by, total_bytes, flops = learner_bound(widths, BATCH,
+                                                           False)
+    sync_bound = learner_bound(widths, BATCH, True)
+    log(f"learner kernel net {cfg.hidden_layers}: learn / learn + sync "
+        f"{times[('kernel', False)]:.5f} / {times[('kernel', True)]:.5f} "
+        f"ms/launch (CUDA events, {LEARNER_LAUNCHES} launches); profiled "
+        f"kernel {times[('profiled', False)]:.5f} / "
+        f"{times[('profiled', True)]:.5f} ms; wrapper host "
+        f"{times[('wrapper_host', False)]:.5f} / "
+        f"{times[('wrapper_host', True)]:.5f} ms/call; plain "
+        f"{times[('plain', False)]:.5f} / {times[('plain', True)]:.5f} ms; "
+        f"bound {bound_ms:.6f} ms ({bound_by}: {total_bytes} B, {flops} "
+        f"FLOP; with sync {sync_bound[0]:.6f} ms); autograd learner "
+        f"(train_step_t + apply_schedules) host {autograd_host:.4f} ms, "
+        f"device {autograd_device:.4f} ms in {autograd_launches:.1f} "
+        f"launches; on {card}")
+    return {"ms": times[("kernel", False)],
+            "plain_ms": times[("plain", False)],
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 if __name__ == "__main__":

@@ -201,22 +201,36 @@ class DQN:
             return done
         return step % self.config.epsilon_decay_every == 0
 
+    def update_target(self, state: DQNState) -> DQNState:
+        """``tau·params + (1-tau)·target`` into the target net, in place
+        (optax's ``incremental_update``; a hard copy at ``tau`` = 1)."""
+        tau = self.config.tau
+        with torch.no_grad():
+            target = state.target_params.flat()
+            torch._foreach_copy_(target, torch._foreach_add(
+                torch._foreach_mul(state.params.flat(), tau),
+                torch._foreach_mul(target, 1.0 - tau)))
+        return state
+
+    def decayed_epsilon(self, state: DQNState) -> torch.Tensor:
+        """``max(ε·decay, end)``."""
+        return torch.clamp(state.epsilon * self.config.epsilon_decay,
+                           min=self.config.epsilon_end)
+
+    def decay_epsilon(self, state: DQNState) -> DQNState:
+        state.epsilon = self.decayed_epsilon(state)
+        return state
+
     def apply_schedules(self, state: DQNState, step: int,
                         done: torch.Tensor) -> DQNState:
         """Target sync every ``target_update_interval`` steps (EMA with
         ``tau``, a hard copy at 1.0) and the ε decay, in place."""
-        cfg = self.config
-        with torch.no_grad():
-            if step % cfg.target_update_interval == 0:
-                target = state.target_params.flat()
-                torch._foreach_copy_(target, torch._foreach_add(
-                    torch._foreach_mul(state.params.flat(), cfg.tau),
-                    torch._foreach_mul(target, 1.0 - cfg.tau)))
-            do_e = self.should_decay_epsilon(step, done)
-            decayed = torch.clamp(state.epsilon * cfg.epsilon_decay,
-                                  min=cfg.epsilon_end)
-            if isinstance(do_e, torch.Tensor):
-                state.epsilon = torch.where(do_e, decayed, state.epsilon)
-            elif do_e:
-                state.epsilon = decayed
+        if step % self.config.target_update_interval == 0:
+            self.update_target(state)
+        do_e = self.should_decay_epsilon(step, done)
+        if isinstance(do_e, torch.Tensor):
+            state.epsilon = torch.where(do_e, self.decayed_epsilon(state),
+                                        state.epsilon)
+        elif do_e:
+            self.decay_epsilon(state)
         return state

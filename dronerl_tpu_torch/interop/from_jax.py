@@ -79,17 +79,27 @@ def tstate_from_jax(tstate, device="cpu") -> TState:
                     for f in TState._fields))
 
 
+def batch_from_jax(batch, device="cpu") -> Dict[str, torch.Tensor]:
+    """A feature-major replay batch (obs / next_obs (obs_dim, B), actions,
+    rewards, dones (B,)) → f32 tensors, actions int32."""
+    return {k: tensor(np.asarray(v).astype(
+        np.int32 if k == "actions" else np.float32), device)
+        for k, v in batch.items()}
+
+
 def ring_carry_from_jax(carry, device="cpu"):
     """The JAX ring trainer's carry ``(rng, (tstate, ring), (a_ring,
     r_ring, d_ring), ag_state, aux, step)`` → the port's carry (the rng
-    key stays on the host; ``step`` becomes a Python int)."""
-    rng, (tstate, ring), scalar_rings, ag_state, _aux, step = carry
+    key stays on the host; ``step`` becomes a Python int; ``aux``, the
+    in-kernel TD path's carried batch, becomes a dict of tensors, or
+    stays ``()``)."""
+    rng, (tstate, ring), scalar_rings, ag_state, aux, step = carry
     key = np.asarray(rng).astype(np.uint32).astype(np.int64)
     return (
         torch.from_numpy(key),
         (tstate_from_jax(tstate, device), tensor(ring, device)),
         tuple(tensor(r, device) for r in scalar_rings),
         dqn_state_from_jax(ag_state, device),
-        (),
+        batch_from_jax(aux, device) if len(aux) else (),
         int(np.asarray(step)),
     )

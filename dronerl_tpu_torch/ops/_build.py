@@ -2,12 +2,15 @@
 
 The kernels are compiled at first use with ``nvcc`` into shared libraries
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
-a build takes seconds). The tick kernel is specialised at compile time on
-the env and the Q-net widths (``-D`` constants, as the TPU kernel is
-specialised on its static ``EnvParams``), so each configuration is its
-own library, cached under ``ops/_build/`` by a hash of the sources and
-the ``-D`` set. ``--use_fast_math`` is never passed: the observation's
-charge channel divides by 100 and must round as IEEE division does.
+a build takes seconds). A library is one source compiled with one ``-D``
+set: a *config* is the pair ``(source, defines)``. The tick kernel
+(``full_tick.cu``) is specialised on the env and the Q-net widths, the
+learner kernel (``td_adam.cu``) on the widths alone (``-D`` constants, as
+the TPU kernels are specialised on their static arguments). Each config
+is cached under ``ops/_build/`` by a hash of the sources, the source name
+and the ``-D`` set. ``--use_fast_math`` is never passed: the
+observation's charge channel divides by 100 and must round as IEEE
+division does, and the learner's Adam step keeps IEEE divides and roots.
 
 A failed build or a missing ``nvcc`` raises; nothing falls back to the
 plain PyTorch version.
@@ -25,17 +28,36 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("full_tick.cu", "threefry.cuh")
+TICK_SOURCE = "full_tick.cu"
+LEARNER_SOURCE = "td_adam.cu"
+SOURCES = (TICK_SOURCE, "threefry.cuh", LEARNER_SOURCE)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 MAX_LAYERS = 8  # as csrc/full_tick.cu
+
+# Each source's (launch function, error-string function).
+ENTRY_POINTS = {
+    TICK_SOURCE: ("full_tick_ring_launch", "full_tick_error_string"),
+    LEARNER_SOURCE: ("td_adam_launch", "td_adam_error_string"),
+}
+
+Defines = Tuple[Tuple[str, str], ...]
+Config = Tuple[str, Defines]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
-def tick_defines(params, widths: Sequence[int]) -> Tuple[Tuple[str, str], ...]:
+def net_defines(widths: Sequence[int]) -> Defines:
+    """The ``-D`` set of the Q-net widths (obs_dim, hidden..., actions).
+    nvcc splits ``-D`` values at commas, so every width is a define of
+    its own."""
+    return (("DR_NLAYERS", str(len(widths) - 1)),) + tuple(
+        (f"DR_DIM{i}", str(int(widths[i])) if i < len(widths) else "0")
+        for i in range(MAX_LAYERS + 1))
+
+
+def tick_defines(params, widths: Sequence[int]) -> Defines:
     """The ``-D`` set of the tick kernel for an env and Q-net widths
-    (``widths`` = obs_dim, hidden..., num_actions). nvcc splits ``-D``
-    values at commas, so every width is a define of its own."""
+    (``widths`` = obs_dim, hidden..., num_actions)."""
     return (
         ("DR_GRID", str(params.grid_size)),
         ("DR_NDRONES", str(params.n_drones)),
@@ -46,9 +68,17 @@ def tick_defines(params, widths: Sequence[int]) -> Tuple[Tuple[str, str], ...]:
         ("DR_NSKYSCRAPERS", str(params.num_skyscrapers)),
         ("DR_CHARGE_UP", str(params.charge)),
         ("DR_DISCHARGE", str(params.discharge)),
-        ("DR_NLAYERS", str(len(widths) - 1)),
-    ) + tuple((f"DR_DIM{i}", str(int(widths[i])) if i < len(widths) else "0")
-              for i in range(MAX_LAYERS + 1))
+    ) + net_defines(widths)
+
+
+def tick_config(params, widths: Sequence[int]) -> Config:
+    """The tick kernel's library for an env and Q-net widths."""
+    return (TICK_SOURCE, tick_defines(params, widths))
+
+
+def learner_config(widths: Sequence[int]) -> Config:
+    """The learner kernel's library for Q-net widths (no env defines)."""
+    return (LEARNER_SOURCE, net_defines(widths))
 
 
 def nvcc_path() -> str:
@@ -69,30 +99,40 @@ def _sources_digest() -> str:
     return h.hexdigest()
 
 
+def _config(config) -> Config:
+    source, defines = config
+    if source not in ENTRY_POINTS:
+        raise ValueError(f"no kernel source {source!r}")
+    return source, tuple(tuple(d) for d in defines)
+
+
 @functools.lru_cache(maxsize=None)
-def library_path(defines) -> str:
-    key = _sources_digest() + repr(tuple(defines)) + ARCH
+def library_path(config: Config) -> str:
+    source, defines = _config(config)
+    key = _sources_digest() + source + repr(defines) + ARCH
     tag = hashlib.sha256(key.encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, tag, "libfull_tick.so")
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, tag, f"lib{stem}.so")
 
 
-def build_command(defines, out_path: str) -> List[str]:
+def build_command(config: Config, out_path: str) -> List[str]:
+    source, defines = _config(config)
     return ([nvcc_path(), ARCH, "-std=c++17", "-O3", "-shared",
              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
             + [f"-D{k}={v}" for k, v in defines]
-            + ["-o", out_path, os.path.join(CSRC, "full_tick.cu")])
+            + ["-o", out_path, os.path.join(CSRC, source)])
 
 
 class _Build:
     """One nvcc process writing a library under a temporary name."""
 
-    def __init__(self, defines):
-        self.path = library_path(defines)
+    def __init__(self, config: Config):
+        self.path = library_path(config)
         self.tmp = f"{self.path}.{os.getpid()}.tmp"
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            build_command(defines, self.tmp), stdout=subprocess.PIPE,
+            build_command(config, self.tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
 
     def finish(self) -> float:
@@ -108,11 +148,11 @@ class _Build:
         return seconds
 
 
-def build(configs: Iterable) -> Dict[str, float]:
-    """Build every ``-D`` set in ``configs`` that is not built yet, all
-    nvcc processes at once; returns {library path: seconds}."""
-    pending = [_Build(d) for d in dict.fromkeys(tuple(c) for c in configs)
-               if not os.path.exists(library_path(d))]
+def build(configs: Iterable[Config]) -> Dict[str, float]:
+    """Build every config in ``configs`` that is not built yet, all nvcc
+    processes at once; returns {library path: seconds}."""
+    pending = [_Build(c) for c in dict.fromkeys(_config(c) for c in configs)
+               if not os.path.exists(library_path(c))]
     seconds, errors = {}, []
     for b in pending:  # wait for every process before raising
         try:
@@ -124,29 +164,32 @@ def build(configs: Iterable) -> Dict[str, float]:
     return seconds
 
 
-def build_log(defines) -> str:
+def build_log(config: Config) -> str:
     """nvcc's output (ptxas registers, spills) for a built library."""
-    with open(library_path(defines) + ".log") as f:
+    with open(library_path(config) + ".log") as f:
         return f.read()
 
 
-def load(defines) -> ctypes.CDLL:
-    """The tick kernel's library for one ``-D`` set, built if needed."""
-    defines = tuple(defines)
-    path = library_path(defines)
+def load(config: Config) -> ctypes.CDLL:
+    """The library of one config, built if needed. Its launch function
+    takes (argument block, stream) and returns a CUDA error code."""
+    config = _config(config)
+    path = library_path(config)
     lib = _loaded.get(path)
     if lib is not None:
         return lib
     if not os.path.exists(path):
-        build([defines])
+        build([config])
     lib = ctypes.CDLL(path)
-    lib.full_tick_ring_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.full_tick_ring_launch.restype = ctypes.c_int
-    lib.full_tick_error_string.argtypes = [ctypes.c_int]
-    lib.full_tick_error_string.restype = ctypes.c_char_p
+    launch, error = ENTRY_POINTS[config[0]]
+    getattr(lib, launch).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    getattr(lib, launch).restype = ctypes.c_int
+    getattr(lib, error).argtypes = [ctypes.c_int]
+    getattr(lib, error).restype = ctypes.c_char_p
+    lib.error_string = getattr(lib, error)
     _loaded[path] = lib
     return lib
 
 
 def error_string(lib: ctypes.CDLL, err: int) -> str:
-    return f"{err} ({lib.full_tick_error_string(err).decode()})"
+    return f"{err} ({lib.error_string(err).decode()})"

@@ -1,12 +1,14 @@
 """The ring-engine training tick's env side: one kernel launch per tick.
 
 Counterpart of ``dronerl_tpu/ops/fused_tick.py`` (ring launch,
-``full_tick_fused_ring`` without the in-kernel TD branch). One launch
-does, for every env: the per-env threefry keys, the ε-greedy dense-Q
-actor reading the replay ring at ``read_slot``, the physics, respawns and
-window observation, the periodic reset, and the write of the next
-observation into the ring at ``write_slot`` (in place; other slots keep
-their contents).
+``full_tick_fused_ring``). One launch does, for every env: the per-env
+threefry keys, the ε-greedy dense-Q actor reading the replay ring at
+``read_slot``, the physics, respawns and window observation, the periodic
+reset, and the write of the next observation into the ring at
+``write_slot`` (in place; other slots keep their contents). With
+``td_hparams`` (the in-kernel TD path) a second launch on the same stream,
+the learner kernel of ``ops/learner_kernel.py``, runs the TD(0) + Adam
+step that the TPU kernel runs on its grid step 0.
 
 State is feature-major (field, env): ground (C, E) int8, drone fields
 (N, E). On CUDA tensors :func:`full_tick_fused_ring` launches the
@@ -34,7 +36,8 @@ from dronerl_tpu_torch.agents.dqn import DenseQNet
 from dronerl_tpu_torch.constants import NUM_ACTIONS, NUM_OBS_CHANNELS
 from dronerl_tpu_torch.env import core
 from dronerl_tpu_torch.env.types import EnvParams, EnvState
-from dronerl_tpu_torch.ops import _build
+from dronerl_tpu_torch.ops import _build, learner_kernel
+from dronerl_tpu_torch.ops.learner_kernel import check_tensor, net_widths
 
 # Limits of the CUDA kernel (csrc/full_tick.cu), as the JAX package's
 # fused_tick.supports() states them for the TPU kernel.
@@ -195,32 +198,22 @@ class _TickArgs(ctypes.Structure):
     ]
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def kernel_config(params: EnvParams, net_params: DenseQNet):
+    """The kernel's library: source and compile-time configuration (see
+    ops/_build.py)."""
+    return _build.tick_config(params, net_widths(net_params))
 
 
-def net_widths(net_params: DenseQNet) -> Tuple[int, ...]:
-    """(obs_dim, hidden..., num_actions) of a dense Q-net."""
-    return (net_params.kernels[0].shape[0],
-            *(w.shape[1] for w in net_params.kernels))
-
-
-def kernel_defines(params: EnvParams, net_params: DenseQNet):
-    """The kernel's compile-time configuration (see ops/_build.py)."""
-    return _build.tick_defines(params, net_widths(net_params))
-
-
-def prepare_kernel(params: EnvParams, net_params: DenseQNet):
-    """Build (or load) the CUDA kernel for this configuration before the
-    first tick, so that the build stays out of any timed region."""
-    return _build.load(kernel_defines(params, net_params))
+def prepare_kernel(params: EnvParams, net_params: DenseQNet,
+                   in_kernel_td: bool = False):
+    """Build (or load) the CUDA kernels for this configuration before the
+    first tick, so that the builds stay out of any timed region: the tick
+    kernel, and with ``in_kernel_td`` the learner kernel too."""
+    configs = [kernel_config(params, net_params)]
+    if in_kernel_td:
+        configs.append(_build.learner_config(net_widths(net_params)))
+    _build.build(configs)
+    return [_build.load(c) for c in configs]
 
 
 def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
@@ -238,30 +231,31 @@ def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
     if problems:
         raise ValueError("the CUDA tick kernel does not take this "
                          "configuration: " + "; ".join(problems))
-    _check(tstate.ground, "ground", torch.int8, (params.num_cells, num_envs),
-           device)
+    check_tensor(tstate.ground, "ground", torch.int8,
+                 (params.num_cells, num_envs), device)
     for name, t, dt in (("air_x", tstate.air_x, torch.int32),
                         ("air_y", tstate.air_y, torch.int32),
                         ("carrying", tstate.carrying, torch.int8),
                         ("charge", tstate.charge, torch.float32)):
-        _check(t, name, dt, (n, num_envs), device)
+        check_tensor(t, name, dt, (n, num_envs), device)
     if obs_ring.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"ring dtype {obs_ring.dtype} (float32 or bfloat16)")
     capacity = obs_ring.shape[-1]
-    _check(obs_ring, "obs_ring", obs_ring.dtype, (obs_dim, capacity), device)
+    check_tensor(obs_ring, "obs_ring", obs_ring.dtype, (obs_dim, capacity),
+                 device)
     for name, slot in (("read_slot", read_slot), ("write_slot", write_slot)):
         if not 0 <= slot <= capacity - num_envs:
             raise ValueError(f"{name}={slot} out of the ring")
     if read_slot != write_slot and abs(read_slot - write_slot) < num_envs:
         raise ValueError("the read and write columns overlap")
-    _check(epsilon, "epsilon", torch.float32, (), device)
+    check_tensor(epsilon, "epsilon", torch.float32, (), device)
     if widths[0] != obs_dim or widths[-1] != NUM_ACTIONS:
         raise ValueError(f"Q-net widths {widths}: expected {obs_dim} inputs "
                          f"and {NUM_ACTIONS} outputs")
     for i, (w, b) in enumerate(zip(net_params.kernels, net_params.biases)):
-        _check(w, f"kernel_{i}", torch.float32, (widths[i], widths[i + 1]),
-               device)
-        _check(b, f"bias_{i}", torch.float32, (widths[i + 1],), device)
+        check_tensor(w, f"kernel_{i}", torch.float32,
+                     (widths[i], widths[i + 1]), device)
+        check_tensor(b, f"bias_{i}", torch.float32, (widths[i + 1],), device)
     if step_key.device.type != "cpu" or tuple(step_key.shape) != (2,):
         raise ValueError("step_key must be a host key of shape (2,)")
 
@@ -303,7 +297,7 @@ def _launch_kernel(step_key, tstate: TState, obs_ring, read_slot: int,
     args, (out, rewards, dones, actions) = _kernel_args(
         step_key, tstate, obs_ring, read_slot, write_slot, net_params,
         epsilon, do_reset, params)
-    lib = _build.load(kernel_defines(params, net_params))
+    lib = _build.load(kernel_config(params, net_params))
     stream = torch.cuda.current_stream(tstate.ground.device).cuda_stream
     err = lib.full_tick_ring_launch(ctypes.byref(args), stream)
     if err != 0:
@@ -324,6 +318,9 @@ def full_tick_fused_ring(
     do_reset: bool,
     params: EnvParams,
     collect: int = 1,
+    td_hparams: Optional[Tuple[float, float, float, float, float]] = None,
+    td_batch: Optional[Dict[str, torch.Tensor]] = None,
+    td_aux=None,
 ):
     """One training tick's env side, writing the next obs into the ring.
 
@@ -333,19 +330,47 @@ def full_tick_fused_ring(
     ``(tstate', rewards (N, E) f32, dones (N, E) bool, actions (N, E)
     int32, obs_ring)``.
 
-    CUDA tensors launch the kernel (and count the launch in
-    ``full_tick_fused_ring.launches``); CPU tensors run the plain
-    version. There is no fallback between the two.
+    With ``td_hparams = (gamma, lr, b1, b2, eps)`` the TD(0) + Adam step
+    runs too (dense nets only), on ``td_batch`` (obs / next_obs (obs_dim,
+    B), actions / rewards / dones (B,)) with ``td_aux = (target_params,
+    mu, nu, can_train, count)``, ``can_train`` a host bool and ``count``
+    the host Adam count. The return gains ``(params, mu, nu, loss)``:
+    params and moments updated in place when ``can_train`` (the caller
+    increments the count), untouched otherwise with loss -1. The actor
+    reads the params as they were before the step, as the TPU kernel's
+    actor reads its input params.
+
+    CUDA tensors launch the kernels (and count the launches in
+    ``full_tick_fused_ring.launches`` and ``learner_kernel.td_adam.
+    launches``); CPU tensors run the plain versions. There is no
+    fallback between the two.
     """
     if collect != 1:
         raise NotImplementedError("collect_drones > 1 is not ported yet")
+    td = td_hparams is not None
+    if td and not isinstance(net_params, DenseQNet):
+        raise ValueError("in-kernel TD supports dense networks only")
+    if td and (td_batch is None or td_aux is None):
+        raise ValueError("in-kernel TD needs td_batch and td_aux")
     if tstate.ground.is_cuda:
-        return _launch_kernel(step_key, tstate, obs_ring, read_slot,
-                              write_slot, net_params, epsilon, do_reset,
-                              params)
-    return full_tick_ring_plain(step_key, tstate, obs_ring, read_slot,
-                                write_slot, net_params, epsilon, do_reset,
-                                params)
+        out = _launch_kernel(step_key, tstate, obs_ring, read_slot,
+                             write_slot, net_params, epsilon, do_reset,
+                             params)
+    else:
+        out = full_tick_ring_plain(step_key, tstate, obs_ring, read_slot,
+                                   write_slot, net_params, epsilon, do_reset,
+                                   params)
+    if not td:
+        return out
+    gamma, lr, b1, b2, adam_eps = td_hparams
+    target_params, mu, nu, can_train, count = td_aux
+    # The learner writes the params in place, so it goes after the tick
+    # kernel's actor has read them: the next launch on the same stream.
+    loss = learner_kernel.td_adam(
+        td_batch, net_params, target_params, mu, nu, count,
+        learn=bool(can_train), sync_target=False, decay_eps=False,
+        epsilon=None, gamma=gamma, lr=lr, b1=b1, b2=b2, adam_eps=adam_eps)
+    return out + (net_params, mu, nu, loss)
 
 
 full_tick_fused_ring.launches = 0

@@ -7,6 +7,12 @@ the scalar-ring writes; a uniform replay sample off the ring; the TD(0)
 Adam step; the target and ε schedules. The replay ring IS the kernel's
 observation buffer, written in place.
 
+With ``in_kernel_td`` the TD(0) + Adam step is one launch of the learner
+kernel right after the tick kernel's, on the batch gathered after the
+tick before (carried in the carry's ``aux`` slot), as the JAX trainer's
+in-kernel TD path pipelines it; the default is the PyTorch learner
+(``DQN.train_step_t``), as in the JAX trainer.
+
 The step counter, the ring slot arithmetic, the reset flag, the count of
 valid columns and the rng chain stay on the host: they are a few scalar
 hashes a tick, and reading them back from the device every tick would
@@ -16,6 +22,7 @@ Run:  python -m dronerl_tpu_torch.train --num_envs 65536 --num_steps 300
 """
 
 import argparse
+import functools
 import logging
 import math
 import sys
@@ -25,7 +32,8 @@ from typing import Optional
 import torch
 
 from dronerl_tpu_torch import resolve_device, rng as rng_mod
-from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
+from dronerl_tpu_torch.agents.dqn import (
+    ADAM_B1, ADAM_B2, ADAM_EPS, DQN, DQNConfig)
 from dronerl_tpu_torch.constants import NO_TRAIN_LOSS
 from dronerl_tpu_torch.env import core as env_core
 from dronerl_tpu_torch.env.types import EnvParams
@@ -36,13 +44,17 @@ logger = logging.getLogger("dronerl_tpu_torch.train")
 
 def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
                           capacity: int, batch_size: int,
-                          reset_env_every: int, collect_drones: int = 1):
+                          reset_env_every: int, collect_drones: int = 1,
+                          in_kernel_td: Optional[bool] = None):
     """The ring-engine tick: ``tick(carry) -> (carry, (rewards (E,),
     epsilon, loss))``, with the JAX trainer's carry layout ``(rng,
-    (tstate, ring), (a_ring, r_ring, d_ring), ag_state, (), step)``.
+    (tstate, ring), (a_ring, r_ring, d_ring), ag_state, aux, step)``.
 
     ``loss`` is ``NO_TRAIN_LOSS`` on ticks where the ring holds fewer
-    than ``batch_size`` complete transitions.
+    than ``batch_size`` complete transitions. With ``in_kernel_td`` (pass
+    the same to :func:`init_ring_carry`) the learner kernel trains inside
+    tick t+1 on the batch gathered after tick t, carried in ``aux``;
+    tick 0 never trains.
     """
     if collect_drones != 1:
         raise NotImplementedError("collect_drones > 1 is not ported yet")
@@ -50,6 +62,11 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
         raise ValueError("capacity must be a multiple of num_envs, >= 2x")
     nb = capacity // num_envs  # ring length in ticks
     device = agent.device
+    td_hparams = None
+    if in_kernel_td:  # the port's nets are dense, as the TD path needs
+        td_hparams = (float(agent.config.gamma),
+                      float(agent.config.learning_rate),
+                      ADAM_B1, ADAM_B2, ADAM_EPS)  # optax.adam's defaults
 
     def tick(carry):
         rng, (tstate, ring), (a_ring, r_ring, d_ring), ag_state, aux, step = (
@@ -59,11 +76,25 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
 
         read_slot = (step % nb) * num_envs
         write_slot = ((step + 1) % nb) * num_envs
-        tstate, rewards_t, dones_t, actions_t, ring = (
-            fused_tick.full_tick_fused_ring(
-                step_key, tstate, ring, read_slot, write_slot,
+        args = (step_key, tstate, ring, read_slot, write_slot,
                 ag_state.params, ag_state.epsilon,
-                step % reset_env_every == 0, env_params))
+                step % reset_env_every == 0, env_params)
+        if td_hparams is not None:
+            # The carried batch was gathered after the tick before with
+            # valid = min(step, nb-1) columns (zero-seeded at step 0,
+            # which never trains).
+            can_train = min(step, nb - 1) * num_envs >= batch_size
+            adam = ag_state.opt_state
+            tstate, rewards_t, dones_t, actions_t, ring, _, _, _, loss = (
+                fused_tick.full_tick_fused_ring(
+                    *args, td_hparams=td_hparams, td_batch=aux,
+                    td_aux=(ag_state.target_params, adam.mu, adam.nu,
+                            can_train, adam.count)))
+            if can_train:
+                adam.count += 1
+        else:
+            tstate, rewards_t, dones_t, actions_t, ring = (
+                fused_tick.full_tick_fused_ring(*args))
 
         # Scalars live at the same slot as this tick's input observation.
         a_ring, r_ring, d_ring = fused_tick.ring_scalar_writes(
@@ -71,11 +102,14 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
 
         # Complete tuples after tick t: steps [max(0, t+2-nb), t].
         valid = min(step + 1, nb - 1) * num_envs
-        if valid >= batch_size:
+        if td_hparams is not None or valid >= batch_size:
             batch = fused_tick.ring_gather_batch(
                 sample_key, ring, a_ring, r_ring, d_ring, valid,
                 max(0, step + 2 - nb), num_envs=num_envs, capacity=capacity,
                 batch_size=batch_size)
+        if td_hparams is not None:
+            aux = batch  # trained on inside the next tick
+        elif valid >= batch_size:
             ag_state, loss = agent.train_step_t(ag_state, batch)
         else:
             loss = torch.tensor(NO_TRAIN_LOSS, device=device)
@@ -91,11 +125,32 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
 def init_ring_carry(agent: DQN, env_params: EnvParams, num_envs: int,
                     capacity: int, rng: torch.Tensor,
                     obs_dtype=torch.float32,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    batch_size: Optional[int] = None,
+                    in_kernel_td: Optional[bool] = None):
     """Initial carry for :func:`build_train_step_ring`: envs reset with
     ``rng``, the ring seeded with their observation at slot 0, a fresh
-    agent from ``generator`` (default: seeded from the key's words)."""
+    agent from ``generator`` (default: seeded from the key's words).
+
+    With ``in_kernel_td`` (pass the same to the tick's builder) ``aux``
+    is a zero batch of ``batch_size`` columns, never trained on; else
+    ``()``.
+    """
     device = agent.device
+    if in_kernel_td and batch_size is None:
+        raise ValueError("in_kernel_td carries the replay batch through "
+                         "the carry: pass batch_size")
+    aux = ()
+    if in_kernel_td:
+        zeros = functools.partial(torch.zeros, device=device)
+        aux = {
+            "obs": zeros((agent.obs_dim, batch_size), dtype=torch.float32),
+            "next_obs": zeros((agent.obs_dim, batch_size),
+                              dtype=torch.float32),
+            "actions": zeros((batch_size,), dtype=torch.int32),
+            "rewards": zeros((batch_size,), dtype=torch.float32),
+            "dones": zeros((batch_size,), dtype=torch.float32),
+        }
     if generator is None:
         k0, k1 = (int(v) for v in rng.tolist())
         generator = torch.Generator().manual_seed((k0 << 32) | k1)
@@ -111,7 +166,7 @@ def init_ring_carry(agent: DQN, env_params: EnvParams, num_envs: int,
         (torch.zeros(capacity, dtype=torch.int32, device=device),
          torch.zeros(capacity, dtype=torch.float32, device=device),
          torch.zeros(capacity, dtype=torch.int8, device=device)),
-        agent.init_state(generator), (), 0,
+        agent.init_state(generator), aux, 0,
     )
 
 

@@ -11,10 +11,16 @@ bf16 columns, batch 8, reset every 100) and reports:
 * under ``torch.profiler``: device time per kernel, launches per tick,
   and the device's busy share of the unprofiled tick.
 
+With ``--in_kernel_td`` the trainer runs its in-kernel TD path: the
+learner is one launch of the learner kernel, whose wrapper's host time
+counts to the "kernel" phase (it is called from inside the tick's
+wrapper), and the "learner" phase is empty.
+
 Run on a machine with a CUDA card, from the repository root:
 
     python scripts/torch_tick_profile.py --hidden 16 16
     python scripts/torch_tick_profile.py --hidden 128 64 --trace out.json
+    python scripts/torch_tick_profile.py --hidden 16 16 --in_kernel_td
 """
 
 import argparse
@@ -82,6 +88,8 @@ def main(argv=None):
     p.add_argument("--profile_ticks", type=int, default=20)
     p.add_argument("--trace", default=None,
                    help="write the profiler's chrome trace here")
+    p.add_argument("--in_kernel_td", action="store_true",
+                   help="the learner kernel instead of the autograd learner")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("torch_tick_profile: needs a CUDA card")
@@ -98,11 +106,13 @@ def main(argv=None):
                     params, device="cuda")
     num_envs = args.num_envs
     capacity = max(-(-100_000 // num_envs) * num_envs, 2 * num_envs)
+    td = args.in_kernel_td
     tick = train.build_train_step_ring(agent, params, num_envs, capacity, 8,
-                                       100)
+                                       100, in_kernel_td=td)
     carry = train.init_ring_carry(agent, params, num_envs, capacity,
-                                  rng.PRNGKey(0), obs_dtype=torch.bfloat16)
-    fused_tick.prepare_kernel(params, carry[3].params)
+                                  rng.PRNGKey(0), obs_dtype=torch.bfloat16,
+                                  batch_size=8, in_kernel_td=td)
+    fused_tick.prepare_kernel(params, carry[3].params, in_kernel_td=td)
     for _ in range(10):
         carry, _ = tick(carry)
     torch.cuda.synchronize()
@@ -146,6 +156,7 @@ def main(argv=None):
     result = {
         "card": card,
         "hidden": args.hidden,
+        "in_kernel_td": td,
         "num_envs": num_envs,
         "tick_ms": tick_ms,
         "obs_per_sec": num_envs / tick_ms * 1e3,

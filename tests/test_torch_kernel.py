@@ -1,4 +1,5 @@
-"""The CUDA tick kernel's wrapper, build and launches.
+"""The CUDA kernels' wrappers, builds and launches: the tick kernel and
+the learner kernel.
 
 No JAX here: the ``gpu`` tests run on a machine with a card, where the
 JAX package is not installed, by
@@ -11,6 +12,7 @@ kernel: the argument block, the inputs it refuses and the build's
 ``-D`` set.
 """
 
+import copy
 import ctypes
 
 import numpy as np
@@ -21,7 +23,7 @@ from dronerl_tpu_torch import rng, train
 from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
 from dronerl_tpu_torch.env import core
 from dronerl_tpu_torch.env.types import EnvParams
-from dronerl_tpu_torch.ops import _build, fused_tick
+from dronerl_tpu_torch.ops import _build, fused_tick, learner_kernel
 
 E = 128
 CHARGE_ATOL = 1.3e-7
@@ -93,8 +95,8 @@ def test_build_defines_split_widths():
     assert (d["DR_DIM3"], d["DR_DIM4"], d["DR_DIM8"]) == ("5", "0", "0")
     assert d["DR_NPACKETS"] == "12" and d["DR_GRID"] == "9"
     assert not any("," in v for v in d.values())
-    lib = _build.library_path(tuple(d.items()))
-    other = _build.library_path(_build.tick_defines(
+    lib = _build.library_path(("full_tick.cu", tuple(d.items())))
+    other = _build.library_path(_build.tick_config(
         EnvParams(**KW), (294, 16, 16, 5)))
     assert lib != other and lib.startswith(_build.BUILD_DIR)
 
@@ -175,3 +177,122 @@ def test_trainer_on_card_matches_cpu():
         np.testing.assert_allclose(b.detach().cpu().numpy(),
                                    a.detach().numpy(), rtol=0, atol=1e-5)
     assert fused_tick.full_tick_fused_ring.launches == launches + 4
+
+
+
+def _learner_state(dev, hidden, seed=0):
+    tp = EnvParams(**KW)
+    cfg = DQNConfig(hidden_layers=hidden, epsilon_decay=0.99,
+                    epsilon_end=0.01, gamma=0.9)
+    agent = DQN(cfg, tp, device=dev)
+    return agent, agent.init_state(torch.Generator().manual_seed(seed))
+
+
+def _card_batch(obs_dim, seed, dev, bsz=8):
+    """A batch in the replay gather's layout: obs and next_obs are column
+    slices of one (obs_dim, 2B) tensor."""
+    r = np.random.default_rng(seed)
+    both = torch.from_numpy(
+        (r.random((obs_dim, 2 * bsz)) < 0.3).astype(np.float32)).to(dev)
+    return {
+        "obs": both[:, :bsz], "next_obs": both[:, bsz:],
+        "actions": torch.from_numpy(
+            r.integers(0, 5, bsz).astype(np.int32)).to(dev),
+        "rewards": torch.from_numpy(
+            r.choice([-1.0, 0.0, 1.0], bsz).astype(np.float32)).to(dev),
+        "dones": torch.from_numpy(
+            (r.random(bsz) < 0.2).astype(np.float32)).to(dev),
+    }
+
+
+def _leaves(st):
+    """params, target, mu, nu: every learner leaf, in that order."""
+    return (st.params.flat() + st.target_params.flat() + st.opt_state.mu
+            + st.opt_state.nu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [(16, 16), (128, 64)])
+def test_learner_kernel_matches_plain_on_card(hidden):
+    """6 learner ticks (learn off at tick 2, sync on even ticks, decay
+    every third), each tick of the kernel and of the plain version from
+    the same state: ε bitwise, loss within rtol 1e-5 (-1 when not
+    learning), every leaf within rtol 1e-5, atol 1e-6 except where the
+    gradient is a cancellation, and bitwise unchanged where a flag is
+    off."""
+    dev = _card()
+    agent, st = _learner_state(dev, hidden)
+    cfg = agent.config
+    launches = learner_kernel.td_adam.launches
+    for t in range(6):
+        learn, sync, dec = t != 2, t % 2 == 0, t % 3 == 0
+        batch = _card_batch(agent.obs_dim, t, dev)
+        _, grads, scales = learner_kernel.td_gradients(
+            batch, st.params, st.target_params, cfg.gamma, with_scales=True)
+        cancelled = learner_kernel.cancellations(grads, scales)
+        ref = copy.deepcopy(st)
+        before = copy.deepcopy(st)
+        ref_loss = learner_kernel.td_adam_plain(
+            batch, ref.params, ref.target_params, ref.opt_state.mu,
+            ref.opt_state.nu, ref.opt_state.count, learn=learn,
+            sync_target=sync, decay_eps=dec, epsilon=ref.epsilon,
+            gamma=cfg.gamma, lr=cfg.learning_rate, tau=cfg.tau,
+            eps_decay=cfg.epsilon_decay, eps_end=cfg.epsilon_end)
+        st, loss = learner_kernel.learn_tick_fused(
+            batch, st, learn, sync, dec, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(st.epsilon, ref.epsilon), t
+        assert torch.equal(st.epsilon, before.epsilon) != dec
+        assert st.opt_state.count == before.opt_state.count + learn
+        if learn:
+            np.testing.assert_allclose(float(loss), float(ref_loss),
+                                       rtol=1e-5)
+        else:
+            assert float(loss) == -1.0
+        n = len(grads)
+        for i, (k, p, b) in enumerate(zip(_leaves(st), _leaves(ref),
+                                          _leaves(before))):
+            if (i // n == 1 and not sync) or (i // n != 1 and not learn):
+                assert torch.equal(k, b), (t, i)
+            bad = (k - p).abs() > 1e-6 + 1e-5 * p.abs()
+            assert not bool((bad & ~cancelled[i % n]).any()), (t, i)
+    assert learner_kernel.td_adam.launches == launches + 6
+
+
+@pytest.mark.gpu
+def test_in_kernel_td_trainer_on_card_matches_cpu():
+    """Four ticks of the in_kernel_td trainer through both kernels on the
+    card and through the plain versions on the CPU, from one carry, ε = 1
+    (no near tie can split the actors): rng chain, env state and scalar
+    rings bitwise; losses within rtol 1e-5; params within 1e-5."""
+    dev = _card()
+    tp = EnvParams(**KW)
+    cfg = DQNConfig(hidden_layers=(16, 16), epsilon_start=1.0,
+                    epsilon_end=1.0, epsilon_decay_every=2,
+                    target_update_interval=2)
+    cap = 4 * E
+    agents = [DQN(cfg, tp, device=d) for d in ("cpu", dev)]
+    carries = [train.init_ring_carry(a, tp, E, cap, rng.PRNGKey(0),
+                                     batch_size=8, in_kernel_td=True)
+               for a in agents]
+    ticks = [train.build_train_step_ring(a, tp, E, cap, 8, 3,
+                                         in_kernel_td=True) for a in agents]
+    launches = (fused_tick.full_tick_fused_ring.launches,
+                learner_kernel.td_adam.launches)
+    for t in range(4):
+        (c_cpu, (r_cpu, _, l_cpu)), (c_card, (r_card, _, l_card)) = (
+            tick(c) for tick, c in zip(ticks, carries))
+        carries = [c_cpu, c_card]
+        assert torch.equal(c_cpu[0], c_card[0]) and c_card[-1] == t + 1
+        for a, b in zip(c_cpu[1][0] + c_cpu[2], c_card[1][0] + c_card[2]):
+            assert torch.equal(a, b.cpu()), t
+        assert torch.equal(r_cpu, r_card.cpu()), t
+        np.testing.assert_allclose(float(l_card), float(l_cpu), rtol=1e-5)
+        assert (float(l_card) == -1.0) == (t == 0)
+    for a, b in zip(c_cpu[3].params.flat(), c_card[3].params.flat()):
+        np.testing.assert_allclose(b.detach().cpu().numpy(),
+                                   a.detach().numpy(), rtol=0, atol=1e-5)
+    assert c_card[3].opt_state.count == c_cpu[3].opt_state.count == 3
+    assert (fused_tick.full_tick_fused_ring.launches,
+            learner_kernel.td_adam.launches) == (launches[0] + 4,
+                                                 launches[1] + 4)
