@@ -8,9 +8,11 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure exits non-zero, and no phase carries on after one):
 
 1. the card: ``nvidia-smi`` name and power limit, ``torch`` device name;
-2. build the tick kernel (ops/csrc/full_tick.cu) and the learner kernel
-   (ops/csrc/td_adam.cu) from the sources, both nets' libraries in one
-   ``nvcc`` wave, and print their ptxas lines;
+2. build the full tick kernel (ops/csrc/full_tick.cu: the ring launch B1
+   and the obs launch B3), the learner kernel (ops/csrc/td_adam.cu) and
+   the env kernel (ops/csrc/env_kernel.cu: the feature-major tick B4 and
+   the row-major step B5, for three boards) from the sources, every
+   library in one ``nvcc`` wave, and print their ptxas lines;
 3. hold the tick kernel against its plain PyTorch version on the card, at
    the bench width (65,536 envs, grid 9, 4 drones, window radius 3), for
    the (16,16) and (128,64) nets and f32 and bf16 rings, over 8 ticks with
@@ -25,6 +27,19 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    (counted and printed), untouched leaves bitwise where a flag is off;
    then one tick of the in-kernel TD path (``full_tick_fused_ring`` with
    ``td_hparams``) against the two plain versions;
+3c. hold B3 (``full_tick_fused``) against ``full_tick_plain`` at 65,536
+   envs for both nets over 8 ticks with a reset tick, ε = 0.5: env
+   outputs bitwise, the charge channel within 1.3e-7, actions equal
+   outside near ties, ``obs_t`` untouched;
+3d. hold B4 (``tick_fused``) against ``tick_plain`` for 8 ticks of
+   actions drawn on the card: everything bitwise but the charge channel
+   (within 1.3e-7);
+3e. hold B5 (``step_kernel.step_batch_fused``) against ``core.step_batch``
+   at 65,536 envs on grid 9 with 4 drones, a tight board (grid 5, 2
+   drones: more respawn slots than vacant cells) and a 400-cell board
+   (grid 20): all bitwise (the charge and reward error is measured);
+   then drive the entry point for 100 steps on
+   grid 9 (launches = steps);
 4. drive the trainer's main path (``dronerl_tpu_torch.train``) at the
    bench configuration for both nets: the tick kernel's launch count must
    equal the ticks, losses be finite, params move and ε decay; report
@@ -35,13 +50,27 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    4's, the learner kernel's time per launch (learn, and learn + sync),
    its plain version's, and the autograd learner's (``train_step_t`` +
    ``apply_schedules``) host and device time on the same batch;
+4c. drive the full engine (``build_train_step_full`` over a StreamReplay of
+   1,048,576 slots, ``--memory_size 1000000`` rounded up to 16 env-batches)
+   the same way for both nets: B3's launch count equals the ticks (and no
+   other kernel launches), losses finite once trained, params move, ε
+   decays, the replay full; report its obs/s beside phase 4's;
+4d. drive the fused engine (``build_train_step_fused``, dense) on the same
+   configuration: B4's launches equal the ticks; report its obs/s;
+4e. run the CLI (``dronerl_tpu_torch.train.main``) at ``--num_envs 16384``
+   with the default memory size (114,688 slots > 4 x 16,384): it must
+   choose the full engine, and B3's launches equal its steps;
+   then time B3, B4 and B5 per launch (CUDA events over launches of a
+   prebuilt argument block), their plain versions and their bounds;
 5. print the kernel table line, the card line, and the result line last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
 
 import copy
+import ctypes
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -54,6 +83,12 @@ CAPACITY = 131072          # the bench's ring: max(ceil(1e5 / E) * E, 2E)
 BATCH = 8
 RESET_EVERY = 100
 NETS = ((16, 16), (128, 64))
+STREAM_CAPACITY = 1048576  # ceil(1e6 / E) * E: --memory_size 1000000
+CLI_ENVS, CLI_STEPS = 16384, 30
+STEP_BOARDS = ((GRID, DRONES), (5, 2), (20, DRONES))  # grid, drones
+STEP_COMPARE = 3
+STEP_DRIVE = 100
+BLOCK_LAUNCHES = 50
 COMPARE_TICKS = 8
 COMPARE_RESET_TICK = 4
 LEARNER_TICKS = 6
@@ -109,12 +144,26 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from dronerl_tpu_torch import rng
+    from dronerl_tpu_torch import replay, rng, train
     from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
     from dronerl_tpu_torch.env import core
     from dronerl_tpu_torch.env.types import EnvParams
-    from dronerl_tpu_torch.ops import _build, fused_tick, learner_kernel
+    from dronerl_tpu_torch.ops import (
+        _build, fused_tick, learner_kernel, step_kernel)
     from dronerl_tpu_torch.train import build_train_step_ring, init_ring_carry
+
+    counters = {"full_tick_ring": fused_tick.full_tick_fused_ring,
+                "td_adam": learner_kernel.td_adam,
+                "full_tick": fused_tick.full_tick_fused,
+                "tick": fused_tick.tick_fused,
+                "step": step_kernel.step_batch_fused}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -126,8 +175,11 @@ def main() -> None:
     params = EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
     obs_dim = fused_tick.obs_rows(params)
     widths = {h: (obs_dim, *h, 5) for h in NETS}
+    boards = {b: EnvParams(grid_size=b[0], n_drones=b[1],
+                           window_radius=RADIUS) for b in STEP_BOARDS}
     configs = ([_build.tick_config(params, widths[h]) for h in NETS]
-               + [_build.learner_config(widths[h]) for h in NETS])
+               + [_build.learner_config(widths[h]) for h in NETS]
+               + [_build.env_config(p) for p in boards.values()])
     t0 = time.perf_counter()
     built = _build.build(configs)
     log(f"built {len(built)} kernel libraries in "
@@ -136,9 +188,11 @@ def main() -> None:
     for cfg in configs:
         ptxas = [ln.strip() for ln in _build.build_log(cfg).splitlines()
                  if "registers" in ln or "spill" in ln]
-        hidden = tuple(int(v) for k, v in cfg[1]
-                       if k.startswith("DR_DIM") and v != "0")[1:-1]
-        log(f"ptxas {cfg[0]} {hidden}: " + " | ".join(ptxas))
+        tag = tuple(int(v) for k, v in cfg[1]
+                    if k.startswith("DR_DIM") and v != "0")[1:-1]
+        if cfg[0] == _build.ENV_SOURCE:
+            tag = dict(cfg[1])["DR_GRID"], dict(cfg[1])["DR_NDRONES"]
+        log(f"ptxas {cfg[0]} {tag}: " + " | ".join(ptxas))
 
     def make_agent(hidden, seed):
         cfg = DQNConfig(hidden_layers=hidden, epsilon_decay_every=5,
@@ -358,25 +412,151 @@ def main() -> None:
             f"{charge_err:.3e}, near-tie envs {ties}; learner max abs err "
             f"{e:.3e}, cancellations beyond the tolerance {o}")
 
-    # --- 4. the main path, and 4b. the in_kernel_td main path --------------
-    def drive(hidden, in_kernel_td):
-        """Run the trainer's main path: returns (agent, carry, losses,
-        median tick seconds, repeats, launch counts)."""
-        agent, _ = make_agent(hidden, 0)
-        tick = build_train_step_ring(agent, params, NUM_ENVS, CAPACITY,
-                                     BATCH, RESET_EVERY,
-                                     in_kernel_td=in_kernel_td)
-        carry = init_ring_carry(agent, params, NUM_ENVS, CAPACITY,
-                                rng.PRNGKey(0), obs_dtype=torch.bfloat16,
-                                batch_size=BATCH, in_kernel_td=in_kernel_td)
-        fused_tick.prepare_kernel(params, carry[3].params,
-                                  in_kernel_td=in_kernel_td)
-        torch.cuda.synchronize()
+    def check_obs(tag, obs_k, obs_p):
+        """Observations bitwise but the charge channel: returns its
+        error."""
+        obs_k = obs_k.float().reshape(-1, 6, obs_k.shape[-1])
+        obs_p = obs_p.float().reshape(-1, 6, obs_p.shape[-1])
+        ch = torch.arange(6, device=device) != 4
+        if not torch.equal(obs_k[:, ch], obs_p[:, ch]):
+            fail(f"{tag}: observation channels differ")
+        charge_err = float((obs_k[:, 4] - obs_p[:, 4]).abs().max())
+        if charge_err > CHARGE_ATOL:
+            fail(f"{tag}: charge channel off by {charge_err}")
+        return charge_err
 
-        fused_tick.full_tick_fused_ring.launches = 0
-        learner_kernel.td_adam.launches = 0
+    def check_state(tag, out_k, out_p, fields):
+        for name, a, b in zip(fields, out_k, out_p):
+            if not torch.equal(a, b):
+                fail(f"{tag}: {name} differs")
+
+    # --- 3c. B3 (the full tick's obs launch) against its plain version -------
+    def fresh_obs(seed):
+        state = core.reset_batch(rng.PRNGKey(seed).to(device), params,
+                                 NUM_ENVS)
+        obs_t = core.observe_batch(state, params, 1).reshape(
+            NUM_ENVS, obs_dim).t().contiguous()
+        return fused_tick.to_tstate(state), obs_t
+
+    full_err = {}
+    for hidden in NETS:
+        tag = f"B3 net {hidden}"
+        _, ag = make_agent(hidden, 1)
+        tstate, obs_t = fresh_obs(2)
+        eps = torch.tensor(0.5, device=device)
+        key = rng.PRNGKey(3)
+        near_ties, full_err[hidden] = 0, 0.0
+        for t in range(COMPARE_TICKS):
+            key, step_key = rng.split(key, 2)
+            do_reset = t == COMPARE_RESET_TICK
+            before = obs_t.clone()
+            out_k = fused_tick.full_tick_fused(step_key, tstate, obs_t,
+                                               ag.params, eps, do_reset,
+                                               params)
+            out_p = fused_tick.full_tick_plain(
+                step_key, tstate, obs_t, ag.params, eps, do_reset, params,
+                actions_override=out_k[3])
+            torch.cuda.synchronize()
+            check_state(f"{tag} tick {t}", out_k[0] + out_k[1:3],
+                        out_p[0] + out_p[1:3], fused_tick.TState._fields
+                        + ("rewards", "dones"))
+            full_err[hidden] = max(full_err[hidden], check_obs(
+                f"{tag} tick {t}", out_k[4], out_p[4]))
+            if not torch.equal(obs_t, before):
+                fail(f"{tag} tick {t}: obs_t was written")
+            keys = rng.split(step_key.to(device), NUM_ENVS + 2)
+            act_p, q = fused_tick.plain_actions(
+                keys[NUM_ENVS], obs_t, 0, ag.params, eps, params, NUM_ENVS)
+            top2 = q.topk(2, dim=0).values
+            tie = (top2[0] - top2[1]) <= NEAR_TIE * q.abs().amax(dim=0)
+            differ = (out_k[3] != act_p).any(dim=0)
+            if bool((differ & ~tie).any()):
+                fail(f"{tag} tick {t}: {int((differ & ~tie).sum())} actions "
+                     "differ outside near ties")
+            near_ties += int(tie.sum())
+            tstate, obs_t = out_k[0], out_k[4]
+        log(f"B3 == plain: net {hidden}, {COMPARE_TICKS} ticks (reset at "
+            f"{COMPARE_RESET_TICK}); env bitwise, charge max err "
+            f"{full_err[hidden]:.3e}; near-tie envs {near_ties}")
+
+    # --- 3d. B4 (the env tick) against its plain version --------------------
+    tstate, _ = fresh_obs(4)
+    key = rng.PRNGKey(5)
+    tick_err = 0.0
+    for t in range(COMPARE_TICKS):
+        key, act_key, step_key = rng.split(key, 3)
+        actions = rng.randint(act_key.to(device), (DRONES, NUM_ENVS), 0, 5)
+        out_k = fused_tick.tick_fused(step_key, tstate, actions, params)
+        out_p = fused_tick.tick_plain(step_key, tstate, actions, params)
+        torch.cuda.synchronize()
+        check_state(f"B4 tick {t}", out_k[0] + out_k[1:3],
+                    out_p[0] + out_p[1:3],
+                    fused_tick.TState._fields + ("rewards", "dones"))
+        tick_err = max(tick_err, check_obs(f"B4 tick {t}", out_k[3],
+                                           out_p[3]))
+        tstate = out_k[0]
+    log(f"B4 == plain: {COMPARE_TICKS} ticks of random actions; env "
+        f"bitwise, charge max err {tick_err:.3e}")
+
+    # --- 3e. B5 (the row-major step) against core.step_batch ----------------
+    row_fields = ("ground", "air_x", "air_y", "carrying_package", "charge")
+    step_err = 0.0
+    for board, bp in boards.items():
+        states = core.reset_batch(rng.PRNGKey(6).to(device), bp, NUM_ENVS)
+        key = rng.PRNGKey(7)
+        for t in range(STEP_COMPARE):
+            key, act_key, step_key = rng.split(key, 3)
+            actions = rng.randint(act_key.to(device), (NUM_ENVS, bp.n_drones),
+                                  0, 5)
+            out_k = step_kernel.step_batch_fused(step_key, states, actions,
+                                                 bp)
+            out_p = step_kernel.step_batch_plain(step_key, states, actions,
+                                                 bp)
+            torch.cuda.synchronize()
+            check_state(f"B5 board {board} step {t}",
+                        [getattr(out_k[0], f) for f in row_fields]
+                        + list(out_k[1:]),
+                        [getattr(out_p[0], f) for f in row_fields]
+                        + list(out_p[1:]), row_fields + ("rewards", "dones"))
+            step_err = max(step_err, *(
+                float((a - b).abs().max()) for a, b in (
+                    (out_k[0].charge, out_p[0].charge),
+                    (out_k[1], out_p[1]))))
+            states = out_k[0]
+        log(f"B5 == core.step_batch: board (grid, drones) {board}, "
+            f"{STEP_COMPARE} steps at {NUM_ENVS} envs; all bitwise (charge "
+            f"and reward max err {step_err:.3e})")
+
+    # The step entry point on the bench board, as a user drives it.
+    states = core.reset_batch(rng.PRNGKey(8).to(device), params, NUM_ENVS)
+    key = rng.PRNGKey(9)
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(STEP_DRIVE):
+        key, act_key, step_key = rng.split(key, 3)
+        actions = rng.randint(act_key.to(device), (NUM_ENVS, DRONES), 0, 5)
+        states, rewards, dones = step_kernel.step_batch_fused(
+            step_key, states, actions, params)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / STEP_DRIVE
+    step_launches = counts()
+    if step_launches["step"] != STEP_DRIVE or sum(
+            step_launches.values()) != STEP_DRIVE:
+        fail(f"step entry point: launches {step_launches} in {STEP_DRIVE} "
+             "steps")
+    if not bool(torch.isfinite(rewards).all()):
+        fail("step entry point: non-finite rewards")
+    log(f"step entry point: {STEP_DRIVE} steps, launches {step_launches}, "
+        f"env steps/s {NUM_ENVS / step_s:.1f} (with the randint of the "
+        f"actions on the card; {1e3 * step_s:.4f} ms a step) on {card}")
+
+    # --- 4. the main path, and 4b. the in_kernel_td main path --------------
+    def run_ticks(tag, tick, carry):
+        """Warm-up and timed repeats of a trainer's tick with every launch
+        count zeroed just before: returns (carry, losses, median tick
+        seconds, repeats, ticks, launch counts, rewards, ε)."""
+        zero_counts()
         losses, seconds = [], []
-        p0 = [p.detach().clone() for p in carry[3].params.flat()]
         for _ in range(WARMUP_TICKS):
             carry, (rewards, eps, loss) = tick(carry)
             losses.append(loss)
@@ -388,13 +568,7 @@ def main() -> None:
                 losses.append(loss)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
-        launches = (fused_tick.full_tick_fused_ring.launches,
-                    learner_kernel.td_adam.launches)
         ticks = WARMUP_TICKS + REPEATS * TICKS_PER_REPEAT
-        tag = f"net {hidden}" + (" in_kernel_td" if in_kernel_td else "")
-        if launches[0] != ticks:
-            fail(f"{tag}: {launches[0]} tick kernel launches in {ticks} "
-                 "ticks")
         if carry[-1] != ticks:
             fail(f"{tag}: step counter {carry[-1]} != {ticks}")
         losses = torch.stack(losses)
@@ -402,17 +576,80 @@ def main() -> None:
             fail(f"{tag}: a loss is not finite")
         if not bool(torch.isfinite(rewards).all()):
             fail(f"{tag}: non-finite rewards")
-        if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
-            fail(f"{tag}: the params did not move")
         if not float(eps) < 1.0:
             fail(f"{tag}: epsilon did not decay")
-        tick_s = statistics.median(seconds) / TICKS_PER_REPEAT
+        return (carry, losses, statistics.median(seconds) / TICKS_PER_REPEAT,
+                seconds, ticks, counts(), rewards, eps)
+
+    def drive(hidden, in_kernel_td):
+        """Run the trainer's main path: returns (agent, carry, losses,
+        median tick seconds, ticks, launch counts)."""
+        agent, _ = make_agent(hidden, 0)
+        tick = build_train_step_ring(agent, params, NUM_ENVS, CAPACITY,
+                                     BATCH, RESET_EVERY,
+                                     in_kernel_td=in_kernel_td)
+        carry = init_ring_carry(agent, params, NUM_ENVS, CAPACITY,
+                                rng.PRNGKey(0), obs_dtype=torch.bfloat16,
+                                batch_size=BATCH, in_kernel_td=in_kernel_td)
+        fused_tick.prepare_kernel(params, carry[3].params,
+                                  in_kernel_td=in_kernel_td)
+        torch.cuda.synchronize()
+
+        p0 = [p.detach().clone() for p in carry[3].params.flat()]
+        tag = f"net {hidden}" + (" in_kernel_td" if in_kernel_td else "")
+        carry, losses, tick_s, seconds, ticks, n, rewards, eps = run_ticks(
+            tag, tick, carry)
+        launches = (n["full_tick_ring"], n["td_adam"])
+        if launches[0] != ticks:
+            fail(f"{tag}: {launches[0]} tick kernel launches in {ticks} "
+                 "ticks")
+        if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
+            fail(f"{tag}: the params did not move")
         log(f"main path {tag}: {ticks} ticks, launches {launches}, "
             f"loss {float(losses[-1]):.5f}, eps {float(eps):.4f}, "
             f"obs/s {NUM_ENVS / tick_s:.1f} (median of {REPEATS} x "
             f"{TICKS_PER_REPEAT} ticks; tick {1e3 * tick_s:.4f} ms; "
             f"repeats {[round(s, 4) for s in seconds]} s) on {card}")
         return agent, carry, losses, tick_s, ticks, launches
+
+    def drive_stream(hidden, engine):
+        """Run a StreamReplay engine ("full": B3, "fused": B4) at the bench
+        configuration with a replay of STREAM_CAPACITY slots: returns
+        (agent, carry, median tick seconds, its kernel's launches)."""
+        agent, _ = make_agent(hidden, 0)
+        buf = replay.StreamReplay(STREAM_CAPACITY, BATCH, stride=NUM_ENVS)
+        build = {"full": train.build_train_step_full,
+                 "fused": train.build_train_step_fused}[engine]
+        tick = build(agent, buf, params, NUM_ENVS, RESET_EVERY)
+        carry = train.init_stream_carry(agent, params, NUM_ENVS, buf,
+                                        rng.PRNGKey(0))
+        fused_tick.prepare_kernel(
+            params, carry[3].params if engine == "full" else None,
+            env_tick=engine == "fused")
+        torch.cuda.synchronize()
+        p0 = [p.detach().clone() for p in carry[3].params.flat()]
+        tag = f"{engine} engine net {hidden}"
+        carry, losses, tick_s, seconds, ticks, n, rewards, eps = run_ticks(
+            tag, tick, carry)
+        kernel = {"full": "full_tick", "fused": "tick"}[engine]
+        if n[kernel] != ticks or sum(n.values()) != ticks:
+            fail(f"{tag}: launches {n} in {ticks} ticks")
+        if float(losses[0]) != -1.0 or bool((losses[1:] < 0).any()):
+            fail(f"{tag}: tick 0 trained or a later tick did not")
+        if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
+            fail(f"{tag}: the params did not move")
+        bstate = carry[4]
+        if (bstate.size, bstate.cursor) != (
+                STREAM_CAPACITY, ticks * NUM_ENVS % STREAM_CAPACITY):
+            fail(f"{tag}: replay size {bstate.size}, cursor "
+                 f"{bstate.cursor} after {ticks} pushes")
+        log(f"{tag}: {ticks} ticks, launches {n}, loss "
+            f"{float(losses[-1]):.5f}, eps {float(eps):.4f}, obs/s "
+            f"{NUM_ENVS / tick_s:.1f} (median of {REPEATS} x "
+            f"{TICKS_PER_REPEAT} ticks; tick {1e3 * tick_s:.4f} ms; repeats "
+            f"{[round(s, 4) for s in seconds]} s; replay "
+            f"{STREAM_CAPACITY} slots) on {card}")
+        return agent, carry, tick_s, n[kernel]
 
     kernels, learners, obs_per_s = [], [], {}
     for hidden in NETS:
@@ -463,7 +700,79 @@ def main() -> None:
             "library_ms": None,
         })
 
-    print(json.dumps({"kernels": kernels + learners}), flush=True)
+    # --- 4c. the full engine, 4d. the fused engine ---------------------------
+    stream = []
+    for hidden in NETS:
+        name = "x".join(str(h) for h in hidden)
+        agent, carry, tick_s, launches = drive_stream(hidden, "full")
+        log(f"obs/s full engine net {hidden} {NUM_ENVS / tick_s:.1f} vs the "
+            f"ring engine {obs_per_s[hidden]:.1f} (one run, {card})")
+        timing = time_obs_kernel(torch, _build, fused_tick, rng, agent,
+                                 carry, hidden, card)
+        stream.append({
+            "name": "full_tick_" + name,
+            "route": "cuda",
+            "source": "dronerl_tpu_torch/ops/csrc/full_tick.cu",
+            "replaces": ("dronerl_tpu/ops/fused_tick.py:1145 (_full_kernel "
+                         "via full_tick_fused)"),
+            "launches": launches,
+            "max_abs_err": full_err[hidden],
+            **timing,
+            "library_ms": None,
+        })
+    fused_launches = 0
+    for hidden in NETS:
+        agent, carry, tick_s, launches = drive_stream(hidden, "fused")
+        fused_launches += launches
+        log(f"obs/s fused engine net {hidden} {NUM_ENVS / tick_s:.1f} vs "
+            f"the ring engine {obs_per_s[hidden]:.1f} (one run, {card})")
+    timing = time_env_tick(torch, _build, fused_tick, rng, agent, carry,
+                           card)
+    stream.append({
+        "name": "tick",
+        "route": "cuda",
+        "source": "dronerl_tpu_torch/ops/csrc/env_kernel.cu",
+        "replaces": ("dronerl_tpu/ops/fused_tick.py:704 (_tick_kernel via "
+                     "tick_fused)"),
+        "launches": fused_launches,
+        "max_abs_err": tick_err,
+        **timing,
+        "library_ms": None,
+    })
+    for board, bp in boards.items():
+        timing = time_step(torch, _build, step_kernel, core, rng, bp, card)
+        if board == (GRID, DRONES):
+            stream.append({
+                "name": "step",
+                "route": "cuda",
+                "source": "dronerl_tpu_torch/ops/csrc/env_kernel.cu",
+                "replaces": ("dronerl_tpu/ops/step_kernel.py:186 "
+                             "(_step_kernel via step_batch_fused)"),
+                "launches": step_launches["step"],
+                "max_abs_err": step_err,
+                **timing,
+                "library_ms": None,
+            })
+
+    # --- 4e. the CLI chooses the full engine past the ring gate --------------
+    zero_counts()
+    metrics = train.main(["--num_envs", str(CLI_ENVS), "--num_steps",
+                          str(CLI_STEPS)])
+    n = counts()
+    if metrics["engine"] != "full":
+        fail(f"CLI at {CLI_ENVS} envs chose the {metrics['engine']} engine")
+    if n["full_tick"] != CLI_STEPS or sum(n.values()) != CLI_STEPS:
+        fail(f"CLI: launches {n} in {CLI_STEPS} steps")
+    if metrics["td_loss_mean"] is None or not math.isfinite(
+            metrics["td_loss_mean"]):
+        fail(f"CLI: td loss {metrics['td_loss_mean']}")
+    slots = math.ceil(100_000 / CLI_ENVS) * CLI_ENVS
+    log(f"CLI --num_envs {CLI_ENVS} (memory 100000 -> {slots} slots): "
+        f"engine {metrics['engine']}, launches {n}, obs/s "
+        f"{metrics['obs_per_sec']:.1f} over {CLI_STEPS} steps (with "
+        f"warm-up), on {metrics['device']}")
+
+    print(json.dumps({"kernels": kernels + learners + stream}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -517,6 +826,106 @@ def time_kernel(torch, fused_tick, rng, agent, carry, hidden, card):
         f"{hashes} hash -> {t_ops:.4f} ms); on {card}")
     return ms, plain_ms, max(t_bytes, t_ops), (
         "bytes" if t_bytes >= t_ops else "operations")
+
+
+def env_bound(n, c, obs_bytes, extra_bytes=0, flops=0, hashes_per_env=0):
+    """The least time of one env kernel launch at NUM_ENVS envs: the state
+    read and written once (ground C bytes, per drone x, y, carry, charge),
+    the actions read (4 B a drone) and rewards and dones written (5 B a
+    drone), ``obs_bytes`` of observations read or written, plus
+    ``extra_bytes``; the operations: ``flops`` and the threefry hashes at
+    OPS_PER_HASH each. Returns (ms, "bytes" or "operations", bytes,
+    operations)."""
+    state_bytes = NUM_ENVS * (c + n * (4 + 4 + 1 + 4))
+    io_bytes = NUM_ENVS * n * (4 + 4 + 1)
+    total_bytes = 2 * state_bytes + io_bytes + obs_bytes + extra_bytes
+    ops = flops + OPS_PER_HASH * hashes_per_env * NUM_ENVS
+    t_bytes = total_bytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", total_bytes, ops)
+
+
+def time_block(torch, lib, entry, block, count):
+    """Device time per launch of a prebuilt argument block (CUDA events
+    over ``count`` launches back to back): the wrapper's host work stays
+    out of the kernel's time."""
+    launch = getattr(lib, entry)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = launch(ctypes.byref(block), stream)
+    torch.cuda.synchronize()
+    if err != 0:
+        fail(f"{entry} failed: {err}")
+    return cuda_ms(torch, lambda: launch(ctypes.byref(block), stream), count)
+
+
+def time_env_kernel(torch, tag, lib, entry, fill, plain, args, bound,
+                    card):
+    """One env kernel's ms per launch (``BLOCK_LAUNCHES`` launches of the
+    block that ``fill(*args)`` builds), its plain version's (``plain(*args)``)
+    and ``bound``, ``env_bound``'s result: logged, and returned as the
+    kernel line's timing keys."""
+    # _outs owns the block's output buffers: alive while it is launched.
+    block, _outs = fill(*args)
+    ms = time_block(torch, lib, entry, block, BLOCK_LAUNCHES)
+    plain_ms = cuda_ms(torch, lambda: plain(*args), PLAIN_LAUNCHES)
+    bound_ms, bound_by, total_bytes, ops = bound
+    log(f"{tag}: {ms:.4f} ms/launch ({BLOCK_LAUNCHES} launches of one "
+        f"block), plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms "
+        f"({bound_by}: {total_bytes} B, {ops} operations); on {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def time_obs_kernel(torch, _build, fused_tick, rng, agent, carry, hidden,
+                    card):
+    """B3 at the full engine's shapes after its run, every env greedy (ε =
+    0, the most work a tick can need)."""
+    params = agent.env_params
+    _rng, tstate, obs_t, ag, _bstate, _step = carry
+    eps = torch.tensor(0.0, device=obs_t.device)
+    widths = (obs_t.shape[0], *hidden, 5)
+    weight_bytes = 4 * sum(i * o + o for i, o in zip(widths, widths[1:]))
+    flops = NUM_ENVS * 2 * sum(i * o for i, o in zip(widths, widths[1:]))
+    n, c = params.n_drones, params.num_cells
+    return time_env_kernel(
+        torch, f"B3 net {hidden}",
+        _build.load(fused_tick.kernel_config(params, ag.params)),
+        "full_tick_launch", fused_tick._full_args, fused_tick.full_tick_plain,
+        (rng.PRNGKey(7), tstate, obs_t, ag.params, eps, False, params),
+        env_bound(n, c, 2 * obs_t.numel() * 4, weight_bytes + 4, flops,
+                  4 + (n + 1) + 2 * c), card)
+
+
+def time_env_tick(torch, _build, fused_tick, rng, agent, carry, card):
+    """B4 at the fused engine's shapes after its run, with actions drawn
+    on the card."""
+    params = agent.env_params
+    tstate, obs_t = carry[1], carry[2]
+    n, num_envs = tstate.air_x.shape
+    actions = rng.randint(rng.PRNGKey(8).to(obs_t.device), (n, num_envs), 0,
+                          5)
+    c = params.num_cells
+    return time_env_kernel(
+        torch, "B4", _build.load(_build.env_config(params)), "tick_launch",
+        fused_tick._env_tick_args, fused_tick.tick_plain,
+        (rng.PRNGKey(7), tstate, actions, params),
+        env_bound(n, c, obs_t.numel() * 4, hashes_per_env=4 + 2 * c), card)
+
+
+def time_step(torch, _build, step_kernel, core, rng, params, card):
+    """B5 at NUM_ENVS envs on one board, from a fresh reset; its plain
+    version is ``core.step_batch``."""
+    device = torch.device("cuda", 0)
+    n, c = params.n_drones, params.num_cells
+    states = core.reset_batch(rng.PRNGKey(10).to(device), params, NUM_ENVS)
+    actions = rng.randint(rng.PRNGKey(11).to(device), (NUM_ENVS, n), 0, 5)
+    return time_env_kernel(
+        torch, f"B5 grid {params.grid_size} drones {n}",
+        _build.load(_build.env_config(params)), "step_launch",
+        step_kernel._kernel_args, step_kernel.step_batch_plain,
+        (rng.PRNGKey(12), states, actions, params),
+        env_bound(n, c, 0, hashes_per_env=4 + 2 * c), card)
 
 
 def learner_bound(widths, batch, sync):

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from dronerl_tpu_torch import resolve_device
+from dronerl_tpu_torch import resolve_device, rng
 from dronerl_tpu_torch.constants import NUM_ACTIONS
 from dronerl_tpu_torch.env.types import EnvParams
 
@@ -148,6 +148,25 @@ class DQN:
                    obs_t: torch.Tensor) -> torch.Tensor:
         """(obs_dim, B) observations → (num_actions, B) Q-values."""
         return params.forward_t(obs_t)
+
+    def act_t(self, key: torch.Tensor, obs_t: torch.Tensor,
+              state: DQNState) -> torch.Tensor:
+        """ε-greedy actions for (obs_dim, B) observations → (B,) int32.
+
+        Greedy is the lowest-index argmax of :meth:`q_values_t`. Else the
+        key splits into explore and action keys: explore where
+        ``uniform(explore_key, (B,)) < ε``, with ``randint(action_key, (B,),
+        0, NUM_ACTIONS)``. The draws run where ``obs_t`` lies (B counters
+        each), so a host key goes to that device first.
+        """
+        with torch.no_grad():
+            q = self.q_values_t(state.params, obs_t)
+        greedy_actions = torch.argmax(q, dim=0).to(torch.int32)
+        batch = obs_t.shape[1]
+        explore_key, action_key = rng.split(key, 2).to(obs_t.device)
+        explore = rng.uniform(explore_key, (batch,)) < state.epsilon
+        random_acts = rng.randint(action_key, (batch,), 0, NUM_ACTIONS)
+        return torch.where(explore, random_acts, greedy_actions)
 
     def train_step_t(
         self, state: DQNState, batch: Dict[str, torch.Tensor],

@@ -15,6 +15,7 @@ import torch
 
 from dronerl_tpu_torch.agents.dqn import AdamState, DenseQNet, DQNState
 from dronerl_tpu_torch.ops.fused_tick import TState
+from dronerl_tpu_torch.replay import ReplayState
 
 
 def tensor(arr, device="cpu") -> torch.Tensor:
@@ -87,6 +88,30 @@ def batch_from_jax(batch, device="cpu") -> Dict[str, torch.Tensor]:
         for k, v in batch.items()}
 
 
+def _host_key(rng) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(rng).astype(np.uint32).astype(np.int64))
+
+
+def replay_state_from_jax(bstate, device="cpu") -> ReplayState:
+    """``replay.ReplayState`` (storage dict, cursor, size) → the port's,
+    with cursor and size as host ints."""
+    return ReplayState(
+        storage={k: tensor(v, device) for k, v in bstate.storage.items()},
+        cursor=int(np.asarray(bstate.cursor)),
+        size=int(np.asarray(bstate.size)))
+
+
+def stream_carry_from_jax(carry, device="cpu"):
+    """The JAX full or fused trainer's carry ``(rng, tstate, obs_t,
+    ag_state, bstate, step)`` → the port's (the rng key on the host,
+    ``step`` a Python int)."""
+    rng, tstate, obs_t, ag_state, bstate, step = carry
+    return (_host_key(rng), tstate_from_jax(tstate, device),
+            tensor(obs_t, device).contiguous(),
+            dqn_state_from_jax(ag_state, device),
+            replay_state_from_jax(bstate, device), int(np.asarray(step)))
+
+
 def ring_carry_from_jax(carry, device="cpu"):
     """The JAX ring trainer's carry ``(rng, (tstate, ring), (a_ring,
     r_ring, d_ring), ag_state, aux, step)`` → the port's carry (the rng
@@ -94,9 +119,8 @@ def ring_carry_from_jax(carry, device="cpu"):
     in-kernel TD path's carried batch, becomes a dict of tensors, or
     stays ``()``)."""
     rng, (tstate, ring), scalar_rings, ag_state, aux, step = carry
-    key = np.asarray(rng).astype(np.uint32).astype(np.int64)
     return (
-        torch.from_numpy(key),
+        _host_key(rng),
         (tstate_from_jax(tstate, device), tensor(ring, device)),
         tuple(tensor(r, device) for r in scalar_rings),
         dqn_state_from_jax(ag_state, device),

@@ -3,10 +3,13 @@
 The kernels are compiled at first use with ``nvcc`` into shared libraries
 with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds). A library is one source compiled with one ``-D``
-set: a *config* is the pair ``(source, defines)``. The tick kernel
-(``full_tick.cu``) is specialised on the env and the Q-net widths, the
-learner kernel (``td_adam.cu``) on the widths alone (``-D`` constants, as
-the TPU kernels are specialised on their static arguments). Each config
+set: a *config* is the pair ``(source, defines)``. The full tick kernel
+(``full_tick.cu``, the ring and obs launches) is specialised on the env
+and the Q-net widths, the env-only kernel (``env_kernel.cu``, the
+feature-major tick and the row-major step, which shares ``env_step.cuh``
+with it) on the env alone, the learner kernel (``td_adam.cu``) on the widths alone (``-D``
+constants, as the TPU kernels are specialised on their static
+arguments). Each config
 is cached under ``ops/_build/`` by a hash of the sources, the source name
 and the ``-D`` set. ``--use_fast_math`` is never passed: the
 observation's charge channel divides by 100 and must round as IEEE
@@ -29,15 +32,19 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 TICK_SOURCE = "full_tick.cu"
+ENV_SOURCE = "env_kernel.cu"
 LEARNER_SOURCE = "td_adam.cu"
-SOURCES = (TICK_SOURCE, "threefry.cuh", LEARNER_SOURCE)
+SOURCES = (TICK_SOURCE, ENV_SOURCE, "env_step.cuh", "threefry.cuh",
+           LEARNER_SOURCE)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 MAX_LAYERS = 8  # as csrc/full_tick.cu
 
-# Each source's (launch function, error-string function).
+# Each source's (launch functions, error-string function).
 ENTRY_POINTS = {
-    TICK_SOURCE: ("full_tick_ring_launch", "full_tick_error_string"),
-    LEARNER_SOURCE: ("td_adam_launch", "td_adam_error_string"),
+    TICK_SOURCE: (("full_tick_ring_launch", "full_tick_launch"),
+                  "full_tick_error_string"),
+    ENV_SOURCE: (("tick_launch", "step_launch"), "env_error_string"),
+    LEARNER_SOURCE: (("td_adam_launch",), "td_adam_error_string"),
 }
 
 Defines = Tuple[Tuple[str, str], ...]
@@ -55,9 +62,8 @@ def net_defines(widths: Sequence[int]) -> Defines:
         for i in range(MAX_LAYERS + 1))
 
 
-def tick_defines(params, widths: Sequence[int]) -> Defines:
-    """The ``-D`` set of the tick kernel for an env and Q-net widths
-    (``widths`` = obs_dim, hidden..., num_actions)."""
+def env_defines(params) -> Defines:
+    """The ``-D`` set of an env (``env_step.cuh``)."""
     return (
         ("DR_GRID", str(params.grid_size)),
         ("DR_NDRONES", str(params.n_drones)),
@@ -68,12 +74,25 @@ def tick_defines(params, widths: Sequence[int]) -> Defines:
         ("DR_NSKYSCRAPERS", str(params.num_skyscrapers)),
         ("DR_CHARGE_UP", str(params.charge)),
         ("DR_DISCHARGE", str(params.discharge)),
-    ) + net_defines(widths)
+    )
+
+
+def tick_defines(params, widths: Sequence[int]) -> Defines:
+    """The ``-D`` set of the full tick kernel for an env and Q-net widths
+    (``widths`` = obs_dim, hidden..., num_actions)."""
+    return env_defines(params) + net_defines(widths)
 
 
 def tick_config(params, widths: Sequence[int]) -> Config:
-    """The tick kernel's library for an env and Q-net widths."""
+    """The full tick kernel's library (B1 and B3) for an env and Q-net
+    widths."""
     return (TICK_SOURCE, tick_defines(params, widths))
+
+
+def env_config(params) -> Config:
+    """The env kernel's library for an env: the feature-major tick (B4,
+    ``tick_launch``) and the row-major step (B5, ``step_launch``)."""
+    return (ENV_SOURCE, env_defines(params))
 
 
 def learner_config(widths: Sequence[int]) -> Config:
@@ -171,7 +190,7 @@ def build_log(config: Config) -> str:
 
 
 def load(config: Config) -> ctypes.CDLL:
-    """The library of one config, built if needed. Its launch function
+    """The library of one config, built if needed. Each launch function
     takes (argument block, stream) and returns a CUDA error code."""
     config = _config(config)
     path = library_path(config)
@@ -181,9 +200,10 @@ def load(config: Config) -> ctypes.CDLL:
     if not os.path.exists(path):
         build([config])
     lib = ctypes.CDLL(path)
-    launch, error = ENTRY_POINTS[config[0]]
-    getattr(lib, launch).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    getattr(lib, launch).restype = ctypes.c_int
+    launches, error = ENTRY_POINTS[config[0]]
+    for launch in launches:
+        getattr(lib, launch).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        getattr(lib, launch).restype = ctypes.c_int
     getattr(lib, error).argtypes = [ctypes.c_int]
     getattr(lib, error).restype = ctypes.c_char_p
     lib.error_string = getattr(lib, error)

@@ -1,25 +1,35 @@
-"""The ring-engine training tick's env side: one kernel launch per tick.
+"""The training tick's env side: one kernel launch per tick.
 
-Counterpart of ``dronerl_tpu/ops/fused_tick.py`` (ring launch,
-``full_tick_fused_ring``). One launch does, for every env: the per-env
-threefry keys, the ε-greedy dense-Q actor reading the replay ring at
-``read_slot``, the physics, respawns and window observation, the periodic
-reset, and the write of the next observation into the ring at
-``write_slot`` (in place; other slots keep their contents). With
-``td_hparams`` (the in-kernel TD path) a second launch on the same stream,
-the learner kernel of ``ops/learner_kernel.py``, runs the TD(0) + Adam
-step that the TPU kernel runs on its grid step 0.
+Counterpart of ``dronerl_tpu/ops/fused_tick.py``, with its two kernels
+and three launches:
+
+* :func:`full_tick_fused_ring` (B1, the ring engine): per-env threefry
+  keys, the ε-greedy dense-Q actor reading the replay ring at
+  ``read_slot``, the physics, respawns and window observation, the
+  periodic reset, and the write of the next observation into the ring at
+  ``write_slot`` (in place; other slots keep their contents). With
+  ``td_hparams`` (the in-kernel TD path) a second launch on the same
+  stream, the learner kernel of ``ops/learner_kernel.py``, runs the TD(0)
+  + Adam step that the TPU kernel runs on its grid step 0.
+* :func:`full_tick_fused` (B3, the full engine): the same kernel with the
+  observation read from ``obs_t`` (294, E) f32 and the next one written
+  into a new array.
+* :func:`tick_fused` (B4, the fused engine): the physics, respawns and
+  window observation with actions from the caller; no actor, no reset.
 
 State is feature-major (field, env): ground (C, E) int8, drone fields
-(N, E). On CUDA tensors :func:`full_tick_fused_ring` launches the
-hand-written kernel in ``csrc/full_tick.cu``; on CPU tensors it runs
-:func:`full_tick_ring_plain`, the same function in plain PyTorch.
+(N, E). On CUDA tensors each wrapper launches its hand-written kernel
+(``csrc/full_tick.cu`` for B1 and B3, ``csrc/env_kernel.cu`` for B4, both
+on ``csrc/env_step.cuh``); on CPU tensors it runs its plain version
+(:func:`full_tick_ring_plain`, :func:`full_tick_plain`,
+:func:`tick_plain`), the same function in plain PyTorch.
 
 Key contract (as ``dronerl_tpu/ops/fused_tick.py``'s docstring): with
 ``S = split(step_key, E + 2)``, env e steps with key ``S[e]``, the actor
 draws its (N+1, E) uniform field from ``S[E]`` (row 0 gates exploration,
 rows 1..N are random actions ``floor(u * NUM_ACTIONS)``), and the
-periodic reset is ``core.reset_batch(S[E+1], params, E)``.
+periodic reset is ``core.reset_batch(S[E+1], params, E)``. :func:`tick_fused`
+steps env e with row e of ``split(step_key, E)``, which is ``S[e]``.
 
 The observation's charge channel (``charge / 100``) may differ from the
 JAX package by 1 ULP, where XLA turns the divide into a reciprocal
@@ -80,14 +90,15 @@ def from_tstate(tstate: TState, params: EnvParams) -> EnvState:
 
 
 def obs_rows(params: EnvParams) -> int:
-    """Rows of one observation in the ring (the flattened window)."""
+    """Rows of one observation (the flattened window)."""
     h, w, _ = params.obs_shape
     return h * w * NUM_OBS_CHANNELS
 
 
 def kernel_problems(params: EnvParams, num_envs: int,
                     hidden_layers=()) -> list:
-    """What the CUDA kernel does not take in this configuration."""
+    """What the CUDA tick kernels (B1, B3, B4) do not take in this
+    configuration."""
     problems = []
     if params.wrapper != "window":
         problems.append(f"wrapper={params.wrapper!r} (window only)")
@@ -129,6 +140,33 @@ def plain_actions(actor_key: torch.Tensor, obs_ring: torch.Tensor,
     return torch.cat([a0[None], rand[1:]], dim=0), q
 
 
+def _env_tick_plain(env_keys, tstate: TState, actions: torch.Tensor,
+                    reset_key: Optional[torch.Tensor], params: EnvParams):
+    """``core.step_batch`` of every env with its key (E, 2) and actions
+    (N, E); then, with ``reset_key``, ``core.reset_batch``; then the
+    observation. Returns ``(tstate', rewards (N, E), dones (N, E) bool,
+    obs (obs_dim, E) f32)``."""
+    num_envs = tstate.ground.shape[1]
+    state = from_tstate(tstate, params)
+    stepped, rewards, dones = core.step_batch(
+        env_keys, state, actions.t(), params)
+    if reset_key is not None:
+        stepped = core.reset_batch(reset_key, params, num_envs)
+    obs = core.observe_batch(stepped, params, 1).reshape(
+        num_envs, obs_rows(params)).t()
+    return (to_tstate(stepped), rewards.t().contiguous(),
+            dones.t().contiguous(), obs)
+
+
+def _plain_tick_actions(keys, obs, read_slot, net_params, epsilon, params,
+                        actions_override):
+    num_envs = keys.shape[0] - 2
+    if actions_override is not None:
+        return actions_override.to(device=obs.device, dtype=torch.int32)
+    return plain_actions(keys[num_envs], obs, read_slot, net_params,
+                         epsilon, params, num_envs)[0]
+
+
 def full_tick_ring_plain(
     step_key: torch.Tensor,
     tstate: TState,
@@ -141,7 +179,7 @@ def full_tick_ring_plain(
     params: EnvParams,
     actions_override: Optional[torch.Tensor] = None,
 ):
-    """The kernel's function in plain PyTorch, on any device.
+    """The ring launch's function in plain PyTorch, on any device.
 
     ``actions_override`` (N, E) replaces the actor's actions (the env
     side is then checked bitwise against the kernel's, independently of
@@ -149,85 +187,129 @@ def full_tick_ring_plain(
     ``(tstate', rewards (N, E), dones (N, E) bool, actions (N, E) int32,
     obs_ring)``.
     """
-    device = tstate.ground.device
     num_envs = tstate.ground.shape[1]
-    obs_dim = obs_rows(params)
-    keys = rng.split(step_key.to(device), num_envs + 2)
-
-    if actions_override is None:
-        actions, _ = plain_actions(keys[num_envs], obs_ring, read_slot,
-                                   net_params, epsilon, params, num_envs)
-    else:
-        actions = actions_override.to(device=device, dtype=torch.int32)
-
-    state = from_tstate(tstate, params)
-    stepped, rewards, dones = core.step_batch(
-        keys[:num_envs], state, actions.t(), params)
-    if do_reset:
-        stepped = core.reset_batch(keys[num_envs + 1], params, num_envs)
-    obs = core.observe_batch(stepped, params, 1).reshape(num_envs, obs_dim)
-    obs_ring[:obs_dim, write_slot:write_slot + num_envs] = obs.t().to(
+    keys = rng.split(step_key.to(tstate.ground.device), num_envs + 2)
+    actions = _plain_tick_actions(keys, obs_ring, read_slot, net_params,
+                                  epsilon, params, actions_override)
+    tstate, rewards, dones, obs = _env_tick_plain(
+        keys[:num_envs], tstate, actions,
+        keys[num_envs + 1] if do_reset else None, params)
+    obs_ring[:obs.shape[0], write_slot:write_slot + num_envs] = obs.to(
         obs_ring.dtype)
-    return (to_tstate(stepped), rewards.t().contiguous(),
-            dones.t().contiguous(), actions.contiguous(), obs_ring)
+    return tstate, rewards, dones, actions.contiguous(), obs_ring
 
 
-# --- the kernel's wrapper ----------------------------------------------------
+def full_tick_plain(
+    step_key: torch.Tensor,
+    tstate: TState,
+    obs_t: torch.Tensor,
+    net_params: DenseQNet,
+    epsilon: torch.Tensor,
+    do_reset: bool,
+    params: EnvParams,
+    actions_override: Optional[torch.Tensor] = None,
+):
+    """:func:`full_tick_fused`'s function in plain PyTorch, on any device
+    (``actions_override`` as in :func:`full_tick_ring_plain`). Returns
+    ``(tstate', rewards (N, E), dones (N, E) bool, actions (N, E) int32,
+    obs_t' (obs_dim, E) f32)``; ``obs_t`` is not written."""
+    num_envs = tstate.ground.shape[1]
+    keys = rng.split(step_key.to(tstate.ground.device), num_envs + 2)
+    actions = _plain_tick_actions(keys, obs_t, 0, net_params, epsilon,
+                                  params, actions_override)
+    tstate, rewards, dones, obs = _env_tick_plain(
+        keys[:num_envs], tstate, actions,
+        keys[num_envs + 1] if do_reset else None, params)
+    return tstate, rewards, dones, actions.contiguous(), obs.contiguous()
+
+
+def tick_plain(step_key: torch.Tensor, tstate: TState,
+               actions_t: torch.Tensor, params: EnvParams):
+    """:func:`tick_fused`'s function in plain PyTorch, on any device:
+    ``core.step_batch`` with row e of ``split(step_key, E)`` for env e and
+    ``observe_batch``, feature-major. Returns ``(tstate', rewards (N, E),
+    dones (N, E) bool, obs_t' (obs_dim, E) f32)``."""
+    num_envs = tstate.ground.shape[1]
+    keys = rng.split(step_key.to(tstate.ground.device), num_envs)
+    actions = actions_t.to(device=tstate.ground.device, dtype=torch.int32)
+    tstate, rewards, dones, obs = _env_tick_plain(keys, tstate, actions,
+                                                  None, params)
+    return tstate, rewards, dones, obs.contiguous()
+
+
+# --- the kernels' wrappers ---------------------------------------------------
+
+_STATE_FIELDS = ("ground_in", "ax_in", "ay_in", "carry_in", "charge_in")
+_OUT_FIELDS = ("ground_out", "ax_out", "ay_out", "carry_out", "charge_out")
+_REWARD_FIELDS = [("pickup_reward", ctypes.c_float),
+                  ("delivery_reward", ctypes.c_float),
+                  ("crash_reward", ctypes.c_float),
+                  ("charge_reward", ctypes.c_float)]
+
 
 class _TickArgs(ctypes.Structure):
     """Mirror of ``TickArgs`` in csrc/full_tick.cu (field order matters)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "ring", "ground_in", "ax_in", "ay_in", "carry_in", "charge_in", "eps",
-        "ground_out", "ax_out", "ay_out", "carry_out", "charge_out",
+        "obs_in", "obs_out", *_STATE_FIELDS, "eps", *_OUT_FIELDS,
         "rewards", "dones", "actions")] + [
         ("w", ctypes.c_void_p * MAX_LAYERS),
         ("b", ctypes.c_void_p * MAX_LAYERS),
-        ("ring_ld", ctypes.c_longlong),
+        ("in_ld", ctypes.c_longlong),
         ("read_col", ctypes.c_longlong),
+        ("out_ld", ctypes.c_longlong),
         ("write_col", ctypes.c_longlong),
         ("num_envs", ctypes.c_int),
-        ("ring_bf16", ctypes.c_int),
+        ("obs_bf16", ctypes.c_int),
         ("key0", ctypes.c_uint32),
         ("key1", ctypes.c_uint32),
         ("do_reset", ctypes.c_int),
-        ("pickup_reward", ctypes.c_float),
-        ("delivery_reward", ctypes.c_float),
-        ("crash_reward", ctypes.c_float),
-        ("charge_reward", ctypes.c_float),
-    ]
+    ] + _REWARD_FIELDS
+
+
+class EnvArgs(ctypes.Structure):
+    """Mirror of ``EnvArgs`` in csrc/env_kernel.cu, the block of both its
+    launches: B4 here and B5 in ``ops/step_kernel.py``."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        *_STATE_FIELDS, "actions", *_OUT_FIELDS, "rewards", "dones",
+        "obs_out")] + [
+        ("num_envs", ctypes.c_int),
+        ("key0", ctypes.c_uint32),
+        ("key1", ctypes.c_uint32),
+    ] + _REWARD_FIELDS
 
 
 def kernel_config(params: EnvParams, net_params: DenseQNet):
-    """The kernel's library: source and compile-time configuration (see
-    ops/_build.py)."""
+    """The full tick kernel's library (B1 and B3): source and compile-time
+    configuration (see ops/_build.py)."""
     return _build.tick_config(params, net_widths(net_params))
 
 
-def prepare_kernel(params: EnvParams, net_params: DenseQNet,
-                   in_kernel_td: bool = False):
+def prepare_kernel(params: EnvParams, net_params: Optional[DenseQNet] = None,
+                   in_kernel_td: bool = False, env_tick: bool = False):
     """Build (or load) the CUDA kernels for this configuration before the
-    first tick, so that the builds stay out of any timed region: the tick
-    kernel, and with ``in_kernel_td`` the learner kernel too."""
-    configs = [kernel_config(params, net_params)]
+    first tick, so that the builds stay out of any timed region: the full
+    tick kernel for ``net_params``, with ``in_kernel_td`` the learner
+    kernel too, with ``env_tick`` the env tick kernel (B4)."""
+    configs = []
+    if net_params is not None:
+        configs.append(kernel_config(params, net_params))
     if in_kernel_td:
         configs.append(_build.learner_config(net_widths(net_params)))
+    if env_tick:
+        configs.append(_build.env_config(params))
     _build.build(configs)
     return [_build.load(c) for c in configs]
 
 
-def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
-                 write_slot: int, net_params: DenseQNet, epsilon,
-                 do_reset: bool, params: EnvParams):
-    """Check the inputs, allocate the outputs and fill the launch's
-    argument block. Returns ``(args, (tstate', rewards, dones,
-    actions))``."""
+def _check_state(step_key, tstate: TState, params: EnvParams,
+                 hidden_layers=()):
+    """Check a tick's key and state against the kernels' limits; returns
+    (device, num_envs)."""
     device = tstate.ground.device
     num_envs = tstate.ground.shape[1]
-    n = params.n_drones
-    obs_dim = obs_rows(params)
-    widths = net_widths(net_params)
-    problems = kernel_problems(params, num_envs, widths[1:-1])
+    problems = kernel_problems(params, num_envs, hidden_layers)
     if problems:
         raise ValueError("the CUDA tick kernel does not take this "
                          "configuration: " + "; ".join(problems))
@@ -237,17 +319,53 @@ def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
                         ("air_y", tstate.air_y, torch.int32),
                         ("carrying", tstate.carrying, torch.int8),
                         ("charge", tstate.charge, torch.float32)):
-        check_tensor(t, name, dt, (n, num_envs), device)
-    if obs_ring.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"ring dtype {obs_ring.dtype} (float32 or bfloat16)")
-    capacity = obs_ring.shape[-1]
-    check_tensor(obs_ring, "obs_ring", obs_ring.dtype, (obs_dim, capacity),
-                 device)
-    for name, slot in (("read_slot", read_slot), ("write_slot", write_slot)):
-        if not 0 <= slot <= capacity - num_envs:
-            raise ValueError(f"{name}={slot} out of the ring")
-    if read_slot != write_slot and abs(read_slot - write_slot) < num_envs:
-        raise ValueError("the read and write columns overlap")
+        check_tensor(t, name, dt, (params.n_drones, num_envs), device)
+    if step_key.device.type != "cpu" or tuple(step_key.shape) != (2,):
+        raise ValueError("step_key must be a host key of shape (2,)")
+    return device, num_envs
+
+
+def _fill_env(a, step_key, tstate: TState, params: EnvParams):
+    """Outputs of the env side and the block's state, key and reward
+    fields. Returns ``(tstate', rewards, dones)``."""
+    device = tstate.ground.device
+    n, num_envs = tstate.air_x.shape
+    out = TState(*(torch.empty_like(t) for t in tstate))
+    rewards = torch.empty((n, num_envs), dtype=torch.float32, device=device)
+    dones = torch.empty((n, num_envs), dtype=torch.bool, device=device)
+    for name, t in zip(_STATE_FIELDS, tstate):
+        setattr(a, name, t.data_ptr())
+    for name, t in zip(_OUT_FIELDS, out):
+        setattr(a, name, t.data_ptr())
+    a.rewards, a.dones = rewards.data_ptr(), dones.data_ptr()
+    a.num_envs = num_envs
+    a.key0, a.key1 = (int(v) for v in step_key.tolist())
+    a.pickup_reward = params.pickup_reward
+    a.delivery_reward = params.delivery_reward
+    a.crash_reward = params.crash_reward
+    a.charge_reward = params.charge_reward
+    return out, rewards, dones
+
+
+def _tick_args(step_key, tstate: TState, obs_in, read_slot: int, obs_out,
+               write_slot: int, net_params: DenseQNet, epsilon,
+               do_reset: bool, params: EnvParams):
+    """Check the inputs of a full tick launch (B1 or B3), allocate its
+    outputs and fill its argument block. The observation is read from
+    ``obs_in``'s columns ``read_slot:read_slot+E`` and written into
+    ``obs_out``'s ``write_slot:write_slot+E``. Returns ``(args, (tstate',
+    rewards, dones, actions))``."""
+    obs_dim = obs_rows(params)
+    widths = net_widths(net_params)
+    device, num_envs = _check_state(step_key, tstate, params, widths[1:-1])
+    if obs_in.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"obs dtype {obs_in.dtype} (float32 or bfloat16)")
+    for name, obs, slot in (("obs_in", obs_in, read_slot),
+                            ("obs_out", obs_out, write_slot)):
+        check_tensor(obs, name, obs_in.dtype, (obs_dim, obs.shape[-1]),
+                     device)
+        if not 0 <= slot <= obs.shape[-1] - num_envs:
+            raise ValueError(f"slot {slot} out of {name}")
     check_tensor(epsilon, "epsilon", torch.float32, (), device)
     if widths[0] != obs_dim or widths[-1] != NUM_ACTIONS:
         raise ValueError(f"Q-net widths {widths}: expected {obs_dim} inputs "
@@ -256,55 +374,71 @@ def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
         check_tensor(w, f"kernel_{i}", torch.float32,
                      (widths[i], widths[i + 1]), device)
         check_tensor(b, f"bias_{i}", torch.float32, (widths[i + 1],), device)
-    if step_key.device.type != "cpu" or tuple(step_key.shape) != (2,):
-        raise ValueError("step_key must be a host key of shape (2,)")
-
-    out = TState(*(torch.empty_like(t) for t in tstate))
-    rewards = torch.empty((n, num_envs), dtype=torch.float32, device=device)
-    dones = torch.empty((n, num_envs), dtype=torch.bool, device=device)
-    actions = torch.empty((n, num_envs), dtype=torch.int32, device=device)
 
     a = _TickArgs()
-    a.ring = obs_ring.data_ptr()
-    (a.ground_in, a.ax_in, a.ay_in, a.carry_in, a.charge_in) = (
-        t.data_ptr() for t in tstate)
+    out, rewards, dones = _fill_env(a, step_key, tstate, params)
+    actions = torch.empty_like(tstate.air_x)
+    a.obs_in, a.obs_out = obs_in.data_ptr(), obs_out.data_ptr()
     a.eps = epsilon.data_ptr()
-    (a.ground_out, a.ax_out, a.ay_out, a.carry_out, a.charge_out) = (
-        t.data_ptr() for t in out)
-    a.rewards, a.dones, a.actions = (
-        rewards.data_ptr(), dones.data_ptr(), actions.data_ptr())
+    a.actions = actions.data_ptr()
     for i, (w, b) in enumerate(zip(net_params.kernels, net_params.biases)):
         a.w[i] = w.data_ptr()
         a.b[i] = b.data_ptr()
-    a.ring_ld = capacity
-    a.read_col = read_slot
-    a.write_col = write_slot
-    a.num_envs = num_envs
-    a.ring_bf16 = int(obs_ring.dtype == torch.bfloat16)
-    a.key0, a.key1 = (int(v) for v in step_key.tolist())
+    a.in_ld, a.read_col = obs_in.shape[-1], read_slot
+    a.out_ld, a.write_col = obs_out.shape[-1], write_slot
+    a.obs_bf16 = int(obs_in.dtype == torch.bfloat16)
     a.do_reset = int(bool(do_reset))
-    a.pickup_reward = params.pickup_reward
-    a.delivery_reward = params.delivery_reward
-    a.crash_reward = params.crash_reward
-    a.charge_reward = params.charge_reward
-
     return a, (out, rewards, dones, actions)
 
 
-def _launch_kernel(step_key, tstate: TState, obs_ring, read_slot: int,
-                   write_slot: int, net_params: DenseQNet, epsilon,
-                   do_reset: bool, params: EnvParams):
-    args, (out, rewards, dones, actions) = _kernel_args(
-        step_key, tstate, obs_ring, read_slot, write_slot, net_params,
-        epsilon, do_reset, params)
-    lib = _build.load(kernel_config(params, net_params))
-    stream = torch.cuda.current_stream(tstate.ground.device).cuda_stream
-    err = lib.full_tick_ring_launch(ctypes.byref(args), stream)
+def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
+                 write_slot: int, net_params: DenseQNet, epsilon,
+                 do_reset: bool, params: EnvParams):
+    """The ring launch's (B1) argument block: the ring is both the
+    observation read and the one written, at columns that must not
+    overlap unless they are equal. Returns ``(args, (tstate', rewards,
+    dones, actions))``."""
+    num_envs = tstate.ground.shape[1]
+    if read_slot != write_slot and abs(read_slot - write_slot) < num_envs:
+        raise ValueError("the read and write columns overlap")
+    return _tick_args(step_key, tstate, obs_ring, read_slot, obs_ring,
+                      write_slot, net_params, epsilon, do_reset, params)
+
+
+def _full_args(step_key, tstate: TState, obs_t, net_params: DenseQNet,
+               epsilon, do_reset: bool, params: EnvParams):
+    """The obs launch's (B3) argument block: ``obs_t`` (obs_dim, E) f32 is
+    read, a new array of its shape written. Returns ``(args, (tstate',
+    rewards, dones, actions, obs_t'))``."""
+    num_envs = tstate.ground.shape[1]
+    if obs_t.dtype != torch.float32 or obs_t.shape[-1] != num_envs:
+        raise ValueError(f"obs_t must be float32 (obs_dim, {num_envs})")
+    obs_next = torch.empty_like(obs_t)
+    a, outs = _tick_args(step_key, tstate, obs_t, 0, obs_next, 0,
+                         net_params, epsilon, do_reset, params)
+    return a, outs + (obs_next,)
+
+
+def _env_tick_args(step_key, tstate: TState, actions_t, params: EnvParams):
+    """The env tick launch's (B4) argument block. Returns ``(args,
+    (tstate', rewards, dones, obs_t'))``."""
+    device, num_envs = _check_state(step_key, tstate, params)
+    check_tensor(actions_t, "actions_t", torch.int32,
+                 (params.n_drones, num_envs), device)
+    a = EnvArgs()
+    out, rewards, dones = _fill_env(a, step_key, tstate, params)
+    obs_next = torch.empty((obs_rows(params), num_envs),
+                           dtype=torch.float32, device=device)
+    a.actions, a.obs_out = actions_t.data_ptr(), obs_next.data_ptr()
+    return a, (out, rewards, dones, obs_next)
+
+
+def _launch(config, entry: str, args, device):
+    lib = _build.load(config)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, entry)(ctypes.byref(args), stream)
     if err != 0:
-        raise RuntimeError("full_tick_ring kernel launch failed: "
-                           + _build.error_string(lib, err))
-    full_tick_fused_ring.launches += 1
-    return out, rewards, dones, actions, obs_ring
+        raise RuntimeError(f"{entry} failed: " + _build.error_string(lib, err))
 
 
 def full_tick_fused_ring(
@@ -353,9 +487,13 @@ def full_tick_fused_ring(
     if td and (td_batch is None or td_aux is None):
         raise ValueError("in-kernel TD needs td_batch and td_aux")
     if tstate.ground.is_cuda:
-        out = _launch_kernel(step_key, tstate, obs_ring, read_slot,
-                             write_slot, net_params, epsilon, do_reset,
-                             params)
+        args, outs = _kernel_args(step_key, tstate, obs_ring, read_slot,
+                                  write_slot, net_params, epsilon, do_reset,
+                                  params)
+        _launch(kernel_config(params, net_params), "full_tick_ring_launch",
+                args, tstate.ground.device)
+        full_tick_fused_ring.launches += 1
+        out = outs + (obs_ring,)
     else:
         out = full_tick_ring_plain(step_key, tstate, obs_ring, read_slot,
                                    write_slot, net_params, epsilon, do_reset,
@@ -374,6 +512,60 @@ def full_tick_fused_ring(
 
 
 full_tick_fused_ring.launches = 0
+
+
+def full_tick_fused(step_key: torch.Tensor, tstate: TState,
+                    obs_t: torch.Tensor, net_params: DenseQNet,
+                    epsilon: torch.Tensor, do_reset: bool,
+                    params: EnvParams, collect: int = 1):
+    """The whole env side of a full-engine tick (B3): the ε-greedy actor
+    on ``obs_t`` (obs_dim, E) f32, the physics and respawns, the reset
+    when ``do_reset`` (a host bool), and the next observation into a new
+    array. Returns ``(tstate', rewards (N, E) f32, dones (N, E) bool,
+    actions (N, E) int32, obs_t' (obs_dim, E) f32)``.
+
+    CUDA tensors launch the kernel (counted in ``full_tick_fused.
+    launches``); CPU tensors run :func:`full_tick_plain`.
+    """
+    if collect != 1:
+        raise NotImplementedError("collect_drones > 1 is not ported yet")
+    if not tstate.ground.is_cuda:
+        return full_tick_plain(step_key, tstate, obs_t, net_params, epsilon,
+                               do_reset, params)
+    args, outs = _full_args(step_key, tstate, obs_t, net_params, epsilon,
+                            do_reset, params)
+    _launch(kernel_config(params, net_params), "full_tick_launch", args,
+            tstate.ground.device)
+    full_tick_fused.launches += 1
+    return outs
+
+
+full_tick_fused.launches = 0
+
+
+def tick_fused(step_key: torch.Tensor, tstate: TState,
+               actions_t: torch.Tensor, params: EnvParams,
+               collect: int = 1):
+    """Step and observe every env with the caller's actions (B4):
+    ``actions_t`` (N, E) int32, ``step_key`` a host key (2,). Returns
+    ``(tstate', rewards (N, E) f32, dones (N, E) bool, obs_t' (obs_dim, E)
+    f32)``.
+
+    CUDA tensors launch the kernel (counted in ``tick_fused.launches``);
+    CPU tensors run :func:`tick_plain`.
+    """
+    if collect != 1:
+        raise NotImplementedError("collect_drones > 1 is not ported yet")
+    if not tstate.ground.is_cuda:
+        return tick_plain(step_key, tstate, actions_t, params)
+    args, outs = _env_tick_args(step_key, tstate, actions_t, params)
+    _launch(_build.env_config(params), "tick_launch", args,
+            tstate.ground.device)
+    tick_fused.launches += 1
+    return outs
+
+
+tick_fused.launches = 0
 
 
 # --- ring companions ---------------------------------------------------------

@@ -1,11 +1,13 @@
-"""DQN training on the ring engine (counterpart of ``dronerl_tpu/train.py``).
+"""DQN training (counterpart of ``dronerl_tpu/train.py``): the ring engine
+and the two StreamReplay engines.
 
-One tick: split the host key three ways; one launch of the fused tick
-kernel (the whole env side: actor, physics, respawns, observation, the
-periodic reset, the write of the next observation into the replay ring);
-the scalar-ring writes; a uniform replay sample off the ring; the TD(0)
-Adam step; the target and ε schedules. The replay ring IS the kernel's
-observation buffer, written in place.
+Ring engine (:func:`build_train_step_ring`). One tick: split the host
+key three ways; one launch of the fused tick kernel (the whole env side:
+actor, physics, respawns, observation, the periodic reset, the write of
+the next observation into the replay ring); the scalar-ring writes; a
+uniform replay sample off the ring; the TD(0) Adam step; the target and
+ε schedules. The replay ring IS the kernel's observation buffer, written
+in place.
 
 With ``in_kernel_td`` the TD(0) + Adam step is one launch of the learner
 kernel right after the tick kernel's, on the batch gathered after the
@@ -13,10 +15,27 @@ tick before (carried in the carry's ``aux`` slot), as the JAX trainer's
 in-kernel TD path pipelines it; the default is the PyTorch learner
 (``DQN.train_step_t``), as in the JAX trainer.
 
+Full engine (:func:`build_train_step_full`). One tick: split the host
+key three ways; one launch of the full tick kernel (B3: the actor on the
+carried observation, the env side, the periodic reset, the next
+observation into a new array); push the tick's input observation and
+drone 0's action, reward and done into a ``replay.StreamReplay``; sample
+and take the TD(0) Adam step once the replay can be sampled; the
+schedules.
+
+Fused engine (:func:`build_train_step_fused`, dense nets). One tick:
+split the host key six ways; random opponents and drone 0's ε-greedy
+action (``DQN.act_t``) drawn on the device; one launch of the env tick
+kernel (B4); push, sample, learn and schedules as the full engine; on a
+reset tick, ``core.reset_batch`` and ``observe_batch`` in plain PyTorch.
+
+The CLI chooses an engine as the JAX CLI does (:func:`choose_engine`).
+
 The step counter, the ring slot arithmetic, the reset flag, the count of
-valid columns and the rng chain stay on the host: they are a few scalar
-hashes a tick, and reading them back from the device every tick would
-serialise the loop. The key words reach the kernel as launch arguments.
+valid columns, the replay's cursor and size and the rng chain stay on the
+host: they are a few scalar hashes a tick, and reading them back from the
+device every tick would serialise the loop. The key words reach the
+kernels as launch arguments.
 
 Run:  python -m dronerl_tpu_torch.train --num_envs 65536 --num_steps 300
 """
@@ -31,10 +50,10 @@ from typing import Optional
 
 import torch
 
-from dronerl_tpu_torch import resolve_device, rng as rng_mod
+from dronerl_tpu_torch import replay, resolve_device, rng as rng_mod
 from dronerl_tpu_torch.agents.dqn import (
     ADAM_B1, ADAM_B2, ADAM_EPS, DQN, DQNConfig)
-from dronerl_tpu_torch.constants import NO_TRAIN_LOSS
+from dronerl_tpu_torch.constants import NO_TRAIN_LOSS, NUM_ACTIONS
 from dronerl_tpu_torch.env import core as env_core
 from dronerl_tpu_torch.env.types import EnvParams
 from dronerl_tpu_torch.ops import fused_tick
@@ -170,6 +189,174 @@ def init_ring_carry(agent: DQN, env_params: EnvParams, num_envs: int,
     )
 
 
+# --- the StreamReplay engines -----------------------------------------------
+
+def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
+                    ag_state, sample_key, obs_t, actions_t, rewards_t,
+                    dones_t):
+    """Push the tick's input observation with drone 0's action, reward and
+    done; sample and take the TD step once the replay can be sampled
+    (else loss ``NO_TRAIN_LOSS``). Returns ``(bstate, ag_state, loss)``."""
+    bstate = buffer.push_many(bstate, {
+        "obs": obs_t, "actions": actions_t[0], "rewards": rewards_t[0],
+        "dones": dones_t[0]})
+    if buffer.can_sample(bstate):
+        batch = buffer.sample(sample_key, bstate)
+        batch["dones"] = batch["dones"].to(torch.float32)
+        ag_state, loss = agent.train_step_t(ag_state, batch)
+    else:
+        loss = torch.tensor(NO_TRAIN_LOSS, device=agent.device)
+    return bstate, ag_state, loss
+
+
+def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
+                          env_params: EnvParams, num_envs: int,
+                          reset_env_every: int, collect_drones: int = 1):
+    """The full-engine tick around the full tick kernel (B3): ``tick(carry)
+    -> (carry, (rewards (E,), epsilon, loss))`` with the JAX trainer's
+    carry ``(rng, tstate, obs_t, ag_state, bstate, step)``
+    (:func:`init_stream_carry`). ``loss`` is ``NO_TRAIN_LOSS`` on ticks
+    where the replay holds fewer than a batch of transitions."""
+    if collect_drones != 1:
+        raise NotImplementedError("collect_drones > 1 is not ported yet")
+
+    def tick(carry):
+        rng, tstate, obs_t, ag_state, bstate, step = carry
+        rng, step_key, sample_key = rng_mod.split(rng, 3)
+        tstate, rewards_t, dones_t, actions_t, next_obs_t = (
+            fused_tick.full_tick_fused(
+                step_key, tstate, obs_t, ag_state.params, ag_state.epsilon,
+                step % reset_env_every == 0, env_params))
+        bstate, ag_state, loss = _push_and_learn(
+            agent, buffer, bstate, ag_state, sample_key, obs_t, actions_t,
+            rewards_t, dones_t)
+        ag_state = agent.apply_schedules(ag_state, step, dones_t[0, 0])
+        carry = (rng, tstate, next_obs_t, ag_state, bstate, step + 1)
+        return carry, (rewards_t[0], ag_state.epsilon, loss)
+
+    return tick
+
+
+def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
+                           env_params: EnvParams, num_envs: int,
+                           reset_env_every: int, collect_drones: int = 1):
+    """The fused-engine tick around the env tick kernel (B4), for dense
+    nets: the actions come from outside the kernel (random opponents and
+    drone 0's ``DQN.act_t``, drawn on the device) and the periodic reset
+    runs after the step in plain PyTorch. Carry and outputs as
+    :func:`build_train_step_full`."""
+    if collect_drones != 1:
+        raise NotImplementedError("collect_drones > 1 is not ported yet")
+    obs_dim = agent.obs_dim
+    device = agent.device
+
+    def tick(carry):
+        rng, tstate, obs_t, ag_state, bstate, step = carry
+        rng, rand_key, act_key, step_key, sample_key, reset_key = (
+            rng_mod.split(rng, 6))
+        # N x E and E counters: hashed on the device, not the host.
+        actions_t = rng_mod.randint(rand_key.to(device),
+                                    (env_params.n_drones, num_envs), 0,
+                                    NUM_ACTIONS)
+        actions_t[0] = agent.act_t(act_key, obs_t[:obs_dim], ag_state)
+        tstate, rewards_t, dones_t, next_obs_t = fused_tick.tick_fused(
+            step_key, tstate, actions_t, env_params)
+        bstate, ag_state, loss = _push_and_learn(
+            agent, buffer, bstate, ag_state, sample_key, obs_t, actions_t,
+            rewards_t, dones_t)
+        ag_state = agent.apply_schedules(ag_state, step, dones_t[0, 0])
+        if step % reset_env_every == 0:
+            states = env_core.reset_batch(reset_key.to(device), env_params,
+                                          num_envs)
+            tstate = fused_tick.to_tstate(states)
+            next_obs_t = env_core.observe_batch(states, env_params, 1).reshape(
+                num_envs, obs_dim).t().contiguous()
+        carry = (rng, tstate, next_obs_t, ag_state, bstate, step + 1)
+        return carry, (rewards_t[0], ag_state.epsilon, loss)
+
+    return tick
+
+
+def init_stream_carry(agent: DQN, env_params: EnvParams, num_envs: int,
+                      buffer: replay.StreamReplay, rng: torch.Tensor,
+                      generator: Optional[torch.Generator] = None):
+    """Initial carry ``(rng, tstate, obs_t, ag_state, bstate, 0)`` for the
+    StreamReplay engines: envs reset with ``rng``, their observation
+    (obs_dim, E) f32, a fresh agent from ``generator`` (default: seeded
+    from the key's words) and an empty replay on the agent's device."""
+    device = agent.device
+    if generator is None:
+        k0, k1 = (int(v) for v in rng.tolist())
+        generator = torch.Generator().manual_seed((k0 << 32) | k1)
+    env_states = env_core.reset_batch(rng.to(device), env_params, num_envs)
+    obs_t = env_core.observe_batch(env_states, env_params, 1).reshape(
+        num_envs, agent.obs_dim).t().contiguous()
+    bstate = buffer.init({
+        "obs": torch.zeros((agent.obs_dim,), dtype=torch.float32),
+        "actions": torch.zeros((), dtype=torch.int32),
+        "rewards": torch.zeros((), dtype=torch.float32),
+        "dones": torch.zeros((), dtype=torch.bool),
+    }, device=device)
+    return (rng.cpu(), fused_tick.to_tstate(env_states), obs_t,
+            agent.init_state(generator), bstate, 0)
+
+
+# --- engine choice -----------------------------------------------------------
+
+def ring_skip_reasons(dense: bool, ring_capacity: int, push_size: int,
+                      batch_size: int, collect_drones: int) -> list:
+    """Why a configuration of the fused family falls off the ring engine:
+    the JAX CLI's ``use_ring`` gate, one reason per failed condition."""
+    reasons = []
+    if not dense:
+        reasons.append("conv network (the ring engine's actor is dense)")
+    if ring_capacity > 4 * push_size:
+        reasons.append(
+            f"replay ring of {ring_capacity} transitions > 4 env-batches "
+            f"({4 * push_size}); shrink --memory_size or raise --num_envs "
+            "to run the ring engine")
+    if batch_size % collect_drones != 0:
+        reasons.append(f"--batch_size {batch_size} not divisible by "
+                       f"--collect_drones {collect_drones}")
+    return reasons
+
+
+def choose_engine(args, env_params: EnvParams) -> str:
+    """``"ring"`` or ``"full"``, by the JAX CLI's rule: the ring engine when
+    the ring holds at most 4 env-batches (``ring_skip_reasons`` is
+    empty), else the full engine over a StreamReplay. Logs the choice and
+    why the ring was skipped; warns where the JAX CLI would run its jnp
+    engine, which is not ported (the port keeps the fused family there)."""
+    if args.engine == "jnp":
+        raise NotImplementedError(
+            "--engine jnp: the jnp engine (build_train_step with "
+            "ReplayBuffer) is not ported yet (ROADMAP A7)")
+    # The JAX CLI's fused_engine_problems, against the kernels' limits.
+    problems = fused_tick.kernel_problems(env_params, args.num_envs)
+    if problems:
+        raise NotImplementedError(
+            "the port's kernels do not take this configuration ("
+            + "; ".join(problems) + "); the JAX CLI runs its jnp engine "
+            "here, which is not ported yet (ROADMAP A7)")
+    # The JAX CLI's fused kernels tile envs over 128-lane blocks.
+    if args.engine == "auto" and (args.num_envs < 128
+                                  or args.num_envs % 128 != 0):
+        logger.warning(
+            "the JAX CLI would run its jnp engine here (num_envs=%d: fewer "
+            "than 128 or not a multiple of 128); the jnp engine is not "
+            "ported (ROADMAP A7), so the port runs the fused family",
+            args.num_envs)
+    push_size = args.num_envs  # collect_drones = 1
+    capacity = math.ceil(args.memory_size / push_size) * push_size
+    skip = ring_skip_reasons(True, max(capacity, 2 * push_size), push_size,
+                             args.batch_size, 1)
+    engine = "full" if skip else "ring"
+    logger.info("Engine: %s", engine)
+    if skip:
+        logger.info("Ring engine skipped (%s)", "; ".join(skip))
+    return engine
+
+
 # --- CLI ---------------------------------------------------------------------
 
 def env_params_from_args(args) -> EnvParams:
@@ -211,7 +398,7 @@ def agent_config_from_args(args) -> DQNConfig:
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
-        description="Ring-engine DQN training (PyTorch/CUDA port)",
+        description="DQN training (PyTorch/CUDA port)",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     # env
     p.add_argument("--n_drones", type=int, default=4)
@@ -243,14 +430,19 @@ def parse_args(argv=None):
     p.add_argument("--target_update_interval", type=int, default=10)
     p.add_argument("--reset_env_every", type=int, default=100)
     p.add_argument("--ring_obs_dtype", choices=["bfloat16", "float32"],
-                   default="bfloat16")
+                   default="bfloat16", help="the ring engine's ring")
+    p.add_argument("--engine", choices=["auto", "fused", "jnp"],
+                   default="auto",
+                   help="auto/fused: the ring engine when the replay holds "
+                   "at most 4 env-batches, else the full engine over a "
+                   "StreamReplay; jnp is not ported yet")
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernel) or cpu (the plain PyTorch path)")
     args, unknown = p.parse_known_args(argv)
     if unknown:
         raise SystemExit(
-            "not supported by the PyTorch port yet (only the ring engine "
-            "with dense nets and collect_drones=1 is ported): "
+            "not supported by the PyTorch port yet (only the fused engines "
+            "with dense nets and collect_drones=1 are ported): "
             + " ".join(unknown))
     if args.num_envs <= 0:
         raise ValueError("num_envs must be >= 1")
@@ -267,16 +459,27 @@ def train(args) -> dict:
     num_envs = args.num_envs
     capacity = math.ceil(args.memory_size / num_envs) * num_envs
     ring_capacity = max(capacity, 2 * num_envs)
-    obs_dtype = getattr(torch, args.ring_obs_dtype)
-    logger.info("env %s | agent %s | %d envs, ring %d columns (%s) on %s",
-                env_params, agent.config, num_envs, ring_capacity,
-                args.ring_obs_dtype, device)
-
-    tick = build_train_step_ring(
-        agent, env_params, num_envs, ring_capacity, args.batch_size,
-        args.reset_env_every)
-    carry = init_ring_carry(agent, env_params, num_envs, ring_capacity,
-                            rng_mod.PRNGKey(args.seed), obs_dtype=obs_dtype)
+    engine = choose_engine(args, env_params)
+    rng = rng_mod.PRNGKey(args.seed)
+    if engine == "ring":
+        logger.info("env %s | agent %s | %d envs, ring %d columns (%s) on %s",
+                    env_params, agent.config, num_envs, ring_capacity,
+                    args.ring_obs_dtype, device)
+        tick = build_train_step_ring(
+            agent, env_params, num_envs, ring_capacity, args.batch_size,
+            args.reset_env_every)
+        carry = init_ring_carry(agent, env_params, num_envs, ring_capacity,
+                                rng, obs_dtype=getattr(
+                                    torch, args.ring_obs_dtype))
+    else:
+        logger.info("env %s | agent %s | %d envs, StreamReplay of %d slots "
+                    "(float32) on %s", env_params, agent.config, num_envs,
+                    ring_capacity, device)
+        buffer = replay.StreamReplay(ring_capacity, args.batch_size,
+                                     stride=num_envs)
+        tick = build_train_step_full(agent, buffer, env_params, num_envs,
+                                     args.reset_env_every)
+        carry = init_stream_carry(agent, env_params, num_envs, buffer, rng)
     if device.type == "cuda":
         t0 = time.perf_counter()
         fused_tick.prepare_kernel(env_params, carry[3].params)
@@ -293,6 +496,7 @@ def train(args) -> dict:
     losses = torch.stack(losses).cpu()
     trained = losses[losses >= 0]
     metrics = {
+        "engine": engine,
         "obs_per_sec": num_envs * args.num_steps / elapsed,
         "time_taken": elapsed,
         "last_reward_mean": mean_reward,
@@ -301,9 +505,10 @@ def train(args) -> dict:
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
     }
-    logger.info("Trained %s steps × %s envs in %.2fs → %s obs/s on %s",
-                f"{args.num_steps:,}", f"{num_envs:,}", elapsed,
-                f"{metrics['obs_per_sec']:,.0f}", metrics["device"])
+    logger.info("Trained %s steps × %s envs in %.2fs → %s obs/s on %s "
+                "(%s engine)", f"{args.num_steps:,}", f"{num_envs:,}",
+                elapsed, f"{metrics['obs_per_sec']:,.0f}", metrics["device"],
+                engine)
     return metrics
 
 

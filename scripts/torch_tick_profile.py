@@ -1,13 +1,19 @@
-"""Where one tick of the PyTorch port's main path spends its time, on a card.
+"""Where one tick of the PyTorch port's trainer spends its time, on a card.
 
-Runs the ring-engine trainer (``dronerl_tpu_torch.train``) at the bench
-configuration (grid 9, 4 drones, radius 3, 65,536 envs, ring of 131,072
-bf16 columns, batch 8, reset every 100) and reports:
+Runs one of the trainer's engines (``dronerl_tpu_torch.train``) at the
+bench configuration (grid 9, 4 drones, radius 3, 65,536 envs, batch 8,
+reset every 100): ``--engine ring`` (the default) with a ring of 131,072
+bf16 columns; ``--engine full`` (kernel B3) or ``--engine fused`` (kernel
+B4, the actions and the reset outside the kernel) over a StreamReplay of
+1,048,576 f32 slots (``--memory_size 1000000`` rounded up to 16
+env-batches). It reports:
 
 * wall time per tick (host clock around ticks ending in a synchronise);
-* host wall time per phase of the tick (the fused kernel's wrapper, the
-  replay gather with its randint, the learner step, the schedules, the
-  host rng split), timed by wrapping each phase's function;
+* host wall time per phase of the tick (the kernel's wrapper, the replay
+  gather with its randint or the StreamReplay push and sample, the
+  fused engine's actor and random opponents and its reset, the learner
+  step, the schedules, the host rng split), timed by wrapping each
+  phase's function;
 * under ``torch.profiler``: device time per kernel, launches per tick,
   and the device's busy share of the unprofiled tick.
 
@@ -21,6 +27,8 @@ Run on a machine with a CUDA card, from the repository root:
     python scripts/torch_tick_profile.py --hidden 16 16
     python scripts/torch_tick_profile.py --hidden 128 64 --trace out.json
     python scripts/torch_tick_profile.py --hidden 16 16 --in_kernel_td
+    python scripts/torch_tick_profile.py --hidden 16 16 --engine full
+    python scripts/torch_tick_profile.py --hidden 16 16 --engine fused
 """
 
 import argparse
@@ -35,15 +43,37 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from dronerl_tpu_torch import rng, train  # noqa: E402
+from dronerl_tpu_torch import replay, rng, train  # noqa: E402
 from dronerl_tpu_torch.agents import dqn  # noqa: E402
+from dronerl_tpu_torch.env import core  # noqa: E402
 from dronerl_tpu_torch.env.types import EnvParams  # noqa: E402
 from dronerl_tpu_torch.ops import fused_tick  # noqa: E402
 
+STREAM_CAPACITY = 1048576  # ceil(1e6 / 65,536) env-batches
+
+# Phases by engine; a phase's function called inside another phase counts
+# to the outer one.
 PHASES = {
-    "kernel": (fused_tick, "full_tick_fused_ring"),
-    "gather": (fused_tick, "ring_gather_batch"),
-    "scalar_writes": (fused_tick, "ring_scalar_writes"),
+    "ring": {
+        "kernel": (fused_tick, "full_tick_fused_ring"),
+        "gather": (fused_tick, "ring_gather_batch"),
+        "scalar_writes": (fused_tick, "ring_scalar_writes"),
+    },
+    "full": {
+        "kernel": (fused_tick, "full_tick_fused"),
+        "push": (replay.StreamReplay, "push_many"),
+        "sample": (replay.StreamReplay, "sample"),
+    },
+    "fused": {
+        "kernel": (fused_tick, "tick_fused"),
+        "push": (replay.StreamReplay, "push_many"),
+        "sample": (replay.StreamReplay, "sample"),
+        "actor": (dqn.DQN, "act_t"),
+        "opponents": (rng, "randint"),
+        "reset": (core, "reset_batch"),
+    },
+}
+COMMON_PHASES = {
     "learner": (dqn.DQN, "train_step_t"),
     "schedules": (dqn.DQN, "apply_schedules"),
     "rng_split": (rng, "split"),
@@ -51,7 +81,7 @@ PHASES = {
 
 
 @contextlib.contextmanager
-def phase_timers(totals):
+def phase_timers(totals, phases):
     """Add each phase's host wall time (outermost calls only: the split
     inside the gather's randint counts to the gather) into ``totals``."""
     saved, depth = {}, [0]
@@ -70,7 +100,7 @@ def phase_timers(totals):
         wrapper.__dict__.update(fn.__dict__)
         return wrapper
 
-    for name, (owner, attr) in PHASES.items():
+    for name, (owner, attr) in phases.items():
         saved[(owner, attr)] = getattr(owner, attr)
         setattr(owner, attr, timed(name, saved[(owner, attr)]))
     try:
@@ -89,8 +119,13 @@ def main(argv=None):
     p.add_argument("--trace", default=None,
                    help="write the profiler's chrome trace here")
     p.add_argument("--in_kernel_td", action="store_true",
-                   help="the learner kernel instead of the autograd learner")
+                   help="the learner kernel instead of the autograd learner "
+                   "(ring engine)")
+    p.add_argument("--engine", choices=["ring", "full", "fused"],
+                   default="ring")
     args = p.parse_args(argv)
+    if args.in_kernel_td and args.engine != "ring":
+        sys.exit("torch_tick_profile: --in_kernel_td runs on the ring engine")
     if not torch.cuda.is_available():
         sys.exit("torch_tick_profile: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -105,14 +140,27 @@ def main(argv=None):
                                   target_update_interval=10, gamma=0.9),
                     params, device="cuda")
     num_envs = args.num_envs
-    capacity = max(-(-100_000 // num_envs) * num_envs, 2 * num_envs)
     td = args.in_kernel_td
-    tick = train.build_train_step_ring(agent, params, num_envs, capacity, 8,
-                                       100, in_kernel_td=td)
-    carry = train.init_ring_carry(agent, params, num_envs, capacity,
-                                  rng.PRNGKey(0), obs_dtype=torch.bfloat16,
-                                  batch_size=8, in_kernel_td=td)
-    fused_tick.prepare_kernel(params, carry[3].params, in_kernel_td=td)
+    if args.engine == "ring":
+        capacity = max(-(-100_000 // num_envs) * num_envs, 2 * num_envs)
+        tick = train.build_train_step_ring(agent, params, num_envs, capacity,
+                                           8, 100, in_kernel_td=td)
+        carry = train.init_ring_carry(agent, params, num_envs, capacity,
+                                      rng.PRNGKey(0),
+                                      obs_dtype=torch.bfloat16,
+                                      batch_size=8, in_kernel_td=td)
+    else:
+        capacity = max(-(-STREAM_CAPACITY // num_envs) * num_envs,
+                       2 * num_envs)
+        buf = replay.StreamReplay(capacity, 8, stride=num_envs)
+        build = {"full": train.build_train_step_full,
+                 "fused": train.build_train_step_fused}[args.engine]
+        tick = build(agent, buf, params, num_envs, 100)
+        carry = train.init_stream_carry(agent, params, num_envs, buf,
+                                        rng.PRNGKey(0))
+    fused_tick.prepare_kernel(
+        params, None if args.engine == "fused" else carry[3].params,
+        in_kernel_td=td, env_tick=args.engine == "fused")
     for _ in range(10):
         carry, _ = tick(carry)
     torch.cuda.synchronize()
@@ -125,7 +173,7 @@ def main(argv=None):
 
     n = args.ticks
     totals = {}
-    with phase_timers(totals):
+    with phase_timers(totals, {**PHASES[args.engine], **COMMON_PHASES}):
         t0 = time.perf_counter()
         for _ in range(n):
             carry, _ = tick(carry)
@@ -156,7 +204,9 @@ def main(argv=None):
     result = {
         "card": card,
         "hidden": args.hidden,
+        "engine": args.engine,
         "in_kernel_td": td,
+        "capacity": capacity,
         "num_envs": num_envs,
         "tick_ms": tick_ms,
         "obs_per_sec": num_envs / tick_ms * 1e3,

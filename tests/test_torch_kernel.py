@@ -1,5 +1,6 @@
-"""The CUDA kernels' wrappers, builds and launches: the tick kernel and
-the learner kernel.
+"""The CUDA kernels' wrappers, builds and launches: the full tick kernel
+(ring and obs launches), the env tick kernel, the row-major step kernel
+and the learner kernel.
 
 No JAX here: the ``gpu`` tests run on a machine with a card, where the
 JAX package is not installed, by
@@ -19,11 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from dronerl_tpu_torch import rng, train
+from dronerl_tpu_torch import replay, rng, train
 from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
 from dronerl_tpu_torch.env import core
 from dronerl_tpu_torch.env.types import EnvParams
-from dronerl_tpu_torch.ops import _build, fused_tick, learner_kernel
+from dronerl_tpu_torch.ops import (
+    _build, fused_tick, learner_kernel, step_kernel)
 
 E = 128
 CHARGE_ATOL = 1.3e-7
@@ -45,11 +47,13 @@ def test_kernel_args_block():
     args = _kernel_inputs(dtype=torch.bfloat16)
     block, (out, rewards, dones, actions) = fused_tick._kernel_args(*args)
     key, ts, ring, read, write, net, eps, do_reset, tp = args
-    assert block.ring == ring.data_ptr() and block.ring_bf16 == 1
+    assert block.obs_in == block.obs_out == ring.data_ptr()
+    assert block.obs_bf16 == 1
     assert block.ground_in == ts.ground.data_ptr()
     assert block.charge_out == out.charge.data_ptr()
     assert block.eps == eps.data_ptr()
-    assert (block.ring_ld, block.read_col, block.write_col) == (2 * E, 0, E)
+    assert (block.in_ld, block.read_col, block.out_ld, block.write_col) == (
+        2 * E, 0, 2 * E, E)
     assert (block.num_envs, block.do_reset) == (E, 1)
     assert [block.key0, block.key1] == key.tolist()
     assert [block.w[i] for i in range(3)] == [
@@ -296,3 +300,231 @@ def test_in_kernel_td_trainer_on_card_matches_cpu():
     assert (fused_tick.full_tick_fused_ring.launches,
             learner_kernel.td_adam.launches) == (launches[0] + 4,
                                                  launches[1] + 4)
+
+
+# --- the StreamReplay engines' kernels: B3 (obs launch), B4, B5 -------------
+
+def test_full_args_block():
+    """B3's block: obs_t read at column 0, a new f32 array written."""
+    key, ts, _, _, _, net, eps, do_reset, tp = _kernel_inputs()
+    obs_t = torch.rand((294, E))
+    block, outs = fused_tick._full_args(key, ts, obs_t, net, eps, do_reset,
+                                        tp)
+    obs_next = outs[4]
+    assert block.obs_in == obs_t.data_ptr() != block.obs_out
+    assert block.obs_out == obs_next.data_ptr() and block.obs_bf16 == 0
+    assert (block.in_ld, block.read_col, block.out_ld, block.write_col) == (
+        E, 0, E, 0)
+    assert obs_next.dtype == torch.float32 and obs_next.shape == obs_t.shape
+    with pytest.raises(ValueError):
+        fused_tick._full_args(key, ts, obs_t.bfloat16(), net, eps, False, tp)
+    with pytest.raises(ValueError):
+        fused_tick._full_args(key, ts, obs_t[:, :E // 2], net, eps, False,
+                              tp)
+
+
+def test_env_tick_args_block():
+    """B4's block: the caller's actions, no net, a new obs array."""
+    key, ts, _, _, _, _, _, _, tp = _kernel_inputs()
+    actions = torch.randint(0, 5, (tp.n_drones, E), dtype=torch.int32)
+    block, (out, rewards, dones, obs_next) = fused_tick._env_tick_args(
+        key, ts, actions, tp)
+    assert block.actions == actions.data_ptr()
+    assert block.obs_out == obs_next.data_ptr()
+    assert block.ground_in == ts.ground.data_ptr()
+    assert block.charge_out == out.charge.data_ptr()
+    assert (block.num_envs, [block.key0, block.key1]) == (E, key.tolist())
+    assert tuple(obs_next.shape) == (294, E) and dones.dtype == torch.bool
+    with pytest.raises(ValueError):
+        fused_tick._env_tick_args(key, ts, actions.long(), tp)
+    with pytest.raises(ValueError):
+        fused_tick._env_tick_args(key, ts, actions.t().contiguous(), tp)
+
+
+def _row_inputs(kw, num_envs=E, seed=0):
+    tp = EnvParams(**kw)
+    states = core.reset_batch(rng.PRNGKey(seed), tp, num_envs)
+    actions = torch.randint(0, 5, (num_envs, tp.n_drones),
+                            generator=torch.Generator().manual_seed(seed),
+                            dtype=torch.int32)
+    return tp, states, actions
+
+
+def test_step_args_block():
+    """B5's block: row-major state, bool flags as bytes."""
+    tp, states, actions = _row_inputs(dict(grid_size=20, n_drones=4))
+    key = rng.PRNGKey(3)
+    block, (out, rewards, dones) = step_kernel._kernel_args(
+        key, states, actions, tp)
+    assert block.ground_in == states.ground.data_ptr()
+    assert block.carry_in == states.carrying_package.data_ptr()
+    assert block.carry_out == out.carrying_package.data_ptr()
+    assert block.actions == actions.data_ptr()
+    assert out.carrying_package.dtype == torch.bool
+    assert tuple(out.ground.shape) == (E, 20, 20)
+    assert tuple(rewards.shape) == (E, 4) and dones.dtype == torch.bool
+    assert ctypes.c_float(tp.charge_reward).value == block.charge_reward
+    with pytest.raises(ValueError):
+        step_kernel._kernel_args(key, states, actions.t(), tp)
+    big, states, actions = _row_inputs(dict(grid_size=23, n_drones=4))
+    with pytest.raises(ValueError, match="529 cells"):
+        step_kernel._kernel_args(key, states, actions, big)
+
+
+def test_build_env_only_configs():
+    """B4 and B5 share one library per env: the env defines alone."""
+    tp = EnvParams(**KW)
+    env = _build.env_config(tp)
+    assert env[0] == "env_kernel.cu" and env[1] == _build.env_defines(tp)
+    assert _build.ENTRY_POINTS[env[0]][0] == ("tick_launch", "step_launch")
+    assert not any(k.startswith("DR_DIM") or k == "DR_NLAYERS"
+                   for k, _ in env[1])
+    paths = {_build.library_path(c) for c in (
+        env, _build.env_config(EnvParams(grid_size=20, n_drones=4)),
+        _build.tick_config(tp, (294, 16, 16, 5)))}
+    assert len(paths) == 3
+
+
+def _near_tie(q, rel=1e-5):
+    top2 = q.topk(2, dim=0).values
+    return (top2[0] - top2[1]) <= rel * q.abs().amax(dim=0)
+
+
+@pytest.mark.gpu
+def test_full_tick_kernel_matches_plain_on_card():
+    """B3 against ``full_tick_plain``, 3 ticks with a reset at tick 1, ε =
+    0.5: env outputs bitwise, charge within 1.3e-7, actions equal outside
+    near ties of the plain Q-values, obs_t never written."""
+    dev = _card()
+    key, ts, _, _, _, net, _, _, tp = _kernel_inputs(hidden=(128, 64))
+    ts = fused_tick.TState(*(t.to(dev) for t in ts))
+    net = net.to(dev)
+    state = core.reset_batch(rng.PRNGKey(4).to(dev), tp, E)
+    obs_t = core.observe_batch(state, tp, 1).reshape(E, 294).t().contiguous()
+    eps = torch.tensor(0.5, device=dev)
+    launches = fused_tick.full_tick_fused.launches
+    for t in range(3):
+        key, step_key = rng.split(key, 2)
+        before = obs_t.clone()
+        out_k = fused_tick.full_tick_fused(step_key, ts, obs_t, net, eps,
+                                           t == 1, tp)
+        out_p = fused_tick.full_tick_plain(step_key, ts, obs_t, net, eps,
+                                           t == 1, tp,
+                                           actions_override=out_k[3])
+        for a, b in zip(out_k[0], out_p[0]):
+            assert torch.equal(a, b), t
+        assert torch.equal(out_k[1], out_p[1])
+        assert torch.equal(out_k[2], out_p[2])
+        diff = (out_k[4] - out_p[4]).abs().reshape(-1, 6, E)
+        assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0
+        assert float(diff[:, 4].max()) <= CHARGE_ATOL
+        act_p, q = fused_tick.plain_actions(
+            rng.split(step_key.to(dev), E + 2)[E], obs_t, 0, net, eps, tp, E)
+        differ = (out_k[3] != act_p).any(dim=0)
+        assert not bool((differ & ~_near_tie(q)).any()), t
+        assert torch.equal(obs_t, before)
+        ts, obs_t = out_k[0], out_k[4]
+    assert fused_tick.full_tick_fused.launches == launches + 3
+
+
+@pytest.mark.gpu
+def test_env_tick_kernel_matches_plain_on_card():
+    """B4 against ``tick_plain`` for 3 ticks of random actions: env
+    outputs bitwise, charge within 1.3e-7."""
+    dev = _card()
+    key, ts, _, _, _, _, _, _, tp = _kernel_inputs()
+    ts = fused_tick.TState(*(t.to(dev) for t in ts))
+    g = torch.Generator().manual_seed(5)
+    launches = fused_tick.tick_fused.launches
+    for t in range(3):
+        key, step_key = rng.split(key, 2)
+        actions = torch.randint(0, 5, (tp.n_drones, E), generator=g,
+                                dtype=torch.int32).to(dev)
+        out_k = fused_tick.tick_fused(step_key, ts, actions, tp)
+        out_p = fused_tick.tick_plain(step_key, ts, actions, tp)
+        for a, b in zip(out_k[0], out_p[0]):
+            assert torch.equal(a, b), t
+        assert torch.equal(out_k[1], out_p[1])
+        assert torch.equal(out_k[2], out_p[2])
+        diff = (out_k[3] - out_p[3]).abs().reshape(-1, 6, E)
+        assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0
+        assert float(diff[:, 4].max()) <= CHARGE_ATOL
+        ts = out_k[0]
+    assert fused_tick.tick_fused.launches == launches + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [dict(grid_size=9, n_drones=4),
+                                dict(grid_size=5, n_drones=2),
+                                dict(grid_size=20, n_drones=4)])
+def test_step_kernel_matches_plain_on_card(kw):
+    """B5 against ``core.step_batch`` for 3 steps on grid 9, a tight board
+    and a 400-cell board: everything bitwise."""
+    dev = _card()
+    tp, states, _ = _row_inputs(kw)
+    states = type(states)(*(getattr(states, f).to(dev) for f in (
+        "ground", "air_x", "air_y", "carrying_package", "charge")))
+    g = torch.Generator().manual_seed(6)
+    key = rng.PRNGKey(7)
+    launches = step_kernel.step_batch_fused.launches
+    for t in range(3):
+        key, step_key = rng.split(key, 2)
+        actions = torch.randint(0, 5, (E, tp.n_drones), generator=g,
+                                dtype=torch.int32).to(dev)
+        out_k = step_kernel.step_batch_fused(step_key, states, actions, tp)
+        out_p = step_kernel.step_batch_plain(step_key, states, actions, tp)
+        for f in ("ground", "air_x", "air_y", "carrying_package", "charge"):
+            assert torch.equal(getattr(out_k[0], f), getattr(out_p[0], f)), (
+                t, f)
+        assert torch.equal(out_k[1], out_p[1])
+        assert torch.equal(out_k[2], out_p[2])
+        states = out_k[0]
+    assert step_kernel.step_batch_fused.launches == launches + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["full", "fused"])
+def test_stream_engine_on_card_matches_cpu(engine):
+    """Four ticks of a StreamReplay engine through its kernel on the card
+    and through the plain versions on the CPU, from one carry, ε = 1 (no
+    near tie can split the actors): rng chain, env state, observations
+    and replay bitwise (charge within 1.3e-7); losses within rtol 1e-5;
+    params within 1e-5."""
+    dev = _card()
+    tp = EnvParams(**KW)
+    cfg = DQNConfig(hidden_layers=(16, 16), epsilon_start=1.0,
+                    epsilon_end=1.0, epsilon_decay_every=2,
+                    target_update_interval=2)
+    build = {"full": train.build_train_step_full,
+             "fused": train.build_train_step_fused}[engine]
+    counter = {"full": fused_tick.full_tick_fused,
+               "fused": fused_tick.tick_fused}[engine]
+    buf = replay.StreamReplay(3 * E, 8, stride=E)
+    agents = [DQN(cfg, tp, device=d) for d in ("cpu", dev)]
+    carries = [train.init_stream_carry(a, tp, E, buf, rng.PRNGKey(0))
+               for a in agents]
+    ticks = [build(a, buf, tp, E, 3) for a in agents]
+    launches = counter.launches
+    for t in range(4):
+        (c_cpu, (r_cpu, _, l_cpu)), (c_card, (r_card, _, l_card)) = (
+            tick(c) for tick, c in zip(ticks, carries))
+        carries = [c_cpu, c_card]
+        assert torch.equal(c_cpu[0], c_card[0]) and c_card[-1] == t + 1
+        for a, b in zip(c_cpu[1], c_card[1]):
+            assert torch.equal(a, b.cpu()), t
+        b_cpu, b_card = c_cpu[4], c_card[4]
+        assert (b_cpu.cursor, b_cpu.size) == (b_card.cursor, b_card.size)
+        for k in ("actions", "rewards", "dones"):
+            assert torch.equal(b_cpu.storage[k], b_card.storage[k].cpu())
+        for o_cpu, o_card in ((c_cpu[2], c_card[2]),
+                              (b_cpu.storage["obs"], b_card.storage["obs"])):
+            diff = (o_cpu - o_card.cpu()).abs().reshape(-1, 6,
+                                                        o_cpu.shape[-1])
+            assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0, t
+            assert float(diff[:, 4].max()) <= CHARGE_ATOL, t
+        assert torch.equal(r_cpu, r_card.cpu()), t
+        np.testing.assert_allclose(float(l_card), float(l_cpu), rtol=1e-5)
+    for a, b in zip(c_cpu[3].params.flat(), c_card[3].params.flat()):
+        np.testing.assert_allclose(b.detach().cpu().numpy(),
+                                   a.detach().numpy(), rtol=0, atol=1e-5)
+    assert counter.launches == launches + 4
