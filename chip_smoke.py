@@ -12,7 +12,8 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    and the obs launch B3), the learner kernel (ops/csrc/td_adam.cu) and
    the env kernel (ops/csrc/env_kernel.cu: the feature-major tick B4 and
    the row-major step B5, for three boards) from the sources, every
-   library in one ``nvcc`` wave, and print their ptxas lines;
+   library in one ``nvcc`` wave, and print their ptxas lines and the tick
+   kernel's shared memory and blocks per SM;
 3. hold the tick kernel against its plain PyTorch version on the card, at
    the bench width (65,536 envs, grid 9, 4 drones, window radius 3), for
    the (16,16) and (128,64) nets and f32 and bf16 rings, over 8 ticks with
@@ -60,8 +61,10 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 4e. run the CLI (``dronerl_tpu_torch.train.main``) at ``--num_envs 16384``
    with the default memory size (114,688 slots > 4 x 16,384): it must
    choose the full engine, and B3's launches equal its steps;
-   then time B3, B4 and B5 per launch (CUDA events over launches of a
-   prebuilt argument block), their plain versions and their bounds;
+   then time B1, B3, B4 and B5 per launch (CUDA events over launches of a
+   prebuilt argument block; B1 also by wrapper calls), their plain
+   versions and their bounds (the tick kernel's layers but the last at
+   the tensor-core rate, the all-CUDA-core bound beside it);
 5. print the kernel table line, the card line, and the result line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -110,6 +113,17 @@ TD_HPARAMS = (0.9, 1e-3, 0.9, 0.999, 1e-8)  # gamma, lr, Adam b1, b2, eps
 # bound stays a lower bound.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# The full tick kernel's dense layers but the last run on the tensor
+# cores as bf16 mma.sync products with f32 accumulation, so their FLOPs
+# are counted at the dense bf16 rate, times the products the f32-accurate
+# scheme needs: W in three bf16 pieces against the bf16 ring's exact
+# observations (B1's first layer: 3 products), and f32 operands (B3's
+# observations, the hidden activations) split in three as well (6
+# products of order <= 2^-16). The output layer's FLOPs count at
+# PEAK_F32. The old bound, every FLOP at PEAK_F32, is printed beside it.
+PEAK_BF16 = 989e12
+FIRST_LAYER_PRODUCTS = {"bf16": 3, "f32": 6}
+HIDDEN_PRODUCTS = 6
 OPS_PER_HASH = 79          # threefry2x32-20: 20 rounds x 3 + 5 x 3 + 4
 ADAM_OPS = 13              # per parameter: m 3, v 4, the update 6
 SYNC_OPS = 3               # per parameter: tau p + (1 - tau) t
@@ -193,6 +207,12 @@ def main() -> None:
         if cfg[0] == _build.ENV_SOURCE:
             tag = dict(cfg[1])["DR_GRID"], dict(cfg[1])["DR_NDRONES"]
         log(f"ptxas {cfg[0]} {tag}: " + " | ".join(ptxas))
+        if cfg[0] == _build.TICK_SOURCE:
+            for bf16 in (True, False):
+                smem, blocks = fused_tick.kernel_occupancy(cfg, bf16)
+                log(f"full tick kernel {tag} {'bf16' if bf16 else 'f32'} "
+                    f"obs: {smem} B dynamic shared memory a block, {blocks} "
+                    f"resident blocks an SM")
 
     def make_agent(hidden, seed):
         cfg = DQNConfig(hidden_layers=hidden, epsilon_decay_every=5,
@@ -658,7 +678,7 @@ def main() -> None:
         if bool((losses < 0).any()):
             fail(f"net {hidden}: a tick did not train")
         ms, plain_ms, bound_ms, bound_by = time_kernel(
-            torch, fused_tick, rng, agent, carry, hidden, card)
+            torch, _build, fused_tick, rng, agent, carry, hidden, card)
         kernels.append({
             "name": "full_tick_ring_" + "x".join(str(h) for h in hidden),
             "route": "cuda",
@@ -794,18 +814,38 @@ def cuda_ms(torch, fn, count):
     return start.elapsed_time(end) / count
 
 
-def time_kernel(torch, fused_tick, rng, agent, carry, hidden, card):
-    """Time one tick's kernel launch and its plain version on the main
-    path's shapes, after its run (ε = 0: every env runs the greedy actor,
-    the most work a tick can need), and work out the kernel's bound."""
+def actor_ops(widths, scheme):
+    """Operations of the Q forward of NUM_ENVS envs: (seconds at the peak
+    rates with the layers but the last on the tensor cores, the first in
+    ``scheme``'s products, seconds with every FLOP at PEAK_F32, FLOPs)."""
+    flops = [NUM_ENVS * 2 * i * o for i, o in zip(widths, widths[1:])]
+    tensor = FIRST_LAYER_PRODUCTS[scheme] * flops[0] / PEAK_BF16
+    if len(flops) > 1:
+        tensor += (HIDDEN_PRODUCTS * sum(flops[1:-1]) / PEAK_BF16
+                   + flops[-1] / PEAK_F32)
+    return tensor, sum(flops) / PEAK_F32, sum(flops)
+
+
+def time_kernel(torch, _build, fused_tick, rng, agent, carry, hidden, card):
+    """Time one tick's kernel on the main path's shapes after its run (ε =
+    0: every env runs the greedy actor, the most work a tick can need):
+    ``BLOCK_LAUNCHES`` launches of one prebuilt argument block (the
+    kernel's time), wrapper calls (the wrapper's host work included) and
+    the plain version; work out the kernel's bound."""
     params = agent.env_params
     _rng, (tstate, ring), _s, ag, _aux, _step = carry
     n, c = params.n_drones, params.num_cells
     eps = torch.tensor(0.0, device=ring.device)
     args = (rng.PRNGKey(7), tstate, ring, 0, NUM_ENVS, ag.params, eps,
             False, params)
-    ms = cuda_ms(torch, lambda: fused_tick.full_tick_fused_ring(*args),
-                 TIMED_LAUNCHES)
+    # _outs owns the block's output buffers: alive while it is launched.
+    block, _outs = fused_tick._kernel_args(*args)
+    lib = _build.load(fused_tick.kernel_config(params, ag.params))
+    ms = time_block(torch, lib, "full_tick_ring_launch", block,
+                    BLOCK_LAUNCHES)
+    wrapper_ms = cuda_ms(torch,
+                         lambda: fused_tick.full_tick_fused_ring(*args),
+                         TIMED_LAUNCHES)
     plain_ms = cuda_ms(torch, lambda: fused_tick.full_tick_ring_plain(*args),
                        PLAIN_LAUNCHES)
 
@@ -815,33 +855,40 @@ def time_kernel(torch, fused_tick, rng, agent, carry, hidden, card):
     out_bytes = NUM_ENVS * n * (4 + 1 + 4)
     total_bytes = (2 * ring.shape[0] * NUM_ENVS * ring.element_size()
                    + 2 * state_bytes + out_bytes + weight_bytes + 4)
-    flops = NUM_ENVS * 2 * sum(i * o for i, o in zip(widths, widths[1:]))
     hashes = NUM_ENVS * (4 + (n + 1) + 2 * c)
-    ops = flops + OPS_PER_HASH * hashes
+    t_actor, t_actor_f32, flops = actor_ops(
+        widths, "bf16" if ring.element_size() == 2 else "f32")
+    t_hash = OPS_PER_HASH * hashes / PEAK_F32
     t_bytes = total_bytes / PEAK_BYTES * 1e3
-    t_ops = ops / PEAK_F32 * 1e3
-    log(f"kernel net {hidden}: {ms:.4f} ms/launch, plain {plain_ms:.4f} ms; "
-        f"bound {max(t_bytes, t_ops):.4f} ms (bytes {total_bytes} -> "
-        f"{t_bytes:.4f} ms, ops {ops} = {flops} f32 + {OPS_PER_HASH} x "
-        f"{hashes} hash -> {t_ops:.4f} ms); on {card}")
+    t_ops = (t_actor + t_hash) * 1e3
+    old_bound = max(t_bytes, (t_actor_f32 + t_hash) * 1e3)
+    log(f"kernel net {hidden}: {ms:.4f} ms/launch ({BLOCK_LAUNCHES} launches "
+        f"of one block), wrapper calls {wrapper_ms:.4f} ms/call, plain "
+        f"{plain_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f} ms (bytes "
+        f"{total_bytes} -> {t_bytes:.4f} ms, ops {flops} FLOP with the "
+        f"hidden layers on the tensor cores + {OPS_PER_HASH} x {hashes} hash -> "
+        f"{t_ops:.4f} ms); all-CUDA-core bound {old_bound:.4f} ms; on {card}")
     return ms, plain_ms, max(t_bytes, t_ops), (
         "bytes" if t_bytes >= t_ops else "operations")
 
 
-def env_bound(n, c, obs_bytes, extra_bytes=0, flops=0, hashes_per_env=0):
+def env_bound(n, c, obs_bytes, extra_bytes=0, flops=0, hashes_per_env=0,
+              flop_seconds=None):
     """The least time of one env kernel launch at NUM_ENVS envs: the state
     read and written once (ground C bytes, per drone x, y, carry, charge),
     the actions read (4 B a drone) and rewards and dones written (5 B a
     drone), ``obs_bytes`` of observations read or written, plus
-    ``extra_bytes``; the operations: ``flops`` and the threefry hashes at
-    OPS_PER_HASH each. Returns (ms, "bytes" or "operations", bytes,
-    operations)."""
+    ``extra_bytes``; the operations: ``flops`` (at PEAK_F32, or in
+    ``flop_seconds``) and the threefry hashes at OPS_PER_HASH each.
+    Returns (ms, "bytes" or "operations", bytes, operations)."""
     state_bytes = NUM_ENVS * (c + n * (4 + 4 + 1 + 4))
     io_bytes = NUM_ENVS * n * (4 + 4 + 1)
     total_bytes = 2 * state_bytes + io_bytes + obs_bytes + extra_bytes
     ops = flops + OPS_PER_HASH * hashes_per_env * NUM_ENVS
     t_bytes = total_bytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32 * 1e3
+    if flop_seconds is not None:
+        t_ops += (flop_seconds - flops / PEAK_F32) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", total_bytes, ops)
 
@@ -886,15 +933,18 @@ def time_obs_kernel(torch, _build, fused_tick, rng, agent, carry, hidden,
     eps = torch.tensor(0.0, device=obs_t.device)
     widths = (obs_t.shape[0], *hidden, 5)
     weight_bytes = 4 * sum(i * o + o for i, o in zip(widths, widths[1:]))
-    flops = NUM_ENVS * 2 * sum(i * o for i, o in zip(widths, widths[1:]))
+    t_actor, _, flops = actor_ops(widths, "f32")
     n, c = params.n_drones, params.num_cells
+    bound_args = (n, c, 2 * obs_t.numel() * 4, weight_bytes + 4, flops,
+                  4 + (n + 1) + 2 * c)
+    log(f"B3 net {hidden}: all-CUDA-core bound "
+        f"{env_bound(*bound_args)[0]:.5f} ms")
     return time_env_kernel(
         torch, f"B3 net {hidden}",
         _build.load(fused_tick.kernel_config(params, ag.params)),
         "full_tick_launch", fused_tick._full_args, fused_tick.full_tick_plain,
         (rng.PRNGKey(7), tstate, obs_t, ag.params, eps, False, params),
-        env_bound(n, c, 2 * obs_t.numel() * 4, weight_bytes + 4, flops,
-                  4 + (n + 1) + 2 * c), card)
+        env_bound(*bound_args, flop_seconds=t_actor), card)
 
 
 def time_env_tick(torch, _build, fused_tick, rng, agent, carry, card):

@@ -34,8 +34,8 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 TICK_SOURCE = "full_tick.cu"
 ENV_SOURCE = "env_kernel.cu"
 LEARNER_SOURCE = "td_adam.cu"
-SOURCES = (TICK_SOURCE, ENV_SOURCE, "env_step.cuh", "threefry.cuh",
-           LEARNER_SOURCE)
+SOURCES = (TICK_SOURCE, ENV_SOURCE, "env_step.cuh", "env_warp.cuh",
+           "threefry.cuh", LEARNER_SOURCE)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 MAX_LAYERS = 8  # as csrc/full_tick.cu
 

@@ -12,31 +12,67 @@
 //   array of the same shape.
 //
 // Both run one kernel: per-env threefry keys, the epsilon-greedy dense-Q
-// actor reading obs_in's column, move / crash / battery / pickup /
-// delivery, packet, dropzone and drone respawns, the optional full reset,
-// and the window observation stored into obs_out's column (env_step.cuh).
+// actor on obs_in's column, move / crash / battery / pickup / delivery,
+// packet, dropzone and drone respawns, the optional full reset, and the
+// window observation stored into obs_out's column.
 //
-// Design: one thread per env. State is feature-major (field, env), so
-// thread e reads ground[c * E + e] and writes obs_out[row * ld + col + e]:
-// neighbouring threads touch neighbouring addresses and every global load
-// and store coalesces. Each thread keeps its env's board (C bytes) and one
-// field of C spawn uniforms in local memory.
+// What bounds it on the H100. At the bench shapes (65,536 envs, grid 9,
+// 4 drones) the bytes are one read and one write of a 294-row observation
+// per env (bf16 on the ring, f32 for B3) and the env state: 0.029 ms (B1)
+// and 0.052 ms (B3) at 3.35 TB/s. The operations are about 170 threefry
+// hashes per env (two fields of C uniforms, the keys and the actor's
+// draws) and, for the (128,64) net, a 92k-FLOP Q forward per env. The
+// one-thread-per-env kernel this replaces reached neither: its per-thread
+// board and uniforms lived in local memory, every spawn pick rescanned all
+// C cells serially (44% of its time at (16,16), by ablation), 168-255
+// registers allowed 8-12 warps an SM, and the Q forward ran as
+// warp-broadcast weight loads and f32 FMAs (70% of its time at (128,64)).
 //
-// What bounds it on the H100: for the (16,16) net the bytes (the 294-row
-// observation read and the next one written, about 1.2 KB per env and tick
-// in bf16, 2.4 KB in f32, plus the state); for the (128,64) net the f32 Q
-// forward, about 92k FLOP per env on the CUDA cores, plus about 170
-// threefry hashes per env. The design keeps every byte to one read and one
-// write and spends no shared memory; the actor's weights are read through
-// the read-only cache as warp-uniform broadcasts, and f32 observations
-// through it too (obs_in is never written by the launch that reads it: the
-// ring launch's read and write columns are disjoint or equal, and a thread
-// writes its column after its actor has read it). Weights in shared memory
-// and a wgmma actor are the next steps.
+// The design:
 //
-// The net widths are compile-time constants too (-D, see ops/_build.py).
+// * A block owns EB = 64 consecutive envs (one mma M extent of 4 tiles of
+//   16) and stages their input observation tile (294 x 64), board (C x
+//   64) and drone state through shared memory with cp.async, 16 bytes a
+//   thread, whole rows of 64 contiguous envs; the next observation tile,
+//   board and state go back the same way with 16-byte stores. Every
+//   global access coalesces without one thread per env. A block reads all
+//   of its envs' input columns before it writes any output column, so the
+//   ring's in-place launch (read and write columns disjoint or equal) is
+//   safe.
+// * The keys and the actor's uniforms are hashed one thread per (env,
+//   role) while the copies are in flight.
+// * The dense layers but the last run on the tensor cores (mma.sync
+//   m16n8k16, bf16 in, f32 accumulate), f32-accurate: each W is split
+//   while it is staged into shared memory, in K-chunks, into three bf16
+//   pieces (hi + mid + lo, 24 significant bits) laid out in fragment order.
+//   The bf16 ring's observations are exact in bf16 (fragments by
+//   ldmatrix.trans), so B1's first layer takes 3 products a term; B3's
+//   f32 observations (charge / 100) and the hidden activations are split
+//   the same way, keeping the 6 products of order <= 2^-16 (the 3xTF32
+//   scheme of CUTLASS's OpMultiplyAddFastF32, in bf16). The output layer
+//   (5 actions) is f32 FMAs on the CUDA cores, eight threads an env. A
+//   block where no env is greedy skips the actor and the observation
+//   read.
+// * The step and the reset run one warp per env on env_warp.cuh: lanes
+//   own cells, each spawn pick is one warp reduction, no arrays in local
+//   memory; the window observation is one block-wide pass over (position,
+//   env) items.
+//
+// Blocks of 512 threads, two per SM (__launch_bounds__): 32 warps an SM,
+// which caps a thread at 64 registers; ptxas keeps it within them with no
+// spill and no stack (the (128,64) net's 16 accumulators a thread are the
+// tightest; the output layer's pointers and the block's env count are
+// read back from shared memory rather than held across the tensor-core
+// layers). Shared memory is 83 KB a block with bf16 observations at
+// (16,16), 90 KB at (128,64), 110 KB with f32: the f32 tile is what makes
+// two blocks an SM the most.
+//
+// The env and the net widths are compile-time constants (-D, see
+// ops/_build.py).
 
-#include "env_step.cuh"
+#include <type_traits>
+
+#include "env_warp.cuh"
 
 #if !defined(DR_NLAYERS)
 #error "build through dronerl_tpu_torch/ops/_build.py (it passes the net -D set)"
@@ -91,171 +127,682 @@ struct TickArgs {
 };
 
 // ---------------------------------------------------------------------------
-// Actor: the dense Q forward of one env's observation, in f32.
+// Block geometry and the shared-memory layout
 
-// acc[j] += w[j] * x for one weight row (OUT contiguous floats), four
-// weights a load where the row is 16-byte aligned (OUT % 4 == 0). The
-// address is the same in every thread of a warp: one broadcast load.
-template <int OUT>
-__device__ __forceinline__ void fma_row(const float* __restrict__ w, float x, float* acc) {
-  if constexpr (OUT % 4 == 0) {
-    const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-    for (int j = 0; j < OUT / 4; ++j) {
-      const float4 v = __ldg(w4 + j);
-      acc[4 * j + 0] = fmaf(v.x, x, acc[4 * j + 0]);
-      acc[4 * j + 1] = fmaf(v.y, x, acc[4 * j + 1]);
-      acc[4 * j + 2] = fmaf(v.z, x, acc[4 * j + 2]);
-      acc[4 * j + 3] = fmaf(v.w, x, acc[4 * j + 3]);
+constexpr int EB = 64;                  // envs a block
+constexpr int WARPS = 16;
+constexpr int BLOCK = 32 * WARPS;
+constexpr int TPE = BLOCK / EB;         // threads an env in the output layer
+constexpr int MT = EB / 16;             // mma m-tiles of 16 envs
+constexpr int NGROUPS = WARPS / MT;     // warps sharing an m-tile
+constexpr int PIECES = 3;               // bf16 pieces of a weight
+constexpr int FRAG_WORDS = 64;          // one B fragment: a uint2 a lane
+constexpr int FRAG_BYTES = PIECES * FRAG_WORDS * 4;  // its pieces
+constexpr int KEY_WORDS = 4 + 10;       // ground and air keys, 5 placement keys
+static_assert(TPE == 8, "the output layer's reductions run over 8 lanes");
+static_assert(BLOCK / EB > 3, "key roles: env keys, gate, reset keys, random actions");
+
+__host__ __device__ constexpr int cmaxi(int x, int y) { return x > y ? x : y; }
+__host__ __device__ constexpr int cmini(int x, int y) { return x < y ? x : y; }
+__host__ __device__ constexpr int up16(int x) { return (x + 15) / 16 * 16; }
+
+// Dense layer L (DIMS[L] -> DIMS[L + 1]) on the tensor cores: K and N
+// zero-padded to 16, n-tiles of 8 spread over the NGROUPS warps of an
+// m-tile. Every layer but the last runs there (the last, with
+// NUM_ACTIONS outputs, on the CUDA cores), except a net of one layer.
+template <int L>
+struct Mma {
+  static constexpr int IN = DIMS[L], OUT = DIMS[L + 1];
+  static constexpr int KSTEPS = up16(IN) / 16;
+  static constexpr int NT = up16(OUT) / 8;
+  static constexpr int NTW = (NT + NGROUPS - 1) / NGROUPS;
+  // k-steps of W staged at once within `budget` bytes of fragments.
+  __host__ __device__ static constexpr int chunk(int budget) {
+    return cmini(KSTEPS, cmaxi(1, budget / (NT * FRAG_BYTES)));
+  }
+};
+constexpr int MMA_LAYERS = NL == 1 ? 1 : NL - 1;
+
+// Row stride (floats) of layer L's output activations, (env, unit).
+__host__ __device__ constexpr int act_stride(int l) { return DIMS[l + 1] + 4; }
+
+// Bytes of the activation buffer of the layers whose output goes to
+// buffer `parity` (0: layers 0, 2, ...; 1: layers 1, 3, ...).
+constexpr int act_bytes(int parity) {
+  int bytes = 0;
+  for (int l = parity; l < MMA_LAYERS; l += 2) bytes = cmaxi(bytes, up16(EB * act_stride(l) * 4));
+  return bytes;
+}
+
+// The fragment bytes of layer L's chunk within `budget`, the most over
+// the tensor-core layers.
+template <int L = 0>
+constexpr int w_bytes(int budget) {
+  if constexpr (L >= MMA_LAYERS) {
+    return 0;
+  } else {
+    return cmaxi(Mma<L>::chunk(budget) * Mma<L>::NT * FRAG_BYTES, w_bytes<L + 1>(budget));
+  }
+}
+
+template <typename T>
+struct Layout {
+  // Row stride of the observation tile in elements: 16-byte rows whose
+  // stride is 4 banks mod 32, so the fragment loads are conflict-free.
+  static constexpr int S = sizeof(T) == 2 ? 72 : 68;
+  static constexpr int OBS_BYTES = up16(OBS) * S * (int)sizeof(T);
+  static constexpr int W_BUDGET = sizeof(T) == 2 ? 24576 : 12288;
+  static constexpr int W_BYTES = w_bytes(W_BUDGET);
+  // The activations replace the observation tile once the first layer
+  // has read it.
+  static constexpr int HA = act_bytes(0);
+  static constexpr int R_OBS = cmaxi(OBS_BYTES, HA + act_bytes(1));
+  static constexpr int OFF_HA = 0;
+  static constexpr int OFF_HB = HA;
+  static constexpr int OFF_W = R_OBS;
+  static constexpr int OFF_BOARD = OFF_W + W_BYTES;
+  static constexpr int OFF_X = OFF_BOARD + up16(C * EB);
+  static constexpr int OFF_Y = OFF_X + N * EB * 4;
+  static constexpr int OFF_CHARGE = OFF_Y + N * EB * 4;
+  static constexpr int OFF_REWARD = OFF_CHARGE + N * EB * 4;
+  static constexpr int OFF_ACTION = OFF_REWARD + N * EB * 4;
+  static constexpr int OFF_KEYS = OFF_ACTION + N * EB * 4;
+  static constexpr int OFF_CARRY = OFF_KEYS + KEY_WORDS * EB * 4;
+  static constexpr int OFF_DONE = OFF_CARRY + up16(N * EB);
+  static constexpr int OFF_GREEDY = OFF_DONE + up16(N * EB);
+  // The block's env count, and the output layer's weight and bias pointers.
+  static constexpr int OFF_META = OFF_GREEDY + up16(EB);
+  static constexpr int TOTAL = OFF_META + 32;
+};
+
+// ---------------------------------------------------------------------------
+// Copies between device memory and the block's tiles
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Whether rows of EB elements of U at (row * ld + col0) move as 16-byte
+// chunks: a whole tile with every row start 16-byte aligned.
+template <typename U>
+__device__ __forceinline__ bool rows_vectorizable(const void* base, long long ld, long long col0,
+                                                  int ne) {
+  return ne == EB && (reinterpret_cast<uintptr_t>(base) & 15u) == 0 &&
+         (ld * (long long)sizeof(U)) % 16 == 0 && (col0 * (long long)sizeof(U)) % 16 == 0;
+}
+
+// Start copying rows [0, rows) x envs [0, EB) of src (row stride ld,
+// first column col0) into dst (row stride S); envs past ne read as 0.
+// Complete with cp_async_wait_all() and a barrier.
+template <typename U, int S>
+__device__ __forceinline__ void stage_rows(U* dst, const U* src, long long ld, long long col0,
+                                           int rows, int ne) {
+  constexpr int PER = 16 / sizeof(U);
+  constexpr int CPR = EB / PER;  // 16-byte chunks a row
+  if (rows_vectorizable<U>(src, ld, col0, ne)) {
+    for (int i = threadIdx.x; i < rows * CPR; i += BLOCK) {
+      const int r = i / CPR, c = (i % CPR) * PER;
+      cp_async16(dst + r * S + c, src + r * ld + col0 + c);
     }
   } else {
-#pragma unroll
-    for (int j = 0; j < OUT; ++j) acc[j] = fmaf(__ldg(w + j), x, acc[j]);
+    for (int i = threadIdx.x; i < rows * EB; i += BLOCK) {
+      const int r = i / EB, c = i % EB;
+      dst[r * S + c] = c < ne ? src[r * ld + col0 + c] : U(0);
+    }
   }
 }
 
-template <int IN, int OUT, bool RELU>
-__device__ __forceinline__ void dense_layer(const float* x, float* y, const float* __restrict__ w,
-                                            const float* __restrict__ b) {
-  float acc[OUT];
-#pragma unroll
-  for (int j = 0; j < OUT; ++j) acc[j] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < IN; ++i) fma_row<OUT>(w + i * OUT, x[i], acc);
-#pragma unroll
-  for (int j = 0; j < OUT; ++j) {
-    const float v = acc[j] + __ldg(b + j);
-    y[j] = RELU ? fmaxf(v, 0.0f) : v;
-  }
-}
-
-template <int L>
-__device__ __forceinline__ void hidden_layers(const float* x, float* q, const TickArgs& a) {
-  if constexpr (L == NL - 1) {
-    dense_layer<DIMS[L], DIMS[L + 1], false>(x, q, a.w[L], a.b[L]);
+// Store rows [0, rows) x envs [0, ne) of src (row stride S) into dst.
+template <typename U, int S>
+__device__ __forceinline__ void store_rows(U* dst, const U* src, long long ld, long long col0,
+                                           int rows, int ne) {
+  constexpr int PER = 16 / sizeof(U);
+  constexpr int CPR = EB / PER;
+  if (rows_vectorizable<U>(dst, ld, col0, ne)) {
+    for (int i = threadIdx.x; i < rows * CPR; i += BLOCK) {
+      const int r = i / CPR, c = (i % CPR) * PER;
+      *reinterpret_cast<uint4*>(dst + r * ld + col0 + c) =
+          *reinterpret_cast<const uint4*>(src + r * S + c);
+    }
   } else {
-    float h[DIMS[L + 1]];
-    dense_layer<DIMS[L], DIMS[L + 1], true>(x, h, a.w[L], a.b[L]);
-    hidden_layers<L + 1>(h, q, a);
+    for (int i = threadIdx.x; i < rows * ne; i += BLOCK) {
+      const int r = i / ne, c = i % ne;
+      dst[r * ld + col0 + c] = src[r * S + c];
+    }
   }
 }
 
-// The first layer streams the observation straight from its column.
+// ---------------------------------------------------------------------------
+// The dense layers on the tensor cores
+
+// x = p1 + p2 + p3 to 24 significant bits, each piece a bf16 (returned as
+// the float it is); the differences are exact in f32.
+__device__ __forceinline__ void split3(float x, float& p1, float& p2, float& p3) {
+  p1 = __bfloat162float(__float2bfloat16_rn(x));
+  const float r = x - p1;
+  p2 = __bfloat162float(__float2bfloat16_rn(r));
+  p3 = __bfloat162float(__float2bfloat16_rn(r - p2));
+}
+
+// Two bf16 values in one register, `lo` (the lower K index) in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A lane's (b0, b1) of one B fragment piece. Volatile, so that the loads
+// of a later n-tile are not hoisted above this one's products (their
+// registers would spill at 64 a thread).
+__device__ __forceinline__ uint2 load_frag(const uint32_t* p) {
+  uint2 v;
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ld.shared.v2.u32 {%0,%1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage k-steps [s0, s0 + steps) of layer L's weights (IN x OUT f32,
+// row-major), split into PIECES bf16 pieces, into B-fragment order:
+// fragment (step, n-tile, piece) is 32 lanes' (b0, b1) pairs, lane =
+// 4 (n % 8) + (k % 8) / 2, b0 rows k % 16 < 8, b1 the rest; zero outside
+// IN x OUT. Item i is one word of a fragment: n % 8 = i % 8 fastest (the
+// loads coalesce by rows of 8 units, a warp's stores fall on distinct
+// banks two to one), then (k % 8) / 2, then b0 / b1. A thread's loads
+// are all issued before the first is used (one L2 latency a chunk),
+// through L2 only: the weights stream once a block.
+template <int L, int CHUNK>
+__device__ __forceinline__ void stage_w(uint32_t* frag, const float* __restrict__ w, int s0,
+                                        int steps) {
+  using M = Mma<L>;
+  constexpr int ITEMS = (CHUNK * M::NT * FRAG_WORDS + BLOCK - 1) / BLOCK;
+  float lo[ITEMS], hi[ITEMS];
+  // Unsigned: signed index arithmetic adds sign fix-ups that stay live
+  // across the chunk loop.
+  const unsigned items = steps * M::NT * FRAG_WORDS;
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const unsigned i = threadIdx.x + it * BLOCK;
+    const unsigned g = i & 7u, t = (i >> 3) & 3u, reg = (i >> 5) & 1u, f = i >> 6;
+    const unsigned n = (f % M::NT) * 8u + g;
+    const unsigned k = (s0 + f / M::NT) * 16u + reg * 8u + 2u * t;
+    const bool live = i < items && n < M::OUT;
+    lo[it] = live && k < M::IN ? __ldcg(w + k * M::OUT + n) : 0.0f;
+    hi[it] = live && k + 1 < M::IN ? __ldcg(w + (k + 1) * M::OUT + n) : 0.0f;
+  }
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    const unsigned i = threadIdx.x + it * BLOCK;
+    if (i < items) {
+      const unsigned g = i & 7u, t = (i >> 3) & 3u, reg = (i >> 5) & 1u, f = i >> 6;
+      float l1, l2, l3, h1, h2, h3;
+      split3(lo[it], l1, l2, l3);
+      split3(hi[it], h1, h2, h3);
+      uint32_t* out = frag + f * PIECES * FRAG_WORDS + (g * 4 + t) * 2 + reg;
+      out[0] = pack_bf16(l1, h1);
+      out[FRAG_WORDS] = pack_bf16(l2, h2);
+      out[2 * FRAG_WORDS] = pack_bf16(l3, h3);
+    }
+  }
+}
+
+// A-fragment sources: the observation tile (rows = K, columns = envs) and
+// an activation buffer (rows = envs, columns = K). load() fills the
+// fragments of one k-step for the m-tile at env m0: a[0..3], and for an
+// f32 source the three pieces' fragments a[0..3], a[4..7], a[8..11].
 template <typename T>
-__device__ int greedy_action(const T* col, long long ld, const TickArgs& a) {
-  constexpr int H = DIMS[1];
-  float acc[H];
+struct ObsSource;
+
+template <>
+struct ObsSource<__nv_bfloat16> {
+  static constexpr int PIECES_A = 1;  // the ring's bf16 values are exact
+  const __nv_bfloat16* tile;
+  // One ldmatrix.x4.trans: lane 8 q + r gives row r of 8x8 matrix q, the
+  // 8 envs [m0 + 8 (q & 1), +8) of K row 16 step + 8 (q >> 1) + r; the
+  // transpose hands each lane its (env, k) pairs of a[q].
+  __device__ __forceinline__ void load(int step, int m0, uint32_t* a) const {
+    constexpr int S = Layout<__nv_bfloat16>::S;
+    const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
+    const __nv_bfloat16* row = tile + (step * 16 + (q >> 1) * 8 + r) * S + m0 + (q & 1) * 8;
+    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+                 : "r"(addr)
+                 : "memory");
+  }
+};
+
+template <>
+struct ObsSource<float> {
+  static constexpr int PIECES_A = 3;
+  const float* tile;
+  __device__ __forceinline__ void load(int step, int m0, uint32_t* a) const {
+    constexpr int S = Layout<float>::S;
+    const int lane = threadIdx.x & 31;
+    const int k0 = step * 16 + 2 * (lane & 3);
+    const int e = m0 + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < H; ++j) acc[j] = 0.0f;
-#pragma unroll 2
-  for (int i = 0; i < OBS; ++i) fma_row<H>(a.w[0] + i * H, obs_load(col + (long long)i * ld), acc);
-  float q[NUM_ACTIONS];
-  if constexpr (NL == 1) {
+    for (int r = 0; r < 4; ++r) {
+      const int k = k0 + (r >> 1) * 8;
+      const int col = e + (r & 1) * 8;
+      float l1, l2, l3, h1, h2, h3;
+      split3(tile[k * S + col], l1, l2, l3);
+      split3(tile[(k + 1) * S + col], h1, h2, h3);
+      a[r] = pack_bf16(l1, h1);
+      a[4 + r] = pack_bf16(l2, h2);
+      a[8 + r] = pack_bf16(l3, h3);
+    }
+  }
+};
+
+template <int IN, int STRIDE>
+struct ActSource {
+  static constexpr int PIECES_A = 3;
+  const float* x;
+  __device__ __forceinline__ void load(int step, int m0, uint32_t* a) const {
+    const int lane = threadIdx.x & 31;
+    const int k0 = step * 16 + 2 * (lane & 3);
+    const int e = m0 + (lane >> 2);
 #pragma unroll
-    for (int j = 0; j < NUM_ACTIONS; ++j) q[j] = acc[j] + __ldg(a.b[0] + j);
-  } else {
+    for (int r = 0; r < 4; ++r) {
+      const int k = k0 + (r >> 1) * 8;
+      const float* row = x + (e + (r & 1) * 8) * STRIDE;
+      float l1, l2, l3, h1, h2, h3;
+      split3(k < IN ? row[k] : 0.0f, l1, l2, l3);
+      split3(k + 1 < IN ? row[k + 1] : 0.0f, h1, h2, h3);
+      a[r] = pack_bf16(l1, h1);
+      a[4 + r] = pack_bf16(l2, h2);
+      a[8 + r] = pack_bf16(l3, h3);
+    }
+  }
+};
+
+// Layer L's pre-activations of the block's envs on the tensor cores: warp
+// w takes m-tile w % MT and n-tiles [w / MT * NTW, +NTW); acc[j] is the
+// mma C fragment of its n-tile j. An exact source takes W's three pieces
+// (3 products), an f32 one the 6 products of order <= 2^-16, smallest
+// first; f32 accumulation throughout.
+template <int L, int BUDGET, typename Src>
+__device__ __forceinline__ void mma_layer(const Src& src, uint32_t* frag, const float* w,
+                                          float (*acc)[4]) {
+  using M = Mma<L>;
+  constexpr int CHUNK = M::chunk(BUDGET);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = (warp % MT) * 16;
+  const int n0 = (warp / MT) * M::NTW;
 #pragma unroll
-    for (int j = 0; j < H; ++j) acc[j] = fmaxf(acc[j] + __ldg(a.b[0] + j), 0.0f);
-    hidden_layers<1>(acc, q, a);
+  for (int j = 0; j < M::NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+#pragma unroll 1
+  for (int s0 = 0; s0 < M::KSTEPS; s0 += CHUNK) {
+    const int steps = cmini(CHUNK, M::KSTEPS - s0);
+    __syncthreads();  // the previous chunk's fragments are read
+    stage_w<L, CHUNK>(frag, w, s0, steps);
+    __syncthreads();
+#pragma unroll 1
+    for (int s = 0; s < steps; ++s) {
+      uint32_t a[4 * Src::PIECES_A];
+      src.load(s0 + s, m0, a);
+#pragma unroll
+      for (int j = 0; j < M::NTW; ++j) {
+        if (M::NT % NGROUPS != 0 && n0 + j >= M::NT) break;
+        const uint32_t* f = frag + (s * M::NT + n0 + j) * PIECES * FRAG_WORDS + 2 * lane;
+        const uint2 w1 = load_frag(f), w2 = load_frag(f + FRAG_WORDS),
+                    w3 = load_frag(f + 2 * FRAG_WORDS);
+        if constexpr (Src::PIECES_A == 1) {
+          mma_bf16(acc[j], a, w3.x, w3.y);
+          mma_bf16(acc[j], a, w2.x, w2.y);
+          mma_bf16(acc[j], a, w1.x, w1.y);
+        } else {
+          mma_bf16(acc[j], a + 8, w1.x, w1.y);
+          mma_bf16(acc[j], a + 4, w2.x, w2.y);
+          mma_bf16(acc[j], a, w3.x, w3.y);
+          mma_bf16(acc[j], a + 4, w1.x, w1.y);
+          mma_bf16(acc[j], a, w2.x, w2.y);
+          mma_bf16(acc[j], a, w1.x, w1.y);
+        }
+      }
+    }
+  }
+}
+
+// Layer L on the tensor cores, then bias (and ReLU below the last layer)
+// into y, (env, unit) with row stride act_stride(L).
+template <int L, int BUDGET, typename Src>
+__device__ __forceinline__ void run_mma_layer(const Src& src, uint32_t* frag, const TickArgs& a,
+                                              float* y) {
+  using M = Mma<L>;
+  float acc[M::NTW][4];
+  mma_layer<L, BUDGET>(src, frag, a.w[L], acc);
+  __syncthreads();  // every warp is done with the source and the fragments
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int e = (warp % MT) * 16 + (lane >> 2);
+  constexpr int SY = act_stride(L);
+#pragma unroll
+  for (int j = 0; j < M::NTW; ++j) {
+    const int tile = (warp / MT) * M::NTW + j;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = tile * 8 + 2 * (lane & 3) + h;
+      if (tile < M::NT && n < M::OUT) {
+        const float bias = __ldg(a.b[L] + n);
+        float v0 = acc[j][h] + bias, v1 = acc[j][2 + h] + bias;
+        if (L < NL - 1) {
+          v0 = fmaxf(v0, 0.0f);
+          v1 = fmaxf(v1, 0.0f);
+        }
+        y[e * SY + n] = v0;
+        y[(e + 8) * SY + n] = v1;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The last layer (NUM_ACTIONS outputs) of env el from its activations x
+// on the CUDA cores: each of its TPE threads sums a TPE-th of the inputs,
+// the env's lanes add up; returns the lowest-index argmax of the Q-values.
+//
+// Its weight and bias pointers are read from the block's shared `meta`
+// words: loaded from the parameters at the start, they would be held in
+// registers across the tensor-core layers, which need all 64 a thread.
+template <int L>
+__device__ __forceinline__ int output_layer(const float* x, const void* meta, int el, int sub) {
+  constexpr int IN = DIMS[L], OUT = DIMS[L + 1];
+  constexpr int IPT = (IN + TPE - 1) / TPE;
+  const float* const* ptrs = reinterpret_cast<const float* const*>(meta);
+  const float* __restrict__ w = ptrs[1];
+  const float* __restrict__ bias = ptrs[2];
+  const float* xr = x + el * act_stride(L - 1);
+  float q[OUT];
+#pragma unroll
+  for (int o = 0; o < OUT; ++o) q[o] = 0.0f;
+#pragma unroll
+  for (int ii = 0; ii < IPT; ++ii) {
+    const int i = sub * IPT + ii;
+    if (i < IN) {
+      const float xv = xr[i];
+#pragma unroll
+      for (int o = 0; o < OUT; ++o) q[o] = fmaf(__ldg(w + i * OUT + o), xv, q[o]);
+    }
   }
   int best = 0;
+  float top = 0.0f;
 #pragma unroll
-  for (int j = 1; j < NUM_ACTIONS; ++j) {
-    if (q[j] > q[best]) best = j;
+  for (int o = 0; o < OUT; ++o) {
+    q[o] += __shfl_xor_sync(warp::FULL, q[o], 1);
+    q[o] += __shfl_xor_sync(warp::FULL, q[o], 2);
+    q[o] += __shfl_xor_sync(warp::FULL, q[o], 4);
+    q[o] += __ldg(bias + o);
+    if (o == 0 || q[o] > top) {
+      top = q[o];
+      best = o;
+    }
   }
   return best;
+}
+
+// Hidden layers L.. on the tensor cores from x into y, then the output
+// layer on the CUDA cores; returns thread (el, sub)'s env's greedy action.
+template <int L, int BUDGET>
+__device__ __forceinline__ int layers_from(float* x, float* y, uint32_t* frag, const TickArgs& a,
+                                           const void* meta, int el, int sub) {
+  if constexpr (L == NL - 1) {
+    return output_layer<L>(x, meta, el, sub);
+  } else {
+    run_mma_layer<L, BUDGET>(ActSource<DIMS[L], act_stride(L - 1)>{x}, frag, a, y);
+    return layers_from<(L + 1 < NL ? L + 1 : L), BUDGET>(y, x, frag, a, meta, el, sub);
+  }
+}
+
+// The greedy action of every env of the block, into the action tile's
+// drone-0 row where the env is greedy.
+template <typename T>
+__device__ __forceinline__ void actor(const TickArgs& a, T* tile, unsigned char* smem,
+                                      int32_t* s_act, const int8_t* s_greedy, int ne) {
+  using Lay = Layout<T>;
+  uint32_t* frag = reinterpret_cast<uint32_t*>(smem + Lay::OFF_W);
+  float* ha = reinterpret_cast<float*>(smem + Lay::OFF_HA);
+  float* hb = reinterpret_cast<float*>(smem + Lay::OFF_HB);
+  const void* meta = smem + Lay::OFF_META;
+  run_mma_layer<0, Lay::W_BUDGET>(ObsSource<T>{tile}, frag, a, ha);
+  const int el = threadIdx.x / TPE, sub = threadIdx.x % TPE;
+  int best = 0;
+  if constexpr (NL == 1) {
+    float top = 0.0f;
+#pragma unroll
+    for (int o = 0; o < NUM_ACTIONS; ++o) {
+      const float q = ha[el * act_stride(0) + o];
+      if (o == 0 || q > top) {
+        top = q;
+        best = o;
+      }
+    }
+  } else {
+    best = layers_from<1, Lay::W_BUDGET>(ha, hb, frag, a, meta, el, sub);
+  }
+  if (sub == 0 && el < ne && s_greedy[el]) s_act[el] = best;
 }
 
 // ---------------------------------------------------------------------------
 // The tick
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) full_tick_kernel(const TickArgs a) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(BLOCK, 2) full_tick_kernel(const TickArgs a) {
+  using Lay = Layout<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* tile = reinterpret_cast<T*>(smem);
+  int8_t* s_board = reinterpret_cast<int8_t*>(smem + Lay::OFF_BOARD);
+  int32_t* s_x = reinterpret_cast<int32_t*>(smem + Lay::OFF_X);
+  int32_t* s_y = reinterpret_cast<int32_t*>(smem + Lay::OFF_Y);
+  float* s_charge = reinterpret_cast<float*>(smem + Lay::OFF_CHARGE);
+  float* s_reward = reinterpret_cast<float*>(smem + Lay::OFF_REWARD);
+  int32_t* s_act = reinterpret_cast<int32_t*>(smem + Lay::OFF_ACTION);
+  uint32_t* s_keys = reinterpret_cast<uint32_t*>(smem + Lay::OFF_KEYS);
+  int8_t* s_carry = reinterpret_cast<int8_t*>(smem + Lay::OFF_CARRY);
+  int8_t* s_done = reinterpret_cast<int8_t*>(smem + Lay::OFF_DONE);
+  int8_t* s_greedy = reinterpret_cast<int8_t*>(smem + Lay::OFF_GREEDY);
+  int* s_meta = reinterpret_cast<int*>(smem + Lay::OFF_META);
+  const float** s_last = reinterpret_cast<const float**>(smem + Lay::OFF_META);
+
   const int E = a.num_envs;
-  if (e >= E) return;
-
-  // --- keys: rows of split(step_key, E + 2) -----------------------------
+  const int e0 = blockIdx.x * EB;
+  const int ne = cmini(EB, E - e0);
   const Key step_key{a.key0, a.key1};
-  const Key env_key = split_row(step_key, (uint32_t)e);
-  const Key actor_key = split_row(step_key, (uint32_t)E);
 
-  // --- epsilon-greedy actor ---------------------------------------------
-  int act[N];
-  float u0;
+  // --- stage the env state (in flight while the keys are hashed) ----------
+  stage_rows<int8_t, EB>(s_board, a.ground_in, E, e0, C, ne);
+  stage_rows<int32_t, EB>(s_x, a.ax_in, E, e0, N, ne);
+  stage_rows<int32_t, EB>(s_y, a.ay_in, E, e0, N, ne);
+  stage_rows<int8_t, EB>(s_carry, a.carry_in, E, e0, N, ne);
+  stage_rows<float, EB>(s_charge, a.charge_in, E, e0, N, ne);
+
+  // --- keys: rows of split(step_key, E + 2), one thread an (env, role) ----
+  bool greedy = false;
   {
-    float u_act[N + 1];
+    const int el = threadIdx.x % EB, role = threadIdx.x / EB;
+    const int e = e0 + el;
+    if (el < ne && role == 0) {
+      const Key env_key = split_row(step_key, (uint32_t)e);
+      const Key nk = split_row(env_key, 0u);
+      const Key ground_key = split_row(env_key, 1u);
+      const Key air_key = split_row(nk, 1u);
+      s_keys[0 * EB + el] = ground_key.k0;
+      s_keys[1 * EB + el] = ground_key.k1;
+      s_keys[2 * EB + el] = air_key.k0;
+      s_keys[3 * EB + el] = air_key.k1;
+    } else if (el < ne && role == 1) {
+      // Row 0 of the epsilon-greedy actor's (N + 1, E) uniform field.
+      const Key actor_key = split_row(step_key, (uint32_t)E);
+      const float u0 = bits_to_unit_float(uniform_bits(actor_key, (uint32_t)e));
+      greedy = !(u0 < __ldg(a.eps));
+      s_greedy[el] = greedy ? 1 : 0;
+    } else if (el < ne && role >= 3) {
+      // Rows 1..N: the drones' random actions, spread over the other roles.
+      const Key actor_key = split_row(step_key, (uint32_t)E);
+#pragma unroll 1
+      for (int i = role - 3; i < N; i += BLOCK / EB - 3) {
+        const float u = bits_to_unit_float(uniform_bits(actor_key, (uint32_t)((i + 1) * E + e)));
+        const int v = (int)floorf(u * (float)NUM_ACTIONS);
+        s_act[i * EB + el] = v < 0 ? 0 : (v > NUM_ACTIONS - 1 ? NUM_ACTIONS - 1 : v);
+      }
+    } else if (el < ne && role == 2 && a.do_reset) {
+      // core.reset with row e of split(S[E + 1], E): five placement keys.
+      Key k = split_row(split_row(step_key, (uint32_t)(E + 1)), (uint32_t)e);
 #pragma unroll
-    for (int r = 0; r <= N; ++r) {
-      u_act[r] = bits_to_unit_float(uniform_bits(actor_key, (uint32_t)(r * E + e)));
+      for (int s = 0; s < 5; ++s) {
+        const Key p = split_row(k, 1u);
+        k = split_row(k, 0u);
+        s_keys[(4 + 2 * s) * EB + el] = p.k0;
+        s_keys[(5 + 2 * s) * EB + el] = p.k1;
+      }
     }
-    u0 = u_act[0];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      int v = (int)floorf(u_act[i + 1] * (float)NUM_ACTIONS);
-      act[i] = v < 0 ? 0 : (v > NUM_ACTIONS - 1 ? NUM_ACTIONS - 1 : v);
+  }
+  if (threadIdx.x == 0) {
+    s_meta[0] = ne;
+    s_last[1] = a.w[NL - 1];
+    s_last[2] = a.b[NL - 1];
+  }
+  const bool any_greedy = __syncthreads_or(greedy);
+
+  // --- the actor ----------------------------------------------------------
+  if (any_greedy) {
+    using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, float>::type;
+    Raw* raw = reinterpret_cast<Raw*>(tile);
+    stage_rows<Raw, Lay::S>(raw, static_cast<const Raw*>(a.obs_in), a.in_ld, a.read_col + e0, OBS,
+                            ne);
+    for (int i = threadIdx.x; i < (up16(OBS) - OBS) * Lay::S; i += BLOCK) {
+      raw[OBS * Lay::S + i] = Raw(0);
     }
+    cp_async_wait_all();
+    __syncthreads();
+    actor<T>(a, tile, smem, s_act, s_greedy, ne);
   }
-  if (!(u0 < __ldg(a.eps))) {
-    act[0] = greedy_action(static_cast<const T*>(a.obs_in) + a.read_col + e, a.in_ld, a);
-  }
+  cp_async_wait_all();
+  __syncthreads();
+  // Read back rather than kept in registers across the actor, which needs
+  // all 64 a thread at the widest nets.
+  const int ne_b = s_meta[0];
 
-  // --- load the env ------------------------------------------------------
-  int8_t g0[C];  // the board at the start of the tick
-  int8_t g[C];   // the board being stepped
-  for (int c = 0; c < C; ++c) g0[c] = g[c] = a.ground_in[(long long)c * E + e];
-  int ax[N], ay[N];
-  bool carrying[N];
-  float charge[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    ax[i] = a.ax_in[i * E + e];
-    ay[i] = a.ay_in[i * E + e];
-    carrying[i] = a.carry_in[i * E + e] != 0;
-    charge[i] = a.charge_in[i * E + e];
-  }
-
-  // --- the step ------------------------------------------------------------
-  uint32_t u[C];
-  float reward[N];
-  bool done[N];
+  // --- step and reset: one warp an env --------------------------------------
+  const int warp_id = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Rewards rw{a.pickup_reward, a.delivery_reward, a.crash_reward, a.charge_reward};
-  step_env(env_key, act, g0, g, ax, ay, carrying, charge, reward, done, rw, u);
+#pragma unroll 1
+  for (int el = warp_id; el < ne_b; el += WARPS) {
+    int g0[warp::KC], g[warp::KC];
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    a.rewards[i * E + e] = reward[i];
-    a.dones[i * E + e] = done[i] ? 1 : 0;
-    a.actions[i * E + e] = act[i];
-  }
-
-  // --- core.reset with row e of split(S[E + 1], E) -------------------------
-  if (a.do_reset) {
-    reset_env(split_row(split_row(step_key, (uint32_t)(E + 1)), (uint32_t)e), g, ax, ay,
-              carrying, charge, u);
-  }
-
-  // --- store the state and the next observation ---------------------------
-  for (int c = 0; c < C; ++c) a.ground_out[(long long)c * E + e] = g[c];
+    for (int k = 0; k < warp::KC; ++k) {
+      const int c = warp::cell_of(k);
+      g0[k] = g[k] = c < C ? s_board[c * EB + el] : EMPTY;
+    }
+    warp::Drone d{0, 0, false, 100.0f};
+    int act = STAY;
+    if (lane < N) {
+      d = warp::Drone{s_x[lane * EB + el], s_y[lane * EB + el], s_carry[lane * EB + el] != 0,
+                      s_charge[lane * EB + el]};
+      act = s_act[lane * EB + el];
+    }
+    const Key ground_key{s_keys[0 * EB + el], s_keys[1 * EB + el]};
+    const Key air_key{s_keys[2 * EB + el], s_keys[3 * EB + el]};
+    uint32_t u[warp::KC], ua[warp::KC];
+    float reward;
+    bool done;
+    warp::step_env(ground_key, air_key, act, s_board + el, EB, g0, g, d, reward, done, rw, u,
+                   ua);
+    if (lane < N) {
+      s_reward[lane * EB + el] = reward;
+      s_done[lane * EB + el] = done ? 1 : 0;
+    }
+    if (a.do_reset) {
+      Key placement[5];
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    a.ax_out[i * E + e] = ax[i];
-    a.ay_out[i * E + e] = ay[i];
-    a.carry_out[i * E + e] = carrying[i] ? 1 : 0;
-    a.charge_out[i * E + e] = charge[i];
+      for (int s = 0; s < 5; ++s) {
+        placement[s] = Key{s_keys[(4 + 2 * s) * EB + el], s_keys[(5 + 2 * s) * EB + el]};
+      }
+      warp::reset_env(placement, g, d, u);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < warp::KC; ++k) {
+      const int c = warp::cell_of(k);
+      if (c < C) s_board[c * EB + el] = (int8_t)g[k];
+    }
+    if (lane < N) {
+      s_x[lane * EB + el] = d.x;
+      s_y[lane * EB + el] = d.y;
+      s_carry[lane * EB + el] = d.carrying ? 1 : 0;
+      s_charge[lane * EB + el] = d.charge;
+    }
   }
-  write_obs(static_cast<T*>(a.obs_out) + a.write_col + e, a.out_ld, g, ax, ay, carrying, charge);
+  __syncthreads();
+
+  // --- the next observation: a (position, env) item a thread ---------------
+  warp::observe_tile<EB, BLOCK>(tile, Lay::S, s_board, s_x, s_y, s_carry, s_charge);
+  __syncthreads();
+
+  // --- store the state, the outputs and the next observation ---------------
+  using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, float>::type;
+  const int col0 = blockIdx.x * EB;
+  store_rows<Raw, Lay::S>(static_cast<Raw*>(a.obs_out), reinterpret_cast<const Raw*>(tile),
+                          a.out_ld, a.write_col + col0, OBS, ne_b);
+  store_rows<int8_t, EB>(a.ground_out, s_board, a.num_envs, col0, C, ne_b);
+  store_rows<int32_t, EB>(a.ax_out, s_x, a.num_envs, col0, N, ne_b);
+  store_rows<int32_t, EB>(a.ay_out, s_y, a.num_envs, col0, N, ne_b);
+  store_rows<int8_t, EB>(a.carry_out, s_carry, a.num_envs, col0, N, ne_b);
+  store_rows<float, EB>(a.charge_out, s_charge, a.num_envs, col0, N, ne_b);
+  store_rows<float, EB>(a.rewards, s_reward, a.num_envs, col0, N, ne_b);
+  store_rows<int8_t, EB>(a.dones, s_done, a.num_envs, col0, N, ne_b);
+  store_rows<int32_t, EB>(a.actions, s_act, a.num_envs, col0, N, ne_b);
+}
+
+// Internal linkage: a static local of a template with external linkage is
+// one process-wide (GNU unique) object, shared by every library built from
+// this source, so a second net's library would never set its limit.
+namespace {
+
+template <typename T>
+cudaError_t configure() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      full_tick_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<T>::TOTAL);
+  return err;
+}
+
+}  // namespace
+
+template <typename T>
+int launch_t(const TickArgs* args, cudaStream_t s) {
+  const cudaError_t err = configure<T>();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((args->num_envs + EB - 1) / EB);
+  full_tick_kernel<T><<<grid, BLOCK, Layout<T>::TOTAL, s>>>(*args);
+  return (int)cudaGetLastError();
 }
 
 int launch(const TickArgs* args, void* stream) {
   if (args->num_envs <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((args->num_envs + THREADS - 1) / THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (args->obs_bf16) {
-    full_tick_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(*args);
-  } else {
-    full_tick_kernel<float><<<grid, THREADS, 0, s>>>(*args);
+  return args->obs_bf16 ? launch_t<__nv_bfloat16>(args, s) : launch_t<float>(args, s);
+}
+
+template <typename T>
+int blocks_per_sm() {
+  int n = 0;
+  if (configure<T>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, full_tick_kernel<T>, BLOCK,
+                                                    Layout<T>::TOTAL) != cudaSuccess) {
+    return -1;
   }
-  return (int)cudaGetLastError();
+  return n;
 }
 
 }  // namespace dronerl
@@ -273,4 +820,14 @@ extern "C" int full_tick_launch(const dronerl::TickArgs* args, void* stream) {
 
 extern "C" const char* full_tick_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The launch's dynamic shared memory in bytes, for bf16 or f32 observations.
+extern "C" int full_tick_smem_bytes(int bf16) {
+  return bf16 ? dronerl::Layout<__nv_bfloat16>::TOTAL : dronerl::Layout<float>::TOTAL;
+}
+
+// Resident blocks an SM (the occupancy query), for bf16 or f32 observations.
+extern "C" int full_tick_blocks_per_sm(int bf16) {
+  return bf16 ? dronerl::blocks_per_sm<__nv_bfloat16>() : dronerl::blocks_per_sm<float>();
 }

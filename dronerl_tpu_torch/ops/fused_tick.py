@@ -19,8 +19,9 @@ and three launches:
 
 State is feature-major (field, env): ground (C, E) int8, drone fields
 (N, E). On CUDA tensors each wrapper launches its hand-written kernel
-(``csrc/full_tick.cu`` for B1 and B3, ``csrc/env_kernel.cu`` for B4, both
-on ``csrc/env_step.cuh``); on CPU tensors it runs its plain version
+(``csrc/full_tick.cu`` for B1 and B3, on ``csrc/env_warp.cuh``;
+``csrc/env_kernel.cu`` for B4, on ``csrc/env_step.cuh``); on CPU tensors
+it runs its plain version
 (:func:`full_tick_ring_plain`, :func:`full_tick_plain`,
 :func:`tick_plain`), the same function in plain PyTorch.
 
@@ -138,6 +139,85 @@ def plain_actions(actor_key: torch.Tensor, obs_ring: torch.Tensor,
     greedy = torch.argmax(q, dim=0).to(torch.int32)  # first max wins
     a0 = torch.where(u_act[0] < epsilon, rand[0], greedy)
     return torch.cat([a0[None], rand[1:]], dim=0), q
+
+
+# --- plain mirrors of the full tick kernel's two mechanisms ------------------
+# Nothing on the card's path calls these: the CPU tests hold them against
+# jax.lax.top_k and the f32 forward, so that the kernel's choices of key
+# and operand split are checked where the kernel cannot run.
+
+def packed_pick_order(u23: torch.Tensor, valid: torch.Tensor,
+                      k: int) -> torch.Tensor:
+    """The spawn picks of ``csrc/env_warp.cuh`` (``pick_next``): ``k``
+    rounds over (B, C) 23-bit uniforms ``u23`` and a (B, C) bool candidate
+    mask, C <= 256. Each round takes the largest packed key ``2**31 | u <<
+    8 | (255 - c)`` of the untaken candidates, or, when none is left, the
+    lowest untaken cell. Returns (B, k) int64 cells, which are
+    ``top_k(where(valid, u, -inf), k)``'s indices."""
+    b, c = u23.shape
+    idx = torch.arange(c, device=u23.device)
+    key = torch.where(valid, (1 << 31) | (u23.long() << 8) | (255 - idx),
+                      torch.zeros((), dtype=torch.int64, device=u23.device))
+    taken = torch.zeros((b, c), dtype=torch.bool, device=u23.device)
+    rows = torch.arange(b, device=u23.device)
+    cells = []
+    for _ in range(k):
+        best = torch.where(taken, 0, key).amax(dim=1)
+        lowest = torch.where(taken, c, idx).amin(dim=1)
+        cell = torch.where(best > 0, 255 - (best & 255), lowest)
+        taken[rows, cell] = True
+        cells.append(cell)
+    return torch.stack(cells, dim=1)
+
+
+def bf16_pieces(x: torch.Tensor):
+    """``x`` f32 as three bf16 pieces (hi, mid, lo, each returned as the
+    f32 it is, rounded to nearest even as ``__float2bfloat16_rn``): their
+    sum keeps 24 significant bits, the differences are exact in f32."""
+    p1 = x.to(torch.bfloat16).float()
+    r = x - p1
+    p2 = r.to(torch.bfloat16).float()
+    return p1, p2, (r - p2).to(torch.bfloat16).float()
+
+
+_EXACT_TERMS = ((0, 2), (0, 1), (0, 0))
+_SPLIT_TERMS = ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))
+
+
+def _split_product(x: torch.Tensor, w: torch.Tensor, exact_x: bool):
+    """``x @ w`` as the tensor-core loop sums it: bf16 pieces of ``w`` (and
+    of ``x`` unless it is exact in bf16), each product exact in f32, the
+    terms of order <= 2**-16 added in f32, smallest first."""
+    ws = bf16_pieces(w)
+    xs = (x,) if exact_x else bf16_pieces(x)
+    out = torch.zeros((x.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for i, j in (_EXACT_TERMS if exact_x else _SPLIT_TERMS):
+        out = out + xs[i] @ ws[j]
+    return out
+
+
+def split_forward_t(net_params: DenseQNet, obs_t: torch.Tensor,
+                    exact_obs: bool) -> torch.Tensor:
+    """The full tick kernel's Q forward in plain PyTorch: (obs_dim, E) →
+    (num_actions, E). Every layer but the last (all of a one-layer net)
+    runs as the tensor-core loop does, on bf16 pieces summed in f32: W's
+    three pieces times the observation where it is exact in bf16
+    (``exact_obs``, the bf16 ring), else the six products of the two
+    three-piece splits (B3's f32 observations, the hidden activations).
+    The output layer is f32."""
+    n = net_params.n_layers
+    h = obs_t.float().t()
+    for idx, (w, b) in enumerate(zip(net_params.kernels,
+                                     net_params.biases)):
+        w, b = w.detach().float(), b.detach().float()
+        if idx < max(n - 1, 1):
+            h = _split_product(h, w, exact_obs and idx == 0) + b
+        else:
+            h = h @ w + b
+        if idx < n - 1:
+            h = torch.relu(h)
+    return h.t()
 
 
 def _env_tick_plain(env_keys, tstate: TState, actions: torch.Tensor,
@@ -284,6 +364,19 @@ def kernel_config(params: EnvParams, net_params: DenseQNet):
     """The full tick kernel's library (B1 and B3): source and compile-time
     configuration (see ops/_build.py)."""
     return _build.tick_config(params, net_widths(net_params))
+
+
+def kernel_occupancy(config, obs_bf16: bool) -> Tuple[int, int]:
+    """The full tick kernel's dynamic shared memory in bytes and its
+    resident blocks per SM on the current card, for the library ``config``
+    (``kernel_config``) with bf16 (B1 on a bf16 ring) or f32
+    observations."""
+    lib = _build.load(config)
+    for name in ("full_tick_smem_bytes", "full_tick_blocks_per_sm"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
+    return (lib.full_tick_smem_bytes(int(obs_bf16)),
+            lib.full_tick_blocks_per_sm(int(obs_bf16)))
 
 
 def prepare_kernel(params: EnvParams, net_params: Optional[DenseQNet] = None,

@@ -143,6 +143,47 @@ def test_kernel_matches_plain_on_card(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_ragged_envs_on_card(dtype):
+    """100 envs: a partial last block of the kernel's 64-env tiles and ring
+    columns off the 16-byte grid (its element-wise copies), ε = 0.5 and a
+    reset at tick 1: env outputs bitwise, charge within 1.3e-7, actions
+    equal outside near ties, the read columns untouched."""
+    dev = _card()
+    num_envs = 100
+    tp = EnvParams(**KW)
+    net = DQN(DQNConfig(hidden_layers=(16, 16)), tp, device=dev).init_state(
+        torch.Generator().manual_seed(0)).params
+    ts = fused_tick.to_tstate(core.reset_batch(rng.PRNGKey(1).to(dev), tp,
+                                               num_envs))
+    ring = torch.rand((294, 3 * num_envs), generator=torch.Generator(
+        ).manual_seed(2)).round().to(dtype).to(dev)
+    eps = torch.tensor(0.5, device=dev)
+    key = rng.PRNGKey(3)
+    for t in range(3):
+        key, step_key = rng.split(key, 2)
+        read, write = num_envs * (t % 2), num_envs * (1 + t % 2)
+        ring_p = ring.clone()
+        out_k = fused_tick.full_tick_fused_ring(
+            step_key, ts, ring, read, write, net, eps, t == 1, tp)
+        out_p = fused_tick.full_tick_ring_plain(
+            step_key, ts, ring_p, read, write, net, eps, t == 1, tp,
+            actions_override=out_k[3])
+        for a, b in zip(out_k[0] + out_k[1:3], out_p[0] + out_p[1:3]):
+            assert torch.equal(a, b), t
+        diff = (ring.float() - ring_p.float()).abs().reshape(-1, 6,
+                                                            3 * num_envs)
+        assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0
+        assert float(diff[:, 4].max()) <= CHARGE_ATOL
+        act_p, q = fused_tick.plain_actions(
+            rng.split(step_key.to(dev), num_envs + 2)[num_envs], ring_p,
+            read, net, eps, tp, num_envs)
+        differ = (out_k[3] != act_p).any(dim=0)
+        assert not bool((differ & ~_near_tie(q)).any()), t
+        ts = out_k[0]
+
+
+@pytest.mark.gpu
 def test_trainer_on_card_matches_cpu():
     """Four ticks of the ring trainer through the kernel on the card and
     through the plain version on the CPU, from one carry. ε stays 1 (every
