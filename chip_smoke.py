@@ -11,9 +11,11 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 2. build the full tick kernel (ops/csrc/full_tick.cu: the ring launch B1
    and the obs launch B3), the learner kernel (ops/csrc/td_adam.cu) and
    the env kernel (ops/csrc/env_kernel.cu: the feature-major tick B4 and
-   the row-major step B5, for three boards) from the sources, every
-   library in one ``nvcc`` wave, and print their ptxas lines and the tick
-   kernel's shared memory and blocks per SM;
+   the row-major step B5, one library for each board of STEP_BOARDS and
+   TICK_BOARDS) from the sources, every library in one ``nvcc`` wave, and
+   print their ptxas lines (registers, spill bytes, stack), the tick
+   kernel's shared memory and blocks per SM, and the env kernel's block
+   shape and its B4 and B5 blocks per SM;
 3. hold the tick kernel against its plain PyTorch version on the card, at
    the bench width (65,536 envs, grid 9, 4 drones, window radius 3), for
    the (16,16) and (128,64) nets and f32 and bf16 rings, over 8 ticks with
@@ -32,14 +34,16 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    envs for both nets over 8 ticks with a reset tick, ε = 0.5: env
    outputs bitwise, the charge channel within 1.3e-7, actions equal
    outside near ties, ``obs_t`` untouched;
-3d. hold B4 (``tick_fused``) against ``tick_plain`` for 8 ticks of
-   actions drawn on the card: everything bitwise but the charge channel
-   (within 1.3e-7);
+3d. hold B4 (``tick_fused``) against ``tick_plain`` at 65,536 envs for 8
+   ticks of actions drawn on the card on grid 9 with 4 drones, and for 3
+   on the tight board (grid 5, 2 drones) and on grid 16 with 25 drones:
+   everything bitwise but the charge channel (within 1.3e-7);
 3e. hold B5 (``step_kernel.step_batch_fused``) against ``core.step_batch``
    at 65,536 envs on grid 9 with 4 drones, a tight board (grid 5, 2
-   drones: more respawn slots than vacant cells) and a 400-cell board
-   (grid 20): all bitwise (the charge and reward error is measured);
-   then drive the entry point for 100 steps on
+   drones: more respawn slots than vacant cells), a 400-cell board (grid
+   20), the evaluator's 20-participant arena (grid 20, 20 drones) and 48
+   drones on a nearly full board (grid 22): all bitwise (the charge and
+   reward error is measured); then drive the entry point for 100 steps on
    grid 9 (launches = steps);
 4. drive the trainer's main path (``dronerl_tpu_torch.train``) at the
    bench configuration for both nets: the tick kernel's launch count must
@@ -62,7 +66,8 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    with the default memory size (114,688 slots > 4 x 16,384): it must
    choose the full engine, and B3's launches equal its steps;
    then time B1, B3, B4 and B5 per launch (CUDA events over launches of a
-   prebuilt argument block; B1 also by wrapper calls), their plain
+   prebuilt argument block; B1 also by wrapper calls; B4 on every board
+   of TICK_BOARDS, B5 on every board of STEP_BOARDS), their plain
    versions and their bounds (the tick kernel's layers but the last at
    the tensor-core rate, the all-CUDA-core bound beside it);
 5. print the kernel table line, the card line, and the result line last.
@@ -88,7 +93,14 @@ RESET_EVERY = 100
 NETS = ((16, 16), (128, 64))
 STREAM_CAPACITY = 1048576  # ceil(1e6 / E) * E: --memory_size 1000000
 CLI_ENVS, CLI_STEPS = 16384, 30
-STEP_BOARDS = ((GRID, DRONES), (5, 2), (20, DRONES))  # grid, drones
+# B5's boards (grid, drones): the bench's, a tight one (more respawn slots
+# than vacant cells), 400 cells, the evaluator's arena for 20 participants
+# (dronerl_tpu/evaluator/evaluator.py arena_params(20)), and 48 drones on a
+# nearly full board (480 objects on 484 cells).
+STEP_BOARDS = ((GRID, DRONES), (5, 2), (20, DRONES), (20, 20), (22, 48))
+# B4's boards: the bench's, the tight one, and grid 16 with 25 drones (the
+# tick kernels' limits are 256 cells and 32 drones).
+TICK_BOARDS = ((GRID, DRONES), (5, 2), (16, 25))
 STEP_COMPARE = 3
 STEP_DRIVE = 100
 BLOCK_LAUNCHES = 50
@@ -190,7 +202,8 @@ def main() -> None:
     obs_dim = fused_tick.obs_rows(params)
     widths = {h: (obs_dim, *h, 5) for h in NETS}
     boards = {b: EnvParams(grid_size=b[0], n_drones=b[1],
-                           window_radius=RADIUS) for b in STEP_BOARDS}
+                           window_radius=RADIUS)
+              for b in dict.fromkeys(STEP_BOARDS + TICK_BOARDS)}
     configs = ([_build.tick_config(params, widths[h]) for h in NETS]
                + [_build.learner_config(widths[h]) for h in NETS]
                + [_build.env_config(p) for p in boards.values()])
@@ -213,6 +226,13 @@ def main() -> None:
                 log(f"full tick kernel {tag} {'bf16' if bf16 else 'f32'} "
                     f"obs: {smem} B dynamic shared memory a block, {blocks} "
                     f"resident blocks an SM")
+        elif cfg[0] == _build.ENV_SOURCE:
+            shape = fused_tick.env_block_shape(cfg)
+            log(f"env kernel {tag}: blocks of {shape['envs']} envs and "
+                f"{shape['threads']} threads, {shape['smem_bytes']} B "
+                f"dynamic shared memory; resident blocks an SM: B4 "
+                f"{shape['tick_blocks_per_sm']} (-1: beyond the tick's "
+                f"limits), B5 {shape['step_blocks_per_sm']}")
 
     def make_agent(hidden, seed):
         cfg = DQNConfig(hidden_layers=hidden, epsilon_decay_every=5,
@@ -500,28 +520,34 @@ def main() -> None:
             f"{full_err[hidden]:.3e}; near-tie envs {near_ties}")
 
     # --- 3d. B4 (the env tick) against its plain version --------------------
-    tstate, _ = fresh_obs(4)
-    key = rng.PRNGKey(5)
     tick_err = 0.0
-    for t in range(COMPARE_TICKS):
-        key, act_key, step_key = rng.split(key, 3)
-        actions = rng.randint(act_key.to(device), (DRONES, NUM_ENVS), 0, 5)
-        out_k = fused_tick.tick_fused(step_key, tstate, actions, params)
-        out_p = fused_tick.tick_plain(step_key, tstate, actions, params)
-        torch.cuda.synchronize()
-        check_state(f"B4 tick {t}", out_k[0] + out_k[1:3],
-                    out_p[0] + out_p[1:3],
-                    fused_tick.TState._fields + ("rewards", "dones"))
-        tick_err = max(tick_err, check_obs(f"B4 tick {t}", out_k[3],
-                                           out_p[3]))
-        tstate = out_k[0]
-    log(f"B4 == plain: {COMPARE_TICKS} ticks of random actions; env "
-        f"bitwise, charge max err {tick_err:.3e}")
+    for board in TICK_BOARDS:
+        bp = boards[board]
+        ticks = COMPARE_TICKS if board == (GRID, DRONES) else STEP_COMPARE
+        tstate = fused_tick.to_tstate(core.reset_batch(
+            rng.PRNGKey(4).to(device), bp, NUM_ENVS))
+        key = rng.PRNGKey(5)
+        for t in range(ticks):
+            tag = f"B4 board {board} tick {t}"
+            key, act_key, step_key = rng.split(key, 3)
+            actions = rng.randint(act_key.to(device), (bp.n_drones, NUM_ENVS),
+                                  0, 5)
+            out_k = fused_tick.tick_fused(step_key, tstate, actions, bp)
+            out_p = fused_tick.tick_plain(step_key, tstate, actions, bp)
+            torch.cuda.synchronize()
+            check_state(tag, out_k[0] + out_k[1:3], out_p[0] + out_p[1:3],
+                        fused_tick.TState._fields + ("rewards", "dones"))
+            tick_err = max(tick_err, check_obs(tag, out_k[3], out_p[3]))
+            tstate = out_k[0]
+        log(f"B4 == plain: board (grid, drones) {board}, {ticks} ticks of "
+            f"random actions at {NUM_ENVS} envs; env bitwise, charge max "
+            f"err {tick_err:.3e}")
 
     # --- 3e. B5 (the row-major step) against core.step_batch ----------------
     row_fields = ("ground", "air_x", "air_y", "carrying_package", "charge")
     step_err = 0.0
-    for board, bp in boards.items():
+    for board in STEP_BOARDS:
+        bp = boards[board]
         states = core.reset_batch(rng.PRNGKey(6).to(device), bp, NUM_ENVS)
         key = rng.PRNGKey(7)
         for t in range(STEP_COMPARE):
@@ -742,12 +768,17 @@ def main() -> None:
         })
     fused_launches = 0
     for hidden in NETS:
-        agent, carry, tick_s, launches = drive_stream(hidden, "fused")
+        _, carry, tick_s, launches = drive_stream(hidden, "fused")
         fused_launches += launches
         log(f"obs/s fused engine net {hidden} {NUM_ENVS / tick_s:.1f} vs "
             f"the ring engine {obs_per_s[hidden]:.1f} (one run, {card})")
-    timing = time_env_tick(torch, _build, fused_tick, rng, agent, carry,
+    timing = time_env_tick(torch, _build, fused_tick, rng, carry[1], params,
                            card)
+    for board in TICK_BOARDS[1:]:
+        bp = boards[board]
+        time_env_tick(torch, _build, fused_tick, rng, fused_tick.to_tstate(
+            core.reset_batch(rng.PRNGKey(10).to(device), bp, NUM_ENVS)), bp,
+            card)
     stream.append({
         "name": "tick",
         "route": "cuda",
@@ -759,7 +790,8 @@ def main() -> None:
         **timing,
         "library_ms": None,
     })
-    for board, bp in boards.items():
+    for board in STEP_BOARDS:
+        bp = boards[board]
         timing = time_step(torch, _build, step_kernel, core, rng, bp, card)
         if board == (GRID, DRONES):
             stream.append({
@@ -947,20 +979,20 @@ def time_obs_kernel(torch, _build, fused_tick, rng, agent, carry, hidden,
         env_bound(*bound_args, flop_seconds=t_actor), card)
 
 
-def time_env_tick(torch, _build, fused_tick, rng, agent, carry, card):
-    """B4 at the fused engine's shapes after its run, with actions drawn
-    on the card."""
-    params = agent.env_params
-    tstate, obs_t = carry[1], carry[2]
+def time_env_tick(torch, _build, fused_tick, rng, tstate, params, card):
+    """B4 on ``tstate`` (the fused engine's state after its run, or a fresh
+    reset of another board), with actions drawn on the card."""
     n, num_envs = tstate.air_x.shape
-    actions = rng.randint(rng.PRNGKey(8).to(obs_t.device), (n, num_envs), 0,
-                          5)
+    actions = rng.randint(rng.PRNGKey(8).to(tstate.ground.device),
+                          (n, num_envs), 0, 5)
     c = params.num_cells
+    obs_bytes = fused_tick.obs_rows(params) * num_envs * 4
     return time_env_kernel(
-        torch, "B4", _build.load(_build.env_config(params)), "tick_launch",
+        torch, f"B4 grid {params.grid_size} drones {n}",
+        _build.load(_build.env_config(params)), "tick_launch",
         fused_tick._env_tick_args, fused_tick.tick_plain,
         (rng.PRNGKey(7), tstate, actions, params),
-        env_bound(n, c, obs_t.numel() * 4, hashes_per_env=4 + 2 * c), card)
+        env_bound(n, c, obs_bytes, hashes_per_env=4 + 2 * c), card)
 
 
 def time_step(torch, _build, step_kernel, core, rng, params, card):

@@ -6,10 +6,10 @@ a build takes seconds). A library is one source compiled with one ``-D``
 set: a *config* is the pair ``(source, defines)``. The full tick kernel
 (``full_tick.cu``, the ring and obs launches) is specialised on the env
 and the Q-net widths, the env-only kernel (``env_kernel.cu``, the
-feature-major tick and the row-major step, which shares ``env_step.cuh``
-with it) on the env alone, the learner kernel (``td_adam.cu``) on the widths alone (``-D``
-constants, as the TPU kernels are specialised on their static
-arguments). Each config
+feature-major tick and the row-major step, on the same warp-per-env body
+``env_warp.cuh`` and block copies ``env_tile.cuh``) on the env alone, the
+learner kernel (``td_adam.cu``) on the widths alone (``-D`` constants, as
+the TPU kernels are specialised on their static arguments). Each config
 is cached under ``ops/_build/`` by a hash of the sources, the source name
 and the ``-D`` set. ``--use_fast_math`` is never passed: the
 observation's charge channel divides by 100 and must round as IEEE
@@ -34,8 +34,8 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 TICK_SOURCE = "full_tick.cu"
 ENV_SOURCE = "env_kernel.cu"
 LEARNER_SOURCE = "td_adam.cu"
-SOURCES = (TICK_SOURCE, ENV_SOURCE, "env_step.cuh", "env_warp.cuh",
-           "threefry.cuh", LEARNER_SOURCE)
+SOURCES = (TICK_SOURCE, ENV_SOURCE, "env_step.cuh", "env_tile.cuh",
+           "env_warp.cuh", "threefry.cuh", LEARNER_SOURCE)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 MAX_LAYERS = 8  # as csrc/full_tick.cu
 

@@ -13,33 +13,47 @@
 //   int8 and drone fields and actions (E, N), no observation. Bit-equal to
 //   vmap(core.step) over split(step_key, E).
 //
-// Both: per-env threefry keys, move / crash / battery / pickup / delivery,
-// packet, dropzone and drone respawns (the full tick's physics,
-// env_step.cuh), one thread per env on its board and drones held in local
-// arrays. The layout is a template parameter: it sets where thread e loads
-// and stores cell c and drone i (c * E + e feature-major, e * C + c
-// row-major) and whether it writes the observation. The TPU kernels'
-// sentinel-ladder top-k and last-writer scatter emulation are the shared
-// argmax-and-retire picker and the per-drone last-writer flags.
+// Both run the full tick kernel's design (full_tick.cu) without its actor
+// and its reset:
+//
+// * A block owns EB consecutive envs and stages their board, drone fields
+//   and actions into shared memory with cp.async (env_tile.cuh); one
+//   thread an env hashes its ground and air keys while the copies are in
+//   flight.
+// * One warp steps one env at a time on env_warp.cuh: lanes own cells,
+//   every spawn pick is a warp reduction, the drones live on lanes and
+//   meet through shuffles, nothing is kept in local memory.
+// * The state, rewards and dones go back from the tiles the same way.
+//
+// The layout is a template parameter. Feature-major (B4): each field's
+// rows of the block's EB columns move as 16-byte chunks into (K, EB)
+// tiles, and the window observation is one block-wide pass
+// (observe_tile) that writes the f32 observation straight to obs_out with
+// row stride E: neighbouring threads write neighbouring envs, so the
+// stores coalesce with no observation tile in shared memory. Row-major
+// (B5): a block's part of an (E, K) field is one contiguous span of EB K
+// elements at e0 K, moved flat; lane l of the warp of env el reads its
+// cells at s_board[el * C + l + 32 k], stride 1 and free of bank
+// conflicts.
 //
 // Limits: the row-major step takes JAX's step_kernel limits, up to 512
-// cells and 64 drones (a thread then keeps 2 x 512 bytes of board and 2 KB
-// of spawn uniforms in local memory); the feature-major tick takes the
-// tick kernels' 256 cells and 32 drones (ops/fused_tick.py kernel_problems).
+// cells and 64 drones; the feature-major tick takes the tick kernels' 256
+// cells and 32 drones (ops/fused_tick.py kernel_problems). A block is 64
+// envs and 512 threads, as the full tick kernel's: two blocks an SM (at
+// most 64 registers a thread) up to 128 cells and 32 drones, one (at most
+// 128) beyond, where env_warp.cuh's wide body (above 256 cells or 32
+// drones: up to 16 cells and 2 drones a lane) or the narrow body's
+// per-drone loops at 5 to 8 cells a lane need the registers. Other shapes
+// measured within a few percent (scripts/torch_env_variants.py).
 //
-// What bounds them on the H100:
-// * the tick: the bytes, about 1.5 KB per env (the 294-row f32 observation
-//   written, the state read and written, the actions read, rewards and
-//   dones written), 97 MB at 65,536 envs; its operations (about 166
-//   threefry hashes per env) come second. Every global load and store
-//   coalesces across a warp and every byte moves once.
-// * the step: the operations, the same 166 hashes per env against about
-//   300 bytes of state at 81 cells and 4 drones. Row-major loads do not
-//   coalesce across a warp (neighbouring threads read addresses C bytes
-//   apart); each thread's row comes through L1 in a few sectors. Staging a
-//   block's rows through shared memory is the next step.
+// What bounds them on the H100: the tick, the bytes (about 1.5 KB per env
+// at grid 9 and 4 drones, the 294-row f32 observation written, the state
+// read and written, the actions read, the rewards and dones written); the
+// step, the operations (2 C threefry hashes per env, and each spawn pick a
+// warp reduction over the board). Every byte moves once.
 
-#include "env_step.cuh"
+#include "env_tile.cuh"
+#include "env_warp.cuh"
 
 namespace dronerl {
 
@@ -71,69 +85,238 @@ struct EnvArgs {
   float charge_reward;
 };
 
-// Where env e's entry k of a K-entry field lies.
+// ---------------------------------------------------------------------------
+// Block geometry and the shared-memory layout
+
+// The wide body, and boards of more than 4 cells a lane (whose per-drone
+// loops spill at 64 registers), run one block an SM: up to 128 registers.
+constexpr bool LARGE = warp::WIDE || warp::KC > 4;
+constexpr int EB = 64;                     // envs a block
+constexpr int BLOCK = 512;                 // threads a block
+constexpr int MIN_BLOCKS = LARGE ? 1 : 2;  // resident blocks an SM
+constexpr int WARPS = BLOCK / 32;
+using Tile = BlockTile<EB, BLOCK>;
+
+// Byte offsets of the block's tiles: the board, the drones' fields (x, y,
+// charge, action, reward; carry, done) and the keys (ground and air).
+struct Layout {
+  static constexpr int OFF_X = up16(C * EB);
+  static constexpr int OFF_Y = OFF_X + N * EB * 4;
+  static constexpr int OFF_CHARGE = OFF_Y + N * EB * 4;
+  static constexpr int OFF_ACTION = OFF_CHARGE + N * EB * 4;
+  static constexpr int OFF_REWARD = OFF_ACTION + N * EB * 4;
+  static constexpr int OFF_KEYS = OFF_REWARD + N * EB * 4;
+  static constexpr int OFF_CARRY = OFF_KEYS + 4 * EB * 4;
+  static constexpr int OFF_DONE = OFF_CARRY + up16(N * EB);
+  static constexpr int TOTAL = OFF_DONE + up16(N * EB);
+};
+
+// Where entry k of env el of a K-entry field lies in the block's tile.
 template <bool kFeatureMajor>
-__device__ __forceinline__ long long at(int e, int k, int K, int E) {
-  return kFeatureMajor ? (long long)k * E + e : (long long)e * K + k;
+__device__ __forceinline__ int at(int el, int k, int K) {
+  return kFeatureMajor ? k * EB + el : el * K + k;
 }
 
+// Start copying the block's envs [e0, e0 + ne) of a K-entry field into
+// its tile.
+template <bool kFeatureMajor, typename U>
+__device__ __forceinline__ void stage(U* tile, const U* src, int K, int E, int e0, int ne) {
+  if constexpr (kFeatureMajor) {
+    Tile::template stage_rows<U, EB>(tile, src, E, e0, K, ne);
+  } else {
+    Tile::template stage_flat<U>(tile, src + (long long)e0 * K, ne * K);
+  }
+}
+
+// Store the block's envs of a K-entry field from its tile.
+template <bool kFeatureMajor, typename U>
+__device__ __forceinline__ void store(U* dst, const U* tile, int K, int E, int e0, int ne) {
+  if constexpr (kFeatureMajor) {
+    Tile::template store_rows<U, EB>(dst, tile, E, e0, K, ne);
+  } else {
+    Tile::template store_flat<U>(dst + (long long)e0 * K, tile, ne * K);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The kernel
+
 template <bool kFeatureMajor>
-__global__ void __launch_bounds__(THREADS) env_kernel(const EnvArgs a) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) env_kernel(const EnvArgs a) {
+  constexpr bool FM = kFeatureMajor;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* s_board = reinterpret_cast<int8_t*>(smem);
+  int32_t* s_x = reinterpret_cast<int32_t*>(smem + Layout::OFF_X);
+  int32_t* s_y = reinterpret_cast<int32_t*>(smem + Layout::OFF_Y);
+  float* s_charge = reinterpret_cast<float*>(smem + Layout::OFF_CHARGE);
+  int32_t* s_act = reinterpret_cast<int32_t*>(smem + Layout::OFF_ACTION);
+  float* s_reward = reinterpret_cast<float*>(smem + Layout::OFF_REWARD);
+  uint32_t* s_keys = reinterpret_cast<uint32_t*>(smem + Layout::OFF_KEYS);
+  int8_t* s_carry = reinterpret_cast<int8_t*>(smem + Layout::OFF_CARRY);
+  int8_t* s_done = reinterpret_cast<int8_t*>(smem + Layout::OFF_DONE);
+
   const int E = a.num_envs;
-  if (e >= E) return;
-  const Key env_key = split_row(Key{a.key0, a.key1}, (uint32_t)e);
+  const int e0 = blockIdx.x * EB;
+  const int ne = min(EB, E - e0);
 
-  int8_t g0[C];  // the board at the start of the step
-  int8_t g[C];   // the board being stepped
-  for (int c = 0; c < C; ++c) g0[c] = g[c] = a.ground_in[at<kFeatureMajor>(e, c, C, E)];
-  int act[N], ax[N], ay[N];
-  bool carrying[N];
-  float charge[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const long long d = at<kFeatureMajor>(e, i, N, E);
-    act[i] = a.actions[d];
-    ax[i] = a.ax_in[d];
-    ay[i] = a.ay_in[d];
-    carrying[i] = a.carry_in[d] != 0;
-    charge[i] = a.charge_in[d];
+  // --- stage the state and the actions (in flight while the keys hash) -----
+  stage<FM>(s_board, a.ground_in, C, E, e0, ne);
+  stage<FM>(s_x, a.ax_in, N, E, e0, ne);
+  stage<FM>(s_y, a.ay_in, N, E, e0, ne);
+  stage<FM>(s_carry, a.carry_in, N, E, e0, ne);
+  stage<FM>(s_charge, a.charge_in, N, E, e0, ne);
+  stage<FM>(s_act, a.actions, N, E, e0, ne);
+
+  // --- keys: row e of split(step_key, E), one thread an env ----------------
+  if ((int)threadIdx.x < ne) {
+    const int el = threadIdx.x;
+    const Key env_key = split_row(Key{a.key0, a.key1}, (uint32_t)(e0 + el));
+    // core.step: key, respawn_key = split(key); then split(key) again.
+    const Key nk = split_row(env_key, 0u);
+    const Key ground_key = split_row(env_key, 1u);
+    const Key air_key = split_row(nk, 1u);
+    s_keys[0 * EB + el] = ground_key.k0;
+    s_keys[1 * EB + el] = ground_key.k1;
+    s_keys[2 * EB + el] = air_key.k0;
+    s_keys[3 * EB + el] = air_key.k1;
   }
+  cp_async_wait_all();
+  __syncthreads();
 
-  uint32_t u[C];
-  float reward[N];
-  bool done[N];
+  // --- the step: one warp an env -------------------------------------------
+  const int warp_id = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const Rewards rw{a.pickup_reward, a.delivery_reward, a.crash_reward, a.charge_reward};
-  step_env(env_key, act, g0, g, ax, ay, carrying, charge, reward, done, rw, u);
-
-  for (int c = 0; c < C; ++c) a.ground_out[at<kFeatureMajor>(e, c, C, E)] = g[c];
+#pragma unroll 1
+  for (int el = warp_id; el < ne; el += WARPS) {
+    int g[warp::KC];
+    uint32_t sky = 0u;  // the lane's cells that hold a skyscraper
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const long long d = at<kFeatureMajor>(e, i, N, E);
-    a.ax_out[d] = ax[i];
-    a.ay_out[d] = ay[i];
-    a.carry_out[d] = carrying[i] ? 1 : 0;
-    a.charge_out[d] = charge[i];
-    a.rewards[d] = reward[i];
-    a.dones[d] = done[i] ? 1 : 0;
+    for (int k = 0; k < warp::KC; ++k) {
+      const int c = warp::cell_of(k);
+      g[k] = c < C ? s_board[at<FM>(el, c, C)] : EMPTY;
+      sky |= (g[k] == SKYSCRAPER ? 1u : 0u) << k;
+    }
+    warp::Drone d[warp::DPL];
+    int act[warp::DPL];
+#pragma unroll
+    for (int s = 0; s < warp::DPL; ++s) {
+      const int i = lane + 32 * s;
+      d[s] = warp::Drone{0, 0, false, 100.0f};
+      act[s] = STAY;
+      if (i < N) {
+        const int j = at<FM>(el, i, N);
+        d[s] = warp::Drone{s_x[j], s_y[j], s_carry[j] != 0, s_charge[j]};
+        act[s] = s_act[j];
+      }
+    }
+    const Key ground_key{s_keys[0 * EB + el], s_keys[1 * EB + el]};
+    const Key air_key{s_keys[2 * EB + el], s_keys[3 * EB + el]};
+    uint32_t u[warp::KC], ua[warp::KC];
+    float reward[warp::DPL];
+    bool done[warp::DPL];
+    warp::step_env(
+        ground_key, air_key, act, s_board + at<FM>(el, 0, C), FM ? EB : 1,
+        [sky](int k) { return (sky >> k & 1u) != 0u; }, g, d, reward, done, rw, u, ua);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < warp::KC; ++k) {
+      const int c = warp::cell_of(k);
+      if (c < C) s_board[at<FM>(el, c, C)] = (int8_t)g[k];
+    }
+#pragma unroll
+    for (int s = 0; s < warp::DPL; ++s) {
+      const int i = lane + 32 * s;
+      if (i < N) {
+        const int j = at<FM>(el, i, N);
+        s_x[j] = d[s].x;
+        s_y[j] = d[s].y;
+        s_carry[j] = d[s].carrying ? 1 : 0;
+        s_charge[j] = d[s].charge;
+        s_reward[j] = reward[s];
+        s_done[j] = done[s] ? 1 : 0;
+      }
+    }
   }
-  if constexpr (kFeatureMajor) write_obs(a.obs_out + e, (long long)E, g, ax, ay, carrying, charge);
+  __syncthreads();
+
+  // --- the observation (feature-major), the state, rewards and dones -------
+  if constexpr (FM) {
+    warp::observe_tile<EB, BLOCK>(a.obs_out + e0, (long long)E, s_board, s_x, s_y, s_carry,
+                                  s_charge, ne);
+  }
+  store<FM>(a.ground_out, s_board, C, E, e0, ne);
+  store<FM>(a.ax_out, s_x, N, E, e0, ne);
+  store<FM>(a.ay_out, s_y, N, E, e0, ne);
+  store<FM>(a.carry_out, s_carry, N, E, e0, ne);
+  store<FM>(a.charge_out, s_charge, N, E, e0, ne);
+  store<FM>(a.rewards, s_reward, N, E, e0, ne);
+  store<FM>(a.dones, s_done, N, E, e0, ne);
 }
+
+// Internal linkage: a static local of a template with external linkage is
+// one process-wide (GNU unique) object, shared by every library built from
+// this source, so a second env's library would never set its limit.
+namespace {
+
+template <bool kFeatureMajor>
+cudaError_t configure() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      env_kernel<kFeatureMajor>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout::TOTAL);
+  return err;
+}
+
+}  // namespace
 
 template <bool kFeatureMajor>
 int launch(const EnvArgs* args, void* stream) {
   if (args->num_envs <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((args->num_envs + THREADS - 1) / THREADS);
-  env_kernel<kFeatureMajor><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+  const cudaError_t err = configure<kFeatureMajor>();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((args->num_envs + EB - 1) / EB);
+  env_kernel<kFeatureMajor>
+      <<<grid, BLOCK, Layout::TOTAL, static_cast<cudaStream_t>(stream)>>>(*args);
   return (int)cudaGetLastError();
+}
+
+template <bool kFeatureMajor>
+int blocks_per_sm() {
+  int n = 0;
+  if (configure<kFeatureMajor>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, env_kernel<kFeatureMajor>, BLOCK,
+                                                    Layout::TOTAL) != cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
+// The feature-major tick exists within the tick kernels' limits only;
+// templates with a dependent condition keep it from being instantiated
+// beyond them.
+constexpr bool TICK = C <= 256 && N <= 32;
+
+template <bool kTick = TICK>
+int tick(const EnvArgs* args, void* stream) {
+  if constexpr (kTick) {
+    if (args->obs_out == nullptr) return (int)cudaErrorInvalidValue;
+    return launch<true>(args, stream);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool kTick = TICK>
+int tick_blocks_per_sm() {
+  if constexpr (kTick) {
+    return blocks_per_sm<true>();
+  } else {
+    return -1;
+  }
 }
 
 }  // namespace dronerl
 
 extern "C" int tick_launch(const dronerl::EnvArgs* args, void* stream) {
-  using namespace dronerl;
-  if (C > 256 || N > 32 || args->obs_out == nullptr) return (int)cudaErrorInvalidValue;
-  return launch<true>(args, stream);
+  return dronerl::tick(args, stream);
 }
 
 extern "C" int step_launch(const dronerl::EnvArgs* args, void* stream) {
@@ -142,4 +325,16 @@ extern "C" int step_launch(const dronerl::EnvArgs* args, void* stream) {
 
 extern "C" const char* env_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The block's shape: out[0] envs, out[1] threads, out[2] dynamic shared
+// memory in bytes, and the resident blocks an SM of the feature-major tick
+// out[3] (-1 where this env has none) and of the row-major step out[4].
+extern "C" void env_block_shape(int* out) {
+  using namespace dronerl;
+  out[0] = EB;
+  out[1] = BLOCK;
+  out[2] = Layout::TOTAL;
+  out[3] = tick_blocks_per_sm();
+  out[4] = blocks_per_sm<false>();
 }

@@ -32,13 +32,13 @@
 //
 // * A block owns EB = 64 consecutive envs (one mma M extent of 4 tiles of
 //   16) and stages their input observation tile (294 x 64), board (C x
-//   64) and drone state through shared memory with cp.async, 16 bytes a
-//   thread, whole rows of 64 contiguous envs; the next observation tile,
-//   board and state go back the same way with 16-byte stores. Every
-//   global access coalesces without one thread per env. A block reads all
-//   of its envs' input columns before it writes any output column, so the
-//   ring's in-place launch (read and write columns disjoint or equal) is
-//   safe.
+//   64) and drone state through shared memory with cp.async
+//   (env_tile.cuh), 16 bytes a thread, whole rows of 64 contiguous envs;
+//   the next observation tile, board and state go back the same way with
+//   16-byte stores. Every global access coalesces without one thread per
+//   env. A block reads all of its envs' input columns before it writes
+//   any output column, so the ring's in-place launch (read and write
+//   columns disjoint or equal) is safe.
 // * The keys and the actor's uniforms are hashed one thread per (env,
 //   role) while the copies are in flight.
 // * The dense layers but the last run on the tensor cores (mma.sync
@@ -72,6 +72,7 @@
 
 #include <type_traits>
 
+#include "env_tile.cuh"
 #include "env_warp.cuh"
 
 #if !defined(DR_NLAYERS)
@@ -141,10 +142,10 @@ constexpr int FRAG_BYTES = PIECES * FRAG_WORDS * 4;  // its pieces
 constexpr int KEY_WORDS = 4 + 10;       // ground and air keys, 5 placement keys
 static_assert(TPE == 8, "the output layer's reductions run over 8 lanes");
 static_assert(BLOCK / EB > 3, "key roles: env keys, gate, reset keys, random actions");
+using Tile = BlockTile<EB, BLOCK>;
 
 __host__ __device__ constexpr int cmaxi(int x, int y) { return x > y ? x : y; }
 __host__ __device__ constexpr int cmini(int x, int y) { return x < y ? x : y; }
-__host__ __device__ constexpr int up16(int x) { return (x + 15) / 16 * 16; }
 
 // Dense layer L (DIMS[L] -> DIMS[L + 1]) on the tensor cores: K and N
 // zero-padded to 16, n-tiles of 8 spread over the NGROUPS warps of an
@@ -214,68 +215,6 @@ struct Layout {
   static constexpr int OFF_META = OFF_GREEDY + up16(EB);
   static constexpr int TOTAL = OFF_META + 32;
 };
-
-// ---------------------------------------------------------------------------
-// Copies between device memory and the block's tiles
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Whether rows of EB elements of U at (row * ld + col0) move as 16-byte
-// chunks: a whole tile with every row start 16-byte aligned.
-template <typename U>
-__device__ __forceinline__ bool rows_vectorizable(const void* base, long long ld, long long col0,
-                                                  int ne) {
-  return ne == EB && (reinterpret_cast<uintptr_t>(base) & 15u) == 0 &&
-         (ld * (long long)sizeof(U)) % 16 == 0 && (col0 * (long long)sizeof(U)) % 16 == 0;
-}
-
-// Start copying rows [0, rows) x envs [0, EB) of src (row stride ld,
-// first column col0) into dst (row stride S); envs past ne read as 0.
-// Complete with cp_async_wait_all() and a barrier.
-template <typename U, int S>
-__device__ __forceinline__ void stage_rows(U* dst, const U* src, long long ld, long long col0,
-                                           int rows, int ne) {
-  constexpr int PER = 16 / sizeof(U);
-  constexpr int CPR = EB / PER;  // 16-byte chunks a row
-  if (rows_vectorizable<U>(src, ld, col0, ne)) {
-    for (int i = threadIdx.x; i < rows * CPR; i += BLOCK) {
-      const int r = i / CPR, c = (i % CPR) * PER;
-      cp_async16(dst + r * S + c, src + r * ld + col0 + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * EB; i += BLOCK) {
-      const int r = i / EB, c = i % EB;
-      dst[r * S + c] = c < ne ? src[r * ld + col0 + c] : U(0);
-    }
-  }
-}
-
-// Store rows [0, rows) x envs [0, ne) of src (row stride S) into dst.
-template <typename U, int S>
-__device__ __forceinline__ void store_rows(U* dst, const U* src, long long ld, long long col0,
-                                           int rows, int ne) {
-  constexpr int PER = 16 / sizeof(U);
-  constexpr int CPR = EB / PER;
-  if (rows_vectorizable<U>(dst, ld, col0, ne)) {
-    for (int i = threadIdx.x; i < rows * CPR; i += BLOCK) {
-      const int r = i / CPR, c = (i % CPR) * PER;
-      *reinterpret_cast<uint4*>(dst + r * ld + col0 + c) =
-          *reinterpret_cast<const uint4*>(src + r * S + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * ne; i += BLOCK) {
-      const int r = i / ne, c = i % ne;
-      dst[r * ld + col0 + c] = src[r * S + c];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The dense layers on the tensor cores
@@ -621,11 +560,11 @@ __global__ void __launch_bounds__(BLOCK, 2) full_tick_kernel(const TickArgs a) {
   const Key step_key{a.key0, a.key1};
 
   // --- stage the env state (in flight while the keys are hashed) ----------
-  stage_rows<int8_t, EB>(s_board, a.ground_in, E, e0, C, ne);
-  stage_rows<int32_t, EB>(s_x, a.ax_in, E, e0, N, ne);
-  stage_rows<int32_t, EB>(s_y, a.ay_in, E, e0, N, ne);
-  stage_rows<int8_t, EB>(s_carry, a.carry_in, E, e0, N, ne);
-  stage_rows<float, EB>(s_charge, a.charge_in, E, e0, N, ne);
+  Tile::template stage_rows<int8_t, EB>(s_board, a.ground_in, E, e0, C, ne);
+  Tile::template stage_rows<int32_t, EB>(s_x, a.ax_in, E, e0, N, ne);
+  Tile::template stage_rows<int32_t, EB>(s_y, a.ay_in, E, e0, N, ne);
+  Tile::template stage_rows<int8_t, EB>(s_carry, a.carry_in, E, e0, N, ne);
+  Tile::template stage_rows<float, EB>(s_charge, a.charge_in, E, e0, N, ne);
 
   // --- keys: rows of split(step_key, E + 2), one thread an (env, role) ----
   bool greedy = false;
@@ -679,8 +618,8 @@ __global__ void __launch_bounds__(BLOCK, 2) full_tick_kernel(const TickArgs a) {
   if (any_greedy) {
     using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, float>::type;
     Raw* raw = reinterpret_cast<Raw*>(tile);
-    stage_rows<Raw, Lay::S>(raw, static_cast<const Raw*>(a.obs_in), a.in_ld, a.read_col + e0, OBS,
-                            ne);
+    Tile::template stage_rows<Raw, Lay::S>(raw, static_cast<const Raw*>(a.obs_in), a.in_ld,
+                                           a.read_col + e0, OBS, ne);
     for (int i = threadIdx.x; i < (up16(OBS) - OBS) * Lay::S; i += BLOCK) {
       raw[OBS * Lay::S + i] = Raw(0);
     }
@@ -705,23 +644,25 @@ __global__ void __launch_bounds__(BLOCK, 2) full_tick_kernel(const TickArgs a) {
       const int c = warp::cell_of(k);
       g0[k] = g[k] = c < C ? s_board[c * EB + el] : EMPTY;
     }
-    warp::Drone d{0, 0, false, 100.0f};
-    int act = STAY;
+    // One drone slot a lane (N <= 32).
+    warp::Drone d[1] = {{0, 0, false, 100.0f}};
+    int act[1] = {STAY};
     if (lane < N) {
-      d = warp::Drone{s_x[lane * EB + el], s_y[lane * EB + el], s_carry[lane * EB + el] != 0,
-                      s_charge[lane * EB + el]};
-      act = s_act[lane * EB + el];
+      d[0] = warp::Drone{s_x[lane * EB + el], s_y[lane * EB + el], s_carry[lane * EB + el] != 0,
+                         s_charge[lane * EB + el]};
+      act[0] = s_act[lane * EB + el];
     }
     const Key ground_key{s_keys[0 * EB + el], s_keys[1 * EB + el]};
     const Key air_key{s_keys[2 * EB + el], s_keys[3 * EB + el]};
     uint32_t u[warp::KC], ua[warp::KC];
-    float reward;
-    bool done;
-    warp::step_env(ground_key, air_key, act, s_board + el, EB, g0, g, d, reward, done, rw, u,
-                   ua);
+    float reward[1];
+    bool done[1];
+    warp::step_env(
+        ground_key, air_key, act, s_board + el, EB, [&](int k) { return g0[k] == SKYSCRAPER; },
+        g, d, reward, done, rw, u, ua);
     if (lane < N) {
-      s_reward[lane * EB + el] = reward;
-      s_done[lane * EB + el] = done ? 1 : 0;
+      s_reward[lane * EB + el] = reward[0];
+      s_done[lane * EB + el] = done[0] ? 1 : 0;
     }
     if (a.do_reset) {
       Key placement[5];
@@ -738,10 +679,10 @@ __global__ void __launch_bounds__(BLOCK, 2) full_tick_kernel(const TickArgs a) {
       if (c < C) s_board[c * EB + el] = (int8_t)g[k];
     }
     if (lane < N) {
-      s_x[lane * EB + el] = d.x;
-      s_y[lane * EB + el] = d.y;
-      s_carry[lane * EB + el] = d.carrying ? 1 : 0;
-      s_charge[lane * EB + el] = d.charge;
+      s_x[lane * EB + el] = d[0].x;
+      s_y[lane * EB + el] = d[0].y;
+      s_carry[lane * EB + el] = d[0].carrying ? 1 : 0;
+      s_charge[lane * EB + el] = d[0].charge;
     }
   }
   __syncthreads();
@@ -753,16 +694,17 @@ __global__ void __launch_bounds__(BLOCK, 2) full_tick_kernel(const TickArgs a) {
   // --- store the state, the outputs and the next observation ---------------
   using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, float>::type;
   const int col0 = blockIdx.x * EB;
-  store_rows<Raw, Lay::S>(static_cast<Raw*>(a.obs_out), reinterpret_cast<const Raw*>(tile),
-                          a.out_ld, a.write_col + col0, OBS, ne_b);
-  store_rows<int8_t, EB>(a.ground_out, s_board, a.num_envs, col0, C, ne_b);
-  store_rows<int32_t, EB>(a.ax_out, s_x, a.num_envs, col0, N, ne_b);
-  store_rows<int32_t, EB>(a.ay_out, s_y, a.num_envs, col0, N, ne_b);
-  store_rows<int8_t, EB>(a.carry_out, s_carry, a.num_envs, col0, N, ne_b);
-  store_rows<float, EB>(a.charge_out, s_charge, a.num_envs, col0, N, ne_b);
-  store_rows<float, EB>(a.rewards, s_reward, a.num_envs, col0, N, ne_b);
-  store_rows<int8_t, EB>(a.dones, s_done, a.num_envs, col0, N, ne_b);
-  store_rows<int32_t, EB>(a.actions, s_act, a.num_envs, col0, N, ne_b);
+  Tile::template store_rows<Raw, Lay::S>(static_cast<Raw*>(a.obs_out),
+                                         reinterpret_cast<const Raw*>(tile), a.out_ld,
+                                         a.write_col + col0, OBS, ne_b);
+  Tile::template store_rows<int8_t, EB>(a.ground_out, s_board, a.num_envs, col0, C, ne_b);
+  Tile::template store_rows<int32_t, EB>(a.ax_out, s_x, a.num_envs, col0, N, ne_b);
+  Tile::template store_rows<int32_t, EB>(a.ay_out, s_y, a.num_envs, col0, N, ne_b);
+  Tile::template store_rows<int8_t, EB>(a.carry_out, s_carry, a.num_envs, col0, N, ne_b);
+  Tile::template store_rows<float, EB>(a.charge_out, s_charge, a.num_envs, col0, N, ne_b);
+  Tile::template store_rows<float, EB>(a.rewards, s_reward, a.num_envs, col0, N, ne_b);
+  Tile::template store_rows<int8_t, EB>(a.dones, s_done, a.num_envs, col0, N, ne_b);
+  Tile::template store_rows<int32_t, EB>(a.actions, s_act, a.num_envs, col0, N, ne_b);
 }
 
 // Internal linkage: a static local of a template with external linkage is

@@ -19,9 +19,9 @@ and three launches:
 
 State is feature-major (field, env): ground (C, E) int8, drone fields
 (N, E). On CUDA tensors each wrapper launches its hand-written kernel
-(``csrc/full_tick.cu`` for B1 and B3, on ``csrc/env_warp.cuh``;
-``csrc/env_kernel.cu`` for B4, on ``csrc/env_step.cuh``); on CPU tensors
-it runs its plain version
+(``csrc/full_tick.cu`` for B1 and B3, ``csrc/env_kernel.cu`` for B4, both
+one warp per env on ``csrc/env_warp.cuh``); on CPU tensors it runs its
+plain version
 (:func:`full_tick_ring_plain`, :func:`full_tick_plain`,
 :func:`tick_plain`), the same function in plain PyTorch.
 
@@ -150,21 +150,32 @@ def packed_pick_order(u23: torch.Tensor, valid: torch.Tensor,
                       k: int) -> torch.Tensor:
     """The spawn picks of ``csrc/env_warp.cuh`` (``pick_next``): ``k``
     rounds over (B, C) 23-bit uniforms ``u23`` and a (B, C) bool candidate
-    mask, C <= 256. Each round takes the largest packed key ``2**31 | u <<
-    8 | (255 - c)`` of the untaken candidates, or, when none is left, the
-    lowest untaken cell. Returns (B, k) int64 cells, which are
-    ``top_k(where(valid, u, -inf), k)``'s indices."""
+    mask, C <= 512. Each round takes the largest packed key of the
+    untaken candidates, or, when none is left, the lowest untaken cell.
+    Up to 256 cells the key is ``2**31 | u << 8 | (255 - c)`` and 0 means
+    no candidate is left; above, it is ``u << 9 | (511 - c)``, where 0 is
+    a real key (u = 0 at cell 511), so a round has a candidate while its
+    index is below the candidates' count. Returns (B, k) int64 cells,
+    which are ``top_k(where(valid, u, -inf), k)``'s indices."""
     b, c = u23.shape
     idx = torch.arange(c, device=u23.device)
-    key = torch.where(valid, (1 << 31) | (u23.long() << 8) | (255 - idx),
-                      torch.zeros((), dtype=torch.int64, device=u23.device))
+    zero = torch.zeros((), dtype=torch.int64, device=u23.device)
+    if c <= 256:
+        key = torch.where(valid, (1 << 31) | (u23.long() << 8) | (255 - idx),
+                          zero)
+    else:
+        key = torch.where(valid, (u23.long() << 9) | (511 - idx), zero)
+        n_valid = valid.sum(dim=1)
     taken = torch.zeros((b, c), dtype=torch.bool, device=u23.device)
     rows = torch.arange(b, device=u23.device)
     cells = []
-    for _ in range(k):
+    for s in range(k):
         best = torch.where(taken, 0, key).amax(dim=1)
         lowest = torch.where(taken, c, idx).amin(dim=1)
-        cell = torch.where(best > 0, 255 - (best & 255), lowest)
+        if c <= 256:
+            cell = torch.where(best > 0, 255 - (best & 255), lowest)
+        else:
+            cell = torch.where(s < n_valid, 511 - (best & 511), lowest)
         taken[rows, cell] = True
         cells.append(cell)
     return torch.stack(cells, dim=1)
@@ -377,6 +388,21 @@ def kernel_occupancy(config, obs_bf16: bool) -> Tuple[int, int]:
         getattr(lib, name).restype = ctypes.c_int
     return (lib.full_tick_smem_bytes(int(obs_bf16)),
             lib.full_tick_blocks_per_sm(int(obs_bf16)))
+
+
+def env_block_shape(config) -> Dict[str, int]:
+    """The env kernel's block (B4 and B5) for the library ``config``
+    (``_build.env_config``): envs and threads a block, dynamic shared
+    memory in bytes, and resident blocks an SM on the current card of the
+    feature-major tick (-1 where the env is beyond the tick's limits) and
+    of the row-major step."""
+    lib = _build.load(config)
+    lib.env_block_shape.argtypes = [ctypes.c_void_p]
+    lib.env_block_shape.restype = None
+    out = (ctypes.c_int * 5)()
+    lib.env_block_shape(out)
+    return dict(zip(("envs", "threads", "smem_bytes", "tick_blocks_per_sm",
+                     "step_blocks_per_sm"), out))
 
 
 def prepare_kernel(params: EnvParams, net_params: Optional[DenseQNet] = None,

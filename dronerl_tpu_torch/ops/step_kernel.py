@@ -8,12 +8,12 @@ drone fields (E, N)), with no observation. Bit-equal to
 ``core.step_batch(split(step_key, E), states, actions, params)``.
 
 On CUDA tensors :func:`step_batch_fused` launches the hand-written kernel
-of ``csrc/env_kernel.cu`` in its row-major layout (``step_launch``: the
-full tick's physics of ``csrc/env_step.cuh`` with row-major loads and
-stores, the kernel B4 runs feature-major) and counts the
-launch in ``step_batch_fused.launches``; on CPU tensors it runs
-:func:`step_batch_plain`, the port's ``core.step_batch``. No trainer calls
-it, as in the JAX package.
+of ``csrc/env_kernel.cu`` in its row-major layout (``step_launch``: a
+block stages its envs' contiguous spans through shared memory and steps
+each env with one warp on ``csrc/env_warp.cuh``, the kernel B4 runs
+feature-major) and counts the launch in ``step_batch_fused.launches``;
+on CPU tensors it runs :func:`step_batch_plain`, the port's
+``core.step_batch``. No trainer calls it, as in the JAX package.
 """
 
 import ctypes

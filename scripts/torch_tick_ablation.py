@@ -128,10 +128,10 @@ PATCHES = {
              "}\n"
              "__device__ __forceinline__ int pick_next("),
             ("env_warp.cuh",
-             "    set_cell(g, pick_next(u, valid, taken), v);",
+             "    set_cell(g, pick_next(u, valid, taken, s < n_vacant), v);",
              "    set_cell(g, (s + (int)ablate_live(u)) % C, v);"),
             ("env_warp.cuh",
-             "    const int cand = pick_next(u, valid, taken);",
+             "    const int cand = pick_next(u, valid, taken, i < n_valid);",
              "    const int cand = (i + (int)ablate_live(u)) % C;"),
         ],
         "no_hashes": [
@@ -180,8 +180,8 @@ PATCHES = {
         ],
         "no_obs_read": [
             ("full_tick.cu",
-             "    stage_rows<Raw, Lay::S>(raw, static_cast<const Raw*>(a.obs_in), a.in_ld, "
-             "a.read_col + e0, OBS,\n                            ne);",
+             "    Tile::template stage_rows<Raw, Lay::S>(raw, static_cast<const Raw*>(a.obs_in), "
+             "a.in_ld,\n                                           a.read_col + e0, OBS, ne);",
              ""),
         ],
         "no_output_layer": [
@@ -191,10 +191,11 @@ PATCHES = {
         ],
         "no_step": [
             ("full_tick.cu",
-             "    warp::step_env(ground_key, air_key, act, s_board + el, EB, g0, g, d, reward, "
-             "done, rw, u,\n                   ua);",
-             "    reward = (float)(ground_key.k0 ^ air_key.k1 ^ (uint32_t)act);\n"
-             "    done = false;"),
+             "    warp::step_env(\n"
+             "        ground_key, air_key, act, s_board + el, EB, [&](int k) { return g0[k] == "
+             "SKYSCRAPER; },\n        g, d, reward, done, rw, u, ua);",
+             "    reward[0] = (float)(ground_key.k0 ^ air_key.k1 ^ (uint32_t)act[0]);\n"
+             "    done[0] = false;"),
         ],
         "no_keys": [
             ("full_tick.cu",
@@ -269,9 +270,10 @@ def ring_block(hidden, params, device, eps_value):
     return block, (outs, ring, eps, st, state)
 
 
-def time_launches(lib, block) -> float:
+def time_launches(launch, block) -> float:
+    """ms per launch of ``launch`` on the prebuilt argument ``block``
+    (CUDA events over LAUNCHES launches, after one checked launch)."""
     stream = torch.cuda.current_stream().cuda_stream
-    launch = lib.full_tick_ring_launch
     err = launch(ctypes.byref(block), stream)
     torch.cuda.synchronize()
     if err != 0:
@@ -341,7 +343,7 @@ def main() -> None:
             if v not in variants:
                 continue
             lib = libs[(v, hidden)]
-            ms = time_launches(lib, block)
+            ms = time_launches(lib.full_tick_ring_launch, block)
             eps = float(_keep[2])
             row = {"gen": args.gen, "net": list(hidden), "variant": v, "eps": eps,
                    "ms": ms, "blocks_per_sm": lib.full_tick_blocks_per_sm(1),

@@ -5,11 +5,13 @@ JAX package's kernels in Pallas interpret mode, from the same state,
 actions, weights and key:
 
 * ``full_tick_plain`` (B3's) against ``full_tick_fused``, with a reset;
-* ``tick_plain`` (B4's) against ``tick_fused``, and against the jnp
-  ``step_batch`` + ``observe_batch`` for 10 ticks;
+* ``tick_plain`` (B4's) against ``tick_fused`` (grid 9 with 4 drones,
+  grid 16 with 25), and against the jnp ``step_batch`` +
+  ``observe_batch`` for 10 ticks;
 * ``step_kernel.step_batch_fused`` on CPU tensors (B5's plain version)
   against JAX's ``step_batch_fused`` on grid 9, a tight board (more
-  respawn slots than vacant cells) and a board above 256 cells.
+  respawn slots than vacant cells), boards above 256 cells (the
+  evaluator's 20-participant arena among them) and 48 drones.
 
 Env outputs bitwise, except the observation's charge channel (within
 1.3e-7, one ULP of charge / 100). Then ``DQN.act_t`` bitwise, and the two
@@ -106,9 +108,11 @@ def test_full_tick_plain_matches_jax_kernel():
         jts, jobs, tts, tobs = jout[0], jout[4], tout[0], tout[4]
 
 
-def test_tick_plain_matches_jax_kernel():
-    """2 ticks of B4 with the caller's actions."""
-    jp, tp = JParams(**KW), EnvParams(**KW)
+def _tick_plain_vs_jax_kernel(kw):
+    """2 ticks of B4's plain version against the JAX tick kernel
+    (interpret mode) with the caller's actions, at E envs."""
+    jp, tp = JParams(**kw), EnvParams(**kw)
+    assert jfused.supports(jp, E)
     _, jts, _ = _env(2, jp)
     tts = from_jax.tstate_from_jax(jax.device_get(jts))
     key = jax.random.PRNGKey(7)
@@ -123,6 +127,17 @@ def test_tick_plain_matches_jax_kernel():
             assert (np.asarray(jout[i]) == tout[i].numpy()).all(), (t, i)
         _assert_obs_equal(jout[3], tout[3], t)
         jts, tts = jout[0], tout[0]
+
+
+def test_tick_plain_matches_jax_kernel():
+    """2 ticks of B4 with the caller's actions."""
+    _tick_plain_vs_jax_kernel(KW)
+
+
+def test_tick_plain_matches_jax_kernel_near_tick_limits():
+    """B4 on grid 16 with 25 drones: 8 cells a lane, 250 objects on 256
+    cells, drones on 25 of a warp's 32 lanes."""
+    _tick_plain_vs_jax_kernel(dict(grid_size=16, n_drones=25))
 
 
 def test_tick_plain_matches_jnp_step_and_observe():
@@ -153,13 +168,19 @@ def _row_state(states) -> EnvState:
                                 "carrying_package", "charge")))
 
 
-@pytest.mark.parametrize("board", ["grid9", "tight", "cells400"])
+@pytest.mark.parametrize("board", ["grid9", "tight", "cells400", "arena20",
+                                   "drones48"])
 def test_step_batch_plain_matches_jax_step_kernel(board):
     """B5's plain version against the JAX step kernel (interpret mode),
-    2 steps at 8 envs: state, rewards and dones bitwise."""
+    2 steps at 8 envs: state, rewards and dones bitwise. ``arena20`` is
+    the evaluator's arena for 20 participants (grid 20, 20 drones);
+    ``drones48`` has more drones than a warp has lanes on a nearly full
+    board (480 objects on 484 cells)."""
     kw = {"grid9": dict(grid_size=9, n_drones=4),
           "tight": dict(grid_size=5, n_drones=2),
-          "cells400": dict(grid_size=20, n_drones=4)}[board]
+          "cells400": dict(grid_size=20, n_drones=4),
+          "arena20": dict(grid_size=20, n_drones=20),
+          "drones48": dict(grid_size=22, n_drones=48)}[board]
     jp, tp = JParams(**kw), EnvParams(**kw)
     num_envs = 8
     assert jstep.supports(jp, num_envs) and step_kernel.supports(tp,

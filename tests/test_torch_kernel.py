@@ -469,17 +469,23 @@ def test_full_tick_kernel_matches_plain_on_card():
 
 
 @pytest.mark.gpu
-def test_env_tick_kernel_matches_plain_on_card():
-    """B4 against ``tick_plain`` for 3 ticks of random actions: env
-    outputs bitwise, charge within 1.3e-7."""
+@pytest.mark.parametrize("kw,num_envs", [
+    (KW, E), (dict(grid_size=16, n_drones=25), E), (KW, 100)])
+def test_env_tick_kernel_matches_plain_on_card(kw, num_envs):
+    """B4 against ``tick_plain`` for 3 ticks of random actions, on grid 9,
+    on grid 16 with 25 drones (8 cells a lane), and at 100 envs (a partial
+    last tile, rows off the 16-byte grid): env outputs bitwise, charge
+    within 1.3e-7."""
     dev = _card()
-    key, ts, _, _, _, _, _, _, tp = _kernel_inputs()
-    ts = fused_tick.TState(*(t.to(dev) for t in ts))
+    tp = EnvParams(**kw)
+    ts = fused_tick.to_tstate(core.reset_batch(rng.PRNGKey(0).to(dev), tp,
+                                               num_envs))
+    key = rng.PRNGKey(9)
     g = torch.Generator().manual_seed(5)
     launches = fused_tick.tick_fused.launches
     for t in range(3):
         key, step_key = rng.split(key, 2)
-        actions = torch.randint(0, 5, (tp.n_drones, E), generator=g,
+        actions = torch.randint(0, 5, (tp.n_drones, num_envs), generator=g,
                                 dtype=torch.int32).to(dev)
         out_k = fused_tick.tick_fused(step_key, ts, actions, tp)
         out_p = fused_tick.tick_plain(step_key, ts, actions, tp)
@@ -487,7 +493,7 @@ def test_env_tick_kernel_matches_plain_on_card():
             assert torch.equal(a, b), t
         assert torch.equal(out_k[1], out_p[1])
         assert torch.equal(out_k[2], out_p[2])
-        diff = (out_k[3] - out_p[3]).abs().reshape(-1, 6, E)
+        diff = (out_k[3] - out_p[3]).abs().reshape(-1, 6, num_envs)
         assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0
         assert float(diff[:, 4].max()) <= CHARGE_ATOL
         ts = out_k[0]
@@ -495,14 +501,17 @@ def test_env_tick_kernel_matches_plain_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kw", [dict(grid_size=9, n_drones=4),
-                                dict(grid_size=5, n_drones=2),
-                                dict(grid_size=20, n_drones=4)])
-def test_step_kernel_matches_plain_on_card(kw):
-    """B5 against ``core.step_batch`` for 3 steps on grid 9, a tight board
-    and a 400-cell board: everything bitwise."""
+@pytest.mark.parametrize("kw,num_envs", [
+    (dict(grid_size=9, n_drones=4), E), (dict(grid_size=5, n_drones=2), E),
+    (dict(grid_size=20, n_drones=4), E), (dict(grid_size=20, n_drones=20), E),
+    (dict(grid_size=22, n_drones=48), E), (dict(grid_size=9, n_drones=4), 100)])
+def test_step_kernel_matches_plain_on_card(kw, num_envs):
+    """B5 against ``core.step_batch`` for 3 steps on grid 9, a tight board,
+    a 400-cell board, the evaluator's 20-participant arena, 48 drones on
+    a nearly full board, and grid 9 at 100 envs (a partial last tile, spans
+    off the 16-byte grid): everything bitwise."""
     dev = _card()
-    tp, states, _ = _row_inputs(kw)
+    tp, states, _ = _row_inputs(kw, num_envs)
     states = type(states)(*(getattr(states, f).to(dev) for f in (
         "ground", "air_x", "air_y", "carrying_package", "charge")))
     g = torch.Generator().manual_seed(6)
@@ -510,7 +519,7 @@ def test_step_kernel_matches_plain_on_card(kw):
     launches = step_kernel.step_batch_fused.launches
     for t in range(3):
         key, step_key = rng.split(key, 2)
-        actions = torch.randint(0, 5, (E, tp.n_drones), generator=g,
+        actions = torch.randint(0, 5, (num_envs, tp.n_drones), generator=g,
                                 dtype=torch.int32).to(dev)
         out_k = step_kernel.step_batch_fused(step_key, states, actions, tp)
         out_p = step_kernel.step_batch_plain(step_key, states, actions, tp)

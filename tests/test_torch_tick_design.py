@@ -3,10 +3,13 @@ plain mirrors in ``dronerl_tpu_torch/ops/fused_tick.py`` (the kernel,
 ``csrc/full_tick.cu`` on ``csrc/env_warp.cuh``, runs only on a card):
 
 * the spawn pick as a warp reduction over the packed key ``2**31 | u <<
-  8 | (255 - c)``, with the lowest untaken cell when no candidate is left,
-  against ``jax.lax.top_k(where(valid, u, -inf), k)``: the same indices,
-  in order, for random 23-bit fields, fields with forced ties, and boards
-  with fewer candidates than slots, at 25, 81 and 256 cells;
+  8 | (255 - c)`` up to 256 cells and ``u << 9 | (511 - c)`` (with the
+  candidates counted) above, with the lowest untaken cell when no
+  candidate is left, against ``jax.lax.top_k(where(valid, u, -inf), k)``:
+  the same indices, in order, for random 23-bit fields, fields with
+  forced ties, boards with fewer candidates than slots, and a candidate
+  with u = 0 at the last cell (the wide key's 0), at 25, 81 and 256 cells
+  and at 400, 484 and 512;
 * the dense layers but the last on the tensor cores from bf16 pieces (W
   in three, the operand too where it is f32: B3's observations, the
   hidden activations) summed in f32: its greedy action
@@ -50,14 +53,20 @@ def _fields(case: str, cells: int, seed: int, rows: int = 64):
         for i in range(rows):
             valid[i, r.choice(cells, size=int(r.integers(0, 6)),
                               replace=False)] = True
+    elif case == "zero_last":  # u = 0 at the last cell, a candidate
+        u = r.integers(0, 1 << 23, (rows, cells))
+        valid = r.random((rows, cells)) < 0.05
+        valid[:rows // 4] = False  # there, the only candidate
+        u[:, -1] = 0
+        valid[:, -1] = True
     else:
         u = r.integers(0, 1 << 23, (rows, cells))
         valid = r.random((rows, cells)) < 0.5
     return u.astype(np.int64), valid
 
 
-@pytest.mark.parametrize("cells", [25, 81, 256])
-@pytest.mark.parametrize("case", ["random", "ties", "sparse"])
+@pytest.mark.parametrize("cells", [25, 81, 256, 400, 484, 512])
+@pytest.mark.parametrize("case", ["random", "ties", "sparse", "zero_last"])
 def test_packed_pick_order_matches_top_k(cells, case):
     u, valid = _fields(case, cells, seed=cells + len(case))
     for k in (12, cells):
