@@ -8,10 +8,14 @@ are. The feature-major forward is ``kernelᵀ @ x + bias``.
 
 The optimizer is Adam written out in optax's ``scale_by_adam`` order;
 ``torch.optim.Adam`` orders the same math differently.
+
+:meth:`DQN.init_state` given a key draws the JAX package's initial nets
+bit for bit: flax's per-parameter keys (``rng.flax_param_key``) and jax's
+truncated normal (``rng.truncated_normal``).
 """
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,17 +103,43 @@ class DQNState:
     epsilon: torch.Tensor  # 0-d float32 on the state's device
 
 
+# The standard deviation of a standard normal truncated to (-2, 2).
+TRUNCATED_STD = 0.87962566103423978
+
+
 def _he_init(net: DenseQNet, generator: torch.Generator) -> None:
     """flax init: he_normal hidden kernels, lecun_normal output kernel
     (both truncated normal on ±2σ, σ rescaled by 0.8796), zero biases."""
     with torch.no_grad():
         for idx, w in enumerate(net.kernels):
             scale = 2.0 if idx < net.n_layers - 1 else 1.0
-            std = float(np.sqrt(scale / w.shape[0]) / 0.87962566103423978)
+            std = float(np.sqrt(scale / w.shape[0]) / TRUNCATED_STD)
             cpu = torch.empty(w.shape)
             nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
             w.copy_(cpu)
+            net.biases[idx].zero_()
+
+
+def _flax_init(net: DenseQNet, key: torch.Tensor) -> None:
+    """The JAX package's ``network.init({"params": key}, ...)`` of a dense
+    Q-net (``dronerl_tpu/agents/dqn.py::DenseQNet``), bit for bit: layer i
+    is flax's ``Dense_i``, whose kernel takes the module's first
+    ``make_rng`` (count 1; the bias, zeros, the second). Hidden kernels use
+    ``he_normal`` and the output kernel ``Dense``'s default
+    ``lecun_normal``: ``variance_scaling(scale, "fan_in",
+    "truncated_normal")`` with scale 2 and 1, i.e. ``truncated_normal(k,
+    -2, 2) * (sqrt(f32(scale / fan_in)) / f32(0.8796...))`` in f32. The
+    draw runs on the CPU and is copied to the net's device."""
+    key = key.cpu()
+    with torch.no_grad():
+        for idx, w in enumerate(net.kernels):
+            scale = 2.0 if idx < net.n_layers - 1 else 1.0
+            variance = torch.tensor(scale / w.shape[0], dtype=torch.float32)
+            std = torch.sqrt(variance) / torch.tensor(TRUNCATED_STD,
+                                                      dtype=torch.float32)
+            k = rng.flax_param_key(key, (f"Dense_{idx}", 1))
+            w.copy_(rng.truncated_normal(k, -2.0, 2.0, w.shape) * std)
             net.biases[idx].zero_()
 
 
@@ -127,12 +157,23 @@ class DQN:
     def make_net(self) -> DenseQNet:
         return DenseQNet(self.obs_dim, self.config.hidden_layers, self.device)
 
-    def init_state(self, generator: torch.Generator) -> DQNState:
-        """Online and target nets initialised independently from one
-        explicit generator; Adam moments zero; ε at its start value."""
+    def init_state(self, key: Union[torch.Tensor, torch.Generator]
+                   ) -> DQNState:
+        """A fresh learner state; Adam moments zero, ε at its start value.
+
+        With a key (two uint32 words, as ``rng.PRNGKey`` makes them) the
+        nets are the JAX package's ``DQN.init_state(key)`` bit for bit:
+        the online net from ``key``, the target net from ``split(key)[1]``
+        (drawn on the CPU, then moved to the agent's device). With a
+        ``torch.Generator`` both nets are drawn from it in turn, with
+        torch's truncated normal."""
         params, target = self.make_net(), self.make_net()
-        _he_init(params, generator)
-        _he_init(target, generator)
+        if isinstance(key, torch.Generator):
+            _he_init(params, key)
+            _he_init(target, key)
+        else:
+            _flax_init(params, key)
+            _flax_init(target, rng.split(key.cpu(), 2)[1])
         return DQNState(
             params=params,
             target_params=target,
@@ -167,6 +208,26 @@ class DQN:
         explore = rng.uniform(explore_key, (batch,)) < state.epsilon
         random_acts = rng.randint(action_key, (batch,), 0, NUM_ACTIONS)
         return torch.where(explore, random_acts, greedy_actions)
+
+    def act(self, key: torch.Tensor, obs: torch.Tensor,
+            state: DQNState) -> torch.Tensor:
+        """ε-greedy actions for row-major observations (B, obs_dim) or (B,
+        H, W, C) → (B,) int32: :meth:`act_t` on the transposed batch (the
+        row-major forward is the feature-major one transposed, and the
+        draws are the same B counters)."""
+        return self.act_t(key, obs.reshape(obs.shape[0], -1).t(), state)
+
+    def train_step(
+        self, state: DQNState, batch: Dict[str, torch.Tensor],
+    ) -> Tuple[DQNState, torch.Tensor]:
+        """TD(0) MSE step with Adam on a row-major batch: obs / next_obs (B,
+        obs_dim); actions, rewards and dones (B,). :meth:`train_step_t` on
+        the transposed observations."""
+        def rows_t(x):
+            return x.reshape(x.shape[0], -1).t()
+        return self.train_step_t(state, dict(
+            batch, obs=rows_t(batch["obs"]),
+            next_obs=rows_t(batch["next_obs"])))
 
     def train_step_t(
         self, state: DQNState, batch: Dict[str, torch.Tensor],

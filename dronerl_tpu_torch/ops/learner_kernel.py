@@ -11,6 +11,11 @@ target sync and the ε decay, each under a flag. Here one hand-written
 CUDA kernel (``csrc/td_adam.cu``) with three flags serves both:
 :func:`learn_tick_fused` is B6, and ``fused_tick.full_tick_fused_ring``
 with ``td_hparams`` launches the same kernel after the tick kernel for B2.
+The kernel is one thread-block cluster of :data:`CLUSTER` CTAs; each CTA
+owns a slice of every layer's output units (:func:`cluster_split`) and
+stages its slices and the batch in shared memory (:func:`smem_bytes`); a
+batch whose rows do not fit beside them runs in tiles of columns
+(:func:`batch_plan`).
 
 The update is in place: params, target, Adam moments and ε are the port's
 own tensors, written by the kernel (or by :func:`td_adam_plain` on the
@@ -24,7 +29,7 @@ rather than autograd. There is no fallback between the two.
 """
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,10 +38,14 @@ from dronerl_tpu_torch.agents.dqn import (
 from dronerl_tpu_torch.constants import NO_TRAIN_LOSS, NUM_ACTIONS
 from dronerl_tpu_torch.ops import _build
 
-# Limits of the CUDA kernel (csrc/td_adam.cu).
+# Limits and launch shape of the CUDA kernel (csrc/td_adam.cu).
 MAX_LAYERS = _build.MAX_LAYERS
 MAX_BATCH = 256
 MAX_SMEM_BYTES = 232_448  # what one block may opt in to on an H100
+CLUSTER = 16              # CTAs of the cluster (the non-portable size,
+#                           faster than the portable 8: PERF.md §6)
+MAX_CHAIN = 40            # the longest FMA chain of a forward (split-K)
+DOT_FLOATS = 2            # the dot products accumulate in doubles
 
 
 def net_widths(net: DenseQNet) -> Tuple[int, ...]:
@@ -44,12 +53,83 @@ def net_widths(net: DenseQNet) -> Tuple[int, ...]:
     return (net.kernels[0].shape[0], *(w.shape[1] for w in net.kernels))
 
 
-def smem_bytes(widths: Sequence[int], batch: int) -> int:
-    """The kernel's shared memory for one launch (mirrors ``smem_bytes`` in
-    csrc/td_adam.cu): the batch rows and every layer's output and output
-    gradient, each row padded to an odd stride, plus two rows of B."""
-    out_rows = sum(widths[1:])
-    return 4 * ((widths[0] + 2 * out_rows) * (batch | 1) + 2 * batch)
+def cluster_split(width: int) -> List[Tuple[int, int]]:
+    """The output units ``[lo, hi)`` each CTA of the cluster owns in a layer
+    of ``width`` units (mirrors ``own_lo`` in csrc/td_adam.cu): widths that
+    ``4 * CLUSTER`` divides in equal slices of whole 16-byte chunks, others
+    unit by unit with the first ``width % CLUSTER`` ranks one unit more."""
+    unit = 4 if width % (4 * CLUSTER) == 0 else 1
+    per, extra = divmod(width // unit, CLUSTER)
+    lo = [unit * (r * per + min(r, extra)) for r in range(CLUSTER + 1)]
+    return list(zip(lo[:-1], lo[1:]))
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def smem_bytes(widths: Sequence[int], tile: int, staged: bool = True,
+               tiled: bool = False, params_staged: bool = True) -> int:
+    """One CTA's shared memory for a launch whose batch tile holds
+    ``tile`` columns (mirrors ``layout`` in csrc/td_adam.cu): with
+    ``params_staged`` its slices of W, target, mu and nu and their biases
+    (row stride the largest slice, each array rounded to 16 bytes), with
+    ``tiled`` a double gradient accumulator for each of its kernel and
+    bias elements, the TD errors (MAX_BATCH floats), then rows of the odd
+    stride ``tile | 1``: the forward's split-K partials sharing rows with
+    the backward's receive slots (doubles), every layer's online and
+    target output, the own output gradients, and with ``staged`` the
+    batch (x and xn)."""
+    layers = list(zip(widths[:-1], widths[1:]))
+    nmax = [max(hi - lo for lo, hi in cluster_split(o)) for _, o in layers]
+    segs = [-(-i // MAX_CHAIN) for i, _ in layers]
+    param_floats = sum(4 * (_round4(i * n) + _round4(n))
+                       for (i, _), n in zip(layers, nmax)) * params_staged
+    acc_floats = _round4(DOT_FLOATS * sum(
+        (i + 1) * n for (i, _), n in zip(layers, nmax))) * tiled
+    partial_rows = max(s * 2 * n for s, n in zip(segs, nmax))
+    recv_rows = 2 * CLUSTER * max(nmax[:-1], default=0)
+    rows = (DOT_FLOATS * max(partial_rows, recv_rows) + 2 * sum(widths[1:])
+            + sum(nmax) + 2 * widths[0] * staged)
+    return 4 * (param_floats + acc_floats + MAX_BATCH + rows * (tile | 1))
+
+
+def params_staged(widths: Sequence[int],
+                  limit: int = MAX_SMEM_BYTES) -> bool:
+    """Whether the kernel stages its params (mirrors ``PS`` in
+    csrc/td_adam.cu, a compile-time choice): when they fit beside the rows
+    of a one-column tile with the gradient accumulators, so that every
+    batch runs with them staged; else every launch reads them from device
+    memory."""
+    return smem_bytes(widths, 1, False, True, True) <= limit
+
+
+class Plan(NamedTuple):
+    """A launch's batch tile (0: nothing fits), whether the batch and the
+    params are staged in shared memory, and its bytes a CTA."""
+    tile: int
+    staged: bool
+    params_staged: bool
+    smem_bytes: int
+
+
+def batch_plan(widths: Sequence[int], batch: int,
+               limit: int = MAX_SMEM_BYTES) -> Plan:
+    """The launch at ``batch`` (mirrors ``plan`` in csrc/td_adam.cu), the
+    first that fits ``limit`` bytes: the whole batch staged, the whole
+    batch read from device memory, or the widest even split of the batch,
+    the passes run tile after tile with gradient accumulators."""
+    ps = params_staged(widths, limit)
+    for staged in (True, False):
+        need = smem_bytes(widths, batch, staged, False, ps)
+        if need <= limit:
+            return Plan(batch, staged, ps, need)
+    for n in range(2, batch + 1):
+        tile = -(-batch // n)
+        need = smem_bytes(widths, tile, False, True, ps)
+        if need <= limit:
+            return Plan(tile, False, ps, need)
+    return Plan(0, False, ps, 0)
 
 
 def kernel_problems(widths: Sequence[int], batch: int) -> List[str]:
@@ -61,9 +141,13 @@ def kernel_problems(widths: Sequence[int], batch: int) -> List[str]:
         problems.append(f"{widths[-1]} outputs (expected {NUM_ACTIONS})")
     if not 1 <= batch <= MAX_BATCH:
         problems.append(f"batch {batch} (1..{MAX_BATCH})")
-    elif smem_bytes(widths, batch) > MAX_SMEM_BYTES:
-        problems.append(f"batch {batch} needs {smem_bytes(widths, batch)} "
-                        f"bytes of shared memory (> {MAX_SMEM_BYTES})")
+    elif not problems and batch_plan(widths, batch).tile == 0:
+        need = smem_bytes(widths, 1, False, batch > 1,
+                          params_staged(widths))
+        problems.append(
+            f"widths {tuple(widths)} at batch {batch} need {need} bytes of "
+            f"shared memory a CTA of the {CLUSTER}-CTA cluster even in "
+            f"tiles of one column (> {MAX_SMEM_BYTES})")
     return problems
 
 
@@ -144,6 +228,27 @@ def cancellations(grads, scales, rel: float = 1e-5) -> List[torch.Tensor]:
     bits or the sign of ``g``, and Adam's first steps map a tiny ``g`` to
     about ±lr, so two correct learners may differ by that much."""
     return [(s > 0) & (g.abs() <= rel * s) for g, s in zip(grads, scales)]
+
+
+def loss_slack(batch: Dict[str, torch.Tensor], params: DenseQNet,
+               target: DenseQNet, gamma: float,
+               q_rel: float = 2.0 ** -20) -> float:
+    """How far two correct learners' TD losses may differ beyond their
+    relative tolerance: the first-order change of the loss when every
+    Q-value its TD errors read carries a relative error of ``q_rel`` (8
+    f32 ULPs: a Q-value is an f32 sum of up to obs_dim products, which
+    each learner sums in its own order), ``(2/B) Σ_b |δ_b| (|taken_b| +
+    γ|boot_b|(1-d_b))·q_rel``. It matters where a TD error is a
+    cancellation of its terms, as with one sample a batch."""
+    with torch.no_grad():
+        q = params.forward_t(batch["obs"].to(torch.float32))
+        next_q = target.forward_t(batch["next_obs"].to(torch.float32))
+        taken = q.gather(0, batch["actions"].to(torch.int64)[None, :])[0]
+        boot = gamma * next_q.max(dim=0).values * (1.0 - batch["dones"])
+        delta = taken - (batch["rewards"] + boot)
+        slack = torch.sum(delta.abs() * (taken.abs() + boot.abs())) * (
+            2.0 * q_rel / delta.shape[0])
+    return float(slack)
 
 
 def adam_corrections(count: int, b1: float, b2: float, device):
@@ -293,6 +398,24 @@ def _learner_args(batch, params: DenseQNet, target: DenseQNet, mu, nu,
 def kernel_config(params: DenseQNet):
     """The learner kernel's library for this net (see ops/_build.py)."""
     return _build.learner_config(net_widths(params))
+
+
+def launch_shape(config, batch: int) -> Dict[str, int]:
+    """A built learner library's launch at ``batch``: the cluster's CTAs,
+    threads a CTA, dynamic shared memory a CTA, whether the batch is
+    staged, how many such clusters the card holds at once, the batch
+    columns a tile, and whether the params are staged."""
+    lib = _build.load(config)
+    lib.td_adam_info.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.td_adam_info.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 7)()
+    err = lib.td_adam_info(batch, out)
+    if err != 0:
+        raise RuntimeError("td_adam_info failed: "
+                           + _build.error_string(lib, err))
+    return dict(zip(("cluster", "threads", "smem_bytes", "staged",
+                     "max_active_clusters", "tile", "params_staged"),
+                    (int(v) for v in out)))
 
 
 def td_adam(batch, params: DenseQNet, target: DenseQNet, mu, nu, count: int,

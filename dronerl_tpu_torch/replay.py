@@ -1,10 +1,14 @@
-"""Device-resident feature-major replay: the single-stream ring.
+"""Device-resident replay: the row-major ring and the single-stream
+feature-major ring.
 
-Counterpart of ``dronerl_tpu/replay.py``'s feature-major storage
-(``ReplayState``, ``init_t``, ``push_many_t``) and ``StreamReplay``, with
-the same semantics: ring writes at a rolling cursor, uniform sampling with
-replacement, slots on the last axis (a per-slot leaf of shape (D,) is
-stored as (D, capacity)).
+Counterpart of ``dronerl_tpu/replay.py``'s row-major buffer (``init``,
+``push``, ``push_many``, ``sample``, ``can_sample`` and the
+``ReplayBuffer`` facade: slots on the leading axis, each experience
+stored whole, ``next_obs`` included), its feature-major storage
+(``init_t``, ``push_many_t``: slots on the last axis, a per-slot leaf of
+shape (D,) stored as (D, capacity)) and ``StreamReplay``, with the same
+semantics: ring writes at a rolling cursor, uniform sampling with
+replacement.
 
 Two differences of form, none of result:
 
@@ -27,10 +31,107 @@ from dronerl_tpu_torch import rng
 class ReplayState:
     """Ring storage plus the host cursor and size."""
 
-    storage: Dict[str, torch.Tensor]  # name -> (*field_shape, capacity)
+    storage: Dict[str, torch.Tensor]  # name -> (capacity, *field_shape)
+    #                                     or (*field_shape, capacity)
     cursor: int  # next write position
     size: int    # number of valid slots (<= capacity)
 
+
+# --- row-major: slots on the leading axis ------------------------------------
+
+def init(template: Dict[str, torch.Tensor], capacity: int,
+         device=None) -> ReplayState:
+    """Zero storage shaped like ``template``'s per-slot leaves with a
+    leading capacity axis, on ``device`` (default: each leaf's)."""
+    storage = {
+        name: torch.zeros((capacity, *leaf.shape), dtype=leaf.dtype,
+                          device=leaf.device if device is None else device)
+        for name, leaf in template.items()}
+    return ReplayState(storage=storage, cursor=0, size=0)
+
+
+def push(state: ReplayState, experience: Dict[str, Any],
+         capacity: int) -> ReplayState:
+    """Write one experience at the cursor (in place)."""
+    for name, buf in state.storage.items():
+        buf[state.cursor] = experience[name]
+    return ReplayState(storage=state.storage,
+                       cursor=(state.cursor + 1) % capacity,
+                       size=min(state.size + 1, capacity))
+
+
+def push_many(state: ReplayState, batch: Dict[str, Any], capacity: int,
+              aligned: bool = False) -> ReplayState:
+    """Write a leading-axis batch of experiences at the cursor, wrapping
+    around the ring (in place; each item cast to its storage's dtype).
+
+    ``aligned`` is the caller's promise that every push has this size and
+    that it divides the capacity, so that no write wraps; the JAX package
+    then writes with ``dynamic_update_slice``, which would clamp a start
+    past ``capacity - n``, and so does this function."""
+    n = next(iter(batch.values())).shape[0]
+    cursor = state.cursor
+    if aligned and capacity % n == 0:
+        start = min(cursor, capacity - n)
+        for name, buf in state.storage.items():
+            buf[start:start + n] = batch[name]
+    elif cursor + n <= capacity:
+        for name, buf in state.storage.items():
+            buf[cursor:cursor + n] = batch[name]
+    else:
+        slots = (cursor + torch.arange(n)) % capacity
+        for name, buf in state.storage.items():
+            buf[slots.to(buf.device)] = batch[name].to(buf.dtype)
+    return ReplayState(storage=state.storage, cursor=(cursor + n) % capacity,
+                       size=min(state.size + n, capacity))
+
+
+def sample(key: torch.Tensor, state: ReplayState,
+           batch_size: int) -> Dict[str, torch.Tensor]:
+    """Uniform sample with replacement over the valid prefix: the slots of
+    ``jax.random.randint(key, (batch_size,), 0, size)``, drawn on the
+    host."""
+    idx = rng.randint(key, (batch_size,), 0, state.size).to(torch.int64)
+    return {name: buf[idx.to(buf.device, non_blocking=True)]
+            for name, buf in state.storage.items()}
+
+
+def can_sample(state: ReplayState, batch_size: int) -> bool:
+    return state.size >= batch_size
+
+
+class ReplayBuffer:
+    """Row-major replay: the static geometry bound to the functions above
+    (``dronerl_tpu/replay.py::ReplayBuffer``)."""
+
+    def __init__(self, capacity: int = 10_000, batch_size: int = 64,
+                 uniform_pushes: bool = False):
+        self.capacity = capacity
+        self.batch_size = batch_size
+        self.uniform_pushes = uniform_pushes
+
+    def init(self, template: Dict[str, torch.Tensor],
+             device=None) -> ReplayState:
+        return init(template, self.capacity, device)
+
+    def push(self, state: ReplayState,
+             experience: Dict[str, Any]) -> ReplayState:
+        return push(state, experience, self.capacity)
+
+    def push_many(self, state: ReplayState,
+                  batch: Dict[str, Any]) -> ReplayState:
+        return push_many(state, batch, self.capacity,
+                         aligned=self.uniform_pushes)
+
+    def sample(self, key: torch.Tensor,
+               state: ReplayState) -> Dict[str, torch.Tensor]:
+        return sample(key, state, self.batch_size)
+
+    def can_sample(self, state: ReplayState) -> bool:
+        return can_sample(state, self.batch_size)
+
+
+# --- feature-major: slots on the last axis -----------------------------------
 
 def init_t(template: Dict[str, torch.Tensor], capacity: int,
            device=None) -> ReplayState:

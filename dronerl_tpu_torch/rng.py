@@ -13,6 +13,7 @@ returns the two output words per counter, and random bits are
 """
 
 import functools
+import hashlib
 import math
 
 import torch
@@ -129,3 +130,141 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     out = (minval + offset) & MASK32
     # uint32 -> int32 two's complement
     return torch.where(out >= (1 << 31), out - (1 << 32), out).to(torch.int32)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a host key (2,) and a uint32:
+    threefry of the key over the seed words (0, data), jax's
+    ``threefry_seed`` of a 32-bit value."""
+    k1, k2 = (int(v) for v in key.tolist())
+    return torch.tensor(_threefry(k1, k2, 0, int(data) & MASK32),
+                        dtype=torch.int64)
+
+
+# --- float32 arithmetic as XLA's CPU backend evaluates it --------------------
+#
+# jax.random.truncated_normal maps a uniform through lax.erf_inv, which XLA
+# lowers to Giles' single-precision polynomial over log1p; on the CPU the
+# log is its own Cephes-style polynomial, and LLVM contracts each multiply
+# that feeds an add into one fused multiply-add. The functions below repeat
+# those f32 steps in torch ops on CPU tensors, a fused multiply-add as the
+# float64 product and sum rounded once to f32 (a product of two f32 is
+# exact in float64).
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    return (a.double() * torch.as_tensor(b).double()
+            + torch.as_tensor(c).double()).float()
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+
+
+def _log_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's f32 log (Cephes' logf, as Eigen writes it) for x > 0."""
+    t = torch.clamp(x, min=_f32(2.0 ** -126))
+    bits = t.view(torch.int32)
+    e = 1.0 + ((bits >> 23) - 0x7F).to(torch.float32)
+    t = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    small = t < _f32(0.707106781186547524)
+    t1 = torch.where(small, t, _f32(0.0))
+    t = (t - 1.0) + t1
+    e = e - small.to(torch.float32)
+    x2 = t * t
+    x3 = x2 * t
+    y = _fma(_fma(t, _LOG_P[0], _LOG_P[1]), t, _LOG_P[2])
+    y1 = _fma(_fma(t, _LOG_P[3], _LOG_P[4]), t, _LOG_P[5])
+    y2 = _fma(_fma(t, _LOG_P[6], _LOG_P[7]), t, _LOG_P[8])
+    y = _fma(_fma(y, x3, y1), x3, y2)
+    y = _fma(y, x3, _f32(-2.12194440e-4) * e)
+    t = _fma(_f32(-0.5), x2, t)
+    return _fma(_f32(0.693359375), e, t + y)
+
+
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1., 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 log1p: a Cephes rational below sqrt(2) - 1 in magnitude,
+    else log(1 + x)."""
+    def poly(coeffs):
+        p = torch.zeros_like(x)
+        for c in coeffs:
+            p = _fma(p, x, _f32(c))
+        return p
+    x2 = x * x
+    small = (x * x2) * (poly(_LOG1P_NUM) / poly(_LOG1P_DEN))
+    small = x + _fma(_f32(-0.5), x2, small)
+    return torch.where(x.abs() < 0.41421356237309504880, small,
+                       _log_f32(x + 1.0))
+
+
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` on f32 as XLA evaluates it: Giles' single-precision
+    polynomial in w = -log1p(-x²) (``torch.erfinv`` is another
+    approximation and differs in the last bits)."""
+    w = -_log1p_f32(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _f32(_ERFINV_LT5[0]), _f32(_ERFINV_GE5[0]))
+    for lo, hi in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, w, torch.where(lt, _f32(lo), _f32(hi)))
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape) -> torch.Tensor:
+    """``jax.random.truncated_normal(key, lower, upper, shape)`` in f32 on
+    the CPU (jax/_src/random.py ``_truncated_normal``): a uniform on
+    [erf(lower/√2), erf(upper/√2)], mapped through √2·erf⁻¹, clamped to the
+    open interval (lower, upper)."""
+    sqrt2 = _f32(math.sqrt(2))
+    lo, hi = _f32(lower), _f32(upper)
+    a, b = torch.erf(lo / sqrt2), torch.erf(hi / sqrt2)
+    unit = bits_to_unit_float(random_bits(key, shape))
+    u = torch.maximum(a, _fma(unit, b - a, a))
+    out = sqrt2 * erfinv_f32(u)
+    return torch.clamp(out, torch.nextafter(lo, _f32(math.inf)),
+                       torch.nextafter(hi, _f32(-math.inf)))
+
+
+def flax_param_key(key: torch.Tensor, path) -> torch.Tensor:
+    """The key flax 0.12 hands a parameter's initialiser
+    (``flax/core/scope.py``): ``Scope.make_rng`` counts the ``make_rng``
+    calls of a module (1 for the first parameter, 2 for the second) and
+    wraps the init key in a ``LazyRng`` whose suffix is the module path
+    then that count; ``LazyRng.as_jax_rng`` folds the suffix in with
+    ``_fold_in_static``: a SHA-1 over each suffix item (a str as UTF-8, an
+    int as its minimal big-endian bytes; with the
+    ``flax_fix_rng_separator`` config, off by default and not set by the
+    JAX package, each item would be preceded by a zero byte), whose first
+    four bytes, big-endian, are folded into the key with ``fold_in``.
+    ``path`` is that suffix, e.g. ``("Dense_0", 1)`` for the kernel of
+    a top-level ``Dense_0``."""
+    digest = hashlib.sha1()
+    for item in path:
+        if isinstance(item, str):
+            digest.update(item.encode("utf-8"))
+        else:
+            digest.update(item.to_bytes((item.bit_length() + 7) // 8, "big"))
+    return fold_in(key, int.from_bytes(digest.digest()[:4], "big"))

@@ -1,5 +1,5 @@
-"""DQN training (counterpart of ``dronerl_tpu/train.py``): the ring engine
-and the two StreamReplay engines.
+"""DQN training (counterpart of ``dronerl_tpu/train.py``): the ring engine,
+the two StreamReplay engines and the jnp engine.
 
 Ring engine (:func:`build_train_step_ring`). One tick: split the host
 key three ways; one launch of the fused tick kernel (the whole env side:
@@ -28,6 +28,15 @@ split the host key six ways; random opponents and drone 0's ε-greedy
 action (``DQN.act_t``) drawn on the device; one launch of the env tick
 kernel (B4); push, sample, learn and schedules as the full engine; on a
 reset tick, ``core.reset_batch`` and ``observe_batch`` in plain PyTorch.
+
+jnp engine (:func:`build_train_step`, plain PyTorch). One tick: split
+the host key six ways; random opponents and drone 0's ε-greedy action
+(``DQN.act``); ``core.step_batch`` and ``observe_batch``; push the whole
+transitions (``next_obs`` included) into a row-major
+``replay.ReplayBuffer``; sample and take the TD(0) Adam step once the
+buffer holds a batch; the schedules; the periodic reset. It launches no
+kernel of the port: the JAX CLI runs it where its fused kernels do not
+apply (fewer than 128 envs, among others), and so does this one.
 
 The CLI chooses an engine as the JAX CLI does (:func:`choose_engine`).
 
@@ -144,12 +153,11 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
 def init_ring_carry(agent: DQN, env_params: EnvParams, num_envs: int,
                     capacity: int, rng: torch.Tensor,
                     obs_dtype=torch.float32,
-                    generator: Optional[torch.Generator] = None,
                     batch_size: Optional[int] = None,
                     in_kernel_td: Optional[bool] = None):
     """Initial carry for :func:`build_train_step_ring`: envs reset with
     ``rng``, the ring seeded with their observation at slot 0, a fresh
-    agent from ``generator`` (default: seeded from the key's words).
+    agent drawn from ``rng`` as the JAX trainer draws it.
 
     With ``in_kernel_td`` (pass the same to the tick's builder) ``aux``
     is a zero batch of ``batch_size`` columns, never trained on; else
@@ -170,9 +178,6 @@ def init_ring_carry(agent: DQN, env_params: EnvParams, num_envs: int,
             "rewards": zeros((batch_size,), dtype=torch.float32),
             "dones": zeros((batch_size,), dtype=torch.float32),
         }
-    if generator is None:
-        k0, k1 = (int(v) for v in rng.tolist())
-        generator = torch.Generator().manual_seed((k0 << 32) | k1)
     env_states = env_core.reset_batch(rng.to(device), env_params, num_envs)
     tstate = fused_tick.to_tstate(env_states)
     obs0 = env_core.observe_batch(env_states, env_params, 1).reshape(
@@ -185,7 +190,7 @@ def init_ring_carry(agent: DQN, env_params: EnvParams, num_envs: int,
         (torch.zeros(capacity, dtype=torch.int32, device=device),
          torch.zeros(capacity, dtype=torch.float32, device=device),
          torch.zeros(capacity, dtype=torch.int8, device=device)),
-        agent.init_state(generator), aux, 0,
+        agent.init_state(rng), aux, 0,
     )
 
 
@@ -278,16 +283,12 @@ def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
 
 
 def init_stream_carry(agent: DQN, env_params: EnvParams, num_envs: int,
-                      buffer: replay.StreamReplay, rng: torch.Tensor,
-                      generator: Optional[torch.Generator] = None):
+                      buffer: replay.StreamReplay, rng: torch.Tensor):
     """Initial carry ``(rng, tstate, obs_t, ag_state, bstate, 0)`` for the
     StreamReplay engines: envs reset with ``rng``, their observation
-    (obs_dim, E) f32, a fresh agent from ``generator`` (default: seeded
-    from the key's words) and an empty replay on the agent's device."""
+    (obs_dim, E) f32, a fresh agent drawn from ``rng`` as the JAX trainer
+    draws it and an empty replay on the agent's device."""
     device = agent.device
-    if generator is None:
-        k0, k1 = (int(v) for v in rng.tolist())
-        generator = torch.Generator().manual_seed((k0 << 32) | k1)
     env_states = env_core.reset_batch(rng.to(device), env_params, num_envs)
     obs_t = env_core.observe_batch(env_states, env_params, 1).reshape(
         num_envs, agent.obs_dim).t().contiguous()
@@ -298,7 +299,87 @@ def init_stream_carry(agent: DQN, env_params: EnvParams, num_envs: int,
         "dones": torch.zeros((), dtype=torch.bool),
     }, device=device)
     return (rng.cpu(), fused_tick.to_tstate(env_states), obs_t,
-            agent.init_state(generator), bstate, 0)
+            agent.init_state(rng), bstate, 0)
+
+
+# --- the jnp engine ----------------------------------------------------------
+
+def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
+                     env_params: EnvParams, num_envs: int,
+                     reset_env_every: int, collect_drones: int = 1):
+    """The jnp-engine tick (``dronerl_tpu/train.py::build_train_step``):
+    ``tick(carry) -> (carry, (rewards (E,), epsilon, loss))`` with the
+    carry ``(rng, env_states, obs (E, k, obs_dim), ag_state, bstate,
+    step)`` (:func:`init_jnp_carry`); ``k`` = ``collect_drones`` drones
+    of every env feed the replay. ``loss`` is ``NO_TRAIN_LOSS`` until the
+    buffer holds a batch."""
+    obs_dim = agent.obs_dim
+    device = agent.device
+    k = collect_drones
+
+    def learner_obs(states):
+        return env_core.observe_batch(states, env_params, k).reshape(
+            num_envs, k, obs_dim)
+
+    def tick(carry):
+        rng, env_states, obs, ag_state, bstate, step = carry
+        rng, rand_key, act_key, step_key, sample_key, reset_key = (
+            rng_mod.split(rng, 6))
+        actions = rng_mod.randint(rand_key.to(device),
+                                  (num_envs, env_params.n_drones), 0,
+                                  NUM_ACTIONS)
+        actions[:, 0] = agent.act(act_key, obs[:, 0], ag_state)
+        step_keys = rng_mod.split(step_key.to(device), num_envs)
+        env_states, rewards, dones = env_core.step_batch(
+            step_keys, env_states, actions, env_params)
+        next_obs = learner_obs(env_states)
+        bstate = buffer.push_many(bstate, {
+            "obs": obs.reshape(num_envs * k, obs_dim),
+            "actions": actions[:, :k].reshape(-1),
+            "rewards": rewards[:, :k].reshape(-1),
+            "next_obs": next_obs.reshape(num_envs * k, obs_dim),
+            "dones": dones[:, :k].reshape(-1),
+        })
+        if buffer.can_sample(bstate):
+            batch = buffer.sample(sample_key, bstate)
+            batch["dones"] = batch["dones"].to(torch.float32)
+            ag_state, loss = agent.train_step(ag_state, batch)
+        else:
+            loss = torch.tensor(NO_TRAIN_LOSS, device=device)
+        ag_state = agent.apply_schedules(ag_state, step, dones[0, 0])
+        if step % reset_env_every == 0:
+            env_states = env_core.reset_batch(reset_key.to(device),
+                                              env_params, num_envs)
+            next_obs = learner_obs(env_states)
+        carry = (rng, env_states, next_obs, ag_state, bstate, step + 1)
+        return carry, (rewards[:, 0], ag_state.epsilon, loss)
+
+    return tick
+
+
+def init_jnp_carry(agent: DQN, env_params: EnvParams, num_envs: int,
+                   buffer: replay.ReplayBuffer, rng: torch.Tensor,
+                   collect_drones: int = 1):
+    """Initial carry ``(rng, env_states, obs, ag_state, bstate, 0)`` for
+    :func:`build_train_step`, as the JAX CLI builds it: envs reset with
+    ``rng``, the learner drones' observations (E, k, obs_dim), a fresh
+    agent drawn from ``rng`` and an empty row-major replay of whole
+    transitions on the agent's device."""
+    device = agent.device
+    env_states = env_core.reset_batch(rng.to(device), env_params, num_envs)
+    obs = env_core.observe_batch(env_states, env_params,
+                                 collect_drones).reshape(
+        num_envs, collect_drones, agent.obs_dim)
+    obs_leaf = torch.zeros((agent.obs_dim,), dtype=torch.float32)
+    bstate = buffer.init({
+        "obs": obs_leaf,
+        "actions": torch.zeros((), dtype=torch.int32),
+        "rewards": torch.zeros((), dtype=torch.float32),
+        "next_obs": obs_leaf,
+        "dones": torch.zeros((), dtype=torch.bool),
+    }, device=device)
+    return (rng.cpu(), env_states, obs,
+            agent.init_state(rng), bstate, 0)
 
 
 # --- engine choice -----------------------------------------------------------
@@ -321,31 +402,38 @@ def ring_skip_reasons(dense: bool, ring_capacity: int, push_size: int,
     return reasons
 
 
+def fused_engine_problems(env_params: EnvParams, num_envs: int) -> list:
+    """Why the fused family (ring and full engines) does not run this
+    configuration: the JAX CLI's ``fused_engine_problems`` with the card
+    in the TPU's place, i.e. the kernels' limits
+    (``fused_tick.kernel_problems``) and the JAX kernels' 128-lane env
+    blocks, which the JAX CLI keeps as its gate."""
+    problems = fused_tick.kernel_problems(env_params, num_envs)
+    if num_envs < 128:
+        problems.append(f"num_envs={num_envs} < 128 (small batches belong "
+                        "on the jnp engine)")
+    elif num_envs % 128 != 0:
+        problems.append(f"num_envs={num_envs} is not a multiple of 128")
+    return problems
+
+
 def choose_engine(args, env_params: EnvParams) -> str:
-    """``"ring"`` or ``"full"``, by the JAX CLI's rule: the ring engine when
-    the ring holds at most 4 env-batches (``ring_skip_reasons`` is
-    empty), else the full engine over a StreamReplay. Logs the choice and
-    why the ring was skipped; warns where the JAX CLI would run its jnp
-    engine, which is not ported (the port keeps the fused family there)."""
-    if args.engine == "jnp":
-        raise NotImplementedError(
-            "--engine jnp: the jnp engine (build_train_step with "
-            "ReplayBuffer) is not ported yet (ROADMAP A7)")
-    # The JAX CLI's fused_engine_problems, against the kernels' limits.
-    problems = fused_tick.kernel_problems(env_params, args.num_envs)
-    if problems:
-        raise NotImplementedError(
-            "the port's kernels do not take this configuration ("
-            + "; ".join(problems) + "); the JAX CLI runs its jnp engine "
-            "here, which is not ported yet (ROADMAP A7)")
-    # The JAX CLI's fused kernels tile envs over 128-lane blocks.
-    if args.engine == "auto" and (args.num_envs < 128
-                                  or args.num_envs % 128 != 0):
-        logger.warning(
-            "the JAX CLI would run its jnp engine here (num_envs=%d: fewer "
-            "than 128 or not a multiple of 128); the jnp engine is not "
-            "ported (ROADMAP A7), so the port runs the fused family",
-            args.num_envs)
+    """``"jnp"``, ``"ring"`` or ``"full"``, by the JAX CLI's rule: the jnp
+    engine for ``--engine jnp`` and, under ``auto``, wherever
+    :func:`fused_engine_problems` finds a reason; else the ring engine
+    when the ring holds at most 4 env-batches (``ring_skip_reasons`` is
+    empty), else the full engine over a StreamReplay. ``--engine fused``
+    on a configuration with problems raises, naming them. Logs the choice
+    and why the faster engines were skipped."""
+    problems = fused_engine_problems(env_params, args.num_envs)
+    if args.engine == "fused" and problems:
+        raise ValueError("--engine fused is not available for this "
+                         "config: " + "; ".join(problems))
+    if args.engine == "jnp" or problems:
+        logger.info("Engine: jnp")
+        if problems:
+            logger.info("Fused engines skipped (%s)", "; ".join(problems))
+        return "jnp"
     push_size = args.num_envs  # collect_drones = 1
     capacity = math.ceil(args.memory_size / push_size) * push_size
     skip = ring_skip_reasons(True, max(capacity, 2 * push_size), push_size,
@@ -433,16 +521,19 @@ def parse_args(argv=None):
                    default="bfloat16", help="the ring engine's ring")
     p.add_argument("--engine", choices=["auto", "fused", "jnp"],
                    default="auto",
-                   help="auto/fused: the ring engine when the replay holds "
-                   "at most 4 env-batches, else the full engine over a "
-                   "StreamReplay; jnp is not ported yet")
+                   help="auto: the jnp engine where the fused kernels do "
+                   "not apply (fewer than 128 envs, or not a multiple of "
+                   "128), else, as with fused, the ring engine when the "
+                   "replay holds at most 4 env-batches and the full "
+                   "engine over a StreamReplay otherwise; jnp: plain "
+                   "PyTorch over a row-major ReplayBuffer")
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernel) or cpu (the plain PyTorch path)")
     args, unknown = p.parse_known_args(argv)
     if unknown:
         raise SystemExit(
-            "not supported by the PyTorch port yet (only the fused engines "
-            "with dense nets and collect_drones=1 are ported): "
+            "not supported by the PyTorch port yet (dense nets and "
+            "collect_drones=1 only): "
             + " ".join(unknown))
     if args.num_envs <= 0:
         raise ValueError("num_envs must be >= 1")
@@ -461,7 +552,16 @@ def train(args) -> dict:
     ring_capacity = max(capacity, 2 * num_envs)
     engine = choose_engine(args, env_params)
     rng = rng_mod.PRNGKey(args.seed)
-    if engine == "ring":
+    if engine == "jnp":
+        logger.info("env %s | agent %s | %d envs, ReplayBuffer of %d slots "
+                    "(float32) on %s", env_params, agent.config, num_envs,
+                    capacity, device)
+        buffer = replay.ReplayBuffer(capacity, args.batch_size,
+                                     uniform_pushes=True)
+        tick = build_train_step(agent, buffer, env_params, num_envs,
+                                args.reset_env_every)
+        carry = init_jnp_carry(agent, env_params, num_envs, buffer, rng)
+    elif engine == "ring":
         logger.info("env %s | agent %s | %d envs, ring %d columns (%s) on %s",
                     env_params, agent.config, num_envs, ring_capacity,
                     args.ring_obs_dtype, device)
@@ -480,7 +580,7 @@ def train(args) -> dict:
         tick = build_train_step_full(agent, buffer, env_params, num_envs,
                                      args.reset_env_every)
         carry = init_stream_carry(agent, env_params, num_envs, buffer, rng)
-    if device.type == "cuda":
+    if device.type == "cuda" and engine != "jnp":
         t0 = time.perf_counter()
         fused_tick.prepare_kernel(env_params, carry[3].params)
         logger.info("kernel ready in %.1fs", time.perf_counter() - t0)

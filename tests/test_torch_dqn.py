@@ -1,8 +1,9 @@
 """The port's dense DQN learner against ``dronerl_tpu.agents.dqn``.
 
 Weights and optimizer state are carried across with
-``dronerl_tpu_torch.interop.from_jax`` (the two frameworks' init draws
-differ). Tolerances: the Q forward within 1e-6 relative (one f32 matmul
+``dronerl_tpu_torch.interop.from_jax``, so that each learner check starts
+from the same state whatever the init (``DQN.init_state`` given a key
+draws the JAX nets bitwise, tests/test_torch_jnp.py). Tolerances: the Q forward within 1e-6 relative (one f32 matmul
 chain, summed in another order); the TD loss within 1e-5 relative; params
 and Adam moments within 1e-5 absolute over 4 steps (Adam's first step
 maps any gradient, however small, to about ±lr, so a 1-ULP gradient

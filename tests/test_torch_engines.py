@@ -343,17 +343,27 @@ def test_cli_engine_choice_matches_jax_gate(num_envs, memory_size,
 
 
 def test_cli_engine_flags(caplog):
-    args = train.parse_args(["--device", "cpu", "--engine", "jnp"])
-    with pytest.raises(NotImplementedError, match="A7"):
-        train.choose_engine(args, train.env_params_from_args(args))
+    """``--engine jnp`` runs the jnp engine at any size; ``auto`` does below
+    128 envs and where the kernels' limits fail (grid 17: 289 cells), as
+    the JAX gate does, and says why; ``--engine fused`` there raises,
+    naming the reason."""
+    args = train.parse_args(["--device", "cpu", "--engine", "jnp",
+                             "--num_envs", "128", "--memory_size", "256"])
+    assert train.choose_engine(args, train.env_params_from_args(args)) == (
+        "jnp")
     args = train.parse_args(["--device", "cpu", "--num_envs", "64",
                              "--memory_size", "1000"])
     with caplog.at_level(logging.INFO, logger="dronerl_tpu_torch.train"):
         assert train.choose_engine(args, train.env_params_from_args(
-            args)) == "full"
-    assert "jnp engine" in caplog.text and "Ring engine skipped" in caplog.text
-    args = train.parse_args(["--device", "cpu", "--grid_size", "17"])
-    with pytest.raises(NotImplementedError, match="289 cells"):
+            args)) == "jnp"
+    assert "Engine: jnp" in caplog.text and "< 128" in caplog.text
+    args = train.parse_args(["--device", "cpu", "--grid_size", "17",
+                             "--num_envs", "128"])
+    assert train.choose_engine(args, train.env_params_from_args(args)) == (
+        "jnp")
+    args = train.parse_args(["--device", "cpu", "--grid_size", "17",
+                             "--num_envs", "128", "--engine", "fused"])
+    with pytest.raises(ValueError, match="289 cells"):
         train.choose_engine(args, train.env_params_from_args(args))
 
 

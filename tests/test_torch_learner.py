@@ -15,6 +15,8 @@ refuses, without a launch (the kernel needs a card:
 tests/test_torch_kernel.py).
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -253,22 +255,122 @@ def test_learner_args_reject(case):
 
 
 def test_learner_kernel_limits_and_build_config():
-    """Shared memory at the bench batch, the batch limit, and the learner
-    library keyed by the net widths alone."""
-    assert learner_kernel.smem_bytes((294, 128, 64, 5), 8) == 4 * (
-        (294 + 2 * 197) * 9 + 16)
-    assert not learner_kernel.kernel_problems((294, 128, 64, 5), 8)
-    assert learner_kernel.kernel_problems((294, 128, 64, 5), 200)
+    """One CTA's shared memory, the launch plans, the limits, and the
+    learner library keyed by the net widths alone."""
+    widths = (294, 128, 64, 5)
+    # (128,64) on 16 CTAs: slices of 8, 4 and 1 units; W, target, mu, nu
+    # and their biases staged; delta; rows of stride 9: split-K partials
+    # in doubles (8 segments x 2 nets x 8 units, fewer than the 2 x 16 x
+    # 8 receive slots), activations (2 x 197), own gradients (8 + 4 + 1),
+    # the batch.
+    staged = 4 * ((294 * 8 + 8) + (128 * 4 + 4) + (64 + 4))
+    rows = 2 * 256 + 2 * 197 + (8 + 4 + 1) + 2 * 294
+    assert learner_kernel.smem_bytes(widths, 8) == 4 * (
+        staged + 256 + rows * 9)
+    assert learner_kernel.smem_bytes(widths, 8, staged=False) == (
+        4 * (staged + 256 + (rows - 2 * 294) * 9))
+    assert learner_kernel.smem_bytes(widths, 8, params_staged=False) == (
+        4 * (256 + rows * 9))
+    # In tiles: a double accumulator for each own kernel and bias element.
+    acc = 2 * (295 * 8 + 129 * 4 + 65 * 1) + 2
+    assert learner_kernel.smem_bytes(widths, 43, False, True) == 4 * (
+        staged + acc + 256 + (rows - 2 * 294) * 43)
+    plan = learner_kernel.batch_plan
+    assert plan(widths, 8) == (8, True, True,
+                               learner_kernel.smem_bytes(widths, 8))
+    # Batch 256 in six tiles of 43 columns (ceil(256 / 6)); (16,16) reads
+    # the whole batch from device memory, (512,) its params too.
+    assert plan(widths, 256)[:3] == (43, False, True)
+    assert plan((294, 16, 16, 5), 256)[:3] == (256, False, True)
+    assert plan((294, 512, 5), 8)[:3] == (8, True, False)
+    assert plan((294, 512, 5), 256)[:3] == (11, False, False)
+    for bsz in (1, 49, 50, 84, 256):
+        assert not learner_kernel.kernel_problems(widths, bsz)
+    assert learner_kernel.kernel_problems(widths, 257)
     assert learner_kernel.kernel_problems((294, 16, 4), 8)
-    source, defines = _build.learner_config((294, 128, 64, 5))
+    assert "shared memory" in learner_kernel.kernel_problems(
+        (294, 2048, 5), 256)[0]
+    source, defines = _build.learner_config(widths)
     d = dict(defines)
     assert source == "td_adam.cu" and d["DR_NLAYERS"] == "3"
     assert (d["DR_DIM0"], d["DR_DIM2"], d["DR_DIM4"]) == ("294", "64", "0")
     assert not any(k in d for k in ("DR_GRID", "DR_NDRONES"))
-    lib = _build.library_path(_build.learner_config((294, 128, 64, 5)))
+    lib = _build.library_path(_build.learner_config(widths))
     tick = _build.library_path(_build.tick_config(
-        EnvParams(grid_size=9, n_drones=4), (294, 128, 64, 5)))
+        EnvParams(grid_size=9, n_drones=4), widths))
     assert lib.endswith("libtd_adam.so") and tick.endswith("libfull_tick.so")
     assert lib != tick and lib.startswith(_build.BUILD_DIR)
     with pytest.raises(ValueError):
         _build.library_path(("nope.cu", defines))
+
+
+@pytest.mark.parametrize("hidden", [
+    (16, 16), (128, 64), (8,), (32, 16), (100,), (256,), (512,), (768,),
+    (1024,), (256, 256), (512, 512)])
+def test_learner_kernel_takes_the_one_block_limits(hidden):
+    """Every batch that the one-block learner kernel took (the batch and
+    every layer's activation and gradient rows at stride B | 1 in one
+    block's shared memory) the cluster kernel takes too, and one hidden
+    layer of up to 1,024 units or two of up to 512 take every batch of
+    1..256."""
+    widths = (294, *hidden, 5)
+    every_batch = max(hidden) <= (1024 if len(hidden) == 1 else 512)
+    for bsz in range(1, learner_kernel.MAX_BATCH + 1):
+        one_block = 4 * ((294 + 2 * sum(widths[1:])) * (bsz | 1)
+                         + 2 * bsz) <= learner_kernel.MAX_SMEM_BYTES
+        if one_block or every_batch:
+            assert not learner_kernel.kernel_problems(widths, bsz), bsz
+
+
+@pytest.mark.parametrize("width", [1, 3, 5, 8, 16, 17, 32, 48, 63, 64, 65,
+                                   100, 128, 256, 294, 512])
+def test_cluster_split_owns_every_unit_once(width):
+    """Every output unit of a layer has exactly one owning CTA, the slices
+    are contiguous and in rank order, at most one unit apart (or equal
+    16-byte slices where 4 x CLUSTER divides the width), and the 5
+    actions go one to a CTA."""
+    cluster = learner_kernel.CLUSTER
+    split = learner_kernel.cluster_split(width)
+    assert len(split) == cluster
+    owners = np.zeros(width, dtype=int)
+    for lo, hi in split:
+        owners[lo:hi] += 1
+    assert (owners == 1).all()
+    assert split[0][0] == 0 and split[-1][1] == width
+    assert all(a[1] == b[0] for a, b in zip(split, split[1:]))
+    sizes = [hi - lo for lo, hi in split]
+    if width % (4 * cluster) == 0:
+        assert len(set(sizes)) == 1 and sizes[0] % 4 == 0
+        assert all(lo % 4 == 0 for lo, _ in split)
+    else:
+        assert max(sizes) - min(sizes) <= 1 and sizes == sorted(
+            sizes, reverse=True)
+    if width == 5:
+        assert sizes[:5] == [1] * 5
+
+
+@pytest.mark.parametrize("bsz", [1, 8])
+def test_loss_slack_bounds_a_q_perturbation(bsz):
+    """``loss_slack(q_rel)`` bounds the change of the TD loss when the
+    online and the target Q-values move by a relative ``q_rel`` in either
+    direction (the output layers scaled), to first order."""
+    _, ta = _agents((16, 16))
+    st = ta.init_state(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in _batch(ta.obs_dim, 5,
+                                                       bsz).items()}
+    q_rel = 1e-3
+    slack = learner_kernel.loss_slack(batch, st.params, st.target_params,
+                                      0.9, q_rel)
+    loss0, _ = learner_kernel.td_gradients(batch, st.params,
+                                           st.target_params, 0.9)
+    assert slack > 0
+    for online, target in ((1 + q_rel, 1 - q_rel), (1 - q_rel, 1 + q_rel)):
+        nets = []
+        for net, f in ((st.params, online), (st.target_params, target)):
+            net = copy.deepcopy(net)
+            with torch.no_grad():
+                net.kernels[-1].mul_(f)
+                net.biases[-1].mul_(f)
+            nets.append(net)
+        loss1, _ = learner_kernel.td_gradients(batch, *nets, 0.9)
+        assert abs(float(loss1) - float(loss0)) <= 1.01 * slack + 1e-5
