@@ -87,6 +87,24 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    of TICK_BOARDS, B5 on every board of STEP_BOARDS), their plain
    versions and their bounds (the tick kernel's layers but the last at
    the tensor-core rate, the all-CUDA-core bound beside it);
+3g. the conv family and the global observation (CHAIN_CASES, nets drawn
+   from PRNGKey(0) as ``--seed 0`` draws them): B1 (bf16 ring) and B3
+   with dqn-agent-5's conv chain on the window, and on the global 9 x 9
+   board with a dense (16,16) net, that conv chain, and a conv of 32
+   channels whose activations live in device memory, and on the global
+   16 x 16 board whose observation does too, 3 ticks each with a reset
+   at 65,536 envs against their plain versions; B4 with the global
+   observation on grids 9 and 16. Phase 2 prints each library's variant,
+   shared memory, scratch and blocks per SM, and fails where the card's
+   layout differs from ``fused_tick.tick_layout``;
+4g. drive CHAIN_DRIVES (the ring and full engines with those chains, the
+   fused engine with the conv module and with the global dense net) for
+   CHAIN_DRIVE ticks each, every count zeroed just before: the engine's
+   kernel launches once a tick and no other kernel launches; then time
+   each B1/B3 chain launch and B4 beside its plain version and bound;
+4h. run the CLI with ``--network_type conv --conv_matmul`` at 16,384 envs
+   (the full engine: B3's launches equal its steps) and with
+   ``--network_type conv --wrapper global`` at 64 (the jnp engine);
 5. print the kernel table line, the card line, and the result line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -94,6 +112,7 @@ It imports nothing of JAX and nothing of the JAX package.
 
 import copy
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -134,6 +153,40 @@ LEARNER_CASES = tuple(
     for b in (8, 1, 256)) + (((512,), 8), ((512,), 256))
 EMPTY_LAUNCHES = 200
 JNP_ENVS, JNP_STEPS = 64, 30
+# The conv family and the global observation (phases 3g, 4g, 4h). CONV5 is
+# dqn-agent-5's architecture (dronerl_tpu/evaluator/baselines/
+# dqn-agent-5.safetensors: Conv_0 3x3, 6 -> 8 channels, padding 1, then
+# Dense 16 and the output); CONV32 one conv of 32 channels and no dense
+# layer, whose 2,592 hidden units on the global 9 x 9 board do not fit a
+# block's shared memory. A case is (wrapper, grid, net); its nets run
+# with --conv_matmul (the im2col chain in the tick kernels) and, for the
+# fused engine, without it.
+CONV5 = dict(network_type="conv", conv_dense_layers=(16,), conv_layers=(
+    {"kernel_size": 3, "out_channels": 8, "padding": 1, "stride": 1},))
+CONV32 = dict(network_type="conv", conv_dense_layers=(), conv_layers=(
+    {"kernel_size": 3, "out_channels": 32, "padding": 1, "stride": 1},))
+CHAIN_CASES = {
+    "window_conv5": ("window", GRID, CONV5),
+    "global_dense": ("global", GRID, dict(hidden_layers=(16, 16))),
+    "global_conv5": ("global", GRID, CONV5),
+    "global_conv32": ("global", GRID, CONV32),
+    # The observation tile itself does not fit shared memory (1,536 rows).
+    "global16_dense": ("global", 16, dict(hidden_layers=(16, 16))),
+}
+# The trainer drives of phase 4g: (case, engine), the fused engine's conv
+# net without --conv_matmul.
+CHAIN_DRIVES = (
+    ("window_conv5", "ring"), ("window_conv5", "full"),
+    ("window_conv5", "fused"),
+    ("global_dense", "ring"), ("global_dense", "full"),
+    ("global_dense", "fused"),
+    ("global_conv5", "ring"), ("global_conv5", "full"),
+    ("global_conv32", "ring"), ("global_conv32", "full"),
+    ("global16_dense", "ring"))
+CHAIN_TICKS = 3            # phase 3g: ticks of each kernel against plain
+CHAIN_DRIVE = 12           # phase 4g: ticks of each drive
+CHAIN_STREAM = 4 * NUM_ENVS + NUM_ENVS  # a StreamReplay past the ring gate
+CLI_CONV_STEPS = 5
 WARMUP_TICKS = 10
 REPEATS = 3
 TICKS_PER_REPEAT = 100
@@ -234,9 +287,28 @@ def main() -> None:
     learner_nets = dict.fromkeys(h for h, _ in LEARNER_CASES)
     learner_configs = [_build.learner_config((obs_dim, *h, 5))
                        for h in learner_nets]
+    chain_cases = {}  # case -> (env, agent with --conv_matmul, its state)
+    for case, (wrapper, grid, net) in CHAIN_CASES.items():
+        cp = EnvParams(grid_size=grid, n_drones=DRONES, window_radius=RADIUS,
+                       wrapper=wrapper)
+        agent = DQN(DQNConfig(
+            **net, conv_matmul=net.get("network_type") == "conv",
+            epsilon_decay_every=5, target_update_interval=10, gamma=0.9),
+            cp, device=device)
+        chain_cases[case] = (cp, agent, agent.init_state(rng.PRNGKey(0)))
+    cli_conv = DQN(DQNConfig(network_type="conv", conv_matmul=True), params,
+                   device=device)
+    cli_chain = fused_tick.flatten_net_params(
+        cli_conv.init_state(rng.PRNGKey(0)).params, cli_conv.net_spec)
     configs = ([_build.tick_config(params, widths[h]) for h in NETS]
                + learner_configs
-               + [_build.env_config(p) for p in boards.values()])
+               + [_build.env_config(p) for p in boards.values()]
+               + [fused_tick.kernel_config(cp, fused_tick.flatten_net_params(
+                   st.params, agent.net_spec))
+                  for cp, agent, st in chain_cases.values()]
+               + [_build.env_config(cp) for cp, _, _ in chain_cases.values()
+                  if cp.wrapper == "global"]
+               + [fused_tick.kernel_config(params, cli_chain)])
     t0 = time.perf_counter()
     built = _build.build(configs)
     log(f"built {len(built)} kernel libraries in "
@@ -249,6 +321,8 @@ def main() -> None:
                     if k.startswith("DR_DIM") and v != "0")[1:-1]
         if cfg[0] == _build.ENV_SOURCE:
             tag = dict(cfg[1])["DR_GRID"], dict(cfg[1])["DR_NDRONES"]
+        if "DR_GLOBAL" in dict(cfg[1]):
+            tag = ("global", *tag)
         log(f"ptxas {cfg[0]} {tag}: " + " | ".join(ptxas))
         if cfg[0] == _build.LEARNER_SOURCE:
             net_w = (obs_dim, *tag, 5)
@@ -268,11 +342,27 @@ def main() -> None:
                     f"{'staged' if shape['params_staged'] else 'read'}, "
                     f"{shape['max_active_clusters']} clusters at once")
         if cfg[0] == _build.TICK_SOURCE:
+            tick_params = EnvParams(
+                grid_size=int(dict(cfg[1])["DR_GRID"]),
+                n_drones=int(dict(cfg[1])["DR_NDRONES"]),
+                window_radius=RADIUS, wrapper="global"
+                if "DR_GLOBAL" in dict(cfg[1]) else "window")
+            net_w = tuple(int(v) for k, v in cfg[1]
+                          if k.startswith("DR_DIM") and v != "0")
             for bf16 in (True, False):
-                smem, blocks = fused_tick.kernel_occupancy(cfg, bf16)
-                log(f"full tick kernel {tag} {'bf16' if bf16 else 'f32'} "
-                    f"obs: {smem} B dynamic shared memory a block, {blocks} "
-                    f"resident blocks an SM")
+                smem, blocks, scratch = fused_tick.kernel_occupancy(cfg, bf16)
+                mirror = fused_tick.tick_layout(tick_params, net_w, bf16)
+                if (smem, scratch) != (mirror["smem_bytes"],
+                                       mirror["scratch_bytes"]):
+                    fail(f"full tick kernel {net_w}: shared memory, scratch "
+                         f"{smem}, {scratch} != fused_tick.tick_layout "
+                         f"{mirror}")
+                log(f"full tick kernel {tick_params.wrapper} grid "
+                    f"{tick_params.grid_size} {net_w} "
+                    f"{'bf16' if bf16 else 'f32'} obs: variant "
+                    f"{mirror['variant']}, {smem} B dynamic shared memory a "
+                    f"block, {scratch} B device-memory scratch a block, "
+                    f"{blocks} resident blocks an SM")
         elif cfg[0] == _build.ENV_SOURCE:
             shape = fused_tick.env_block_shape(cfg)
             log(f"env kernel {tag}: blocks of {shape['envs']} envs and "
@@ -295,6 +385,20 @@ def main() -> None:
         ring[:, :NUM_ENVS] = core.observe_batch(state, params, 1).reshape(
             NUM_ENVS, obs_dim).t().to(dtype)
         return fused_tick.to_tstate(state), ring
+
+    def check_actions(tag, cp, chain, step_key, actions, obs_in, read, eps):
+        """The kernel's actions against the plain actor's outside near ties
+        of the plain Q-values; returns the near-tie count."""
+        keys = rng.split(step_key.to(device), NUM_ENVS + 2)
+        act_p, q = fused_tick.plain_actions(keys[NUM_ENVS], obs_in, read,
+                                            chain, eps, cp, NUM_ENVS)
+        top2 = q.topk(2, dim=0).values
+        tie = (top2[0] - top2[1]) <= NEAR_TIE * q.abs().amax(dim=0)
+        differ = (actions != act_p).any(dim=0)
+        if bool((differ & ~tie).any()):
+            fail(f"{tag}: {int((differ & ~tie).sum())} actions differ "
+                 "outside near ties")
+        return int(tie.sum())
 
     def check_env(tag, out_k, out_p, ring, ring_plain, read, write,
                   step_key, net, eps):
@@ -319,16 +423,8 @@ def main() -> None:
         if not torch.equal(ring[:, read:read + NUM_ENVS],
                            ring_plain[:, read:read + NUM_ENVS]):
             fail(f"{tag}: the read columns changed")
-        keys = rng.split(step_key.to(device), NUM_ENVS + 2)
-        act_p, q = fused_tick.plain_actions(
-            keys[NUM_ENVS], ring_plain, read, net, eps, params, NUM_ENVS)
-        top2 = q.topk(2, dim=0).values
-        tie = (top2[0] - top2[1]) <= NEAR_TIE * q.abs().amax(dim=0)
-        differ = (out_k[3] != act_p).any(dim=0)
-        if bool((differ & ~tie).any()):
-            fail(f"{tag}: {int((differ & ~tie).sum())} actions differ "
-                 "outside near ties")
-        return charge_err, int(tie.sum())
+        return charge_err, check_actions(tag, params, net, step_key,
+                                         out_k[3], ring_plain, read, eps)
 
     # --- 3. the tick kernel against its plain version ----------------------
     max_err = {}
@@ -347,15 +443,16 @@ def main() -> None:
                 do_reset = t == COMPARE_RESET_TICK
                 ring_plain = ring.clone()
                 out_k = fused_tick.full_tick_fused_ring(
-                    step_key, tstate, ring, read, write, ag.params, eps,
+                    step_key, tstate, ring, read, write, ag.params.flat(), eps,
                     do_reset, params)
                 out_p = fused_tick.full_tick_ring_plain(
-                    step_key, tstate, ring_plain, read, write, ag.params,
+                    step_key, tstate, ring_plain, read, write,
+                    ag.params.flat(),
                     eps, do_reset, params, actions_override=out_k[3])
                 torch.cuda.synchronize()
                 err, ties = check_env(f"{tag} tick {t}", out_k, out_p, ring,
                                       ring_plain, read, write, step_key,
-                                      ag.params, eps)
+                                      ag.params.flat(), eps)
                 max_err[hidden] = max(max_err[hidden], err)
                 near_ties += ties
                 tstate = out_k[0]
@@ -492,11 +589,12 @@ def main() -> None:
         ring_plain = ring.clone()
         adam = st.opt_state
         out_k = fused_tick.full_tick_fused_ring(
-            step_key, tstate, ring, 0, NUM_ENVS, st.params, eps, False,
+            step_key, tstate, ring, 0, NUM_ENVS, st.params.flat(), eps, False,
             params, td_hparams=TD_HPARAMS, td_batch=batch,
-            td_aux=(st.target_params, adam.mu, adam.nu, True, adam.count))
+            td_aux=(st.params, st.target_params, adam.mu, adam.nu, True,
+                    adam.count))
         out_p = fused_tick.full_tick_ring_plain(
-            step_key, tstate, ring_plain, 0, NUM_ENVS, ref.params, eps,
+            step_key, tstate, ring_plain, 0, NUM_ENVS, ref.params.flat(), eps,
             False, params, actions_override=out_k[3])
         gamma, lr, b1, b2, adam_eps = TD_HPARAMS
         ref_loss = learner_kernel.td_adam_plain(
@@ -506,7 +604,8 @@ def main() -> None:
             lr=lr, b1=b1, b2=b2, adam_eps=adam_eps)
         torch.cuda.synchronize()
         charge_err, ties = check_env(tag, out_k, out_p, ring, ring_plain, 0,
-                                     NUM_ENVS, step_key, before.params, eps)
+                                     NUM_ENVS, step_key,
+                                     before.params.flat(), eps)
         max_err[hidden] = max(max_err[hidden], charge_err)
         e, o = check_learner(tag, st, ref, before, cancelled, (True, False))
         e = max(e, check_loss(tag, out_k[8], ref_loss, True, 0.0))
@@ -554,10 +653,12 @@ def main() -> None:
             do_reset = t == COMPARE_RESET_TICK
             before = obs_t.clone()
             out_k = fused_tick.full_tick_fused(step_key, tstate, obs_t,
-                                               ag.params, eps, do_reset,
+                                               ag.params.flat(), eps,
+                                               do_reset,
                                                params)
             out_p = fused_tick.full_tick_plain(
-                step_key, tstate, obs_t, ag.params, eps, do_reset, params,
+                step_key, tstate, obs_t, ag.params.flat(), eps, do_reset,
+                params,
                 actions_override=out_k[3])
             torch.cuda.synchronize()
             check_state(f"{tag} tick {t}", out_k[0] + out_k[1:3],
@@ -567,16 +668,9 @@ def main() -> None:
                 f"{tag} tick {t}", out_k[4], out_p[4]))
             if not torch.equal(obs_t, before):
                 fail(f"{tag} tick {t}: obs_t was written")
-            keys = rng.split(step_key.to(device), NUM_ENVS + 2)
-            act_p, q = fused_tick.plain_actions(
-                keys[NUM_ENVS], obs_t, 0, ag.params, eps, params, NUM_ENVS)
-            top2 = q.topk(2, dim=0).values
-            tie = (top2[0] - top2[1]) <= NEAR_TIE * q.abs().amax(dim=0)
-            differ = (out_k[3] != act_p).any(dim=0)
-            if bool((differ & ~tie).any()):
-                fail(f"{tag} tick {t}: {int((differ & ~tie).sum())} actions "
-                     "differ outside near ties")
-            near_ties += int(tie.sum())
+            near_ties += check_actions(f"{tag} tick {t}", params,
+                                       ag.params.flat(), step_key, out_k[3],
+                                       obs_t, 0, eps)
             tstate, obs_t = out_k[0], out_k[4]
         log(f"B3 == plain: net {hidden}, {COMPARE_TICKS} ticks (reset at "
             f"{COMPARE_RESET_TICK}); env bitwise, charge max err "
@@ -672,6 +766,96 @@ def main() -> None:
     log(f"init_state(PRNGKey(3)) on the card == the CPU draw, bitwise, nets "
         f"{list(NETS)}")
 
+    # --- 3g. the conv family and the global observation: B1, B3, B4 --------
+    def fresh_chain_env(cp, seed):
+        state = core.reset_batch(rng.PRNGKey(seed).to(device), cp, NUM_ENVS)
+        return fused_tick.to_tstate(state), core.observe_batch(
+            state, cp, 1).reshape(NUM_ENVS, -1).t().contiguous()
+
+    env_fields = fused_tick.TState._fields + ("rewards", "dones")
+    chain_err = {}  # (case, "ring" / "full" / "tick") -> charge error
+    for case, (cp, agent, st) in chain_cases.items():
+        chain = fused_tick.flatten_net_params(st.params, agent.net_spec)
+        eps = torch.tensor(0.5, device=device)
+        variant = {bf16: fused_tick.tick_layout(
+            cp, fused_tick.chain_widths(chain), bf16)["variant"]
+            for bf16 in (True, False)}
+        for launch in ("ring", "full"):
+            tstate, obs0 = fresh_chain_env(cp, 2)
+            if launch == "ring":
+                obs = torch.zeros((obs0.shape[0], 2 * NUM_ENVS),
+                                  dtype=torch.bfloat16, device=device)
+                obs[:, :NUM_ENVS] = obs0.to(torch.bfloat16)
+            else:
+                obs = obs0
+            key, err, ties = rng.PRNGKey(3), 0.0, 0
+            for t in range(CHAIN_TICKS):
+                tag = f"{case} {launch} tick {t}"
+                key, step_key = rng.split(key, 2)
+                do_reset = t == 1
+                if launch == "ring":
+                    read, write = (t % 2) * NUM_ENVS, ((t + 1) % 2) * NUM_ENVS
+                    obs_plain = obs.clone()
+                    out_k = fused_tick.full_tick_fused_ring(
+                        step_key, tstate, obs, read, write, chain, eps,
+                        do_reset, cp)
+                    out_p = fused_tick.full_tick_ring_plain(
+                        step_key, tstate, obs_plain, read, write, chain, eps,
+                        do_reset, cp, actions_override=out_k[3])
+                    torch.cuda.synchronize()
+                    next_k = obs[:, write:write + NUM_ENVS]
+                    next_p = obs_plain[:, write:write + NUM_ENVS]
+                    if not torch.equal(obs[:, read:read + NUM_ENVS],
+                                       obs_plain[:, read:read + NUM_ENVS]):
+                        fail(f"{tag}: the read columns changed")
+                    obs_in = obs_plain
+                else:
+                    read, before = 0, obs.clone()
+                    out_k = fused_tick.full_tick_fused(
+                        step_key, tstate, obs, chain, eps, do_reset, cp)
+                    out_p = fused_tick.full_tick_plain(
+                        step_key, tstate, obs, chain, eps, do_reset, cp,
+                        actions_override=out_k[3])
+                    torch.cuda.synchronize()
+                    next_k, next_p, obs_in = out_k[4], out_p[4], obs
+                    if not torch.equal(obs, before):
+                        fail(f"{tag}: obs_t was written")
+                check_state(tag, out_k[0] + out_k[1:3], out_p[0] + out_p[1:3],
+                            env_fields)
+                err = max(err, check_obs(tag, next_k, next_p))
+                ties += check_actions(tag, cp, chain, step_key, out_k[3],
+                                      obs_in, read, eps)
+                tstate = out_k[0]
+                if launch == "full":
+                    obs = out_k[4]
+            chain_err[(case, launch)] = err
+            log(f"{case} {'B1' if launch == 'ring' else 'B3'} == plain "
+                f"({cp.wrapper} grid {cp.grid_size}, chain "
+                f"{fused_tick.chain_widths(chain)}, variant "
+                f"{variant[launch == 'ring']}): {CHAIN_TICKS} ticks (reset "
+                f"at 1) at {NUM_ENVS} envs; env bitwise, charge max err "
+                f"{err:.3e}; near-tie envs {ties}")
+    for case in ("global_dense", "global16_dense"):
+        cp = chain_cases[case][0]
+        tstate, _ = fresh_chain_env(cp, 4)
+        key, err = rng.PRNGKey(5), 0.0
+        for t in range(CHAIN_TICKS):
+            tag = f"B4 {case} tick {t}"
+            key, act_key, step_key = rng.split(key, 3)
+            actions = rng.randint(act_key.to(device), (DRONES, NUM_ENVS), 0,
+                                  5)
+            out_k = fused_tick.tick_fused(step_key, tstate, actions, cp)
+            out_p = fused_tick.tick_plain(step_key, tstate, actions, cp)
+            torch.cuda.synchronize()
+            check_state(tag, out_k[0] + out_k[1:3], out_p[0] + out_p[1:3],
+                        env_fields)
+            err = max(err, check_obs(tag, out_k[3], out_p[3]))
+            tstate = out_k[0]
+        chain_err[(case, "tick")] = err
+        log(f"B4 == plain: {case} (global grid {cp.grid_size}), "
+            f"{CHAIN_TICKS} ticks of random actions at {NUM_ENVS} envs; env "
+            f"bitwise, charge max err {err:.3e}")
+
     # --- 4. the main path, and 4b. the in_kernel_td main path --------------
     def run_ticks(tag, tick, carry):
         """Warm-up and timed repeats of a trainer's tick with every launch
@@ -713,7 +897,7 @@ def main() -> None:
         carry = init_ring_carry(agent, params, NUM_ENVS, CAPACITY,
                                 rng.PRNGKey(0), obs_dtype=torch.bfloat16,
                                 batch_size=BATCH, in_kernel_td=in_kernel_td)
-        fused_tick.prepare_kernel(params, carry[3].params,
+        fused_tick.prepare_kernel(params, carry[3].params.flat(),
                                   in_kernel_td=in_kernel_td)
         torch.cuda.synchronize()
 
@@ -746,7 +930,7 @@ def main() -> None:
         carry = train.init_stream_carry(agent, params, NUM_ENVS, buf,
                                         rng.PRNGKey(0))
         fused_tick.prepare_kernel(
-            params, carry[3].params if engine == "full" else None,
+            params, carry[3].params.flat() if engine == "full" else None,
             env_tick=engine == "fused")
         torch.cuda.synchronize()
         p0 = [p.detach().clone() for p in carry[3].params.flat()]
@@ -936,6 +1120,134 @@ def main() -> None:
         f"{JNP_STEPS} steps (with warm-up), on {metrics['device']}; its tick "
         f"driven {JNP_STEPS} times: params moved, losses finite")
 
+    # --- 4g. the conv family and the global observation on the engines ----
+    def drive_chain(case, engine):
+        """CHAIN_DRIVE ticks of an engine at NUM_ENVS envs on a case, every
+        launch count zeroed just before: the engine's kernel launches once a
+        tick and no other kernel launches, losses finite, the params move,
+        ε decays. Returns (carry, its kernel's launches, the actor chain
+        after the run)."""
+        cp, agent, _ = chain_cases[case]
+        if engine == "fused" and agent.net_spec is not None:
+            agent = DQN(dataclasses.replace(agent.config, conv_matmul=False),
+                        cp, device=device)
+        if engine == "ring":
+            tick = build_train_step_ring(agent, cp, NUM_ENVS, CAPACITY,
+                                         BATCH, RESET_EVERY)
+            carry = init_ring_carry(agent, cp, NUM_ENVS, CAPACITY,
+                                    rng.PRNGKey(0), obs_dtype=torch.bfloat16)
+        else:
+            buf = replay.StreamReplay(CHAIN_STREAM, BATCH, stride=NUM_ENVS)
+            build = {"full": train.build_train_step_full,
+                     "fused": train.build_train_step_fused}[engine]
+            tick = build(agent, buf, cp, NUM_ENVS, RESET_EVERY)
+            carry = train.init_stream_carry(agent, cp, NUM_ENVS, buf,
+                                            rng.PRNGKey(0))
+        fused_tick.prepare_kernel(
+            cp, None if engine == "fused" else fused_tick.flatten_net_params(
+                carry[3].params, agent.net_spec), env_tick=engine == "fused")
+        torch.cuda.synchronize()
+        p0 = [p.detach().clone() for p in carry[3].params.flat()]
+        tag = f"{case} {engine} engine"
+        losses = []
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(CHAIN_DRIVE):
+            carry, (rewards, eps, loss) = tick(carry)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        tick_s = (time.perf_counter() - t0) / CHAIN_DRIVE
+        n = counts()
+        kernel = {"ring": "full_tick_ring", "full": "full_tick",
+                  "fused": "tick"}[engine]
+        if n[kernel] != CHAIN_DRIVE or sum(n.values()) != CHAIN_DRIVE:
+            fail(f"{tag}: launches {n} in {CHAIN_DRIVE} ticks")
+        losses = torch.stack(losses)
+        if not bool(torch.isfinite(losses).all()) or not bool(
+                (losses >= 0).any()):
+            fail(f"{tag}: losses {losses.tolist()}")
+        if not bool(torch.isfinite(rewards).all()) or not float(eps) < 1.0:
+            fail(f"{tag}: rewards not finite or epsilon did not decay")
+        if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
+            fail(f"{tag}: the params did not move")
+        log(f"{tag}: {CHAIN_DRIVE} ticks (a reset at tick 0), launches {n}, "
+            f"loss {float(losses[-1]):.5f}, eps {float(eps):.4f}, "
+            f"{1e3 * tick_s:.3f} ms a tick with warm-up, on {card}")
+        chain = None if engine == "fused" else fused_tick.flatten_net_params(
+            carry[3].params, agent.net_spec)
+        return carry, n[kernel], chain
+
+    for case, engine in CHAIN_DRIVES:
+        carry, launches, chain = drive_chain(case, engine)
+        cp = chain_cases[case][0]
+        if cp.wrapper == "global":
+            replaces = ("dronerl_tpu/ops/fused_tick.py:{} ({}, with "
+                        "_encode_obs_global :538)")
+        else:
+            replaces = "dronerl_tpu/ops/fused_tick.py:{} ({})"
+        if engine == "fused":
+            timing = time_env_tick(torch, _build, fused_tick, rng, carry[1],
+                                   cp, card)
+            stream.append({
+                "name": f"tick_{case}_fused_engine",
+                "route": "cuda",
+                "source": "dronerl_tpu_torch/ops/csrc/env_kernel.cu",
+                "replaces": replaces.format(704, "_tick_kernel via "
+                                            "tick_fused"),
+                "launches": launches,
+                "max_abs_err": chain_err.get((case, "tick"), tick_err),
+                **timing,
+                "library_ms": None,
+            })
+            continue
+        timing = time_chain_kernel(torch, _build, fused_tick, rng, cp, chain,
+                                   carry, engine, card)
+        stream.append({
+            "name": f"full_tick{'_ring' if engine == 'ring' else ''}_{case}",
+            "route": "cuda",
+            "source": "dronerl_tpu_torch/ops/csrc/full_tick.cu",
+            "replaces": replaces.format(
+                757, "_full_kernel" if engine == "ring" else
+                "_full_kernel via full_tick_fused"),
+            "launches": launches,
+            "max_abs_err": chain_err[(case, engine)],
+            **timing,
+            "library_ms": None,
+        })
+
+    # --- 4h. the CLI with conv nets and the global observation --------------
+    zero_counts()
+    metrics = train.main(["--num_envs", str(CLI_ENVS), "--num_steps",
+                          str(CLI_CONV_STEPS), "--network_type", "conv",
+                          "--conv_matmul"])
+    n = counts()
+    if metrics["engine"] != "full":
+        fail(f"CLI conv at {CLI_ENVS} envs chose {metrics['engine']}")
+    if n["full_tick"] != CLI_CONV_STEPS or sum(n.values()) != CLI_CONV_STEPS:
+        fail(f"CLI conv: launches {n} in {CLI_CONV_STEPS} steps")
+    if metrics["td_loss_mean"] is None or not math.isfinite(
+            metrics["td_loss_mean"]):
+        fail(f"CLI conv: td loss {metrics['td_loss_mean']}")
+    log(f"CLI --network_type conv --conv_matmul --num_envs {CLI_ENVS}: "
+        f"engine {metrics['engine']}, launches {n}, loss "
+        f"{metrics['td_loss_mean']:.5f}, obs/s {metrics['obs_per_sec']:.1f} "
+        f"over {CLI_CONV_STEPS} steps (with warm-up), on {metrics['device']}")
+    zero_counts()
+    metrics = train.main(["--num_envs", str(JNP_ENVS), "--num_steps",
+                          str(CLI_CONV_STEPS), "--network_type", "conv",
+                          "--wrapper", "global"])
+    n = counts()
+    if metrics["engine"] != "jnp" or sum(n.values()) != 0:
+        fail(f"CLI conv global at {JNP_ENVS} envs: engine "
+             f"{metrics['engine']}, launches {n}")
+    if metrics["td_loss_mean"] is None or not math.isfinite(
+            metrics["td_loss_mean"]):
+        fail(f"CLI conv global: td loss {metrics['td_loss_mean']}")
+    log(f"CLI --network_type conv --wrapper global --num_envs {JNP_ENVS}: "
+        f"engine {metrics['engine']}, kernel launches {n}, loss "
+        f"{metrics['td_loss_mean']:.5f}, obs/s {metrics['obs_per_sec']:.1f} "
+        f"over {CLI_CONV_STEPS} steps, on {metrics['device']}")
+
     print(json.dumps({"kernels": kernels + learners + stream}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -980,11 +1292,11 @@ def time_kernel(torch, _build, fused_tick, rng, agent, carry, hidden, card):
     _rng, (tstate, ring), _s, ag, _aux, _step = carry
     n, c = params.n_drones, params.num_cells
     eps = torch.tensor(0.0, device=ring.device)
-    args = (rng.PRNGKey(7), tstate, ring, 0, NUM_ENVS, ag.params, eps,
+    args = (rng.PRNGKey(7), tstate, ring, 0, NUM_ENVS, ag.params.flat(), eps,
             False, params)
     # _outs owns the block's output buffers: alive while it is launched.
     block, _outs = fused_tick._kernel_args(*args)
-    lib = _build.load(fused_tick.kernel_config(params, ag.params))
+    lib = _build.load(fused_tick.kernel_config(params, ag.params.flat()))
     ms = time_block(torch, lib, "full_tick_ring_launch", block,
                     BLOCK_LAUNCHES)
     wrapper_ms = cuda_ms(torch,
@@ -1014,6 +1326,42 @@ def time_kernel(torch, _build, fused_tick, rng, agent, carry, hidden, card):
         f"{t_ops:.4f} ms); all-CUDA-core bound {old_bound:.4f} ms; on {card}")
     return ms, plain_ms, max(t_bytes, t_ops), (
         "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_chain_kernel(torch, _build, fused_tick, rng, cp, chain, carry,
+                      engine, card):
+    """B1 (``engine`` "ring", on the ring engine's bf16 ring) or B3
+    ("full", on its f32 obs_t) with the actor ``chain``, after a drive,
+    every env greedy (ε = 0): ``BLOCK_LAUNCHES`` launches of one prebuilt
+    block, the plain version over ``PLAIN_LAUNCHES`` calls, and the bound:
+    the observation read and written, the state, the weights; the chain's
+    layers but the last at the tensor-core rate and the hashes."""
+    device = carry[3].epsilon.device
+    eps = torch.tensor(0.0, device=device)
+    if engine == "ring":
+        tstate, obs = carry[1]
+        args = (rng.PRNGKey(7), tstate, obs, 0, NUM_ENVS, chain, eps, False,
+                cp)
+        fill, plain = fused_tick._kernel_args, fused_tick.full_tick_ring_plain
+        entry, scheme = "full_tick_ring_launch", "bf16"
+    else:
+        tstate, obs = carry[1], carry[2]
+        args = (rng.PRNGKey(7), tstate, obs, chain, eps, False, cp)
+        fill, plain = fused_tick._full_args, fused_tick.full_tick_plain
+        entry, scheme = "full_tick_launch", "f32"
+    widths = fused_tick.chain_widths(chain)
+    weight_bytes = 4 * sum(i * o + o for i, o in zip(widths, widths[1:]))
+    t_actor, t_actor_f32, flops = actor_ops(widths, scheme)
+    n, c = cp.n_drones, cp.num_cells
+    obs_bytes = 2 * widths[0] * NUM_ENVS * obs.element_size()
+    bound_args = (n, c, obs_bytes, weight_bytes + 4, flops,
+                  4 + (n + 1) + 2 * c)
+    log(f"{cp.wrapper} grid {cp.grid_size} chain {widths} {entry}: "
+        f"all-CUDA-core bound {env_bound(*bound_args)[0]:.5f} ms")
+    return time_env_kernel(
+        torch, f"{entry} {cp.wrapper} grid {cp.grid_size} chain {widths}",
+        _build.load(fused_tick.kernel_config(cp, chain)), entry, fill, plain,
+        args, env_bound(*bound_args, flop_seconds=t_actor), card)
 
 
 def env_bound(n, c, obs_bytes, extra_bytes=0, flops=0, hashes_per_env=0,
@@ -1085,9 +1433,10 @@ def time_obs_kernel(torch, _build, fused_tick, rng, agent, carry, hidden,
         f"{env_bound(*bound_args)[0]:.5f} ms")
     return time_env_kernel(
         torch, f"B3 net {hidden}",
-        _build.load(fused_tick.kernel_config(params, ag.params)),
+        _build.load(fused_tick.kernel_config(params, ag.params.flat())),
         "full_tick_launch", fused_tick._full_args, fused_tick.full_tick_plain,
-        (rng.PRNGKey(7), tstate, obs_t, ag.params, eps, False, params),
+        (rng.PRNGKey(7), tstate, obs_t, ag.params.flat(), eps, False,
+         params),
         env_bound(*bound_args, flop_seconds=t_actor), card)
 
 

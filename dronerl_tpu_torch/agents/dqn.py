@@ -1,10 +1,16 @@
-"""DQN actor-learner for dense Q-networks (counterpart of
-``dronerl_tpu/agents/dqn.py``, dense networks only).
+"""DQN actor-learner (counterpart of ``dronerl_tpu/agents/dqn.py``):
+dense Q-networks and the conv family.
 
-Parameters keep flax's layout: layer i has ``kernel`` (in, out) and
-``bias`` (out,), so weights carry across from the JAX package unchanged
-(``interop/from_jax.py``) and the fused tick kernel reads them as they
-are. The feature-major forward is ``kernelᵀ @ x + bias``.
+Parameters keep flax's layout where the kernels read them: dense layer i
+has ``kernel`` (in, out) and ``bias`` (out,), so weights carry across
+from the JAX package unchanged (``interop/from_jax.py``) and the fused
+tick kernel reads them as they are. The feature-major forward is
+``kernelᵀ @ x + bias``. Conv kernels are torch's OIHW (flax's HWIO
+transposed); ``ConvQNet`` runs them with ``F.conv2d`` on NCHW input and
+flattens in NCHW order, as the JAX package's ``ConvQNet`` does after its
+transpose, so its dense weights are the JAX net's. With ``conv_matmul``
+the conv layers run as their im2col matrices (``ops/conv2mat.py``), the
+same chain the fused tick kernel runs.
 
 The optimizer is Adam written out in optax's ``scale_by_adam`` order;
 ``torch.optim.Adam`` orders the same math differently.
@@ -14,6 +20,7 @@ bit for bit: flax's per-parameter keys (``rng.flax_param_key``) and jax's
 truncated normal (``rng.truncated_normal``).
 """
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -24,17 +31,38 @@ from torch import nn
 from dronerl_tpu_torch import resolve_device, rng
 from dronerl_tpu_torch.constants import NUM_ACTIONS
 from dronerl_tpu_torch.env.types import EnvParams
+from dronerl_tpu_torch.ops import conv2mat
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
 
 
+def _freeze_conv_specs(specs) -> Tuple[Tuple[Tuple[str, int], ...], ...]:
+    """Conv layer specs (dicts or item-tuples) as hashable sorted
+    item-tuples."""
+    if isinstance(specs, dict):
+        specs = (specs,)
+    return tuple(tuple(sorted(spec.items())) if isinstance(spec, dict)
+                 else tuple(spec) for spec in specs)
+
+
 @dataclass(frozen=True)
 class DQNConfig:
-    """Static agent hyper-parameters (dense networks)."""
+    """Static agent hyper-parameters, the JAX package's fields and
+    defaults. ``conv_layers`` takes dicts like ``{"out_channels": 8,
+    "kernel_size": 3, "stride": 1, "padding": 1}`` and stores them as
+    sorted item-tuples (:meth:`conv_specs` reads them back). With
+    ``conv_matmul`` a conv net's layers run as im2col matrices, the
+    contraction the fused tick kernels' actor runs."""
 
     hidden_layers: Tuple[int, ...] = (32, 32)
+    network_type: str = "dense"  # 'dense' | 'conv'
+    conv_layers: Tuple = (
+        (("kernel_size", 3), ("out_channels", 8), ("padding", 1),
+         ("stride", 1)),
+    )
+    conv_dense_layers: Tuple[int, ...] = ()
     gamma: float = 0.95
     epsilon_start: float = 1.0
     epsilon_decay: float = 0.999
@@ -43,9 +71,54 @@ class DQNConfig:
     learning_rate: float = 1e-3
     target_update_interval: int = 5
     tau: float = 1.0  # 1.0 = hard target copy; < 1 = EMA
+    conv_matmul: bool = False
 
     def __post_init__(self):
         object.__setattr__(self, "hidden_layers", tuple(self.hidden_layers))
+        object.__setattr__(self, "conv_layers",
+                           _freeze_conv_specs(self.conv_layers))
+        object.__setattr__(self, "conv_dense_layers",
+                           tuple(self.conv_dense_layers))
+
+    def conv_specs(self) -> Tuple[Dict[str, int], ...]:
+        return tuple(dict(spec) for spec in self.conv_layers)
+
+
+def chain_forward_t(chain: List[torch.Tensor],
+                    obs_t: torch.Tensor) -> torch.Tensor:
+    """The feature-major forward of a matmul chain ``[W0 (in, out), b0
+    (out,), W1, b1, ...]``: (in, B) → (out, B), ReLU between layers."""
+    x = obs_t
+    n = len(chain) // 2
+    for idx in range(n):
+        x = torch.matmul(chain[2 * idx].t(), x) + chain[2 * idx + 1][:, None]
+        if idx < n - 1:
+            x = torch.relu(x)
+    return x
+
+
+def chain_forward(chain: List[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The row-major forward of a matmul chain: (B, in) → (B, out), each
+    layer ``x @ W + b`` as flax's Dense computes it."""
+    n = len(chain) // 2
+    for idx in range(n):
+        x = x @ chain[2 * idx] + chain[2 * idx + 1]
+        if idx < n - 1:
+            x = torch.relu(x)
+    return x
+
+
+@contextlib.contextmanager
+def _conv_f32():
+    """cuDNN convolutions in f32 (no TF32) inside, as the CPU computes
+    them; the process-wide flag is restored on the way out."""
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = before
 
 
 class DenseQNet(nn.Module):
@@ -66,24 +139,116 @@ class DenseQNet(nn.Module):
         return len(self.kernels)
 
     def flat(self) -> List[torch.Tensor]:
-        """[kernel_0, bias_0, kernel_1, bias_1, ...] (optax leaf order)."""
+        """[kernel_0, bias_0, kernel_1, bias_1, ...]: the port's leaf order
+        (Adam moments, target copies) and the net's matmul chain."""
         out = []
         for w, b in zip(self.kernels, self.biases):
             out += [w, b]
         return out
 
+    def init_layers(self):
+        """flax's initialisers, one entry a layer: (module name, kernel,
+        bias, the kernel's shape in flax's layout, fan-in, variance
+        scale): ``he_normal`` (scale 2) on the hidden kernels, ``Dense``'s
+        default ``lecun_normal`` (scale 1) on the output kernel."""
+        return [(f"Dense_{i}", w, b, tuple(w.shape), w.shape[0],
+                 2.0 if i < self.n_layers - 1 else 1.0)
+                for i, (w, b) in enumerate(zip(self.kernels, self.biases))]
+
     def forward_t(self, obs_t: torch.Tensor) -> torch.Tensor:
         """Feature-major forward: (obs_dim, B) → (num_actions, B)."""
-        x = obs_t
-        for idx, (w, b) in enumerate(zip(self.kernels, self.biases)):
-            x = torch.matmul(w.t(), x) + b[:, None]
-            if idx < self.n_layers - 1:
-                x = torch.relu(x)
-        return x
+        return chain_forward_t(self.flat(), obs_t)
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         """Row-major forward: (B, obs_dim) → (B, num_actions)."""
         return self.forward_t(obs.reshape(obs.shape[0], -1).t()).t()
+
+
+class ConvQNet(nn.Module):
+    """(Conv + ReLU)* → NCHW flatten → (Dense + ReLU)* → Dense(num_actions):
+    the JAX package's ``ConvQNet``. Conv kernels are OIHW, dense kernels
+    (in, out); the input is the flattened (H, W, C) observation."""
+
+    def __init__(self, obs_shape, conv_specs, dense_layers: Tuple[int, ...],
+                 device=None):
+        super().__init__()
+        h, w, c = obs_shape
+        self.obs_shape = tuple(obs_shape)
+        self.convs = []  # (kernel_size, stride, padding) a layer
+        kernels, biases = [], []
+        for spec in conv_specs:
+            k, s, p = spec["kernel_size"], spec.get("stride", 1), spec.get(
+                "padding", 0)
+            co = spec["out_channels"]
+            kernels.append(nn.Parameter(torch.zeros(co, c, k, k,
+                                                    device=device)))
+            biases.append(nn.Parameter(torch.zeros(co, device=device)))
+            self.convs.append((k, s, p))
+            h, w = conv2mat.conv_out_hw(h, w, k, s, p)
+            c = co
+        self.conv_kernels = nn.ParameterList(kernels)
+        self.conv_biases = nn.ParameterList(biases)
+        widths = (h * w * c, *dense_layers, NUM_ACTIONS)
+        self.kernels = nn.ParameterList([
+            nn.Parameter(torch.zeros(i, o, device=device))
+            for i, o in zip(widths[:-1], widths[1:])])
+        self.biases = nn.ParameterList([
+            nn.Parameter(torch.zeros(o, device=device)) for o in widths[1:]])
+
+    def flat(self) -> List[torch.Tensor]:
+        """[conv_kernel_0, conv_bias_0, ..., kernel_0, bias_0, ...]: the
+        port's leaf order."""
+        out = []
+        for w, b in zip(self.conv_kernels, self.conv_biases):
+            out += [w, b]
+        for w, b in zip(self.kernels, self.biases):
+            out += [w, b]
+        return out
+
+    def init_layers(self):
+        """As :meth:`DenseQNet.init_layers`: every layer takes its module's
+        default ``lecun_normal`` (scale 1); a conv kernel is drawn in
+        flax's HWIO shape with fan-in k·k·C_in."""
+        out = []
+        for i, (w, b) in enumerate(zip(self.conv_kernels, self.conv_biases)):
+            co, ci, kh, kw = w.shape
+            out.append((f"Conv_{i}", w, b, (kh, kw, ci, co), kh * kw * ci,
+                        1.0))
+        for i, (w, b) in enumerate(zip(self.kernels, self.biases)):
+            out.append((f"Dense_{i}", w, b, tuple(w.shape), w.shape[0], 1.0))
+        return out
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        """Row-major forward: (B, obs_dim) or (B, H, W, C) → (B,
+        num_actions)."""
+        x = obs.reshape(obs.shape[0], *self.obs_shape).permute(0, 3, 1, 2)
+        with _conv_f32():
+            for (_, s, p), w, b in zip(self.convs, self.conv_kernels,
+                                       self.conv_biases):
+                x = torch.relu(torch.nn.functional.conv2d(
+                    x, w, b, stride=s, padding=p))
+        x = x.reshape(x.shape[0], -1)
+        dense = []
+        for w, b in zip(self.kernels, self.biases):
+            dense += [w, b]
+        return chain_forward(dense, x)
+
+
+QNet = Union[DenseQNet, ConvQNet]
+
+
+def build_network(config: DQNConfig, env_params: EnvParams,
+                  device=None) -> QNet:
+    """The Q-net of ``config`` for ``env_params``' observation, zeros."""
+    if env_params.wrapper not in ("window", "global"):
+        raise NotImplementedError(f"wrapper={env_params.wrapper!r}")
+    h, w, c = env_params.obs_shape
+    if config.network_type == "dense":
+        return DenseQNet(h * w * c, config.hidden_layers, device)
+    if config.network_type == "conv":
+        return ConvQNet(env_params.obs_shape, config.conv_specs(),
+                        config.conv_dense_layers, device)
+    raise ValueError(f"Unsupported network type {config.network_type!r}")
 
 
 @dataclass
@@ -97,8 +262,8 @@ class AdamState:
 
 @dataclass
 class DQNState:
-    params: DenseQNet
-    target_params: DenseQNet
+    params: QNet
+    target_params: QNet
     opt_state: AdamState
     epsilon: torch.Tensor  # 0-d float32 on the state's device
 
@@ -107,44 +272,48 @@ class DQNState:
 TRUNCATED_STD = 0.87962566103423978
 
 
-def _he_init(net: DenseQNet, generator: torch.Generator) -> None:
-    """flax init: he_normal hidden kernels, lecun_normal output kernel
-    (both truncated normal on ±2σ, σ rescaled by 0.8796), zero biases."""
+def _he_init(net: QNet, generator: torch.Generator) -> None:
+    """flax's initialisers (``init_layers``) drawn with torch's truncated
+    normal from ``generator``: truncated on ±2σ, σ rescaled by 0.8796,
+    zero biases."""
     with torch.no_grad():
-        for idx, w in enumerate(net.kernels):
-            scale = 2.0 if idx < net.n_layers - 1 else 1.0
-            std = float(np.sqrt(scale / w.shape[0]) / TRUNCATED_STD)
-            cpu = torch.empty(w.shape)
+        for _, w, b, shape, fan_in, scale in net.init_layers():
+            std = float(np.sqrt(scale / fan_in) / TRUNCATED_STD)
+            cpu = torch.empty(shape)
             nn.init.trunc_normal_(cpu, 0.0, std, -2 * std, 2 * std,
                                   generator=generator)
-            w.copy_(cpu)
-            net.biases[idx].zero_()
+            w.copy_(_from_flax_layout(cpu, w))
+            b.zero_()
 
 
-def _flax_init(net: DenseQNet, key: torch.Tensor) -> None:
-    """The JAX package's ``network.init({"params": key}, ...)`` of a dense
-    Q-net (``dronerl_tpu/agents/dqn.py::DenseQNet``), bit for bit: layer i
-    is flax's ``Dense_i``, whose kernel takes the module's first
-    ``make_rng`` (count 1; the bias, zeros, the second). Hidden kernels use
-    ``he_normal`` and the output kernel ``Dense``'s default
-    ``lecun_normal``: ``variance_scaling(scale, "fan_in",
-    "truncated_normal")`` with scale 2 and 1, i.e. ``truncated_normal(k,
-    -2, 2) * (sqrt(f32(scale / fan_in)) / f32(0.8796...))`` in f32. The
-    draw runs on the CPU and is copied to the net's device."""
+def _from_flax_layout(kernel: torch.Tensor, like: torch.Tensor):
+    """A kernel in flax's layout → ``like``'s: HWIO → OIHW for a conv."""
+    return kernel.permute(3, 2, 0, 1) if like.dim() == 4 else kernel
+
+
+def _flax_init(net: QNet, key: torch.Tensor) -> None:
+    """The JAX package's ``network.init({"params": key}, ...)`` of its
+    ``DenseQNet`` or ``ConvQNet``, bit for bit: each layer is a flax
+    module (``Dense_i``, ``Conv_i``) whose kernel takes the module's first
+    ``make_rng`` (count 1; the bias, zeros, the second). A kernel is
+    ``variance_scaling(scale, "fan_in", "truncated_normal")``, i.e.
+    ``truncated_normal(k, -2, 2, shape) * (sqrt(f32(scale / fan_in)) /
+    f32(0.8796...))`` in f32, drawn in flax's layout (``init_layers``).
+    The draw runs on the CPU and is copied to the net's device."""
     key = key.cpu()
     with torch.no_grad():
-        for idx, w in enumerate(net.kernels):
-            scale = 2.0 if idx < net.n_layers - 1 else 1.0
-            variance = torch.tensor(scale / w.shape[0], dtype=torch.float32)
+        for name, w, b, shape, fan_in, scale in net.init_layers():
+            variance = torch.tensor(scale / fan_in, dtype=torch.float32)
             std = torch.sqrt(variance) / torch.tensor(TRUNCATED_STD,
                                                       dtype=torch.float32)
-            k = rng.flax_param_key(key, (f"Dense_{idx}", 1))
-            w.copy_(rng.truncated_normal(k, -2.0, 2.0, w.shape) * std)
-            net.biases[idx].zero_()
+            k = rng.flax_param_key(key, (name, 1))
+            w.copy_(_from_flax_layout(
+                rng.truncated_normal(k, -2.0, 2.0, shape) * std, w))
+            b.zero_()
 
 
 class DQN:
-    """Dense DQN: static topology plus state-transition methods."""
+    """DQN: static topology plus state-transition methods."""
 
     def __init__(self, config: DQNConfig, env_params: EnvParams,
                  device="cuda"):
@@ -153,9 +322,16 @@ class DQN:
         self.device = resolve_device(device)
         h, w, c = env_params.obs_shape
         self.obs_dim = h * w * c
+        # The conv layers' im2col lowering (None unless a conv net with
+        # conv_matmul): the tick kernels' actor chain
+        # (fused_tick.flatten_net_params).
+        self.net_spec = (
+            conv2mat.net_layer_specs(config, env_params.obs_shape)
+            if config.network_type == "conv" and config.conv_matmul
+            else None)
 
-    def make_net(self) -> DenseQNet:
-        return DenseQNet(self.obs_dim, self.config.hidden_layers, self.device)
+    def make_net(self) -> QNet:
+        return build_network(self.config, self.env_params, self.device)
 
     def init_state(self, key: Union[torch.Tensor, torch.Generator]
                    ) -> DQNState:
@@ -185,10 +361,36 @@ class DQN:
                                  dtype=torch.float32, device=self.device),
         )
 
-    def q_values_t(self, params: DenseQNet,
-                   obs_t: torch.Tensor) -> torch.Tensor:
-        """(obs_dim, B) observations → (num_actions, B) Q-values."""
-        return params.forward_t(obs_t)
+    def q_values(self, params: QNet, obs: torch.Tensor) -> torch.Tensor:
+        """(B, obs_dim) or (B, H, W, C) observations → (B, num_actions):
+        the im2col chain row-major (``x @ W + b``) with ``conv_matmul``,
+        else the net's row-major forward."""
+        x = obs.reshape(obs.shape[0], -1)
+        if self.net_spec is not None:
+            return chain_forward(
+                conv2mat.effective_dense_params(params, self.net_spec), x)
+        return params.forward(x)
+
+    def q_values_t(self, params: QNet, obs_t: torch.Tensor) -> torch.Tensor:
+        """(obs_dim, B) observations → (num_actions, B). A dense net runs
+        feature-major, a conv net with ``conv_matmul`` its im2col chain
+        feature-major (``Wᵀx + b``), any other conv net its row-major
+        module behind two transposes."""
+        if self.config.network_type == "dense":
+            return params.forward_t(obs_t)
+        if self.net_spec is not None:
+            return chain_forward_t(
+                conv2mat.effective_dense_params(params, self.net_spec), obs_t)
+        return params.forward(obs_t.t()).t()
+
+    def _epsilon_greedy(self, key: torch.Tensor, greedy_actions: torch.Tensor,
+                        state: DQNState) -> torch.Tensor:
+        batch = greedy_actions.shape[0]
+        explore_key, action_key = rng.split(key, 2).to(greedy_actions.device)
+        explore = rng.uniform(explore_key, (batch,)) < state.epsilon
+        random_acts = rng.randint(action_key, (batch,), 0, NUM_ACTIONS)
+        return torch.where(explore, random_acts,
+                           greedy_actions.to(torch.int32))
 
     def act_t(self, key: torch.Tensor, obs_t: torch.Tensor,
               state: DQNState) -> torch.Tensor:
@@ -202,32 +404,25 @@ class DQN:
         """
         with torch.no_grad():
             q = self.q_values_t(state.params, obs_t)
-        greedy_actions = torch.argmax(q, dim=0).to(torch.int32)
-        batch = obs_t.shape[1]
-        explore_key, action_key = rng.split(key, 2).to(obs_t.device)
-        explore = rng.uniform(explore_key, (batch,)) < state.epsilon
-        random_acts = rng.randint(action_key, (batch,), 0, NUM_ACTIONS)
-        return torch.where(explore, random_acts, greedy_actions)
+        return self._epsilon_greedy(key, torch.argmax(q, dim=0), state)
 
     def act(self, key: torch.Tensor, obs: torch.Tensor,
             state: DQNState) -> torch.Tensor:
         """ε-greedy actions for row-major observations (B, obs_dim) or (B,
-        H, W, C) → (B,) int32: :meth:`act_t` on the transposed batch (the
-        row-major forward is the feature-major one transposed, and the
-        draws are the same B counters)."""
-        return self.act_t(key, obs.reshape(obs.shape[0], -1).t(), state)
+        H, W, C) → (B,) int32: greedy on :meth:`q_values`, the draws as
+        :meth:`act_t`'s."""
+        with torch.no_grad():
+            q = self.q_values(state.params, obs)
+        return self._epsilon_greedy(key, torch.argmax(q, dim=1), state)
 
     def train_step(
         self, state: DQNState, batch: Dict[str, torch.Tensor],
     ) -> Tuple[DQNState, torch.Tensor]:
         """TD(0) MSE step with Adam on a row-major batch: obs / next_obs (B,
-        obs_dim); actions, rewards and dones (B,). :meth:`train_step_t` on
-        the transposed observations."""
-        def rows_t(x):
-            return x.reshape(x.shape[0], -1).t()
-        return self.train_step_t(state, dict(
-            batch, obs=rows_t(batch["obs"]),
-            next_obs=rows_t(batch["next_obs"])))
+        obs_dim); actions, rewards and dones (B,). Updates the online
+        parameters and the moments in place and returns ``(state,
+        loss)``."""
+        return self._td_step(state, batch, self.q_values, 1)
 
     def train_step_t(
         self, state: DQNState, batch: Dict[str, torch.Tensor],
@@ -238,16 +433,23 @@ class DQN:
         rewards and dones (B,) float32. Updates the online parameters and
         the moments in place and returns ``(state, loss)``.
         """
+        return self._td_step(state, batch, self.q_values_t, 0)
+
+    def _td_step(self, state: DQNState, batch: Dict[str, torch.Tensor],
+                 q_values, axis: int) -> Tuple[DQNState, torch.Tensor]:
+        """The TD(0) step on Q-values ``q_values(params, obs)`` whose action
+        axis is ``axis``."""
         cfg = self.config
         params = state.params.flat()
+        actions = batch["actions"].long()
         with torch.no_grad():
-            next_q = self.q_values_t(state.target_params, batch["next_obs"])
-            bootstrap = next_q.max(dim=0).values
+            next_q = q_values(state.target_params, batch["next_obs"])
+            bootstrap = next_q.max(dim=axis).values
             target = batch["rewards"] + cfg.gamma * bootstrap * (
                 1 - batch["dones"])
-        with torch.enable_grad():
-            q = self.q_values_t(state.params, batch["obs"])
-            taken = q.gather(0, batch["actions"].long()[None, :])[0]
+        with torch.enable_grad(), _conv_f32():
+            q = q_values(state.params, batch["obs"])
+            taken = q.gather(axis, actions.unsqueeze(axis)).squeeze(axis)
             loss = torch.mean(torch.square(taken - target))
             grads = torch.autograd.grad(loss, params)
 

@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from dronerl_tpu_torch import rng
-from dronerl_tpu_torch.constants import Action, Object
+from dronerl_tpu_torch.constants import Action, NUM_OBS_CHANNELS, Object
 from dronerl_tpu_torch.env.spawn import (
     place_in_air, place_on_ground, respawn_ground_pair)
 from dronerl_tpu_torch.env.types import EnvParams, EnvState
@@ -181,14 +181,20 @@ def step_batch(
 
 def observe_batch(state: EnvState, params: EnvParams,
                   limit: Optional[int] = None) -> torch.Tensor:
-    """Per-drone window observations (E, M, 2r+1, 2r+1, 6) float32.
+    """Per-drone observations, float32: ``wrapper='window'`` gives (E, M,
+    2r+1, 2r+1, 6) egocentric crops of the board padded with walls,
+    ``wrapper='global'`` (E, M, G, G, 6), the whole board, the same for
+    every drone.
 
-    ``limit`` keeps the first ``limit`` drones' windows (all drones still
-    appear inside them). ``wrapper='global'`` is not ported yet.
+    ``limit`` keeps the first ``limit`` drones' views (all drones still
+    appear inside them).
     """
+    if params.wrapper == "global":
+        obs = _observe_global(state, params)
+        return obs if limit is None else obs[:, :limit]
     if params.wrapper != "window":
         raise NotImplementedError(
-            f"wrapper={params.wrapper!r} is not ported yet (window only)")
+            f"wrapper={params.wrapper!r} is not implemented")
     r = params.window_radius
     padded = torch.nn.functional.pad(
         state.ground, (r, r, r, r), value=int(Object.SKYSCRAPER))
@@ -219,6 +225,44 @@ def observe_batch(state: EnvState, params: EnvParams,
     return torch.stack(channels, dim=-1)
 
 
+def _observe_global(state: EnvState, params: EnvParams) -> torch.Tensor:
+    """``core._observe_global``: the board's object channels, then the
+    drones written one at a time as jnp's scatters do (a -1 wraps, an
+    off-board writer drops, the last writer to a cell wins): channel 0
+    set to 1, the carried packet added to channel 1, which is then
+    clamped to 1, and channel 4 set to charge / 100 last. Returns (E, N,
+    G, G, 6), one grid broadcast over the drones."""
+    e, g, _ = state.ground.shape
+    ground = state.ground.reshape(e, -1)
+    zero = torch.zeros_like(ground, dtype=torch.float32)
+    drone, packet = zero, (ground == Object.PACKET).to(torch.float32)
+    charge = zero
+    cells = torch.arange(g * g, device=ground.device)
+
+    def writes(i):
+        y, x = state.air_y[:, i:i + 1], state.air_x[:, i:i + 1]
+        y, x = torch.where(y < 0, y + g, y), torch.where(x < 0, x + g, x)
+        inside = (y >= 0) & (y < g) & (x >= 0) & (x < g)
+        return (cells == y * g + x) & inside
+
+    n = state.air_x.shape[1]
+    for i in range(n):
+        drone = torch.where(writes(i), 1.0, drone)
+    for i in range(n):
+        carried = state.carrying_package[:, i:i + 1].to(torch.float32)
+        packet = packet + torch.where(writes(i), carried, 0.0)
+    packet = torch.minimum(packet, torch.ones_like(packet))
+    for i in range(n):
+        charge = torch.where(writes(i), state.charge[:, i:i + 1] / 100.0,
+                             charge)
+    grid = torch.stack([
+        drone, packet, (ground == Object.DROPZONE).to(torch.float32),
+        (ground == Object.STATION).to(torch.float32), charge,
+        (ground == Object.SKYSCRAPER).to(torch.float32)], dim=-1)
+    return grid.reshape(e, 1, g, g, NUM_OBS_CHANNELS).expand(
+        e, n, g, g, NUM_OBS_CHANNELS)
+
+
 def _unbatch(state: EnvState) -> EnvState:
     return EnvState(*(getattr(state, f)[0] for f in (
         "ground", "air_x", "air_y", "carrying_package", "charge")))
@@ -243,5 +287,6 @@ def step(key: torch.Tensor, state: EnvState, actions: torch.Tensor,
 
 def observe(state: EnvState, params: EnvParams,
             limit: Optional[int] = None) -> torch.Tensor:
-    """One env: (M, 2r+1, 2r+1, 6) window observations."""
+    """One env: (M, 2r+1, 2r+1, 6) window or (M, G, G, 6) global
+    observations."""
     return observe_batch(_batch(state), params, limit)[0]

@@ -13,7 +13,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from dronerl_tpu_torch.agents.dqn import AdamState, DenseQNet, DQNState
+from dronerl_tpu_torch.agents.dqn import (
+    AdamState, ConvQNet, DenseQNet, DQNState, QNet)
 from dronerl_tpu_torch.ops.fused_tick import TState
 from dronerl_tpu_torch.replay import ReplayState
 
@@ -27,33 +28,65 @@ def tensor(arr, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def qnet_from_flax(params: Dict[str, Any], device="cpu") -> DenseQNet:
-    """flax ``{"params": {"Dense_i": {"kernel", "bias"}}}`` → DenseQNet."""
+def _count(layers, prefix: str) -> int:
+    return sum(1 for name in layers if name.startswith(prefix))
+
+
+def qnet_from_flax(params: Dict[str, Any], device="cpu", obs_shape=None,
+                   conv_specs=None) -> QNet:
+    """flax ``{"params": {"Dense_i" / "Conv_i": {"kernel", "bias"}}}`` →
+    a ``DenseQNet``, or with ``Conv_i`` layers a ``ConvQNet`` of
+    ``obs_shape`` (H, W, C) and ``conv_specs`` (``DQNConfig.conv_specs()``:
+    stride and padding are not in the params), its HWIO conv kernels made
+    OIHW."""
     layers = params["params"]
+    n_conv, n_dense = _count(layers, "Conv_"), _count(layers, "Dense_")
     kernels = [np.asarray(layers[f"Dense_{i}"]["kernel"])
-               for i in range(len(layers))]
-    net = DenseQNet(kernels[0].shape[0],
-                    tuple(k.shape[1] for k in kernels[:-1]), device)
+               for i in range(n_dense)]
+    hidden = tuple(k.shape[1] for k in kernels[:-1])
+    if n_conv:
+        if obs_shape is None or conv_specs is None:
+            raise ValueError("a conv net needs its obs_shape and conv_specs")
+        net = ConvQNet(obs_shape, conv_specs, hidden, device)
+    else:
+        net = DenseQNet(kernels[0].shape[0], hidden, device)
     with torch.no_grad():
+        for i, (w, b) in enumerate(zip(getattr(net, "conv_kernels", ()),
+                                       getattr(net, "conv_biases", ()))):
+            w.copy_(tensor(layers[f"Conv_{i}"]["kernel"], device).permute(
+                3, 2, 0, 1))
+            b.copy_(tensor(layers[f"Conv_{i}"]["bias"], device))
         for i, (w, b) in enumerate(zip(net.kernels, net.biases)):
             w.copy_(tensor(layers[f"Dense_{i}"]["kernel"], device))
             b.copy_(tensor(layers[f"Dense_{i}"]["bias"], device))
     return net
 
 
-def qnet_to_flax(net: DenseQNet) -> Dict[str, Any]:
-    """DenseQNet → flax-layout numpy dict (for comparisons)."""
-    return {"params": {
+def qnet_to_flax(net: QNet) -> Dict[str, Any]:
+    """A Q-net → flax-layout numpy dict (OIHW conv kernels back to
+    HWIO)."""
+    layers = {
         f"Dense_{i}": {"kernel": w.detach().cpu().numpy(),
                        "bias": b.detach().cpu().numpy()}
-        for i, (w, b) in enumerate(zip(net.kernels, net.biases))}}
+        for i, (w, b) in enumerate(zip(net.kernels, net.biases))}
+    for i, (w, b) in enumerate(zip(getattr(net, "conv_kernels", ()),
+                                   getattr(net, "conv_biases", ()))):
+        layers[f"Conv_{i}"] = {
+            "kernel": w.detach().permute(2, 3, 1, 0).contiguous().cpu()
+            .numpy(), "bias": b.detach().cpu().numpy()}
+    return {"params": layers}
 
 
 def _leaves(tree: Dict[str, Any]) -> List[np.ndarray]:
-    """Dense flax leaves in the port's flat order (kernel_0, bias_0, ...)."""
+    """flax leaves in the port's flat order (conv_kernel_0, conv_bias_0,
+    ..., kernel_0, bias_0, ...), conv kernels as OIHW."""
     layers = tree["params"]
     out = []
-    for i in range(len(layers)):
+    for i in range(_count(layers, "Conv_")):
+        out += [np.ascontiguousarray(np.transpose(
+            np.asarray(layers[f"Conv_{i}"]["kernel"]), (3, 2, 0, 1))),
+            layers[f"Conv_{i}"]["bias"]]
+    for i in range(_count(layers, "Dense_")):
         out += [layers[f"Dense_{i}"]["kernel"], layers[f"Dense_{i}"]["bias"]]
     return out
 
@@ -67,10 +100,15 @@ def adam_from_optax(opt_state, device="cpu") -> AdamState:
         nu=[tensor(x, device) for x in _leaves(adam.nu)])
 
 
-def dqn_state_from_jax(ag_state, device="cpu") -> DQNState:
+def dqn_state_from_jax(ag_state, device="cpu", obs_shape=None,
+                       conv_specs=None) -> DQNState:
+    """The JAX ``DQNState`` (after ``jax.device_get``) → the port's; a
+    conv net needs its ``obs_shape`` and ``conv_specs``
+    (:func:`qnet_from_flax`)."""
     return DQNState(
-        params=qnet_from_flax(ag_state.params, device),
-        target_params=qnet_from_flax(ag_state.target_params, device),
+        params=qnet_from_flax(ag_state.params, device, obs_shape, conv_specs),
+        target_params=qnet_from_flax(ag_state.target_params, device, obs_shape,
+                                conv_specs),
         opt_state=adam_from_optax(ag_state.opt_state, device),
         epsilon=tensor(np.float32(np.asarray(ag_state.epsilon)), device))
 
@@ -101,29 +139,31 @@ def replay_state_from_jax(bstate, device="cpu") -> ReplayState:
         size=int(np.asarray(bstate.size)))
 
 
-def stream_carry_from_jax(carry, device="cpu"):
+def stream_carry_from_jax(carry, device="cpu", **net):
     """The JAX full or fused trainer's carry ``(rng, tstate, obs_t,
     ag_state, bstate, step)`` → the port's (the rng key on the host,
-    ``step`` a Python int)."""
+    ``step`` a Python int; ``net``: a conv net's ``obs_shape`` and
+    ``conv_specs``)."""
     rng, tstate, obs_t, ag_state, bstate, step = carry
     return (_host_key(rng), tstate_from_jax(tstate, device),
             tensor(obs_t, device).contiguous(),
-            dqn_state_from_jax(ag_state, device),
+            dqn_state_from_jax(ag_state, device, **net),
             replay_state_from_jax(bstate, device), int(np.asarray(step)))
 
 
-def ring_carry_from_jax(carry, device="cpu"):
+def ring_carry_from_jax(carry, device="cpu", **net):
     """The JAX ring trainer's carry ``(rng, (tstate, ring), (a_ring,
     r_ring, d_ring), ag_state, aux, step)`` → the port's carry (the rng
     key stays on the host; ``step`` becomes a Python int; ``aux``, the
     in-kernel TD path's carried batch, becomes a dict of tensors, or
-    stays ``()``)."""
+    stays ``()``; ``net``: a conv net's ``obs_shape`` and
+    ``conv_specs``)."""
     rng, (tstate, ring), scalar_rings, ag_state, aux, step = carry
     return (
         _host_key(rng),
         (tstate_from_jax(tstate, device), tensor(ring, device)),
         tuple(tensor(r, device) for r in scalar_rings),
-        dqn_state_from_jax(ag_state, device),
+        dqn_state_from_jax(ag_state, device, **net),
         batch_from_jax(aux, device) if len(aux) else (),
         int(np.asarray(step)),
     )

@@ -63,8 +63,10 @@ def net_defines(widths: Sequence[int]) -> Defines:
 
 
 def env_defines(params) -> Defines:
-    """The ``-D`` set of an env (``env_step.cuh``)."""
-    return (
+    """The ``-D`` set of an env (``env_step.cuh``); ``DR_GLOBAL`` only for
+    the global observation, so a window build's set is unchanged."""
+    wrapper = (("DR_GLOBAL", "1"),) if params.wrapper == "global" else ()
+    return wrapper + (
         ("DR_GRID", str(params.grid_size)),
         ("DR_NDRONES", str(params.n_drones)),
         ("DR_RADIUS", str(params.window_radius)),

@@ -3,8 +3,9 @@
 //
 // * tick_launch replaces dronerl_tpu/ops/fused_tick.py::_tick_kernel
 //   (launched by tick_fused, B4): feature-major state, ground (C, E) int8
-//   and drone fields and actions (N, E), and the window observation of the
-//   stepped state into a new (294, E) f32 array. Env e steps with row e of
+//   and drone fields and actions (N, E), and the observation of the
+//   stepped state (the window, or with DR_GLOBAL the whole board) into a
+//   new (OBS, E) f32 array. Env e steps with row e of
 //   split(step_key, E), the same row as the full tick's S[e]. No actor and
 //   no reset: the fused engine resets outside the kernel, in plain PyTorch,
 //   as the JAX trainer does in XLA.
@@ -27,8 +28,8 @@
 //
 // The layout is a template parameter. Feature-major (B4): each field's
 // rows of the block's EB columns move as 16-byte chunks into (K, EB)
-// tiles, and the window observation is one block-wide pass
-// (observe_tile) that writes the f32 observation straight to obs_out with
+// tiles, and the observation is one block-wide pass (observe_tile) that
+// writes the f32 observation straight to obs_out with
 // row stride E: neighbouring threads write neighbouring envs, so the
 // stores coalesce with no observation tile in shared memory. Row-major
 // (B5): a block's part of an (E, K) field is one contiguous span of EB K

@@ -3,7 +3,8 @@
 // The kernels (full_tick.cu: B1, B3; env_kernel.cu: B4, B5) run one warp
 // per env on env_warp.cuh, which includes this header for the env's
 // compile-time constants, the object and move codes, the reward weights,
-// jnp's gather index (wrap_clamp) and the observation's element type.
+// jnp's gather index (wrap_clamp) and the observation's element type and
+// shape.
 //
 // Semantics are the JAX package's core.step / core.reset / core.observe,
 // bit for bit, quirks included (see env_warp.cuh).
@@ -36,7 +37,14 @@ constexpr int N = DR_NDRONES;
 constexpr int R = DR_RADIUS;
 constexpr int W = 2 * R + 1;
 constexpr int NUM_CH = 6;
-constexpr int OBS = W * W * NUM_CH;
+// The observation: the drone's window of W x W cells, or with DR_GLOBAL
+// (wrapper="global") the whole board of G x G cells, 6 channels a cell.
+#if defined(DR_GLOBAL)
+constexpr bool GLOBAL = true;
+#else
+constexpr bool GLOBAL = false;
+#endif
+constexpr int OBS = (GLOBAL ? C : W * W) * NUM_CH;
 constexpr int NPACK = DR_NPACKETS;
 constexpr int NDROP = DR_NDROPZONES;
 constexpr int NSTAT = DR_NSTATIONS;

@@ -25,10 +25,10 @@
 // * The board at the start of the tick stays in the block's shared tile
 //   (the env's cells at stride `ld`) for the drones' target lookups; the
 //   board being stepped is in the lanes' registers.
-// * The window observation is a block-wide pass over (position, env)
-//   items once every env of the tile has stepped (observe_tile): a warp
-//   per env would leave most lanes of its last pass idle and serialise
-//   the drone lookups.
+// * The observation is a block-wide pass over (position, env) items once
+//   every env of the tile has stepped (observe_tile: the window, or with
+//   DR_GLOBAL the whole board): a warp per env would leave most lanes of
+//   its last pass idle and serialise the drone lookups.
 //
 // Two bodies, chosen at compile time. The narrow one (C <= 256, N <= 32:
 // B1, B3, B4, and B5 on small boards) keys a pick 0x80000000 | u23 << 8 |
@@ -491,9 +491,10 @@ __device__ __forceinline__ void reset_env(const Key* placement, int* g, Drone* d
 // The board is the (C, EBT) tile, the drones the (N, EBT) tiles; envs
 // from `ne` on are not written.
 template <int EBT, int THREADS, typename T, typename Ld>
-__device__ __forceinline__ void observe_tile(T* obs, Ld ld, const int8_t* board, const int* xs,
-                                             const int* ys, const int8_t* carry,
-                                             const float* charge, int ne = EBT) {
+__device__ __forceinline__ void observe_window_tile(T* obs, Ld ld, const int8_t* board,
+                                                    const int* xs, const int* ys,
+                                                    const int8_t* carry, const float* charge,
+                                                    int ne) {
 #pragma unroll 2
   for (int it = threadIdx.x; it < W * W * EBT; it += THREADS) {
     const int p = it / EBT, el = it % EBT;
@@ -519,6 +520,57 @@ __device__ __forceinline__ void observe_tile(T* obs, Ld ld, const int8_t* board,
     obs_store(out + 3 * ld, code == STATION ? 1.0f : 0.0f);
     obs_store(out + 4 * ld, fminf(fmaxf(chg - 1.0f, 0.0f), 100.0f) / 100.0f);
     obs_store(out + 5 * ld, code == SKYSCRAPER ? 1.0f : 0.0f);
+  }
+}
+
+// core._observe_global of every env of a block tile: the whole board,
+// flattened (cell y G + x, channel), into the columns of `obs`, the same
+// for every drone; thread t takes the (cell c, env el) items c * EBT + el
+// = t, t + THREADS, .... The drones are written in index order, as jnp's
+// scatters write them: the drone channel set, the carried packet added to
+// the packet channel (clamped to 1), the charge channel set to charge /
+// 100, the last drone on a cell winning.
+template <int EBT, int THREADS, typename T, typename Ld>
+__device__ __forceinline__ void observe_global_tile(T* obs, Ld ld, const int8_t* board,
+                                                    const int* xs, const int* ys,
+                                                    const int8_t* carry, const float* charge,
+                                                    int ne) {
+#pragma unroll 2
+  for (int it = threadIdx.x; it < C * EBT; it += THREADS) {
+    const int c = it / EBT, el = it % EBT;
+    if (el >= ne) continue;
+    const int y = c / G, x = c % G;
+    const int code = board[c * EBT + el];
+    bool drone = false, carried = false;
+    float chg = 0.0f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (ys[i * EBT + el] == y && xs[i * EBT + el] == x) {
+        drone = true;
+        carried = carried || carry[i * EBT + el] != 0;
+        chg = charge[i * EBT + el] / 100.0f;
+      }
+    }
+    T* out = obs + c * NUM_CH * ld + el;
+    obs_store(out + 0 * ld, drone ? 1.0f : 0.0f);
+    obs_store(out + 1 * ld, code == PACKET || carried ? 1.0f : 0.0f);
+    obs_store(out + 2 * ld, code == DROPZONE ? 1.0f : 0.0f);
+    obs_store(out + 3 * ld, code == STATION ? 1.0f : 0.0f);
+    obs_store(out + 4 * ld, chg);
+    obs_store(out + 5 * ld, code == SKYSCRAPER ? 1.0f : 0.0f);
+  }
+}
+
+// The observation of every env of a block tile (env_step.cuh's OBS rows):
+// the window of drone 0, or with DR_GLOBAL the whole board.
+template <int EBT, int THREADS, typename T, typename Ld>
+__device__ __forceinline__ void observe_tile(T* obs, Ld ld, const int8_t* board, const int* xs,
+                                             const int* ys, const int8_t* carry,
+                                             const float* charge, int ne = EBT) {
+  if constexpr (GLOBAL) {
+    observe_global_tile<EBT, THREADS>(obs, ld, board, xs, ys, carry, charge, ne);
+  } else {
+    observe_window_tile<EBT, THREADS>(obs, ld, board, xs, ys, carry, charge, ne);
   }
 }
 

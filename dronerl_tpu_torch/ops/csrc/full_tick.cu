@@ -8,13 +8,17 @@
 //   written into the same ring at write_col, in place (other ring columns
 //   keep their contents).
 // * full_tick_launch: as full_tick_fused launches it (B3). The observation
-//   is read from obs_t (294, E) f32 and the next one written into a new
+//   is read from obs_t (OBS, E) f32 and the next one written into a new
 //   array of the same shape.
 //
-// Both run one kernel: per-env threefry keys, the epsilon-greedy dense-Q
-// actor on obs_in's column, move / crash / battery / pickup / delivery,
-// packet, dropzone and drone respawns, the optional full reset, and the
-// window observation stored into obs_out's column.
+// Both run one kernel: per-env threefry keys, the epsilon-greedy actor on
+// obs_in's column, move / crash / battery / pickup / delivery, packet,
+// dropzone and drone respawns, the optional full reset, and the
+// observation (the window, or with DR_GLOBAL the whole board: see
+// env_warp.cuh's observe_tile) stored into obs_out's column. The actor is
+// a chain of dense layers: a dense net's, or a conv net's im2col lowering
+// (ops/conv2mat.py, as the TPU kernel's _flatten_net_params lowers it),
+// which the kernel runs as any other chain.
 //
 // What bounds it on the H100. At the bench shapes (65,536 envs, grid 9,
 // 4 drones) the bytes are one read and one write of a 294-row observation
@@ -45,6 +49,11 @@
 //   m16n8k16, bf16 in, f32 accumulate), f32-accurate: each W is split
 //   while it is staged into shared memory, in K-chunks, into three bf16
 //   pieces (hi + mid + lo, 24 significant bits) laid out in fragment order.
+//   A layer's output n-tiles of 8 units run in passes of at most 16 (4 a
+//   warp, 16 accumulator registers), so a wide layer (a conv's im2col
+//   matrix: 392 units for 8 channels on the 7 x 7 window) takes no more
+//   registers or fragment bytes than a narrow one; the source is read
+//   again each pass.
 //   The bf16 ring's observations are exact in bf16 (fragments by
 //   ldmatrix.trans), so B1's first layer takes 3 products a term; B3's
 //   f32 observations (charge / 100) and the hidden activations are split
@@ -58,14 +67,25 @@
 //   memory; the window observation is one block-wide pass over (position,
 //   env) items.
 //
-// Blocks of 512 threads, two per SM (__launch_bounds__): 32 warps an SM,
-// which caps a thread at 64 registers; ptxas keeps it within them with no
-// spill and no stack (the (128,64) net's 16 accumulators a thread are the
-// tightest; the output layer's pointers and the block's env count are
-// read back from shared memory rather than held across the tensor-core
-// layers). Shared memory is 83 KB a block with bf16 observations at
-// (16,16), 90 KB at (128,64), 110 KB with f32: the f32 tile is what makes
-// two blocks an SM the most.
+// Blocks of 512 threads, two per SM (__launch_bounds__; one for the
+// variant that reads the observation from device memory, below): 32 warps
+// an SM, which caps a thread at 64 registers; ptxas keeps it within them with no
+// spill and no stack (a pass's 16 accumulators a thread are the tightest;
+// the output layer's pointers and the block's env count are read back
+// from shared memory rather than held across the tensor-core layers).
+// Shared memory is 83 KB a block with bf16 observations at (16,16), 90 KB
+// at (128,64), 110 KB with f32: the f32 tile is what makes two blocks an
+// SM the most. A wider chain's hidden activations take more (the window
+// conv's 392 units: 101 KB of them, one block an SM); where they do not
+// fit the block's 227 KB beside the observation tile (a conv on the
+// global 9 x 9 board), they live in a device-memory scratch of the
+// block's own, which the launch allocates (Layout::ACT_GLOBAL). Where the
+// observation tile alone does not fit (the global view above 14 x 14
+// cells in bf16, 11 x 11 in f32), the first layer reads its fragments
+// from device memory and the next observation is stored there straight
+// from the observation pass (Layout::OBS_GLOBAL; the activations then in
+// the scratch too). The variant is chosen at compile time from the env
+// and the widths; ops/fused_tick.py tick_layout mirrors it.
 //
 // The env and the net widths are compile-time constants (-D, see
 // ops/_build.py).
@@ -82,14 +102,15 @@
 namespace dronerl {
 
 constexpr int MAX_LAYERS = 8;
-// Layer widths: obs_dim, hidden..., num_actions (unused entries are 0).
+// Layer widths: obs_dim, hidden..., num_actions (unused entries are 0):
+// a dense net's, or a conv net's im2col chain.
 constexpr int DIMS[MAX_LAYERS + 1] = {DR_DIM0, DR_DIM1, DR_DIM2, DR_DIM3, DR_DIM4,
                                       DR_DIM5, DR_DIM6, DR_DIM7, DR_DIM8};
 constexpr int NL = DR_NLAYERS;
 
 static_assert(C <= 256 && N <= 32, "the kernel takes <= 256 cells, <= 32 drones");
 static_assert(NL >= 1 && NL <= MAX_LAYERS, "1..8 dense layers");
-static_assert(DIMS[0] == OBS, "the first width is the window observation");
+static_assert(DIMS[0] == OBS, "the first width is the observation");
 static_assert(DIMS[NL] == NUM_ACTIONS, "the last width is the action count");
 
 // Mirrors _TickArgs in ops/fused_tick.py field by field.
@@ -110,6 +131,7 @@ struct TickArgs {
   float* rewards;
   int8_t* dones;
   int32_t* actions;
+  float* scratch;  // Layout::SCRATCH bytes a block, where ACT_GLOBAL
   const float* w[MAX_LAYERS];
   const float* b[MAX_LAYERS];
   long long in_ld;
@@ -140,6 +162,8 @@ constexpr int PIECES = 3;               // bf16 pieces of a weight
 constexpr int FRAG_WORDS = 64;          // one B fragment: a uint2 a lane
 constexpr int FRAG_BYTES = PIECES * FRAG_WORDS * 4;  // its pieces
 constexpr int KEY_WORDS = 4 + 10;       // ground and air keys, 5 placement keys
+constexpr int PASS_NTW = 4;             // n-tiles a warp takes in one pass
+constexpr int SMEM_LIMIT = 232448;      // shared memory a block can have
 static_assert(TPE == 8, "the output layer's reductions run over 8 lanes");
 static_assert(BLOCK / EB > 3, "key roles: env keys, gate, reset keys, random actions");
 using Tile = BlockTile<EB, BLOCK>;
@@ -149,17 +173,20 @@ __host__ __device__ constexpr int cmini(int x, int y) { return x < y ? x : y; }
 
 // Dense layer L (DIMS[L] -> DIMS[L + 1]) on the tensor cores: K and N
 // zero-padded to 16, n-tiles of 8 spread over the NGROUPS warps of an
-// m-tile. Every layer but the last runs there (the last, with
-// NUM_ACTIONS outputs, on the CUDA cores), except a net of one layer.
+// m-tile, NTP of them a pass. Every layer but the last runs there (the
+// last, with NUM_ACTIONS outputs, on the CUDA cores), except a net of one
+// layer.
 template <int L>
 struct Mma {
   static constexpr int IN = DIMS[L], OUT = DIMS[L + 1];
   static constexpr int KSTEPS = up16(IN) / 16;
   static constexpr int NT = up16(OUT) / 8;
-  static constexpr int NTW = (NT + NGROUPS - 1) / NGROUPS;
+  static constexpr int NTP = cmini(NT, NGROUPS * PASS_NTW);
+  static constexpr int NPASS = (NT + NTP - 1) / NTP;
+  static constexpr int NTW = (NTP + NGROUPS - 1) / NGROUPS;
   // k-steps of W staged at once within `budget` bytes of fragments.
   __host__ __device__ static constexpr int chunk(int budget) {
-    return cmini(KSTEPS, cmaxi(1, budget / (NT * FRAG_BYTES)));
+    return cmini(KSTEPS, cmaxi(1, budget / (NTP * FRAG_BYTES)));
   }
 };
 constexpr int MMA_LAYERS = NL == 1 ? 1 : NL - 1;
@@ -182,24 +209,37 @@ constexpr int w_bytes(int budget) {
   if constexpr (L >= MMA_LAYERS) {
     return 0;
   } else {
-    return cmaxi(Mma<L>::chunk(budget) * Mma<L>::NT * FRAG_BYTES, w_bytes<L + 1>(budget));
+    return cmaxi(Mma<L>::chunk(budget) * Mma<L>::NTP * FRAG_BYTES, w_bytes<L + 1>(budget));
   }
 }
 
-template <typename T>
-struct Layout {
+// The block's shared memory with the hidden activations in it
+// (kActGlobal false) or in the block's device-memory scratch, and with
+// the observation tile in it (kObsGlobal false) or not.
+template <typename T, bool kActGlobal, bool kObsGlobal>
+struct LayoutOf {
   // Row stride of the observation tile in elements: 16-byte rows whose
   // stride is 4 banks mod 32, so the fragment loads are conflict-free.
   static constexpr int S = sizeof(T) == 2 ? 72 : 68;
-  static constexpr int OBS_BYTES = up16(OBS) * S * (int)sizeof(T);
+  static constexpr int OBS_BYTES = kObsGlobal ? 0 : up16(OBS) * S * (int)sizeof(T);
   static constexpr int W_BUDGET = sizeof(T) == 2 ? 24576 : 12288;
   static constexpr int W_BYTES = w_bytes(W_BUDGET);
-  // The activations replace the observation tile once the first layer
-  // has read it.
   static constexpr int HA = act_bytes(0);
-  static constexpr int R_OBS = cmaxi(OBS_BYTES, HA + act_bytes(1));
-  static constexpr int OFF_HA = 0;
-  static constexpr int OFF_HB = HA;
+  static constexpr int HB = act_bytes(1);
+  static constexpr bool ACT_GLOBAL = kActGlobal;
+  static constexpr bool OBS_GLOBAL = kObsGlobal;
+  // Resident blocks an SM that __launch_bounds__ asks for: one where the
+  // observation is read from device memory, whose fragment loads hold its
+  // address and row stride (up to 128 registers a thread, no spill).
+  static constexpr int MIN_BLOCKS = kObsGlobal ? 1 : 2;
+  static constexpr int SCRATCH = kActGlobal ? HA + HB : 0;
+  // The activations replace the observation tile once the first layer
+  // has read it, where that layer runs in one pass; else they follow it.
+  static constexpr bool OVERLAY = Mma<0>::NPASS == 1;
+  static constexpr int R_OBS =
+      kActGlobal ? OBS_BYTES : (OVERLAY ? cmaxi(OBS_BYTES, HA + HB) : OBS_BYTES + HA + HB);
+  static constexpr int OFF_HA = OVERLAY ? 0 : OBS_BYTES;
+  static constexpr int OFF_HB = OFF_HA + HA;
   static constexpr int OFF_W = R_OBS;
   static constexpr int OFF_BOARD = OFF_W + W_BYTES;
   static constexpr int OFF_X = OFF_BOARD + up16(C * EB);
@@ -215,6 +255,16 @@ struct Layout {
   static constexpr int OFF_META = OFF_GREEDY + up16(EB);
   static constexpr int TOTAL = OFF_META + 32;
 };
+
+// The first of: everything in shared memory; the activations in the
+// scratch; the observation tile out of shared memory too.
+template <typename T>
+struct Variant {
+  static constexpr bool ACT = LayoutOf<T, false, false>::TOTAL > SMEM_LIMIT;
+  static constexpr bool OBS = ACT && LayoutOf<T, true, false>::TOTAL > SMEM_LIMIT;
+};
+template <typename T>
+using Layout = LayoutOf<T, Variant<T>::ACT, Variant<T>::OBS>;
 
 // ---------------------------------------------------------------------------
 // The dense layers on the tensor cores
@@ -253,7 +303,8 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
 }
 
 // Stage k-steps [s0, s0 + steps) of layer L's weights (IN x OUT f32,
-// row-major), split into PIECES bf16 pieces, into B-fragment order:
+// row-major) for the pass's NTP n-tiles from unit n_base, split into
+// PIECES bf16 pieces, into B-fragment order:
 // fragment (step, n-tile, piece) is 32 lanes' (b0, b1) pairs, lane =
 // 4 (n % 8) + (k % 8) / 2, b0 rows k % 16 < 8, b1 the rest; zero outside
 // IN x OUT. Item i is one word of a fragment: n % 8 = i % 8 fastest (the
@@ -263,19 +314,19 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b
 // through L2 only: the weights stream once a block.
 template <int L, int CHUNK>
 __device__ __forceinline__ void stage_w(uint32_t* frag, const float* __restrict__ w, int s0,
-                                        int steps) {
+                                        int steps, int n_base) {
   using M = Mma<L>;
-  constexpr int ITEMS = (CHUNK * M::NT * FRAG_WORDS + BLOCK - 1) / BLOCK;
+  constexpr int ITEMS = (CHUNK * M::NTP * FRAG_WORDS + BLOCK - 1) / BLOCK;
   float lo[ITEMS], hi[ITEMS];
   // Unsigned: signed index arithmetic adds sign fix-ups that stay live
   // across the chunk loop.
-  const unsigned items = steps * M::NT * FRAG_WORDS;
+  const unsigned items = steps * M::NTP * FRAG_WORDS;
 #pragma unroll
   for (int it = 0; it < ITEMS; ++it) {
     const unsigned i = threadIdx.x + it * BLOCK;
     const unsigned g = i & 7u, t = (i >> 3) & 3u, reg = (i >> 5) & 1u, f = i >> 6;
-    const unsigned n = (f % M::NT) * 8u + g;
-    const unsigned k = (s0 + f / M::NT) * 16u + reg * 8u + 2u * t;
+    const unsigned n = n_base + (f % M::NTP) * 8u + g;
+    const unsigned k = (s0 + f / M::NTP) * 16u + reg * 8u + 2u * t;
     const bool live = i < items && n < M::OUT;
     lo[it] = live && k < M::IN ? __ldcg(w + k * M::OUT + n) : 0.0f;
     hi[it] = live && k + 1 < M::IN ? __ldcg(w + (k + 1) * M::OUT + n) : 0.0f;
@@ -345,6 +396,41 @@ struct ObsSource<float> {
   }
 };
 
+// The observation read from device memory (Layout::OBS_GLOBAL): rows = K
+// (row stride ld), columns = the block's envs; rows past OBS and envs past
+// ne read as 0. Fragments as ObsSource<float>'s, one piece where the
+// values are bf16.
+template <typename T>
+struct GmemObsSource {
+  static constexpr int PIECES_A = sizeof(T) == 2 ? 1 : 3;
+  const T* obs;
+  long long ld;
+  int ne;
+  __device__ __forceinline__ float at(int k, int e) const {
+    return k < OBS && e < ne ? obs_load(obs + k * ld + e) : 0.0f;
+  }
+  __device__ __forceinline__ void load(int step, int m0, uint32_t* a) const {
+    const int lane = threadIdx.x & 31;
+    const int k0 = step * 16 + 2 * (lane & 3);
+    const int e = m0 + (lane >> 2);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int k = k0 + (r >> 1) * 8;
+      const int col = e + (r & 1) * 8;
+      if constexpr (PIECES_A == 1) {
+        a[r] = pack_bf16(at(k, col), at(k + 1, col));
+      } else {
+        float l1, l2, l3, h1, h2, h3;
+        split3(at(k, col), l1, l2, l3);
+        split3(at(k + 1, col), h1, h2, h3);
+        a[r] = pack_bf16(l1, h1);
+        a[4 + r] = pack_bf16(l2, h2);
+        a[8 + r] = pack_bf16(l3, h3);
+      }
+    }
+  }
+};
+
 template <int IN, int STRIDE>
 struct ActSource {
   static constexpr int PIECES_A = 3;
@@ -367,26 +453,27 @@ struct ActSource {
   }
 };
 
-// Layer L's pre-activations of the block's envs on the tensor cores: warp
-// w takes m-tile w % MT and n-tiles [w / MT * NTW, +NTW); acc[j] is the
-// mma C fragment of its n-tile j. An exact source takes W's three pieces
-// (3 products), an f32 one the 6 products of order <= 2^-16, smallest
-// first; f32 accumulation throughout.
+// Layer L's pre-activations of the block's envs in pass p on the tensor
+// cores: warp w takes m-tile w % MT and the pass's n-tiles [w / MT * NTW,
+// +NTW); acc[j] is the mma C fragment of its n-tile j. An exact source
+// takes W's three pieces (3 products), an f32 one the 6 products of order
+// <= 2^-16, smallest first; f32 accumulation throughout.
 template <int L, int BUDGET, typename Src>
 __device__ __forceinline__ void mma_layer(const Src& src, uint32_t* frag, const float* w,
-                                          float (*acc)[4]) {
+                                          float (*acc)[4], int p) {
   using M = Mma<L>;
   constexpr int CHUNK = M::chunk(BUDGET);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int m0 = (warp % MT) * 16;
   const int n0 = (warp / MT) * M::NTW;
+  const int live = cmini(M::NTP, M::NT - p * M::NTP);  // the pass's n-tiles
 #pragma unroll
   for (int j = 0; j < M::NTW; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 #pragma unroll 1
   for (int s0 = 0; s0 < M::KSTEPS; s0 += CHUNK) {
     const int steps = cmini(CHUNK, M::KSTEPS - s0);
     __syncthreads();  // the previous chunk's fragments are read
-    stage_w<L, CHUNK>(frag, w, s0, steps);
+    stage_w<L, CHUNK>(frag, w, s0, steps, p * M::NTP * 8);
     __syncthreads();
 #pragma unroll 1
     for (int s = 0; s < steps; ++s) {
@@ -394,8 +481,8 @@ __device__ __forceinline__ void mma_layer(const Src& src, uint32_t* frag, const 
       src.load(s0 + s, m0, a);
 #pragma unroll
       for (int j = 0; j < M::NTW; ++j) {
-        if (M::NT % NGROUPS != 0 && n0 + j >= M::NT) break;
-        const uint32_t* f = frag + (s * M::NT + n0 + j) * PIECES * FRAG_WORDS + 2 * lane;
+        if ((M::NPASS > 1 || M::NTP % NGROUPS != 0) && n0 + j >= live) break;
+        const uint32_t* f = frag + (s * M::NTP + n0 + j) * PIECES * FRAG_WORDS + 2 * lane;
         const uint2 w1 = load_frag(f), w2 = load_frag(f + FRAG_WORDS),
                     w3 = load_frag(f + 2 * FRAG_WORDS);
         if constexpr (Src::PIECES_A == 1) {
@@ -415,33 +502,38 @@ __device__ __forceinline__ void mma_layer(const Src& src, uint32_t* frag, const 
   }
 }
 
-// Layer L on the tensor cores, then bias (and ReLU below the last layer)
-// into y, (env, unit) with row stride act_stride(L).
+// Layer L on the tensor cores, pass by pass, then bias (and ReLU below
+// the last layer) into y, (env, unit) with row stride act_stride(L); y
+// lies in shared memory or in the block's device-memory scratch.
 template <int L, int BUDGET, typename Src>
 __device__ __forceinline__ void run_mma_layer(const Src& src, uint32_t* frag, const TickArgs& a,
                                               float* y) {
   using M = Mma<L>;
-  float acc[M::NTW][4];
-  mma_layer<L, BUDGET>(src, frag, a.w[L], acc);
-  __syncthreads();  // every warp is done with the source and the fragments
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int e = (warp % MT) * 16 + (lane >> 2);
   constexpr int SY = act_stride(L);
+#pragma unroll 1
+  for (int p = 0; p < M::NPASS; ++p) {
+    float acc[M::NTW][4];
+    mma_layer<L, BUDGET>(src, frag, a.w[L], acc, p);
+    __syncthreads();  // every warp is done with the source and the fragments
 #pragma unroll
-  for (int j = 0; j < M::NTW; ++j) {
-    const int tile = (warp / MT) * M::NTW + j;
+    for (int j = 0; j < M::NTW; ++j) {
+      const int local = (warp / MT) * M::NTW + j;
+      const int tile = p * M::NTP + local;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = tile * 8 + 2 * (lane & 3) + h;
-      if (tile < M::NT && n < M::OUT) {
-        const float bias = __ldg(a.b[L] + n);
-        float v0 = acc[j][h] + bias, v1 = acc[j][2 + h] + bias;
-        if (L < NL - 1) {
-          v0 = fmaxf(v0, 0.0f);
-          v1 = fmaxf(v1, 0.0f);
+      for (int h = 0; h < 2; ++h) {
+        const int n = tile * 8 + 2 * (lane & 3) + h;
+        if (local < M::NTP && tile < M::NT && n < M::OUT) {
+          const float bias = __ldg(a.b[L] + n);
+          float v0 = acc[j][h] + bias, v1 = acc[j][2 + h] + bias;
+          if (L < NL - 1) {
+            v0 = fmaxf(v0, 0.0f);
+            v1 = fmaxf(v1, 0.0f);
+          }
+          y[e * SY + n] = v0;
+          y[(e + 8) * SY + n] = v1;
         }
-        y[e * SY + n] = v0;
-        y[(e + 8) * SY + n] = v1;
       }
     }
   }
@@ -466,7 +558,7 @@ __device__ __forceinline__ int output_layer(const float* x, const void* meta, in
   float q[OUT];
 #pragma unroll
   for (int o = 0; o < OUT; ++o) q[o] = 0.0f;
-#pragma unroll
+#pragma unroll 8
   for (int ii = 0; ii < IPT; ++ii) {
     const int i = sub * IPT + ii;
     if (i < IN) {
@@ -511,10 +603,20 @@ __device__ __forceinline__ void actor(const TickArgs& a, T* tile, unsigned char*
                                       int32_t* s_act, const int8_t* s_greedy, int ne) {
   using Lay = Layout<T>;
   uint32_t* frag = reinterpret_cast<uint32_t*>(smem + Lay::OFF_W);
-  float* ha = reinterpret_cast<float*>(smem + Lay::OFF_HA);
-  float* hb = reinterpret_cast<float*>(smem + Lay::OFF_HB);
+  float* ha;
+  if constexpr (Lay::ACT_GLOBAL) {
+    ha = a.scratch + (size_t)blockIdx.x * (Lay::SCRATCH / 4);
+  } else {
+    ha = reinterpret_cast<float*>(smem + Lay::OFF_HA);
+  }
+  float* hb = ha + Lay::HA / 4;
   const void* meta = smem + Lay::OFF_META;
-  run_mma_layer<0, Lay::W_BUDGET>(ObsSource<T>{tile}, frag, a, ha);
+  if constexpr (Lay::OBS_GLOBAL) {
+    const T* obs = static_cast<const T*>(a.obs_in) + a.read_col + blockIdx.x * EB;
+    run_mma_layer<0, Lay::W_BUDGET>(GmemObsSource<T>{obs, a.in_ld, ne}, frag, a, ha);
+  } else {
+    run_mma_layer<0, Lay::W_BUDGET>(ObsSource<T>{tile}, frag, a, ha);
+  }
   const int el = threadIdx.x / TPE, sub = threadIdx.x % TPE;
   int best = 0;
   if constexpr (NL == 1) {
@@ -537,7 +639,8 @@ __device__ __forceinline__ void actor(const TickArgs& a, T* tile, unsigned char*
 // The tick
 
 template <typename T>
-__global__ void __launch_bounds__(BLOCK, 2) full_tick_kernel(const TickArgs a) {
+__global__ void __launch_bounds__(BLOCK, Layout<T>::MIN_BLOCKS)
+    full_tick_kernel(const TickArgs a) {
   using Lay = Layout<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile = reinterpret_cast<T*>(smem);
@@ -616,15 +719,17 @@ __global__ void __launch_bounds__(BLOCK, 2) full_tick_kernel(const TickArgs a) {
 
   // --- the actor ----------------------------------------------------------
   if (any_greedy) {
-    using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, float>::type;
-    Raw* raw = reinterpret_cast<Raw*>(tile);
-    Tile::template stage_rows<Raw, Lay::S>(raw, static_cast<const Raw*>(a.obs_in), a.in_ld,
-                                           a.read_col + e0, OBS, ne);
-    for (int i = threadIdx.x; i < (up16(OBS) - OBS) * Lay::S; i += BLOCK) {
-      raw[OBS * Lay::S + i] = Raw(0);
+    if constexpr (!Lay::OBS_GLOBAL) {
+      using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, float>::type;
+      Raw* raw = reinterpret_cast<Raw*>(tile);
+      Tile::template stage_rows<Raw, Lay::S>(raw, static_cast<const Raw*>(a.obs_in), a.in_ld,
+                                             a.read_col + e0, OBS, ne);
+      for (int i = threadIdx.x; i < (up16(OBS) - OBS) * Lay::S; i += BLOCK) {
+        raw[OBS * Lay::S + i] = Raw(0);
+      }
+      cp_async_wait_all();
+      __syncthreads();
     }
-    cp_async_wait_all();
-    __syncthreads();
     actor<T>(a, tile, smem, s_act, s_greedy, ne);
   }
   cp_async_wait_all();
@@ -688,15 +793,24 @@ __global__ void __launch_bounds__(BLOCK, 2) full_tick_kernel(const TickArgs a) {
   __syncthreads();
 
   // --- the next observation: a (position, env) item a thread ---------------
-  warp::observe_tile<EB, BLOCK>(tile, Lay::S, s_board, s_x, s_y, s_carry, s_charge);
+  const int col0 = blockIdx.x * EB;
+  if constexpr (Lay::OBS_GLOBAL) {
+    // Straight to obs_out: the actor has read every input column of the
+    // block (the barrier above), and no other block's column is written.
+    warp::observe_tile<EB, BLOCK>(static_cast<T*>(a.obs_out) + a.write_col + col0, a.out_ld,
+                                  s_board, s_x, s_y, s_carry, s_charge, ne_b);
+  } else {
+    warp::observe_tile<EB, BLOCK>(tile, Lay::S, s_board, s_x, s_y, s_carry, s_charge);
+  }
   __syncthreads();
 
   // --- store the state, the outputs and the next observation ---------------
-  using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, float>::type;
-  const int col0 = blockIdx.x * EB;
-  Tile::template store_rows<Raw, Lay::S>(static_cast<Raw*>(a.obs_out),
-                                         reinterpret_cast<const Raw*>(tile), a.out_ld,
-                                         a.write_col + col0, OBS, ne_b);
+  if constexpr (!Lay::OBS_GLOBAL) {
+    using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, float>::type;
+    Tile::template store_rows<Raw, Lay::S>(static_cast<Raw*>(a.obs_out),
+                                           reinterpret_cast<const Raw*>(tile), a.out_ld,
+                                           a.write_col + col0, OBS, ne_b);
+  }
   Tile::template store_rows<int8_t, EB>(a.ground_out, s_board, a.num_envs, col0, C, ne_b);
   Tile::template store_rows<int32_t, EB>(a.ax_out, s_x, a.num_envs, col0, N, ne_b);
   Tile::template store_rows<int32_t, EB>(a.ay_out, s_y, a.num_envs, col0, N, ne_b);
@@ -723,6 +837,7 @@ cudaError_t configure() {
 
 template <typename T>
 int launch_t(const TickArgs* args, cudaStream_t s) {
+  if (Layout<T>::ACT_GLOBAL && args->scratch == nullptr) return (int)cudaErrorInvalidValue;
   const cudaError_t err = configure<T>();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((args->num_envs + EB - 1) / EB);
@@ -767,6 +882,12 @@ extern "C" const char* full_tick_error_string(int err) {
 // The launch's dynamic shared memory in bytes, for bf16 or f32 observations.
 extern "C" int full_tick_smem_bytes(int bf16) {
   return bf16 ? dronerl::Layout<__nv_bfloat16>::TOTAL : dronerl::Layout<float>::TOTAL;
+}
+
+// The device-memory scratch a block needs for its activations in bytes (0:
+// they are in shared memory), for bf16 or f32 observations.
+extern "C" int full_tick_scratch_bytes(int bf16) {
+  return bf16 ? dronerl::Layout<__nv_bfloat16>::SCRATCH : dronerl::Layout<float>::SCRATCH;
 }
 
 // Resident blocks an SM (the occupancy query), for bf16 or f32 observations.

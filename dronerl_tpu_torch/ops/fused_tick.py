@@ -4,18 +4,20 @@ Counterpart of ``dronerl_tpu/ops/fused_tick.py``, with its two kernels
 and three launches:
 
 * :func:`full_tick_fused_ring` (B1, the ring engine): per-env threefry
-  keys, the ε-greedy dense-Q actor reading the replay ring at
-  ``read_slot``, the physics, respawns and window observation, the
+  keys, the ε-greedy actor (a matmul chain: a dense net's layers or a
+  conv net's im2col lowering, :func:`flatten_net_params`) reading the
+  replay ring at ``read_slot``, the physics, respawns and observation
+  (the window, or with ``wrapper="global"`` the whole board), the
   periodic reset, and the write of the next observation into the ring at
   ``write_slot`` (in place; other slots keep their contents). With
   ``td_hparams`` (the in-kernel TD path) a second launch on the same
   stream, the learner kernel of ``ops/learner_kernel.py``, runs the TD(0)
   + Adam step that the TPU kernel runs on its grid step 0.
 * :func:`full_tick_fused` (B3, the full engine): the same kernel with the
-  observation read from ``obs_t`` (294, E) f32 and the next one written
-  into a new array.
+  observation read from ``obs_t`` (obs_dim, E) f32 and the next one
+  written into a new array.
 * :func:`tick_fused` (B4, the fused engine): the physics, respawns and
-  window observation with actions from the caller; no actor, no reset.
+  observation with actions from the caller; no actor, no reset.
 
 State is feature-major (field, env): ground (C, E) int8, drone fields
 (N, E). On CUDA tensors each wrapper launches its hand-written kernel
@@ -38,23 +40,28 @@ multiply; every other output is bit-identical.
 """
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from dronerl_tpu_torch import rng
-from dronerl_tpu_torch.agents.dqn import DenseQNet
+from dronerl_tpu_torch.agents.dqn import DenseQNet, QNet, chain_forward_t
 from dronerl_tpu_torch.constants import NUM_ACTIONS, NUM_OBS_CHANNELS
 from dronerl_tpu_torch.env import core
 from dronerl_tpu_torch.env.types import EnvParams, EnvState
-from dronerl_tpu_torch.ops import _build, learner_kernel
-from dronerl_tpu_torch.ops.learner_kernel import check_tensor, net_widths
+from dronerl_tpu_torch.ops import _build, conv2mat, learner_kernel
+from dronerl_tpu_torch.ops.learner_kernel import check_tensor
 
 # Limits of the CUDA kernel (csrc/full_tick.cu), as the JAX package's
 # fused_tick.supports() states them for the TPU kernel.
 MAX_CELLS = 256
 MAX_DRONES = 32
 MAX_LAYERS = _build.MAX_LAYERS
+# The JAX kernel's cap on the actor's weight chain: half its raised VMEM
+# limit of 100 MiB (dronerl_tpu/ops/fused_tick.py _net_weight_vmem_budget).
+CHAIN_BUDGET = 100 * 1024 * 1024 // 2
+# A block's shared memory on the H100 (csrc/full_tick.cu, Layout).
+SMEM_LIMIT = 232448
 
 
 class TState(NamedTuple):
@@ -96,24 +103,122 @@ def obs_rows(params: EnvParams) -> int:
     return h * w * NUM_OBS_CHANNELS
 
 
+def chain_widths(chain: Sequence[torch.Tensor]) -> Tuple[int, ...]:
+    """(in, hidden..., out) of a matmul chain ``[W0, b0, W1, b1, ...]``."""
+    return (chain[0].shape[0], *(w.shape[1] for w in chain[0::2]))
+
+
+def chain_problems(widths: Sequence[int]) -> List[str]:
+    """The JAX kernel's guard on the actor's weight chain (f32 weights and
+    biases over :data:`CHAIN_BUDGET`), in its words."""
+    weight_bytes = 4 * sum(i * o + o for i, o in zip(widths, widths[1:]))
+    if weight_bytes <= CHAIN_BUDGET:
+        return []
+    return [f"conv_matmul weight chain is {weight_bytes / 2**20:.1f} MB "
+            f"(f32) > {CHAIN_BUDGET / 2**20:.0f} MB in-kernel budget: the "
+            "im2col matrices for this conv config are too large for the "
+            "tick kernel's actor; use the fused engine without "
+            "--conv_matmul (conv actor outside the kernel) instead"]
+
+
 def kernel_problems(params: EnvParams, num_envs: int,
-                    hidden_layers=()) -> list:
+                    widths: Optional[Sequence[int]] = None) -> list:
     """What the CUDA tick kernels (B1, B3, B4) do not take in this
-    configuration."""
+    configuration; with the actor chain's ``widths`` (B1, B3), also what
+    they do not take of it."""
     problems = []
-    if params.wrapper != "window":
-        problems.append(f"wrapper={params.wrapper!r} (window only)")
+    if params.wrapper not in ("window", "global"):
+        problems.append(f"wrapper={params.wrapper!r} (window or global)")
     if params.num_cells > MAX_CELLS:
         problems.append(f"{params.num_cells} cells > {MAX_CELLS}")
     if params.n_drones > MAX_DRONES:
         problems.append(f"n_drones={params.n_drones} > {MAX_DRONES}")
     if params.num_packets < params.n_drones:
         problems.append("num_packets < n_drones")
-    if len(hidden_layers) + 1 > MAX_LAYERS:
-        problems.append(f"{len(hidden_layers) + 1} layers > {MAX_LAYERS}")
+    if widths is not None:
+        if len(widths) - 1 > MAX_LAYERS:
+            problems.append(f"{len(widths) - 1} layers > {MAX_LAYERS}")
+        problems += chain_problems(widths)
     if num_envs < 1:
         problems.append("num_envs < 1")
     return problems
+
+
+def _up16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def tick_layout(params: EnvParams, widths: Sequence[int],
+                obs_bf16: bool) -> Dict[str, object]:
+    """The full tick kernel's block for an env, the actor chain's
+    ``widths`` and the observation type, as ``Layout`` in
+    ``csrc/full_tick.cu`` computes it: ``smem_bytes`` of dynamic shared
+    memory and ``variant``, the first that fits a block's shared memory
+    of "shared" (everything in it), "device" (the hidden activations in a
+    scratch of ``scratch_bytes`` a block in device memory) and
+    "device_obs" (the observation read from and written to device memory
+    too). Blocks of 64 envs; a tensor-core layer runs its output n-tiles
+    of 8 in passes of up to 16 (4 a warp) and stages its weights k-chunk
+    by k-chunk; the first layer's activations replace the observation
+    tile where it runs in one pass."""
+    eb, frag_bytes, pass_tiles = 64, 3 * 64 * 4, 4 * 4
+    n_layers = len(widths) - 1
+    mma_layers = 1 if n_layers == 1 else n_layers - 1
+
+    def n_tiles(layer):  # (all n-tiles, n-tiles a pass)
+        nt = _up16(widths[layer + 1]) // 8
+        return nt, min(nt, pass_tiles)
+
+    def chunk(layer, budget):
+        ksteps = _up16(widths[layer]) // 16
+        return min(ksteps, max(1, budget // (n_tiles(layer)[1] * frag_bytes)))
+
+    def act_bytes(parity):
+        return max([_up16(eb * (widths[layer + 1] + 4) * 4)
+                    for layer in range(parity, mma_layers, 2)], default=0)
+
+    stride, size = (72, 2) if obs_bf16 else (68, 4)
+    obs_bytes = _up16(obs_rows(params)) * stride * size
+    budget = 24576 if obs_bf16 else 12288
+    w_bytes = max(chunk(layer, budget) * n_tiles(layer)[1] * frag_bytes
+                  for layer in range(mma_layers))
+    n, c = params.n_drones, params.num_cells
+    tail = (w_bytes + _up16(c * eb) + 5 * n * eb * 4 + 14 * eb * 4
+            + 2 * _up16(n * eb) + _up16(eb) + 32)
+    acts = act_bytes(0) + act_bytes(1)
+    nt0, ntp0 = n_tiles(0)
+    shared = (max(obs_bytes, acts) if nt0 == ntp0 else obs_bytes + acts) + tail
+    if shared <= SMEM_LIMIT:
+        return {"smem_bytes": shared, "variant": "shared", "scratch_bytes": 0}
+    if obs_bytes + tail <= SMEM_LIMIT:
+        return {"smem_bytes": obs_bytes + tail, "variant": "device",
+                "scratch_bytes": acts}
+    return {"smem_bytes": tail, "variant": "device_obs",
+            "scratch_bytes": acts}
+
+
+def flatten_net_params(net: QNet, net_spec=None) -> List[torch.Tensor]:
+    """A Q-net → the tick kernels' actor chain ``[W0, b0, W1, b1, ...]``
+    (``dronerl_tpu/ops/fused_tick.py::_flatten_net_params``): a dense net's
+    own parameters, or with a conv ``net_spec`` (``DQN.net_spec``) the
+    im2col lowering of ``ops/conv2mat.py``, checked against the JAX
+    kernel's budget before it is built."""
+    if net_spec is None:
+        return net.flat()
+    widths = [net_spec[0][1] * net_spec[0][2] * net_spec[0][3]]
+    dense_i = 0
+    for spec in net_spec:
+        if spec[0] == "conv":
+            _, h, w, _, co, k, s, p, _ = spec
+            ho, wo = conv2mat.conv_out_hw(h, w, k, s, p)
+            widths.append(ho * wo * co)
+        else:
+            widths.append(net.kernels[dense_i].shape[1])
+            dense_i += 1
+    problems = chain_problems(widths)
+    if problems:
+        raise ValueError(problems[0])
+    return conv2mat.effective_dense_params(net, net_spec)
 
 
 # --- plain version ---------------------------------------------------------
@@ -127,15 +232,16 @@ def actor_uniforms(actor_key: torch.Tensor, n: int, num_envs: int):
 
 
 def plain_actions(actor_key: torch.Tensor, obs_ring: torch.Tensor,
-                  read_slot: int, net_params: DenseQNet,
+                  read_slot: int, chain: Sequence[torch.Tensor],
                   epsilon: torch.Tensor, params: EnvParams, num_envs: int):
     """The ε-greedy actor of the plain version: ``(actions (N, E) int32,
     q (A, E))``. Greedy is the lowest-index argmax of the Q forward of the
-    ring's observations at ``read_slot``, cast to f32."""
+    actor ``chain`` on the ring's observations at ``read_slot``, cast to
+    f32."""
     u_act, rand = actor_uniforms(actor_key, params.n_drones, num_envs)
     with torch.no_grad():
         obs_t = obs_ring[:obs_rows(params), read_slot:read_slot + num_envs]
-        q = net_params.forward_t(obs_t.to(torch.float32))
+        q = chain_forward_t(chain, obs_t.to(torch.float32))
     greedy = torch.argmax(q, dim=0).to(torch.int32)  # first max wins
     a0 = torch.where(u_act[0] < epsilon, rand[0], greedy)
     return torch.cat([a0[None], rand[1:]], dim=0), q
@@ -208,7 +314,7 @@ def _split_product(x: torch.Tensor, w: torch.Tensor, exact_x: bool):
     return out
 
 
-def split_forward_t(net_params: DenseQNet, obs_t: torch.Tensor,
+def split_forward_t(chain: Sequence[torch.Tensor], obs_t: torch.Tensor,
                     exact_obs: bool) -> torch.Tensor:
     """The full tick kernel's Q forward in plain PyTorch: (obs_dim, E) →
     (num_actions, E). Every layer but the last (all of a one-layer net)
@@ -217,10 +323,9 @@ def split_forward_t(net_params: DenseQNet, obs_t: torch.Tensor,
     (``exact_obs``, the bf16 ring), else the six products of the two
     three-piece splits (B3's f32 observations, the hidden activations).
     The output layer is f32."""
-    n = net_params.n_layers
+    n = len(chain) // 2
     h = obs_t.float().t()
-    for idx, (w, b) in enumerate(zip(net_params.kernels,
-                                     net_params.biases)):
+    for idx, (w, b) in enumerate(zip(chain[0::2], chain[1::2])):
         w, b = w.detach().float(), b.detach().float()
         if idx < max(n - 1, 1):
             h = _split_product(h, w, exact_obs and idx == 0) + b
@@ -249,12 +354,12 @@ def _env_tick_plain(env_keys, tstate: TState, actions: torch.Tensor,
             dones.t().contiguous(), obs)
 
 
-def _plain_tick_actions(keys, obs, read_slot, net_params, epsilon, params,
+def _plain_tick_actions(keys, obs, read_slot, chain, epsilon, params,
                         actions_override):
     num_envs = keys.shape[0] - 2
     if actions_override is not None:
         return actions_override.to(device=obs.device, dtype=torch.int32)
-    return plain_actions(keys[num_envs], obs, read_slot, net_params,
+    return plain_actions(keys[num_envs], obs, read_slot, chain,
                          epsilon, params, num_envs)[0]
 
 
@@ -264,7 +369,7 @@ def full_tick_ring_plain(
     obs_ring: torch.Tensor,
     read_slot: int,
     write_slot: int,
-    net_params: DenseQNet,
+    chain: Sequence[torch.Tensor],
     epsilon: torch.Tensor,
     do_reset: bool,
     params: EnvParams,
@@ -280,7 +385,7 @@ def full_tick_ring_plain(
     """
     num_envs = tstate.ground.shape[1]
     keys = rng.split(step_key.to(tstate.ground.device), num_envs + 2)
-    actions = _plain_tick_actions(keys, obs_ring, read_slot, net_params,
+    actions = _plain_tick_actions(keys, obs_ring, read_slot, chain,
                                   epsilon, params, actions_override)
     tstate, rewards, dones, obs = _env_tick_plain(
         keys[:num_envs], tstate, actions,
@@ -294,7 +399,7 @@ def full_tick_plain(
     step_key: torch.Tensor,
     tstate: TState,
     obs_t: torch.Tensor,
-    net_params: DenseQNet,
+    chain: Sequence[torch.Tensor],
     epsilon: torch.Tensor,
     do_reset: bool,
     params: EnvParams,
@@ -306,7 +411,7 @@ def full_tick_plain(
     obs_t' (obs_dim, E) f32)``; ``obs_t`` is not written."""
     num_envs = tstate.ground.shape[1]
     keys = rng.split(step_key.to(tstate.ground.device), num_envs + 2)
-    actions = _plain_tick_actions(keys, obs_t, 0, net_params, epsilon,
+    actions = _plain_tick_actions(keys, obs_t, 0, chain, epsilon,
                                   params, actions_override)
     tstate, rewards, dones, obs = _env_tick_plain(
         keys[:num_envs], tstate, actions,
@@ -343,7 +448,7 @@ class _TickArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "obs_in", "obs_out", *_STATE_FIELDS, "eps", *_OUT_FIELDS,
-        "rewards", "dones", "actions")] + [
+        "rewards", "dones", "actions", "scratch")] + [
         ("w", ctypes.c_void_p * MAX_LAYERS),
         ("b", ctypes.c_void_p * MAX_LAYERS),
         ("in_ld", ctypes.c_longlong),
@@ -371,23 +476,25 @@ class EnvArgs(ctypes.Structure):
     ] + _REWARD_FIELDS
 
 
-def kernel_config(params: EnvParams, net_params: DenseQNet):
-    """The full tick kernel's library (B1 and B3): source and compile-time
-    configuration (see ops/_build.py)."""
-    return _build.tick_config(params, net_widths(net_params))
+def kernel_config(params: EnvParams, chain: Sequence[torch.Tensor]):
+    """The full tick kernel's library (B1 and B3) for the actor ``chain``:
+    source and compile-time configuration (see ops/_build.py)."""
+    return _build.tick_config(params, chain_widths(chain))
 
 
-def kernel_occupancy(config, obs_bf16: bool) -> Tuple[int, int]:
-    """The full tick kernel's dynamic shared memory in bytes and its
-    resident blocks per SM on the current card, for the library ``config``
-    (``kernel_config``) with bf16 (B1 on a bf16 ring) or f32
-    observations."""
+def kernel_occupancy(config, obs_bf16: bool) -> Tuple[int, int, int]:
+    """The full tick kernel's dynamic shared memory in bytes, its
+    resident blocks per SM on the current card and its device-memory
+    scratch in bytes a block (0: the activations stay in shared memory),
+    for the library ``config`` (``kernel_config``) with bf16 (B1 on a bf16
+    ring) or f32 observations."""
     lib = _build.load(config)
-    for name in ("full_tick_smem_bytes", "full_tick_blocks_per_sm"):
+    names = ("full_tick_smem_bytes", "full_tick_blocks_per_sm",
+             "full_tick_scratch_bytes")
+    for name in names:
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
-    return (lib.full_tick_smem_bytes(int(obs_bf16)),
-            lib.full_tick_blocks_per_sm(int(obs_bf16)))
+    return tuple(getattr(lib, name)(int(obs_bf16)) for name in names)
 
 
 def env_block_shape(config) -> Dict[str, int]:
@@ -405,30 +512,32 @@ def env_block_shape(config) -> Dict[str, int]:
                      "step_blocks_per_sm"), out))
 
 
-def prepare_kernel(params: EnvParams, net_params: Optional[DenseQNet] = None,
+def prepare_kernel(params: EnvParams,
+                   chain: Optional[Sequence[torch.Tensor]] = None,
                    in_kernel_td: bool = False, env_tick: bool = False):
     """Build (or load) the CUDA kernels for this configuration before the
     first tick, so that the builds stay out of any timed region: the full
-    tick kernel for ``net_params``, with ``in_kernel_td`` the learner
-    kernel too, with ``env_tick`` the env tick kernel (B4)."""
+    tick kernel for the actor ``chain``, with ``in_kernel_td`` the learner
+    kernel for it too (a dense net's chain), with ``env_tick`` the env
+    tick kernel (B4)."""
     configs = []
-    if net_params is not None:
-        configs.append(kernel_config(params, net_params))
+    if chain is not None:
+        configs.append(kernel_config(params, chain))
     if in_kernel_td:
-        configs.append(_build.learner_config(net_widths(net_params)))
+        configs.append(_build.learner_config(chain_widths(chain)))
     if env_tick:
         configs.append(_build.env_config(params))
     _build.build(configs)
     return [_build.load(c) for c in configs]
 
 
-def _check_state(step_key, tstate: TState, params: EnvParams,
-                 hidden_layers=()):
-    """Check a tick's key and state against the kernels' limits; returns
-    (device, num_envs)."""
+def _check_state(step_key, tstate: TState, params: EnvParams, widths=None):
+    """Check a tick's key and state against the kernels' limits (with the
+    actor chain's ``widths``, against the tick kernel's); returns (device,
+    num_envs)."""
     device = tstate.ground.device
     num_envs = tstate.ground.shape[1]
-    problems = kernel_problems(params, num_envs, hidden_layers)
+    problems = kernel_problems(params, num_envs, widths)
     if problems:
         raise ValueError("the CUDA tick kernel does not take this "
                          "configuration: " + "; ".join(problems))
@@ -467,16 +576,18 @@ def _fill_env(a, step_key, tstate: TState, params: EnvParams):
 
 
 def _tick_args(step_key, tstate: TState, obs_in, read_slot: int, obs_out,
-               write_slot: int, net_params: DenseQNet, epsilon,
+               write_slot: int, chain: Sequence[torch.Tensor], epsilon,
                do_reset: bool, params: EnvParams):
     """Check the inputs of a full tick launch (B1 or B3), allocate its
     outputs and fill its argument block. The observation is read from
     ``obs_in``'s columns ``read_slot:read_slot+E`` and written into
-    ``obs_out``'s ``write_slot:write_slot+E``. Returns ``(args, (tstate',
-    rewards, dones, actions))``."""
+    ``obs_out``'s ``write_slot:write_slot+E``. Where the activations do
+    not fit the block's shared memory (``tick_layout``), the block holds
+    its device-memory scratch. Returns ``(args, (tstate', rewards, dones,
+    actions))``."""
     obs_dim = obs_rows(params)
-    widths = net_widths(net_params)
-    device, num_envs = _check_state(step_key, tstate, params, widths[1:-1])
+    widths = chain_widths(chain)
+    device, num_envs = _check_state(step_key, tstate, params, widths)
     if obs_in.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"obs dtype {obs_in.dtype} (float32 or bfloat16)")
     for name, obs, slot in (("obs_in", obs_in, read_slot),
@@ -489,10 +600,11 @@ def _tick_args(step_key, tstate: TState, obs_in, read_slot: int, obs_out,
     if widths[0] != obs_dim or widths[-1] != NUM_ACTIONS:
         raise ValueError(f"Q-net widths {widths}: expected {obs_dim} inputs "
                          f"and {NUM_ACTIONS} outputs")
-    for i, (w, b) in enumerate(zip(net_params.kernels, net_params.biases)):
+    for i, (w, b) in enumerate(zip(chain[0::2], chain[1::2])):
         check_tensor(w, f"kernel_{i}", torch.float32,
                      (widths[i], widths[i + 1]), device)
         check_tensor(b, f"bias_{i}", torch.float32, (widths[i + 1],), device)
+    layout = tick_layout(params, widths, obs_in.dtype == torch.bfloat16)
 
     a = _TickArgs()
     out, rewards, dones = _fill_env(a, step_key, tstate, params)
@@ -500,9 +612,14 @@ def _tick_args(step_key, tstate: TState, obs_in, read_slot: int, obs_out,
     a.obs_in, a.obs_out = obs_in.data_ptr(), obs_out.data_ptr()
     a.eps = epsilon.data_ptr()
     a.actions = actions.data_ptr()
-    for i, (w, b) in enumerate(zip(net_params.kernels, net_params.biases)):
+    for i, (w, b) in enumerate(zip(chain[0::2], chain[1::2])):
         a.w[i] = w.data_ptr()
         a.b[i] = b.data_ptr()
+    if layout["scratch_bytes"]:
+        blocks = -(-num_envs // 64)
+        a.keep = torch.empty(blocks * layout["scratch_bytes"] // 4,
+                             dtype=torch.float32, device=device)
+        a.scratch = a.keep.data_ptr()
     a.in_ld, a.read_col = obs_in.shape[-1], read_slot
     a.out_ld, a.write_col = obs_out.shape[-1], write_slot
     a.obs_bf16 = int(obs_in.dtype == torch.bfloat16)
@@ -511,7 +628,7 @@ def _tick_args(step_key, tstate: TState, obs_in, read_slot: int, obs_out,
 
 
 def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
-                 write_slot: int, net_params: DenseQNet, epsilon,
+                 write_slot: int, chain: Sequence[torch.Tensor], epsilon,
                  do_reset: bool, params: EnvParams):
     """The ring launch's (B1) argument block: the ring is both the
     observation read and the one written, at columns that must not
@@ -521,10 +638,10 @@ def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
     if read_slot != write_slot and abs(read_slot - write_slot) < num_envs:
         raise ValueError("the read and write columns overlap")
     return _tick_args(step_key, tstate, obs_ring, read_slot, obs_ring,
-                      write_slot, net_params, epsilon, do_reset, params)
+                      write_slot, chain, epsilon, do_reset, params)
 
 
-def _full_args(step_key, tstate: TState, obs_t, net_params: DenseQNet,
+def _full_args(step_key, tstate: TState, obs_t, chain: Sequence[torch.Tensor],
                epsilon, do_reset: bool, params: EnvParams):
     """The obs launch's (B3) argument block: ``obs_t`` (obs_dim, E) f32 is
     read, a new array of its shape written. Returns ``(args, (tstate',
@@ -534,7 +651,7 @@ def _full_args(step_key, tstate: TState, obs_t, net_params: DenseQNet,
         raise ValueError(f"obs_t must be float32 (obs_dim, {num_envs})")
     obs_next = torch.empty_like(obs_t)
     a, outs = _tick_args(step_key, tstate, obs_t, 0, obs_next, 0,
-                         net_params, epsilon, do_reset, params)
+                         chain, epsilon, do_reset, params)
     return a, outs + (obs_next,)
 
 
@@ -566,7 +683,7 @@ def full_tick_fused_ring(
     obs_ring: torch.Tensor,
     read_slot: int,
     write_slot: int,
-    net_params: DenseQNet,
+    chain: Sequence[torch.Tensor],
     epsilon: torch.Tensor,
     do_reset: bool,
     params: EnvParams,
@@ -578,15 +695,17 @@ def full_tick_fused_ring(
     """One training tick's env side, writing the next obs into the ring.
 
     ``step_key`` is a host key (2,); ``read_slot``/``write_slot`` are
-    ring columns; ``do_reset`` is a host bool. The ring is written in
-    place (only columns ``write_slot:write_slot+E``). Returns
+    ring columns; ``chain`` is the actor's matmul chain
+    (:func:`flatten_net_params`); ``do_reset`` is a host bool. The ring is
+    written in place (only columns ``write_slot:write_slot+E``). Returns
     ``(tstate', rewards (N, E) f32, dones (N, E) bool, actions (N, E)
     int32, obs_ring)``.
 
     With ``td_hparams = (gamma, lr, b1, b2, eps)`` the TD(0) + Adam step
     runs too (dense nets only), on ``td_batch`` (obs / next_obs (obs_dim,
-    B), actions / rewards / dones (B,)) with ``td_aux = (target_params,
-    mu, nu, can_train, count)``, ``can_train`` a host bool and ``count``
+    B), actions / rewards / dones (B,)) with ``td_aux = (params,
+    target_params, mu, nu, can_train, count)``, ``params`` the dense net
+    whose parameters ``chain`` is, ``can_train`` a host bool and ``count``
     the host Adam count. The return gains ``(params, mu, nu, loss)``:
     params and moments updated in place when ``can_train`` (the caller
     increments the count), untouched otherwise with loss -1. The actor
@@ -601,44 +720,45 @@ def full_tick_fused_ring(
     if collect != 1:
         raise NotImplementedError("collect_drones > 1 is not ported yet")
     td = td_hparams is not None
-    if td and not isinstance(net_params, DenseQNet):
-        raise ValueError("in-kernel TD supports dense networks only")
     if td and (td_batch is None or td_aux is None):
         raise ValueError("in-kernel TD needs td_batch and td_aux")
+    if td and not isinstance(td_aux[0], DenseQNet):
+        raise ValueError("in-kernel TD supports dense networks only")
     if tstate.ground.is_cuda:
         args, outs = _kernel_args(step_key, tstate, obs_ring, read_slot,
-                                  write_slot, net_params, epsilon, do_reset,
+                                  write_slot, chain, epsilon, do_reset,
                                   params)
-        _launch(kernel_config(params, net_params), "full_tick_ring_launch",
+        _launch(kernel_config(params, chain), "full_tick_ring_launch",
                 args, tstate.ground.device)
         full_tick_fused_ring.launches += 1
         out = outs + (obs_ring,)
     else:
         out = full_tick_ring_plain(step_key, tstate, obs_ring, read_slot,
-                                   write_slot, net_params, epsilon, do_reset,
+                                   write_slot, chain, epsilon, do_reset,
                                    params)
     if not td:
         return out
     gamma, lr, b1, b2, adam_eps = td_hparams
-    target_params, mu, nu, can_train, count = td_aux
+    net, target_params, mu, nu, can_train, count = td_aux
     # The learner writes the params in place, so it goes after the tick
     # kernel's actor has read them: the next launch on the same stream.
     loss = learner_kernel.td_adam(
-        td_batch, net_params, target_params, mu, nu, count,
+        td_batch, net, target_params, mu, nu, count,
         learn=bool(can_train), sync_target=False, decay_eps=False,
         epsilon=None, gamma=gamma, lr=lr, b1=b1, b2=b2, adam_eps=adam_eps)
-    return out + (net_params, mu, nu, loss)
+    return out + (net, mu, nu, loss)
 
 
 full_tick_fused_ring.launches = 0
 
 
 def full_tick_fused(step_key: torch.Tensor, tstate: TState,
-                    obs_t: torch.Tensor, net_params: DenseQNet,
+                    obs_t: torch.Tensor, chain: Sequence[torch.Tensor],
                     epsilon: torch.Tensor, do_reset: bool,
                     params: EnvParams, collect: int = 1):
     """The whole env side of a full-engine tick (B3): the ε-greedy actor
-    on ``obs_t`` (obs_dim, E) f32, the physics and respawns, the reset
+    (the matmul ``chain``) on ``obs_t`` (obs_dim, E) f32, the physics and
+    respawns, the reset
     when ``do_reset`` (a host bool), and the next observation into a new
     array. Returns ``(tstate', rewards (N, E) f32, dones (N, E) bool,
     actions (N, E) int32, obs_t' (obs_dim, E) f32)``.
@@ -649,11 +769,11 @@ def full_tick_fused(step_key: torch.Tensor, tstate: TState,
     if collect != 1:
         raise NotImplementedError("collect_drones > 1 is not ported yet")
     if not tstate.ground.is_cuda:
-        return full_tick_plain(step_key, tstate, obs_t, net_params, epsilon,
+        return full_tick_plain(step_key, tstate, obs_t, chain, epsilon,
                                do_reset, params)
-    args, outs = _full_args(step_key, tstate, obs_t, net_params, epsilon,
+    args, outs = _full_args(step_key, tstate, obs_t, chain, epsilon,
                             do_reset, params)
-    _launch(kernel_config(params, net_params), "full_tick_launch", args,
+    _launch(kernel_config(params, chain), "full_tick_launch", args,
             tstate.ground.device)
     full_tick_fused.launches += 1
     return outs

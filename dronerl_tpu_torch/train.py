@@ -23,11 +23,18 @@ drone 0's action, reward and done into a ``replay.StreamReplay``; sample
 and take the TD(0) Adam step once the replay can be sampled; the
 schedules.
 
-Fused engine (:func:`build_train_step_fused`, dense nets). One tick:
-split the host key six ways; random opponents and drone 0's ε-greedy
-action (``DQN.act_t``) drawn on the device; one launch of the env tick
-kernel (B4); push, sample, learn and schedules as the full engine; on a
-reset tick, ``core.reset_batch`` and ``observe_batch`` in plain PyTorch.
+Fused engine (:func:`build_train_step_fused`). One tick: split the host
+key six ways; random opponents and drone 0's ε-greedy action
+(``DQN.act_t``, any net: the CLI runs it for conv nets without
+``--conv_matmul``, whose actor the tick kernels do not run) drawn on the
+device; one launch of the env tick kernel (B4); push, sample, learn and
+schedules as the full engine; on a reset tick, ``core.reset_batch`` and
+``observe_batch`` in plain PyTorch.
+
+The ring and full engines hand the tick kernels the actor as a matmul
+chain (``fused_tick.flatten_net_params``): a dense net's layers, or with
+``conv_matmul`` a conv net's im2col lowering, rebuilt from the live
+weights every tick as the JAX trainers rebuild it.
 
 jnp engine (:func:`build_train_step`, plain PyTorch). One tick: split
 the host key six ways; random opponents and drone 0's ε-greedy action
@@ -50,7 +57,9 @@ Run:  python -m dronerl_tpu_torch.train --num_envs 65536 --num_steps 300
 """
 
 import argparse
+import ast
 import functools
+import json
 import logging
 import math
 import sys
@@ -88,10 +97,15 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
         raise NotImplementedError("collect_drones > 1 is not ported yet")
     if capacity % num_envs != 0 or capacity < 2 * num_envs:
         raise ValueError("capacity must be a multiple of num_envs, >= 2x")
+    _require_kernel_actor(agent, "ring")
+    if in_kernel_td and agent.config.network_type != "dense":
+        raise ValueError(
+            "in_kernel_td requires a dense network (got network_type=%s)"
+            % agent.config.network_type)
     nb = capacity // num_envs  # ring length in ticks
     device = agent.device
     td_hparams = None
-    if in_kernel_td:  # the port's nets are dense, as the TD path needs
+    if in_kernel_td:
         td_hparams = (float(agent.config.gamma),
                       float(agent.config.learning_rate),
                       ADAM_B1, ADAM_B2, ADAM_EPS)  # optax.adam's defaults
@@ -104,9 +118,10 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
 
         read_slot = (step % nb) * num_envs
         write_slot = ((step + 1) % nb) * num_envs
-        args = (step_key, tstate, ring, read_slot, write_slot,
-                ag_state.params, ag_state.epsilon,
-                step % reset_env_every == 0, env_params)
+        chain = fused_tick.flatten_net_params(ag_state.params,
+                                              agent.net_spec)
+        args = (step_key, tstate, ring, read_slot, write_slot, chain,
+                ag_state.epsilon, step % reset_env_every == 0, env_params)
         if td_hparams is not None:
             # The carried batch was gathered after the tick before with
             # valid = min(step, nb-1) columns (zero-seeded at step 0,
@@ -116,8 +131,8 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
             tstate, rewards_t, dones_t, actions_t, ring, _, _, _, loss = (
                 fused_tick.full_tick_fused_ring(
                     *args, td_hparams=td_hparams, td_batch=aux,
-                    td_aux=(ag_state.target_params, adam.mu, adam.nu,
-                            can_train, adam.count)))
+                    td_aux=(ag_state.params, ag_state.target_params,
+                            adam.mu, adam.nu, can_train, adam.count)))
             if can_train:
                 adam.count += 1
         else:
@@ -194,6 +209,16 @@ def init_ring_carry(agent: DQN, env_params: EnvParams, num_envs: int,
     )
 
 
+def _require_kernel_actor(agent: DQN, engine: str) -> None:
+    """The ring and full engines run the actor inside the tick kernel: a
+    dense net, or a conv net's im2col chain (``conv_matmul``)."""
+    if agent.config.network_type == "conv" and agent.net_spec is None:
+        raise ValueError(
+            f"the {engine} engine runs the actor in-kernel; conv networks "
+            "need conv_matmul=True (CLI: --conv_matmul) so the kernel and "
+            "the learner share the im2col contraction structure")
+
+
 # --- the StreamReplay engines -----------------------------------------------
 
 def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
@@ -224,13 +249,16 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
     where the replay holds fewer than a batch of transitions."""
     if collect_drones != 1:
         raise NotImplementedError("collect_drones > 1 is not ported yet")
+    _require_kernel_actor(agent, "full")
 
     def tick(carry):
         rng, tstate, obs_t, ag_state, bstate, step = carry
         rng, step_key, sample_key = rng_mod.split(rng, 3)
+        chain = fused_tick.flatten_net_params(ag_state.params,
+                                              agent.net_spec)
         tstate, rewards_t, dones_t, actions_t, next_obs_t = (
             fused_tick.full_tick_fused(
-                step_key, tstate, obs_t, ag_state.params, ag_state.epsilon,
+                step_key, tstate, obs_t, chain, ag_state.epsilon,
                 step % reset_env_every == 0, env_params))
         bstate, ag_state, loss = _push_and_learn(
             agent, buffer, bstate, ag_state, sample_key, obs_t, actions_t,
@@ -245,11 +273,11 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
 def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
                            env_params: EnvParams, num_envs: int,
                            reset_env_every: int, collect_drones: int = 1):
-    """The fused-engine tick around the env tick kernel (B4), for dense
-    nets: the actions come from outside the kernel (random opponents and
-    drone 0's ``DQN.act_t``, drawn on the device) and the periodic reset
-    runs after the step in plain PyTorch. Carry and outputs as
-    :func:`build_train_step_full`."""
+    """The fused-engine tick around the env tick kernel (B4), for any net:
+    the actions come from outside the kernel (random opponents and drone
+    0's ``DQN.act_t``, drawn on the device; a conv net's own forward) and
+    the periodic reset runs after the step in plain PyTorch. Carry and
+    outputs as :func:`build_train_step_full`."""
     if collect_drones != 1:
         raise NotImplementedError("collect_drones > 1 is not ported yet")
     obs_dim = agent.obs_dim
@@ -390,7 +418,9 @@ def ring_skip_reasons(dense: bool, ring_capacity: int, push_size: int,
     the JAX CLI's ``use_ring`` gate, one reason per failed condition."""
     reasons = []
     if not dense:
-        reasons.append("conv network (the ring engine's actor is dense)")
+        reasons.append(
+            "conv network without --conv_matmul (the im2col lowering lets "
+            "conv nets run in-kernel)")
     if ring_capacity > 4 * push_size:
         reasons.append(
             f"replay ring of {ring_capacity} transitions > 4 env-batches "
@@ -418,13 +448,15 @@ def fused_engine_problems(env_params: EnvParams, num_envs: int) -> list:
 
 
 def choose_engine(args, env_params: EnvParams) -> str:
-    """``"jnp"``, ``"ring"`` or ``"full"``, by the JAX CLI's rule: the jnp
-    engine for ``--engine jnp`` and, under ``auto``, wherever
+    """``"jnp"``, ``"ring"``, ``"full"`` or ``"fused"``, by the JAX CLI's
+    rule: the jnp engine for ``--engine jnp`` and, under ``auto``, wherever
     :func:`fused_engine_problems` finds a reason; else the ring engine
-    when the ring holds at most 4 env-batches (``ring_skip_reasons`` is
-    empty), else the full engine over a StreamReplay. ``--engine fused``
-    on a configuration with problems raises, naming them. Logs the choice
-    and why the faster engines were skipped."""
+    when the ring holds at most 4 env-batches and the actor runs in the
+    kernel (``ring_skip_reasons`` is empty), else over a StreamReplay the
+    full engine where the actor runs in the kernel (a dense net, or a conv
+    net with ``--conv_matmul``) and the fused engine where it does not.
+    ``--engine fused`` on a configuration with problems raises, naming
+    them. Logs the choice and why the faster engines were skipped."""
     problems = fused_engine_problems(env_params, args.num_envs)
     if args.engine == "fused" and problems:
         raise ValueError("--engine fused is not available for this "
@@ -436,9 +468,10 @@ def choose_engine(args, env_params: EnvParams) -> str:
         return "jnp"
     push_size = args.num_envs  # collect_drones = 1
     capacity = math.ceil(args.memory_size / push_size) * push_size
-    skip = ring_skip_reasons(True, max(capacity, 2 * push_size), push_size,
+    dense = args.network_type == "dense" or args.conv_matmul
+    skip = ring_skip_reasons(dense, max(capacity, 2 * push_size), push_size,
                              args.batch_size, 1)
-    engine = "full" if skip else "ring"
+    engine = "ring" if not skip else ("full" if dense else "fused")
     logger.info("Engine: %s", engine)
     if skip:
         logger.info("Ring engine skipped (%s)", "; ".join(skip))
@@ -452,6 +485,7 @@ def env_params_from_args(args) -> EnvParams:
         n_drones=args.n_drones,
         grid_size=args.grid_size,
         window_radius=args.window_radius,
+        wrapper=args.wrapper,
         pickup_reward=args.pickup_reward,
         delivery_reward=args.delivery_reward,
         crash_reward=args.crash_reward,
@@ -473,7 +507,11 @@ def agent_config_from_args(args) -> DQNConfig:
     else:
         eps_decay = args.epsilon_decay
     return DQNConfig(
+        network_type=args.network_type,
+        conv_matmul=args.conv_matmul,
         hidden_layers=tuple(args.hidden_layers),
+        conv_layers=args.conv_layers,
+        conv_dense_layers=tuple(args.conv_dense_layers),
         target_update_interval=args.target_update_interval,
         epsilon_start=args.epsilon_start,
         epsilon_decay=eps_decay,
@@ -484,6 +522,22 @@ def agent_config_from_args(args) -> DQNConfig:
     )
 
 
+def parse_conv_layers(value: str):
+    """``--conv_layers``: a JSON (or Python literal) list of conv layer
+    dicts, or one dict."""
+    try:
+        layers = json.loads(value)
+    except json.JSONDecodeError:
+        try:
+            layers = ast.literal_eval(value)
+        except (SyntaxError, ValueError):
+            raise argparse.ArgumentTypeError(
+                f"Invalid format for conv_layers: {value}")
+    if isinstance(layers, dict):
+        return (layers,)
+    return tuple(layers)
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="DQN training (PyTorch/CUDA port)",
@@ -492,6 +546,8 @@ def parse_args(argv=None):
     p.add_argument("--n_drones", type=int, default=4)
     p.add_argument("--grid_size", type=int, default=9)
     p.add_argument("--window_radius", type=int, default=3)
+    p.add_argument("--wrapper", choices=["window", "global"],
+                   default="window")
     p.add_argument("--packets_factor", type=int, default=3)
     p.add_argument("--dropzones_factor", type=int, default=2)
     p.add_argument("--stations_factor", type=int, default=2)
@@ -506,7 +562,19 @@ def parse_args(argv=None):
     p.add_argument("--num_steps", type=int, default=1000)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--memory_size", type=int, default=100_000)
+    p.add_argument("--network_type", choices=["dense", "conv"],
+                   default="dense")
     p.add_argument("--hidden_layers", nargs="+", type=int, default=(16, 16))
+    p.add_argument(
+        "--conv_layers", type=parse_conv_layers,
+        default='[{"kernel_size": 3, "out_channels": 8, "padding": 1, '
+        '"stride": 1}]')
+    p.add_argument("--conv_dense_layers", nargs="+", type=int, default=())
+    p.add_argument("--conv_matmul", action="store_true",
+                   help="compute conv layers as im2col weight matrices "
+                   "(ops/conv2mat.py): the same parameters, float sums in "
+                   "matmul order; lets the ring and full engines run a "
+                   "conv net's actor in the tick kernel")
     p.add_argument("--learning_rate", type=float, default=1e-3)
     p.add_argument("--gamma", type=float, default=0.9)
     p.add_argument("--epsilon_start", type=float, default=1.0)
@@ -524,16 +592,18 @@ def parse_args(argv=None):
                    help="auto: the jnp engine where the fused kernels do "
                    "not apply (fewer than 128 envs, or not a multiple of "
                    "128), else, as with fused, the ring engine when the "
-                   "replay holds at most 4 env-batches and the full "
-                   "engine over a StreamReplay otherwise; jnp: plain "
-                   "PyTorch over a row-major ReplayBuffer")
+                   "replay holds at most 4 env-batches and the actor runs "
+                   "in the kernel, and otherwise over a StreamReplay the "
+                   "full engine, or for a conv net without --conv_matmul "
+                   "the fused engine; jnp: plain PyTorch over a row-major "
+                   "ReplayBuffer")
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernel) or cpu (the plain PyTorch path)")
     args, unknown = p.parse_known_args(argv)
     if unknown:
         raise SystemExit(
-            "not supported by the PyTorch port yet (dense nets and "
-            "collect_drones=1 only): "
+            "not supported by the PyTorch port yet (collect_drones=1 "
+            "only): "
             + " ".join(unknown))
     if args.num_envs <= 0:
         raise ValueError("num_envs must be >= 1")
@@ -577,12 +647,17 @@ def train(args) -> dict:
                     ring_capacity, device)
         buffer = replay.StreamReplay(ring_capacity, args.batch_size,
                                      stride=num_envs)
-        tick = build_train_step_full(agent, buffer, env_params, num_envs,
-                                     args.reset_env_every)
+        build = (build_train_step_full if engine == "full"
+                 else build_train_step_fused)
+        tick = build(agent, buffer, env_params, num_envs,
+                     args.reset_env_every)
         carry = init_stream_carry(agent, env_params, num_envs, buffer, rng)
     if device.type == "cuda" and engine != "jnp":
         t0 = time.perf_counter()
-        fused_tick.prepare_kernel(env_params, carry[3].params)
+        fused_tick.prepare_kernel(
+            env_params, None if engine == "fused" else
+            fused_tick.flatten_net_params(carry[3].params, agent.net_spec),
+            env_tick=engine == "fused")
         logger.info("kernel ready in %.1fs", time.perf_counter() - t0)
         torch.cuda.synchronize(device)
 

@@ -5,7 +5,8 @@ Builds variants of a copy of the full tick kernel's sources (B1 and B3,
 out by a text patch, and times every variant's ring launch (B1, bf16
 ring) by CUDA events over launches of one prebuilt argument block, at
 the bench shapes (65,536 envs, grid 9, 4 drones, radius 3) for the
-(16,16) and (128,64) nets, every env greedy (ε = 0). The difference to
+(16,16) and (128,64) nets (``--nets``; ``conv5`` is dqn-agent-5's conv
+net as its im2col chain 294→392→16→5), every env greedy (ε = 0). The difference to
 the unpatched build is the part's share. The patches break the kernel's
 results on purpose: they live here, never in the package's sources.
 
@@ -42,6 +43,7 @@ machine with a CUDA card, from the repository root:
     python scripts/torch_tick_ablation.py --gen thread \\
         --src .archive/thread/dronerl_tpu_torch/ops/csrc
     python scripts/torch_tick_ablation.py --gen warp
+    python scripts/torch_tick_ablation.py --gen warp --nets conv5
 """
 
 import argparse
@@ -66,7 +68,12 @@ from dronerl_tpu_torch.ops import _build, fused_tick  # noqa: E402
 
 NUM_ENVS = 65536
 LAUNCHES = 50
-NETS = ((16, 16), (128, 64))
+NETS = {
+    "16x16": DQNConfig(hidden_layers=(16, 16)),
+    "128x64": DQNConfig(hidden_layers=(128, 64)),
+    "conv5": DQNConfig(network_type="conv", conv_matmul=True,
+                       conv_dense_layers=(16,)),
+}
 
 # The occupancy query appended to a copy of the one-thread-per-env kernel
 # (the current kernel exports its own).
@@ -154,17 +161,17 @@ PATCHES = {
         ],
         "w_once": [
             ("full_tick.cu",
-             "    stage_w<L, CHUNK>(frag, w, s0, steps);",
-             "    if (s0 == 0) stage_w<L, CHUNK>(frag, w, s0, steps);"),
+             "    stage_w<L, CHUNK>(frag, w, s0, steps, p * M::NTP * 8);",
+             "    if (s0 == 0) stage_w<L, CHUNK>(frag, w, s0, steps, p * M::NTP * 8);"),
         ],
         "w_once_no_sync": [
             ("full_tick.cu",
              "    __syncthreads();  // the previous chunk's fragments are read\n"
-             "    stage_w<L, CHUNK>(frag, w, s0, steps);\n"
+             "    stage_w<L, CHUNK>(frag, w, s0, steps, p * M::NTP * 8);\n"
              "    __syncthreads();",
              "    if (s0 == 0) {\n"
              "      __syncthreads();\n"
-             "      stage_w<L, CHUNK>(frag, w, s0, steps);\n"
+             "      stage_w<L, CHUNK>(frag, w, s0, steps, p * M::NTP * 8);\n"
              "      __syncthreads();\n"
              "    }"),
         ],
@@ -180,8 +187,8 @@ PATCHES = {
         ],
         "no_obs_read": [
             ("full_tick.cu",
-             "    Tile::template stage_rows<Raw, Lay::S>(raw, static_cast<const Raw*>(a.obs_in), "
-             "a.in_ld,\n                                           a.read_col + e0, OBS, ne);",
+             "      Tile::template stage_rows<Raw, Lay::S>(raw, static_cast<const Raw*>(a.obs_in), "
+             "a.in_ld,\n                                             a.read_col + e0, OBS, ne);",
              ""),
         ],
         "no_output_layer": [
@@ -252,11 +259,13 @@ def ptxas_summary(log: str):
     return {"functions": out, "registers": regs, "static_smem": smem}
 
 
-def ring_block(hidden, params, device, eps_value):
-    """A prebuilt ring-launch block at NUM_ENVS envs: bf16 ring of 2E
-    columns, read 0, write E. Returns (block, buffers to keep alive)."""
-    agent = DQN(DQNConfig(hidden_layers=hidden), params, device=device)
+def ring_block(net, params, device, eps_value):
+    """A prebuilt ring-launch block at NUM_ENVS envs for the net of
+    ``NETS[net]``: bf16 ring of 2E columns, read 0, write E. Returns
+    (block, buffers to keep alive)."""
+    agent = DQN(NETS[net], params, device=device)
     st = agent.init_state(torch.Generator().manual_seed(0))
+    chain = fused_tick.flatten_net_params(st.params, agent.net_spec)
     state = core.reset_batch(rng.PRNGKey(1).to(device), params, NUM_ENVS)
     obs_dim = fused_tick.obs_rows(params)
     ring = torch.zeros((obs_dim, 2 * NUM_ENVS), dtype=torch.bfloat16,
@@ -266,8 +275,8 @@ def ring_block(hidden, params, device, eps_value):
     eps = torch.tensor(eps_value, device=device)
     block, outs = fused_tick._kernel_args(
         rng.PRNGKey(7), fused_tick.to_tstate(state), ring, 0, NUM_ENVS,
-        st.params, eps, False, params)
-    return block, (outs, ring, eps, st, state)
+        chain, eps, False, params)
+    return block, (outs, ring, eps, st, state, chain)
 
 
 def time_launches(launch, block) -> float:
@@ -295,6 +304,8 @@ def main() -> None:
                     help="the kernel sources to copy and patch")
     ap.add_argument("--out", default=os.path.join(_build.BUILD_DIR, "ablation"))
     ap.add_argument("--variants", nargs="*", default=None)
+    ap.add_argument("--nets", nargs="*", choices=sorted(NETS),
+                    default=["16x16", "128x64"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -303,7 +314,11 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     params = EnvParams(grid_size=9, n_drones=4, window_radius=3)
-    obs_dim = fused_tick.obs_rows(params)
+    widths = {}
+    for net in args.nets:
+        agent = DQN(NETS[net], params, device="cpu")
+        widths[net] = fused_tick.chain_widths(fused_tick.flatten_net_params(
+            agent.init_state(torch.Generator()).params, agent.net_spec))
     variants = args.variants or list(PATCHES[args.gen])
 
     # Build every (variant, net) library at once, one nvcc each.
@@ -311,9 +326,9 @@ def main() -> None:
     for v in variants:
         src = os.path.join(args.out, args.gen, v, "csrc")
         make_variant(args.src, src, PATCHES[args.gen][v], args.gen)
-        for hidden in NETS:
-            defines = _build.tick_defines(params, (obs_dim, *hidden, 5))
-            lib = os.path.join(args.out, args.gen, v, f"lib_{hidden[0]}x{hidden[1]}.so")
+        for hidden in args.nets:
+            defines = _build.tick_defines(params, widths[hidden])
+            lib = os.path.join(args.out, args.gen, v, f"lib_{hidden}.so")
             cmd = ([_build.nvcc_path(), _build.ARCH, "-std=c++17", "-O3", "-shared",
                     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
                    + [f"-D{k}={val}" for k, val in defines]
@@ -334,7 +349,7 @@ def main() -> None:
         ptxas[key] = ptxas_summary(log)
 
     rows = []
-    for hidden in NETS:
+    for hidden in args.nets:
         greedy = ring_block(hidden, params, device, 0.0)
         random_ = ring_block(hidden, params, device, 1.0)
         order = [("base", greedy)] + [(v, greedy) for v in variants if v != "base"] + [
@@ -345,7 +360,7 @@ def main() -> None:
             lib = libs[(v, hidden)]
             ms = time_launches(lib.full_tick_ring_launch, block)
             eps = float(_keep[2])
-            row = {"gen": args.gen, "net": list(hidden), "variant": v, "eps": eps,
+            row = {"gen": args.gen, "net": hidden, "variant": v, "eps": eps,
                    "ms": ms, "blocks_per_sm": lib.full_tick_blocks_per_sm(1),
                    "ptxas": ptxas[(v, hidden)]}
             rows.append(row)

@@ -159,7 +159,7 @@ def main(argv=None):
         carry = train.init_stream_carry(agent, params, num_envs, buf,
                                         rng.PRNGKey(0))
     fused_tick.prepare_kernel(
-        params, None if args.engine == "fused" else carry[3].params,
+        params, None if args.engine == "fused" else carry[3].params.flat(),
         in_kernel_td=td, env_tick=args.engine == "fused")
     for _ in range(10):
         carry, _ = tick(carry)

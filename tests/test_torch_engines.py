@@ -97,8 +97,8 @@ def test_full_tick_plain_matches_jax_kernel():
             jnp.asarray(t == 1), jp, 1, True)
         before = tobs.clone()
         tout = fused_tick.full_tick_fused(
-            _host_key(step_key), tts, tobs, net, torch.tensor(eps), t == 1,
-            tp)
+            _host_key(step_key), tts, tobs, net.flat(), torch.tensor(eps),
+            t == 1, tp)
         _assert_tstate_equal(jout[0], tout[0], t)
         for i in (1, 2, 3):
             assert (np.asarray(jout[i]) == tout[i].numpy()).all(), (t, i)

@@ -238,11 +238,27 @@ def test_single_env_reset():
     assert_state_equal(jcore.reset(key, jp), tcore.reset(_key(key), tp))
 
 
-def test_global_wrapper_not_ported():
-    tp = TParams(wrapper="global")
-    ts = tcore.reset_batch(rng.PRNGKey(0), tp, 2)
-    with pytest.raises(NotImplementedError):
-        tcore.observe_batch(ts, tp)
+def test_global_observe_batch_matches_jax():
+    """``wrapper="global"``: the whole board, one grid for every drone
+    (and for the first ``limit``), bitwise but the charge channel, after
+    a reset and after steps of random actions."""
+    kw = dict(grid_size=9, n_drones=4, wrapper="global")
+    jp, tp = JParams(**kw), TParams(**kw)
+    key = jax.random.PRNGKey(4)
+    js = _jreset(key, jp, 32)
+    ts = tcore.reset_batch(_key(key), tp, 32)
+    acts_rng = np.random.default_rng(1)
+    for t in range(4):
+        obs = tcore.observe_batch(ts, tp)
+        assert tuple(obs.shape) == (32, 4, 9, 9, 6)
+        assert_obs_equal(_jobserve(js, jp, None), obs, t)
+        assert_obs_equal(_jobserve(js, jp, 1), tcore.observe_batch(ts, tp, 1),
+                         t)
+        key, sk = jax.random.split(key)
+        keys = jax.random.split(sk, 32)
+        acts = acts_rng.integers(0, NUM_ACTIONS, (32, 4)).astype(np.int32)
+        js, _, _ = _jstep(keys, js, jnp.asarray(acts), jp)
+        ts, _, _ = tcore.step_batch(_key(keys), ts, torch.from_numpy(acts), tp)
 
 
 def test_tstate_roundtrip_matches_jax():

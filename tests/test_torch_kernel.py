@@ -38,7 +38,8 @@ def _kernel_inputs(hidden=(16, 16), dtype=torch.float32):
     st = ta.init_state(torch.Generator().manual_seed(0))
     ts = fused_tick.to_tstate(core.reset_batch(rng.PRNGKey(0), tp, E))
     ring = torch.zeros((294, 2 * E), dtype=dtype)
-    return [rng.PRNGKey(9), ts, ring, 0, E, st.params, st.epsilon, True, tp]
+    return [rng.PRNGKey(9), ts, ring, 0, E, st.params.flat(), st.epsilon,
+            True, tp]
 
 
 def test_kernel_args_block():
@@ -57,7 +58,7 @@ def test_kernel_args_block():
     assert (block.num_envs, block.do_reset) == (E, 1)
     assert [block.key0, block.key1] == key.tolist()
     assert [block.w[i] for i in range(3)] == [
-        w.data_ptr() for w in net.kernels]
+        w.data_ptr() for w in net[0::2]]
     assert block.w[3] is None
     assert block.crash_reward == tp.crash_reward
     assert ctypes.c_float(tp.charge_reward).value == block.charge_reward
@@ -82,10 +83,10 @@ def test_kernel_args_reject(case):
     elif case == "slot":
         args[4] = 2 * E
     elif case == "wrapper":
-        args[8] = EnvParams(wrapper="global", **KW)
+        args[8] = EnvParams(wrapper="compass", **KW)
     elif case == "widths":
         args[5] = DQN(DQNConfig(hidden_layers=(16,) * 8), args[8],
-                      device="cpu").make_net()
+                      device="cpu").make_net().flat()
     elif case == "host_key":
         args[0] = args[0][None]
     with pytest.raises(ValueError):
@@ -120,7 +121,7 @@ def test_kernel_matches_plain_on_card(dtype):
     dev = _card()
     key, ts, ring, _, _, net, eps, _, tp = _kernel_inputs(dtype=dtype)
     ts = fused_tick.TState(*(t.to(dev) for t in ts))
-    ring, net = ring.to(dev), net.to(dev)
+    ring, net = ring.to(dev), [t.to(dev) for t in net]
     eps = torch.tensor(0.0, device=dev)
     launches = fused_tick.full_tick_fused_ring.launches
     for t in range(3):
@@ -153,7 +154,7 @@ def test_kernel_ragged_envs_on_card(dtype):
     num_envs = 100
     tp = EnvParams(**KW)
     net = DQN(DQNConfig(hidden_layers=(16, 16)), tp, device=dev).init_state(
-        torch.Generator().manual_seed(0)).params
+        torch.Generator().manual_seed(0)).params.flat()
     ts = fused_tick.to_tstate(core.reset_batch(rng.PRNGKey(1).to(dev), tp,
                                                num_envs))
     ring = torch.rand((294, 3 * num_envs), generator=torch.Generator(
@@ -467,7 +468,7 @@ def test_full_tick_kernel_matches_plain_on_card():
     dev = _card()
     key, ts, _, _, _, net, _, _, tp = _kernel_inputs(hidden=(128, 64))
     ts = fused_tick.TState(*(t.to(dev) for t in ts))
-    net = net.to(dev)
+    net = [t.to(dev) for t in net]
     state = core.reset_batch(rng.PRNGKey(4).to(dev), tp, E)
     obs_t = core.observe_batch(state, tp, 1).reshape(E, 294).t().contiguous()
     eps = torch.tensor(0.5, device=dev)
@@ -606,3 +607,173 @@ def test_stream_engine_on_card_matches_cpu(engine):
         np.testing.assert_allclose(b.detach().cpu().numpy(),
                                    a.detach().numpy(), rtol=0, atol=1e-5)
     assert counter.launches == launches + 4
+
+
+# --- the conv family and the global observation ------------------------------
+
+_CONV5 = dict(network_type="conv", conv_matmul=True, conv_dense_layers=(16,))
+_CONV32 = dict(network_type="conv", conv_matmul=True, conv_layers=(
+    {"kernel_size": 3, "out_channels": 32, "padding": 1, "stride": 1},))
+# (wrapper, grid, net, the full tick kernel's variant with bf16 / f32
+# observations): the window conv's 392 hidden units fit shared memory, a
+# conv on the global 9 x 9 board does not (its activations go to device
+# memory), and on the global 16 x 16 board the observation tile does not.
+CHAIN_CASES = {
+    "window_conv5": ("window", 9, _CONV5, ("shared", "shared")),
+    "global_dense": ("global", 9, dict(hidden_layers=(16, 16)),
+                     ("shared", "shared")),
+    "global_conv5": ("global", 9, _CONV5, ("device", "device")),
+    "global_conv32": ("global", 9, _CONV32, ("device", "device")),
+    "global16_dense": ("global", 16, dict(hidden_layers=(16, 16)),
+                       ("device_obs", "device_obs")),
+}
+
+
+def _chain_case(case, device="cpu"):
+    wrapper, grid, net, _ = CHAIN_CASES[case]
+    tp = EnvParams(grid_size=grid, n_drones=4, wrapper=wrapper)
+    agent = DQN(DQNConfig(**net), tp, device=device)
+    st = agent.init_state(rng.PRNGKey(0))
+    return tp, fused_tick.flatten_net_params(st.params, agent.net_spec)
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_tick_layout_variants(case):
+    """The tick kernel's block for each chain: the variant, and a scratch
+    exactly where the activations leave shared memory."""
+    tp, chain = _chain_case(case)
+    widths = fused_tick.chain_widths(chain)
+    for bf16, variant in zip((True, False), CHAIN_CASES[case][3]):
+        layout = fused_tick.tick_layout(tp, widths, bf16)
+        assert layout["variant"] == variant
+        assert layout["smem_bytes"] <= fused_tick.SMEM_LIMIT
+        assert (layout["scratch_bytes"] > 0) == (variant != "shared")
+    # The bench nets keep the blocks the kernel's header states.
+    bench = EnvParams(**KW)
+    assert [fused_tick.tick_layout(bench, (294, *h, 5), bf16)["smem_bytes"]
+            for h in ((16, 16), (128, 64)) for bf16 in (True, False)] == [
+        82848, 109472, 90272, 109472]
+
+
+def test_kernel_args_block_scratch():
+    """A chain whose activations do not fit shared memory: the block holds
+    a device-memory scratch of the layout's bytes for each block of 64."""
+    tp, chain = _chain_case("global_conv32")
+    ts = fused_tick.to_tstate(core.reset_batch(rng.PRNGKey(0), tp, 100))
+    obs = torch.zeros((486, 100), dtype=torch.float32)
+    block, _ = fused_tick._full_args(rng.PRNGKey(1), ts, obs, chain,
+                                     torch.tensor(0.5), False, tp)
+    per_block = fused_tick.tick_layout(tp, (486, 2592, 5), False)[
+        "scratch_bytes"]
+    assert block.keep.numel() * 4 == 2 * per_block
+    assert block.scratch == block.keep.data_ptr()
+    tp, chain = _chain_case("global_dense")
+    ts = fused_tick.to_tstate(core.reset_batch(rng.PRNGKey(0), tp, 100))
+    block, _ = fused_tick._full_args(rng.PRNGKey(1), ts, obs, chain,
+                                     torch.tensor(0.5), False, tp)
+    assert block.scratch is None
+
+
+def test_build_defines_global():
+    """The global observation is one define more; a window build's set is
+    unchanged."""
+    window = dict(_build.env_defines(EnvParams(**KW)))
+    glob = dict(_build.env_defines(EnvParams(wrapper="global", **KW)))
+    assert "DR_GLOBAL" not in window and glob.pop("DR_GLOBAL") == "1"
+    assert glob == window
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_envs", [E, 100])
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_chain_kernels_match_plain_on_card(case, num_envs):
+    """B1 (bf16 ring) and B3 (f32) with each chain against their plain
+    versions, 3 ticks with a reset at tick 1, ε = 0.5: env outputs bitwise,
+    charge within 1.3e-7, actions equal outside near ties; the library's
+    shared memory and scratch as ``tick_layout`` says."""
+    dev = _card()
+    tp, chain = _chain_case(case, dev)
+    widths = fused_tick.chain_widths(chain)
+    cfg = fused_tick.kernel_config(tp, chain)
+    for bf16 in (True, False):
+        smem, _, scratch = fused_tick.kernel_occupancy(cfg, bf16)
+        layout = fused_tick.tick_layout(tp, widths, bf16)
+        assert (smem, scratch) == (layout["smem_bytes"],
+                                   layout["scratch_bytes"])
+    eps = torch.tensor(0.5, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        state = core.reset_batch(rng.PRNGKey(4).to(dev), tp, num_envs)
+        ts = fused_tick.to_tstate(state)
+        obs0 = core.observe_batch(state, tp, 1).reshape(
+            num_envs, -1).t().contiguous()
+        obs = torch.zeros((widths[0], 3 * num_envs), dtype=dtype,
+                          device=dev)
+        obs[:, :num_envs] = obs0.to(dtype)
+        key = rng.PRNGKey(5)
+        for t in range(3):
+            key, step_key = rng.split(key, 2)
+            if dtype == torch.bfloat16:
+                read, write = (t % 3) * num_envs, ((t + 1) % 3) * num_envs
+                obs_p = obs.clone()
+                out_k = fused_tick.full_tick_fused_ring(
+                    step_key, ts, obs, read, write, chain, eps, t == 1, tp)
+                out_p = fused_tick.full_tick_ring_plain(
+                    step_key, ts, obs_p, read, write, chain, eps, t == 1, tp,
+                    actions_override=out_k[3])
+                next_k, next_p = (o[:, write:write + num_envs]
+                                  for o in (obs, obs_p))
+                assert torch.equal(obs, obs_p) or torch.equal(
+                    obs[:, read:read + num_envs],
+                    obs_p[:, read:read + num_envs])
+                obs_in = obs_p
+            else:
+                read, obs_in = 0, obs0
+                out_k = fused_tick.full_tick_fused(
+                    step_key, ts, obs0, chain, eps, t == 1, tp)
+                out_p = fused_tick.full_tick_plain(
+                    step_key, ts, obs0, chain, eps, t == 1, tp,
+                    actions_override=out_k[3])
+                next_k, next_p = out_k[4], out_p[4]
+            for a, b in zip(out_k[0], out_p[0]):
+                assert torch.equal(a, b), (dtype, t)
+            assert torch.equal(out_k[1], out_p[1])
+            assert torch.equal(out_k[2], out_p[2])
+            diff = (next_k.float() - next_p.float()).abs().reshape(
+                -1, 6, num_envs)
+            assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0, (dtype, t)
+            assert float(diff[:, 4].max()) <= CHARGE_ATOL, (dtype, t)
+            act_p, q = fused_tick.plain_actions(
+                rng.split(step_key.to(dev), num_envs + 2)[num_envs], obs_in,
+                read, chain, eps, tp, num_envs)
+            differ = (out_k[3] != act_p).any(dim=0)
+            assert not bool((differ & ~_near_tie(q)).any()), (dtype, t)
+            ts = out_k[0]
+            if dtype == torch.float32:
+                obs0 = out_k[4]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [9, 16])
+def test_env_tick_kernel_global_on_card(grid):
+    """B4 with the global observation against ``tick_plain``, 3 ticks of
+    random actions at 100 envs: env outputs bitwise, charge within
+    1.3e-7."""
+    dev = _card()
+    tp = EnvParams(grid_size=grid, n_drones=4, wrapper="global")
+    ts = fused_tick.to_tstate(core.reset_batch(rng.PRNGKey(0).to(dev), tp,
+                                               100))
+    key = rng.PRNGKey(1)
+    for t in range(3):
+        key, act_key, step_key = rng.split(key, 3)
+        actions = rng.randint(act_key.to(dev), (4, 100), 0, 5)
+        out_k = fused_tick.tick_fused(step_key, ts, actions, tp)
+        out_p = fused_tick.tick_plain(step_key, ts, actions, tp)
+        for a, b in zip(out_k[0], out_p[0]):
+            assert torch.equal(a, b), t
+        assert torch.equal(out_k[1], out_p[1])
+        assert torch.equal(out_k[2], out_p[2])
+        diff = (out_k[3] - out_p[3]).abs().reshape(-1, 6, 100)
+        assert tuple(out_k[3].shape) == (grid * grid * 6, 100)
+        assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0, t
+        assert float(diff[:, 4].max()) <= CHARGE_ATOL, t
+        ts = out_k[0]

@@ -82,7 +82,7 @@ def test_plain_tick_matches_jax_kernel(dtype):
             interpret=True)
         before = tring.clone()
         tout = fused_tick.full_tick_fused_ring(
-            _host_key(step_key), tts, tring, read, write, net,
+            _host_key(step_key), tts, tring, read, write, net.flat(),
             torch.tensor(eps), do_reset, tp)
         _assert_tick_equal(jout, tout, (dtype, t))
         assert torch.equal(tring[:, read:read + E], before[:, read:read + E])
@@ -96,12 +96,12 @@ def test_plain_actions_explore_and_greedy():
     net = from_jax.qnet_from_flax(jax.device_get(ag.params))
     tring = from_jax.tensor(jax.device_get(jring))
     key = rng.split(rng.PRNGKey(3), E + 2)[E]
-    greedy, q = fused_tick.plain_actions(key, tring, 0, net,
+    greedy, q = fused_tick.plain_actions(key, tring, 0, net.flat(),
                                          torch.tensor(0.0), tp, E)
     ref_q = np.asarray(ja.q_values_t(ag.params, jring[:, :E]))
     np.testing.assert_allclose(q.numpy(), ref_q, rtol=1e-6, atol=1e-6)
     assert (greedy[0].numpy() == ref_q.argmax(axis=0)).all()
-    random, _ = fused_tick.plain_actions(key, tring, 0, net,
+    random, _ = fused_tick.plain_actions(key, tring, 0, net.flat(),
                                          torch.tensor(1.0), tp, E)
     u, rand = fused_tick.actor_uniforms(key, tp.n_drones, E)
     assert torch.equal(random, rand) and torch.equal(greedy[1:], rand[1:])

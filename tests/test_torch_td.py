@@ -113,10 +113,10 @@ def test_td_tick_matches_jax(can_train):
     tout = fused_tick.full_tick_fused_ring(
         torch.from_numpy(np.asarray(step_key).astype(np.int64)),
         from_jax.tstate_from_jax(jax.device_get(jts)),
-        from_jax.tensor(jax.device_get(jring)), 0, E, net,
+        from_jax.tensor(jax.device_get(jring)), 0, E, net.flat(),
         torch.tensor(0.5), False, tp, td_hparams=TD_HPARAMS,
         td_batch=from_jax.batch_from_jax(batch),
-        td_aux=(target, tmu, tnu, can_train, count))
+        td_aux=(net, target, tmu, tnu, can_train, count))
     _assert_env_equal(jout, tout, can_train)
     new_params, new_mu, new_nu, loss = tout[5:]
     assert new_params is net and new_mu is tmu and new_nu is tnu
@@ -211,11 +211,11 @@ def test_in_kernel_td_guards():
     _, (tstate, ring), _, ag, _, _ = carry
     with pytest.raises(ValueError, match="dense"):
         fused_tick.full_tick_fused_ring(
-            rng.PRNGKey(1), tstate, ring, 0, E, torch.nn.Linear(294, 5),
+            rng.PRNGKey(1), tstate, ring, 0, E, ag.params.flat(),
             ag.epsilon, False, tp, td_hparams=TD_HPARAMS, td_batch=aux,
-            td_aux=(ag.target_params, ag.opt_state.mu, ag.opt_state.nu, True,
-                    0))
+            td_aux=(torch.nn.Linear(294, 5), ag.target_params,
+                    ag.opt_state.mu, ag.opt_state.nu, True, 0))
     with pytest.raises(ValueError, match="td_batch"):
         fused_tick.full_tick_fused_ring(
-            rng.PRNGKey(1), tstate, ring, 0, E, ag.params, ag.epsilon, False,
-            tp, td_hparams=TD_HPARAMS)
+            rng.PRNGKey(1), tstate, ring, 0, E, ag.params.flat(), ag.epsilon,
+            False, tp, td_hparams=TD_HPARAMS)

@@ -124,7 +124,7 @@ def test_split_forward_argmax_matches_f32(hidden, obs_dtype):
     assert bool(((charge > 0) & (charge < 1)).any())  # inexact in bf16
     with torch.no_grad():
         q_ref = net.forward_t(obs)
-        q = fused_tick.split_forward_t(net, obs,
+        q = fused_tick.split_forward_t(net.flat(), obs,
                                        exact_obs=obs_dtype == torch.bfloat16)
     scale = q_ref.abs().amax(dim=0)
     assert float(((q - q_ref).abs() / scale).max()) <= NEAR_TIE / 2
