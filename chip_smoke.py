@@ -105,6 +105,27 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 4h. run the CLI with ``--network_type conv --conv_matmul`` at 16,384 envs
    (the full engine: B3's launches equal its steps) and with
    ``--network_type conv --wrapper global`` at 64 (the jnp engine);
+3i. ``collect_drones > 1`` and ``--fast_rng``'s round counts (CASES_3I: the
+   window with 4 drones collected and the global board with 2, each at
+   --fast_rng off (20, None), actor (20, 8) and full (8, None), and one
+   drone at actor and full): B1 on bf16 and f32 rings, B3 and B4 against
+   their plain versions at 65,536 envs for both nets, 8 ticks with a reset
+   tick: env outputs bitwise, every one of the k observation row groups
+   bitwise but the charge channel (within 1.3e-7), actions equal outside
+   near ties; then every build timed over 50 launches of a prebuilt block
+   beside the k = 1, 20-round build on the same state, with its bound
+   (the observation's rows read once and its k row groups written, the
+   hashes at their round counts), its ptxas line, layout variant and
+   blocks per SM (phase 2 fails where one of these builds spills);
+4i. drive the ring engine (default and ``in_kernel_td``), the full engine
+   (memory 1,000,000) and the fused engine with ``--collect_drones 4`` at
+   65,536 envs, and with one drone the ring and full engines at
+   ``--fast_rng actor`` and ``full`` and the fused engine at ``full``,
+   each as phase 4 measures it (obs/s beside phase 4's); every other
+   build of 3i for COLLECT_DRIVE ticks; the CLI with ``--collect_drones
+   4`` at 16,384 envs (``--memory_size 1000000``: the full engine) and at
+   64 (the jnp engine): launches equal ticks, losses finite, params move,
+   ε decays, the replay takes E · k transitions a tick;
 5. print the kernel table line, the card line, and the result line last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -187,6 +208,21 @@ CHAIN_TICKS = 3            # phase 3g: ticks of each kernel against plain
 CHAIN_DRIVE = 12           # phase 4g: ticks of each drive
 CHAIN_STREAM = 4 * NUM_ENVS + NUM_ENVS  # a StreamReplay past the ring gate
 CLI_CONV_STEPS = 5
+# collect_drones > 1 and --fast_rng's round counts (phases 3i and 4i): the
+# window with all 4 drones collected and the global board with 2, each at
+# --fast_rng off (20, None), actor (20, 8) and full (8, None); B4 takes
+# the env side's count only (no actor), so it builds at 20 and 8.
+COLLECT_CASES = (("window", 4), ("global", 2))
+ROUND_MODES = {"off": (20, None), "actor": (20, 8), "full": (8, None)}
+COLLECT = 4                # phase 4i's --collect_drones
+# Phase 3i's cases (view, k, mode): COLLECT_CASES at every mode, and one
+# drone at the reduced-round modes (one drone at "off" is phase 3's).
+CASES_3I = tuple((view, k, mode) for view, k in COLLECT_CASES
+                 for mode in ROUND_MODES) + (
+    ("window", 1, "actor"), ("window", 1, "full"))
+FAST_RNG_DRIVES = (("ring", "actor"), ("ring", "full"), ("full", "actor"),
+                   ("full", "full"), ("fused", "full"))
+COLLECT_DRIVE = 12         # phase 4i: ticks of each drive of a 3i build
 WARMUP_TICKS = 10
 REPEATS = 3
 TICKS_PER_REPEAT = 100
@@ -273,8 +309,8 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    log(f"card: {card} | torch: {kind} | torch {torch.__version__} "
+    device_kind = torch.cuda.get_device_name(0)
+    log(f"card: {card} | torch: {device_kind} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     # --- 2. build ------------------------------------------------------------
@@ -309,12 +345,31 @@ def main() -> None:
                + [_build.env_config(cp) for cp, _, _ in chain_cases.values()
                   if cp.wrapper == "global"]
                + [fused_tick.kernel_config(params, cli_chain)])
+    # Phases 3i and 4i: every (view, k, mode, net) build, the env builds,
+    # the k = 1 builds of the fast-RNG drives and of the global board.
+    collect_params = {view: EnvParams(grid_size=GRID, n_drones=DRONES,
+                                      window_radius=RADIUS, wrapper=view)
+                      for view, _ in COLLECT_CASES}
+    collect_widths = {(view, h): (fused_tick.obs_rows(cp), *h, 5)
+                      for view, cp in collect_params.items() for h in NETS}
+    configs += [_build.tick_config(collect_params[view],
+                                   collect_widths[(view, h)], k, *rounds)
+                for view, k in COLLECT_CASES
+                for rounds in ROUND_MODES.values() for h in NETS]
+    configs += [_build.env_config(collect_params[view], k, rr)
+                for view, k in COLLECT_CASES for rr in (20, 8)]
+    configs += [_build.tick_config(params, widths[h], 1, *ROUND_MODES[mode])
+                for mode in ("actor", "full") for h in NETS]
+    configs += [_build.env_config(params, 1, 8)]
+    configs += [_build.tick_config(collect_params["global"],
+                                   collect_widths[("global", h)])
+                for h in NETS]
     t0 = time.perf_counter()
     built = _build.build(configs)
     log(f"built {len(built)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f}s (per build: "
         f"{[round(s, 1) for s in built.values()]})")
-    for cfg in configs:
+    for cfg in dict.fromkeys(configs):
         ptxas = [ln.strip() for ln in _build.build_log(cfg).splitlines()
                  if "registers" in ln or "spill" in ln]
         tag = tuple(int(v) for k, v in cfg[1]
@@ -323,7 +378,14 @@ def main() -> None:
             tag = dict(cfg[1])["DR_GRID"], dict(cfg[1])["DR_NDRONES"]
         if "DR_GLOBAL" in dict(cfg[1]):
             tag = ("global", *tag)
-        log(f"ptxas {cfg[0]} {tag}: " + " | ".join(ptxas))
+        options = tuple(f"{name}={dict(cfg[1])[d]}" for d, name in (
+            ("DR_COLLECT", "k"), ("DR_RNG_ROUNDS", "rounds"),
+            ("DR_ACTOR_ROUNDS", "actor_rounds")) if d in dict(cfg[1]))
+        log(f"ptxas {cfg[0]} {tag + options}: " + " | ".join(ptxas))
+        if options and any(not ln.startswith("0 bytes stack frame, 0 bytes "
+                                             "spill stores, 0 bytes spill")
+                           for ln in ptxas if "spill" in ln):
+            fail(f"{cfg[0]} {tag + options}: a spill or a stack frame")
         if cfg[0] == _build.LEARNER_SOURCE:
             net_w = (obs_dim, *tag, 5)
             for bsz in [b for h, b in LEARNER_CASES if h == tag]:
@@ -371,10 +433,10 @@ def main() -> None:
                 f"{shape['tick_blocks_per_sm']} (-1: beyond the tick's "
                 f"limits), B5 {shape['step_blocks_per_sm']}")
 
-    def make_agent(hidden, seed):
+    def make_agent(hidden, seed, env=params):
         cfg = DQNConfig(hidden_layers=hidden, epsilon_decay_every=5,
                         target_update_interval=10, gamma=0.9)
-        agent = DQN(cfg, params, device=device)
+        agent = DQN(cfg, env, device=device)
         return agent, agent.init_state(torch.Generator().manual_seed(seed))
 
     def fresh_env(seed, dtype):
@@ -386,12 +448,15 @@ def main() -> None:
             NUM_ENVS, obs_dim).t().to(dtype)
         return fused_tick.to_tstate(state), ring
 
-    def check_actions(tag, cp, chain, step_key, actions, obs_in, read, eps):
-        """The kernel's actions against the plain actor's outside near ties
-        of the plain Q-values; returns the near-tie count."""
-        keys = rng.split(step_key.to(device), NUM_ENVS + 2)
-        act_p, q = fused_tick.plain_actions(keys[NUM_ENVS], obs_in, read,
-                                            chain, eps, cp, NUM_ENVS)
+    def check_actions(tag, cp, chain, step_key, actions, obs_in, read, eps,
+                      rounds=(20, None)):
+        """The kernel's actions against the plain actor's (its keys and
+        uniforms at ``rounds``) outside near ties of the plain Q-values;
+        returns the near-tie count."""
+        keys = rng.split(step_key.to(device), NUM_ENVS + 2, rounds[0])
+        act_p, q = fused_tick.plain_actions(
+            keys[NUM_ENVS], obs_in, read, chain, eps, cp, NUM_ENVS,
+            fused_tick.actor_rounds(*rounds))
         top2 = q.topk(2, dim=0).values
         tie = (top2[0] - top2[1]) <= NEAR_TIE * q.abs().amax(dim=0)
         differ = (actions != act_p).any(dim=0)
@@ -856,6 +921,146 @@ def main() -> None:
             f"{CHAIN_TICKS} ticks of random actions at {NUM_ENVS} envs; env "
             f"bitwise, charge max err {err:.3e}")
 
+    # --- 3i. collect_drones > 1 and the fast-RNG round counts: B1, B3, B4 ---
+    def stacked_env(cp, k, seed):
+        """Fresh envs and the first k drones' observations (k · obs_dim, E)
+        f32, drone-major."""
+        state = core.reset_batch(rng.PRNGKey(seed).to(device), cp, NUM_ENVS)
+        return fused_tick.to_tstate(state), core.observe_batch(
+            state, cp, k).reshape(NUM_ENVS, -1).t().contiguous()
+
+    # (view, k, mode, net, launch) -> the charge channel's largest error;
+    # launch is "ring" (B1, on a bf16 ring and on an f32 one), "full" (B3)
+    # or "tick" (B4, net None).
+    collect_err = {}
+    for view, k, mode in CASES_3I:
+        cp, rounds = collect_params[view], ROUND_MODES[mode]
+        kw = dict(collect=k, rng_rounds=rounds[0],
+                  actor_rng_rounds=rounds[1])
+        for hidden in NETS:
+            _, ag = make_agent(hidden, 1, cp)
+            chain = ag.params.flat()
+            eps = torch.tensor(0.5, device=device)
+            for launch in ("ring bf16", "ring f32", "full"):
+                tstate, obs = stacked_env(cp, k, 2)
+                if launch != "full":
+                    ring = torch.zeros(
+                        (obs.shape[0], 2 * NUM_ENVS), device=device,
+                        dtype=torch.bfloat16 if launch == "ring bf16"
+                        else torch.float32)
+                    ring[:, :NUM_ENVS] = obs.to(ring.dtype)
+                key, err, ties = rng.PRNGKey(3), 0.0, 0
+                for t in range(COMPARE_TICKS):
+                    tag = f"3i {view} k={k} {mode} {hidden} {launch} t{t}"
+                    key, step_key = rng.split(key, 2)
+                    do_reset = t == COMPARE_RESET_TICK
+                    if launch != "full":
+                        read = (t % 2) * NUM_ENVS
+                        write = ((t + 1) % 2) * NUM_ENVS
+                        ring_plain = ring.clone()
+                        out_k = fused_tick.full_tick_fused_ring(
+                            step_key, tstate, ring, read, write, chain,
+                            eps, do_reset, cp, **kw)
+                        out_p = fused_tick.full_tick_ring_plain(
+                            step_key, tstate, ring_plain, read, write,
+                            chain, eps, do_reset, cp,
+                            actions_override=out_k[3], **kw)
+                        torch.cuda.synchronize()
+                        next_k = ring[:, write:write + NUM_ENVS]
+                        next_p = ring_plain[:, write:write + NUM_ENVS]
+                        if not torch.equal(
+                                ring[:, read:read + NUM_ENVS],
+                                ring_plain[:, read:read + NUM_ENVS]):
+                            fail(f"{tag}: the read columns changed")
+                        obs_in = ring_plain
+                    else:
+                        read, before = 0, obs.clone()
+                        out_k = fused_tick.full_tick_fused(
+                            step_key, tstate, obs, chain, eps, do_reset,
+                            cp, **kw)
+                        out_p = fused_tick.full_tick_plain(
+                            step_key, tstate, obs, chain, eps, do_reset,
+                            cp, actions_override=out_k[3], **kw)
+                        torch.cuda.synchronize()
+                        next_k, next_p, obs_in = out_k[4], out_p[4], obs
+                        if not torch.equal(obs, before):
+                            fail(f"{tag}: obs_t was written")
+                    if next_k.shape[0] != k * fused_tick.obs_rows(cp):
+                        fail(f"{tag}: {next_k.shape[0]} observation rows")
+                    check_state(tag, out_k[0] + out_k[1:3],
+                                out_p[0] + out_p[1:3], env_fields)
+                    # Every one of the k row groups.
+                    err = max(err, check_obs(tag, next_k, next_p))
+                    ties += check_actions(tag, cp, chain, step_key,
+                                          out_k[3], obs_in, read, eps,
+                                          rounds)
+                    tstate = out_k[0]
+                    if launch == "full":
+                        obs = out_k[4]
+                name = "ring" if launch != "full" else "full"
+                collect_err[(view, k, mode, hidden, name)] = max(
+                    err, collect_err.get((view, k, mode, hidden, name),
+                                         0.0))
+                log(f"3i {'B1' if name == 'ring' else 'B3'} == plain: "
+                    f"{view} k={k} --fast_rng {mode} {rounds} net "
+                    f"{hidden} {launch}: {COMPARE_TICKS} ticks (reset at "
+                    f"{COMPARE_RESET_TICK}) at {NUM_ENVS} envs; env "
+                    f"bitwise, {k} row groups, charge max err "
+                    f"{err:.3e}; near-tie envs {ties}")
+        if mode == "actor":
+            continue  # B4 has no actor: its build at "off"'s 20 rounds
+        tstate, _ = stacked_env(cp, k, 4)
+        key, err = rng.PRNGKey(5), 0.0
+        for t in range(COMPARE_TICKS):
+            tag = f"3i B4 {view} k={k} {mode} t{t}"
+            key, act_key, step_key = rng.split(key, 3)
+            actions = rng.randint(act_key.to(device),
+                                  (DRONES, NUM_ENVS), 0, 5)
+            out_k = fused_tick.tick_fused(step_key, tstate, actions, cp,
+                                          k, rounds[0])
+            out_p = fused_tick.tick_plain(step_key, tstate, actions, cp,
+                                          k, rounds[0])
+            torch.cuda.synchronize()
+            check_state(tag, out_k[0] + out_k[1:3],
+                        out_p[0] + out_p[1:3], env_fields)
+            err = max(err, check_obs(tag, out_k[3], out_p[3]))
+            tstate = out_k[0]
+        collect_err[(view, k, mode, None, "tick")] = err
+        log(f"3i B4 == plain: {view} k={k} rng_rounds {rounds[0]}: "
+            f"{COMPARE_TICKS} ticks of random actions at {NUM_ENVS} "
+            f"envs; env bitwise, {k} row groups, charge max err "
+            f"{err:.3e}")
+
+    # 3i's timings: every new build over BLOCK_LAUNCHES launches of a
+    # prebuilt block (every env greedy), beside the k = 1, 20-round build
+    # of the same view and net on the same state.
+    collect_timing = {}
+    states = {view: stacked_env(collect_params[view], COLLECT, 6)
+              for view, _ in COLLECT_CASES}
+    bases = {}
+    for view, k, mode in CASES_3I:
+        cp = collect_params[view]
+        tstate, obs = states[view]
+        for hidden in NETS + (None,):
+            if hidden is None and mode == "actor":
+                continue  # B4's build at "actor" is "off"'s
+            chain = None if hidden is None else make_agent(
+                hidden, 1, cp)[1].params.flat()
+            for part in ("ring", "full") if hidden else ("tick",):
+                if (view, hidden, part) not in bases:
+                    bases[(view, hidden, part)] = time_collect_kernel(
+                        torch, _build, fused_tick, rng, cp, chain, 1,
+                        ROUND_MODES["off"], part, tstate, obs, card)["ms"]
+                timing = time_collect_kernel(
+                    torch, _build, fused_tick, rng, cp, chain, k,
+                    ROUND_MODES[mode], part, tstate, obs, card)
+                collect_timing[(view, k, mode, hidden, part)] = timing
+                base = bases[(view, hidden, part)]
+                log(f"3i {part} {view} k={k} {mode} net {hidden}: "
+                    f"{timing['ms']:.4f} ms/launch against {base:.4f} for "
+                    f"k=1 at 20 rounds (same call, same state), "
+                    f"{timing['ms'] / base:.3f}x")
+
     # --- 4. the main path, and 4b. the in_kernel_td main path --------------
     def run_ticks(tag, tick, carry):
         """Warm-up and timed repeats of a trainer's tick with every launch
@@ -1248,10 +1453,168 @@ def main() -> None:
         f"{metrics['td_loss_mean']:.5f}, obs/s {metrics['obs_per_sec']:.1f} "
         f"over {CLI_CONV_STEPS} steps, on {metrics['device']}")
 
+    # --- 4i. collect_drones > 1 and --fast_rng on the engines ----------------
+    def drive_collect(cp, hidden, engine, k, mode, in_kernel_td=False,
+                      measure=False):
+        """An engine at NUM_ENVS envs with ``collect_drones`` = k and
+        --fast_rng ``mode``, every launch count zeroed just before: its
+        kernel launches once a tick (with ``in_kernel_td`` the learner
+        kernel too) and no other kernel launches, losses finite, the params
+        move, ε decays, a StreamReplay takes E · k transitions a tick. With
+        ``measure`` the warm-up and timed repeats of phase 4 (obs/s beside
+        phase 4's), else COLLECT_DRIVE ticks. Returns its kernel's
+        launches."""
+        rr, ar = ROUND_MODES[mode]
+        agent, _ = make_agent(hidden, 0, cp)
+        if engine == "ring":
+            tick = build_train_step_ring(
+                agent, cp, NUM_ENVS, CAPACITY, BATCH, RESET_EVERY, k,
+                in_kernel_td=in_kernel_td, rng_rounds=rr,
+                actor_rng_rounds=ar)
+            carry = init_ring_carry(
+                agent, cp, NUM_ENVS, CAPACITY, rng.PRNGKey(0),
+                obs_dtype=torch.bfloat16, batch_size=BATCH,
+                in_kernel_td=in_kernel_td, collect_drones=k)
+        else:
+            buf = replay.StreamReplay(STREAM_CAPACITY, BATCH,
+                                      stride=NUM_ENVS * k)
+            if engine == "full":
+                tick = train.build_train_step_full(
+                    agent, buf, cp, NUM_ENVS, RESET_EVERY, k, rr, ar)
+            else:
+                tick = train.build_train_step_fused(
+                    agent, buf, cp, NUM_ENVS, RESET_EVERY, k, rr)
+                ar = None
+            carry = train.init_stream_carry(agent, cp, NUM_ENVS, buf,
+                                            rng.PRNGKey(0), k)
+        fused_tick.prepare_kernel(
+            cp, None if engine == "fused" else carry[3].params.flat(),
+            in_kernel_td=in_kernel_td, env_tick=engine == "fused",
+            collect=k, rng_rounds=rr, actor_rng_rounds=ar)
+        torch.cuda.synchronize()
+        p0 = [p.detach().clone() for p in carry[3].params.flat()]
+        tag = (f"4i {engine} engine{' in_kernel_td' if in_kernel_td else ''}"
+               f" {cp.wrapper} k={k} --fast_rng {mode} net {hidden}")
+        if measure:
+            carry, losses, tick_s, _, ticks, n, _, eps = run_ticks(
+                tag, tick, carry)
+        else:
+            zero_counts()
+            losses = []
+            t0 = time.perf_counter()
+            for _ in range(COLLECT_DRIVE):
+                carry, (rewards, eps, loss) = tick(carry)
+                losses.append(loss)
+            torch.cuda.synchronize()
+            tick_s = (time.perf_counter() - t0) / COLLECT_DRIVE
+            ticks, n, losses = COLLECT_DRIVE, counts(), torch.stack(losses)
+            if not bool(torch.isfinite(losses).all()) or not bool(
+                    torch.isfinite(rewards).all()) or not float(eps) < 1.0:
+                fail(f"{tag}: losses {losses.tolist()}, eps {float(eps)}")
+        kernel = {"ring": "full_tick_ring", "full": "full_tick",
+                  "fused": "tick"}[engine]
+        expected = {kernel: ticks, "td_adam": ticks if in_kernel_td else 0}
+        if any(v != expected.get(key, 0) for key, v in n.items()):
+            fail(f"{tag}: launches {n} in {ticks} ticks")
+        if not bool((losses >= 0).any()):
+            fail(f"{tag}: no tick trained")
+        if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
+            fail(f"{tag}: the params did not move")
+        if engine != "ring":
+            pushed = ticks * NUM_ENVS * k
+            if (carry[4].size, carry[4].cursor) != (
+                    min(pushed, STREAM_CAPACITY), pushed % STREAM_CAPACITY):
+                fail(f"{tag}: replay size {carry[4].size}, cursor "
+                     f"{carry[4].cursor} after {ticks} pushes")
+        log(f"{tag}: {ticks} ticks, launches {n}, loss "
+            f"{float(losses[-1]):.5f}, eps {float(eps):.4f}, obs/s "
+            f"{NUM_ENVS / tick_s:.1f} ({NUM_ENVS * k / tick_s:.1f} "
+            f"transitions/s; tick {1e3 * tick_s:.4f} ms"
+            f"{'' if measure else ' with warm-up'}) vs phase 4's ring "
+            f"engine {obs_per_s[hidden]:.1f} obs/s, on {card}")
+        return n[kernel]
+
+    collect_launches = {}  # (view, k, mode, net, part) -> launches
+
+    def count(view, k, mode, hidden, engine, launches):
+        key = ((view, k, mode, None, "tick") if engine == "fused" else
+               (view, k, mode, hidden, engine))
+        collect_launches[key] = collect_launches.get(key, 0) + launches
+
+    window = collect_params["window"]
+    for hidden in NETS:  # the main drives at --collect_drones 4, measured
+        for engine, td in (("ring", False), ("ring", True), ("full", False),
+                           ("fused", False)):
+            count("window", COLLECT, "off", hidden, engine, drive_collect(
+                window, hidden, engine, COLLECT, "off", td, measure=True))
+        for engine, mode in FAST_RNG_DRIVES:  # --fast_rng at one drone
+            count("window", 1, mode, hidden, engine, drive_collect(
+                window, hidden, engine, 1, mode, measure=True))
+    for key in collect_timing:  # every other build of 3i, driven once
+        if key not in collect_launches:
+            view, k, mode, hidden, part = key
+            engine = {"ring": "ring", "full": "full", "tick": "fused"}[part]
+            count(view, k, mode, hidden, engine, drive_collect(
+                collect_params[view], hidden or NETS[0], engine, k, mode))
+    for argv, engine in ((["--num_envs", str(CLI_ENVS), "--memory_size",
+                           "1000000"], "full"),
+                         (["--num_envs", str(JNP_ENVS)], "jnp")):
+        zero_counts()
+        metrics = train.main(argv + ["--num_steps", str(CLI_STEPS),
+                                     "--collect_drones", str(COLLECT)])
+        n = counts()
+        if metrics["engine"] != engine:
+            fail(f"CLI --collect_drones {COLLECT} {argv}: engine "
+                 f"{metrics['engine']}")
+        expected = CLI_STEPS if engine == "full" else 0
+        if n["full_tick"] != expected or sum(n.values()) != expected:
+            fail(f"CLI --collect_drones {COLLECT} {argv}: launches {n}")
+        if metrics["td_loss_mean"] is None or not math.isfinite(
+                metrics["td_loss_mean"]):
+            fail(f"CLI --collect_drones {COLLECT}: td loss "
+                 f"{metrics['td_loss_mean']}")
+        if engine == "full":
+            count("window", COLLECT, "off", NETS[0], "full", n["full_tick"])
+        log(f"CLI --collect_drones {COLLECT} {' '.join(argv)}: engine "
+            f"{metrics['engine']}, launches {n}, loss "
+            f"{metrics['td_loss_mean']:.5f}, obs/s "
+            f"{metrics['obs_per_sec']:.1f} over {CLI_STEPS} steps (with "
+            f"warm-up), on {metrics['device']}")
+
+    for key, timing in collect_timing.items():
+        view, k, mode, hidden, part = key
+        if collect_launches.get(key, 0) == 0:
+            fail(f"4i: the build {key} was not driven")
+        rounds = ROUND_MODES[mode] if part != "tick" else (
+            ROUND_MODES[mode][0], None)
+        what = {"ring": "757 (_full_kernel", "full": "1145 (_full_kernel "
+                "via full_tick_fused", "tick": "704 (_tick_kernel via "
+                "tick_fused"}[part]
+        encoder = ("_encode_obs_global :538" if view == "global" else
+                   "_encode_obs_window :580")
+        net = "" if hidden is None else "_" + "x".join(map(str, hidden))
+        prefix = {"ring": "full_tick_ring", "full": "full_tick",
+                  "tick": "tick"}[part]
+        stream.append({
+            "name": f"{prefix}_{view}_k{k}_{mode}{net}",
+            "route": "cuda",
+            "source": ("dronerl_tpu_torch/ops/csrc/env_kernel.cu"
+                       if part == "tick" else
+                       "dronerl_tpu_torch/ops/csrc/full_tick.cu"),
+            "replaces": (f"dronerl_tpu/ops/fused_tick.py:{what}, collect={k}"
+                         f" with {encoder}, rng_rounds={rounds[0]}, "
+                         f"actor_rng_rounds={rounds[1]}; threefry2x32 "
+                         "dronerl_tpu/ops/step_kernel.py:75)"),
+            "launches": collect_launches[key],
+            "max_abs_err": collect_err[key],
+            **timing,
+            "library_ms": None,
+        })
+
     print(json.dumps({"kernels": kernels + learners + stream}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
+        "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}), flush=True)
 
 
@@ -1364,25 +1727,109 @@ def time_chain_kernel(torch, _build, fused_tick, rng, cp, chain, carry,
         args, env_bound(*bound_args, flop_seconds=t_actor), card)
 
 
+def hash_ops(rounds: int) -> int:
+    """Integer operations of one Threefry-2x32 hash of ``rounds`` rounds:
+    3 a round, 3 a key injection (one every 4 rounds), 4 to start and
+    finish (OPS_PER_HASH at 20)."""
+    return 3 * rounds + 3 * (rounds // 4) + 4
+
+
 def env_bound(n, c, obs_bytes, extra_bytes=0, flops=0, hashes_per_env=0,
-              flop_seconds=None):
+              flop_seconds=None, hash_ops_per_env=None):
     """The least time of one env kernel launch at NUM_ENVS envs: the state
     read and written once (ground C bytes, per drone x, y, carry, charge),
     the actions read (4 B a drone) and rewards and dones written (5 B a
     drone), ``obs_bytes`` of observations read or written, plus
     ``extra_bytes``; the operations: ``flops`` (at PEAK_F32, or in
-    ``flop_seconds``) and the threefry hashes at OPS_PER_HASH each.
-    Returns (ms, "bytes" or "operations", bytes, operations)."""
+    ``flop_seconds``) and the threefry hashes at OPS_PER_HASH each (or
+    ``hash_ops_per_env`` operations an env, for hashes of other round
+    counts). Returns (ms, "bytes" or "operations", bytes, operations)."""
     state_bytes = NUM_ENVS * (c + n * (4 + 4 + 1 + 4))
     io_bytes = NUM_ENVS * n * (4 + 4 + 1)
     total_bytes = 2 * state_bytes + io_bytes + obs_bytes + extra_bytes
-    ops = flops + OPS_PER_HASH * hashes_per_env * NUM_ENVS
+    if hash_ops_per_env is None:
+        hash_ops_per_env = OPS_PER_HASH * hashes_per_env
+    ops = flops + hash_ops_per_env * NUM_ENVS
     t_bytes = total_bytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32 * 1e3
     if flop_seconds is not None:
         t_ops += (flop_seconds - flops / PEAK_F32) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", total_bytes, ops)
+
+
+def time_collect_kernel(torch, _build, fused_tick, rng, cp, chain, k, rounds,
+                        part, tstate, obs, card):
+    """A build of phase 3i on a fresh state, every env greedy (ε = 0): B1
+    (``part`` "ring", a bf16 ring of two env-batches), B3 ("full") or B4
+    ("tick", actions drawn on the card, ``chain`` None) with ``collect`` =
+    k and ``rounds`` (rng_rounds, actor_rng_rounds), timed by
+    ``time_env_kernel``. The bound: the observation's first row group read
+    (B1, B3) and its k row groups written, the state, the weights; the
+    actor's FLOPs as phase 4 counts them; the hashes at their rounds, 4 +
+    2 C an env at rng_rounds (the keys, the spawn fields) and the actor's
+    N + 1 at actor_rng_rounds."""
+    import functools
+
+    device = tstate.ground.device
+    rr, ar = rounds
+    n, c = cp.n_drones, cp.num_cells
+    od = fused_tick.obs_rows(cp)
+    obs = obs[:k * od]
+    env_ops = (4 + 2 * c) * hash_ops(rr)
+    tag = f"{part} {cp.wrapper} k={k} rounds {rounds}"
+    if part == "tick":
+        actions = rng.randint(rng.PRNGKey(8).to(device), (n, NUM_ENVS), 0, 5)
+        kw = dict(collect=k, rng_rounds=rr)
+        config = _build.env_config(cp, k, rr)
+        ptxas = [ln.strip() for ln in _build.build_log(config).splitlines()
+                 if "registers" in ln]
+        log(f"B4 {tag}: block {fused_tick.env_block_shape(config)}; ptxas "
+            f"{' | '.join(ptxas)}; hashes an env {4 + 2 * c} at {rr} rounds "
+            f"({env_ops} operations)")
+        return time_env_kernel(
+            torch, f"B4 {tag}", _build.load(config),
+            "tick_launch", functools.partial(fused_tick._env_tick_args, **kw),
+            functools.partial(fused_tick.tick_plain, **kw),
+            (rng.PRNGKey(7), tstate, actions, cp),
+            env_bound(n, c, k * od * NUM_ENVS * 4,
+                      hash_ops_per_env=env_ops), card)
+    kw = dict(collect=k, rng_rounds=rr, actor_rng_rounds=ar)
+    eps = torch.tensor(0.0, device=device)
+    widths = fused_tick.chain_widths(chain)
+    weight_bytes = 4 * sum(i * o + o for i, o in zip(widths, widths[1:]))
+    if part == "ring":
+        ring = torch.zeros((k * od, 2 * NUM_ENVS), dtype=torch.bfloat16,
+                           device=device)
+        ring[:, :NUM_ENVS] = obs.to(torch.bfloat16)
+        args = (rng.PRNGKey(7), tstate, ring, 0, NUM_ENVS, chain, eps, False,
+                cp)
+        fill, plain = fused_tick._kernel_args, fused_tick.full_tick_ring_plain
+        entry, scheme, size = "full_tick_ring_launch", "bf16", 2
+    else:
+        args = (rng.PRNGKey(7), tstate, obs, chain, eps, False, cp)
+        fill, plain = fused_tick._full_args, fused_tick.full_tick_plain
+        entry, scheme, size = "full_tick_launch", "f32", 4
+    t_actor, _, flops = actor_ops(widths, scheme)
+    actor_ops_ = (n + 1) * hash_ops(fused_tick.actor_rounds(rr, ar))
+    bound = env_bound(n, c, (1 + k) * od * NUM_ENVS * size, weight_bytes + 4,
+                      flops, flop_seconds=t_actor,
+                      hash_ops_per_env=env_ops + actor_ops_)
+    config = fused_tick.kernel_config(cp, chain, **kw)
+    lib = _build.load(config)
+    smem, blocks, scratch = fused_tick.kernel_occupancy(config, scheme == "bf16")
+    ptxas = [ln.strip() for ln in _build.build_log(config).splitlines()
+             if "registers" in ln]
+    variant = fused_tick.tick_layout(cp, widths, scheme == "bf16")["variant"]
+    log(f"{tag} chain {widths}: variant {variant}, {smem} B shared memory, "
+        f"{scratch} B scratch a block, {blocks} blocks an SM; ptxas "
+        f"{' | '.join(ptxas)}; hashes an env {4 + 2 * c} at {rr} rounds + "
+        f"{n + 1} at {fused_tick.actor_rounds(rr, ar)} "
+        f"({env_ops + actor_ops_} operations)")
+    return time_env_kernel(
+        torch, f"{entry} {tag} chain {widths}", lib, entry,
+        functools.partial(fill, **kw), functools.partial(plain, **kw), args,
+        bound, card)
 
 
 def time_block(torch, lib, entry, block, count):

@@ -27,13 +27,17 @@ from dronerl_tpu_torch.ops.pointops import (
 from dronerl_tpu_torch.ops.window import crop_windows
 
 
-def _split2(keys: torch.Tensor):
-    ks = rng.split(keys, 2)
+def _split2(keys: torch.Tensor, rounds: int = 20):
+    ks = rng.split(keys, 2, rounds)
     return ks[..., 0, :], ks[..., 1, :]
 
 
-def reset_keys(keys: torch.Tensor, params: EnvParams) -> EnvState:
-    """A fresh world per env key (E, 2): ground objects, drones, pickup."""
+def reset_keys(keys: torch.Tensor, params: EnvParams,
+               rounds: int = 20) -> EnvState:
+    """A fresh world per env key (E, 2): ground objects, drones, pickup.
+    ``rounds`` < 20 hashes every draw with Threefry-2x32-``rounds``, as the
+    tick kernels' fast-RNG mode does (the JAX package's env core has no
+    such mode)."""
     params.validate()
     e = keys.shape[0]
     g, n = params.grid_size, params.n_drones
@@ -46,15 +50,15 @@ def reset_keys(keys: torch.Tensor, params: EnvParams) -> EnvState:
         (params.num_stations, Object.STATION),
         (params.num_skyscrapers, Object.SKYSCRAPER),
     ):
-        key, placement_key = _split2(key)
+        key, placement_key = _split2(key, rounds)
         fill = torch.full((e, count), int(code), dtype=torch.int8, device=device)
-        grid = place_on_ground(placement_key, grid, fill, params)
+        grid = place_on_ground(placement_key, grid, fill, params, rounds)
 
     sentinel = torch.full((e, n), -1, dtype=torch.int32, device=device)
-    key, placement_key = _split2(key)
+    key, placement_key = _split2(key, rounds)
     air_x, air_y = place_in_air(
         placement_key, sentinel, sentinel, params,
-        exclude=grid == Object.SKYSCRAPER)
+        exclude=grid == Object.SKYSCRAPER, rounds=rounds)
 
     carrying = point_lookup(grid, air_y, air_x) == Object.PACKET
     lifted = flag_mask(air_y, air_x, carrying, g, g)
@@ -69,9 +73,10 @@ def reset_keys(keys: torch.Tensor, params: EnvParams) -> EnvState:
 
 
 def reset_batch(key: torch.Tensor, params: EnvParams,
-                num_envs: int) -> EnvState:
-    """``core.reset_batch``: env e resets with row e of ``split(key, E)``."""
-    return reset_keys(rng.split(key, num_envs), params)
+                num_envs: int, rounds: int = 20) -> EnvState:
+    """``core.reset_batch``: env e resets with row e of ``split(key, E)``
+    (``rounds`` as :func:`reset_keys`)."""
+    return reset_keys(rng.split(key, num_envs, rounds), params, rounds)
 
 
 def step_batch(
@@ -79,8 +84,10 @@ def step_batch(
     state: EnvState,
     actions: torch.Tensor,
     params: EnvParams,
+    rounds: int = 20,
 ) -> Tuple[EnvState, torch.Tensor, torch.Tensor]:
-    """Advance every env one tick with its key (E, 2) and actions (E, N).
+    """Advance every env one tick with its key (E, 2) and actions (E, N);
+    ``rounds`` as :func:`reset_keys`.
 
     Returns ``(state, rewards (E, N) float32, dones (E, N) bool)``.
     """
@@ -130,7 +137,7 @@ def step_batch(
 
     # --- respawn packets + dropzones (shared key, dropzone slots use
     # the packet count: the reference env's quirks) --------------------
-    key, respawn_key = _split2(keys)
+    key, respawn_key = _split2(keys, rounds)
     needs_packet = delivered | (dones & carrying0)
     e = actions.shape[0]
     packet_fill = torch.zeros((e, params.num_packets), dtype=torch.int8,
@@ -141,7 +148,8 @@ def step_batch(
         dropzone_fill[:, :n] = delivered.to(torch.int8) * int(Object.DROPZONE)
     consumed = flag_mask_scatter_order(new_y, new_x, delivered, g, g)
     ground = respawn_ground_pair(
-        respawn_key, ground, packet_fill, dropzone_fill, consumed, params)
+        respawn_key, ground, packet_fill, dropzone_fill, consumed, params,
+        rounds)
 
     # --- rewards ------------------------------------------------------
     rewards = (
@@ -155,10 +163,10 @@ def step_batch(
     minus_one = torch.full_like(new_x, -1)
     new_x = torch.where(dones, minus_one, new_x)
     new_y = torch.where(dones, minus_one, new_y)
-    _, respawn_key = _split2(key)
+    _, respawn_key = _split2(key, rounds)
     new_x, new_y = place_in_air(
         respawn_key, new_x, new_y, params,
-        exclude=state.ground == Object.SKYSCRAPER)
+        exclude=state.ground == Object.SKYSCRAPER, rounds=rounds)
 
     # Respawned drones pick up a packet under them (no reward), indexed
     # transposed ([x, y]) as in the reference.

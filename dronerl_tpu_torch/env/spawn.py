@@ -41,12 +41,14 @@ def place_on_ground(
     ground: torch.Tensor,
     fill_values: torch.Tensor,
     params: EnvParams,
+    rounds: int = 20,
 ) -> torch.Tensor:
     """Write ``fill_values`` (E, k) onto the top-k vacant cells of
-    ``ground`` (E, G, G), one key (E, 2) per env."""
+    ``ground`` (E, G, G), one key (E, 2) per env; the scores from
+    Threefry-2x32-``rounds``."""
     e = ground.shape[0]
     vacant = ground == 0
-    u = rng.uniform(key, (params.num_cells,))
+    u = rng.uniform(key, (params.num_cells,), rounds)
     cells = top_k_cells(_masked(u, vacant.reshape(e, -1)), fill_values.shape[1])
     g = params.grid_size
     return place_values(ground, cells // g, cells % g, fill_values)
@@ -59,12 +61,13 @@ def respawn_ground_pair(
     fill_dropzones: torch.Tensor,
     consumed: torch.Tensor,
     params: EnvParams,
+    rounds: int = 20,
 ) -> torch.Tensor:
     """Packet spawn, clear of delivered dropzones, dropzone spawn — both
     spawns from the SAME key (the reference env's quirk)."""
-    ground = place_on_ground(key, ground, fill_packets, params)
+    ground = place_on_ground(key, ground, fill_packets, params, rounds)
     ground = torch.where(consumed, torch.zeros_like(ground), ground)
-    return place_on_ground(key, ground, fill_dropzones, params)
+    return place_on_ground(key, ground, fill_dropzones, params, rounds)
 
 
 def place_in_air(
@@ -73,6 +76,7 @@ def place_in_air(
     air_y: torch.Tensor,
     params: EnvParams,
     exclude: torch.Tensor,
+    rounds: int = 20,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Give drones at the -1 sentinel fresh cells; live drones stay.
 
@@ -85,7 +89,7 @@ def place_in_air(
     cells_iota = torch.arange(c, device=air_x.device)
     occupied = (occ[:, :, None] == cells_iota).any(dim=1)
     open_cells = ~occupied & ~exclude.reshape(e, -1)
-    u = rng.uniform(key, (c,))
+    u = rng.uniform(key, (c,), rounds)
     cells = top_k_cells(_masked(u, open_cells), params.n_drones).to(torch.int32)
     new_x = torch.where(air_x == -1, cells // g, air_x)
     new_y = torch.where(air_y == -1, cells % g, air_y)

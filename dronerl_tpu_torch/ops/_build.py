@@ -62,11 +62,16 @@ def net_defines(widths: Sequence[int]) -> Defines:
         for i in range(MAX_LAYERS + 1))
 
 
-def env_defines(params) -> Defines:
-    """The ``-D`` set of an env (``env_step.cuh``); ``DR_GLOBAL`` only for
-    the global observation, so a window build's set is unchanged."""
-    wrapper = (("DR_GLOBAL", "1"),) if params.wrapper == "global" else ()
-    return wrapper + (
+def env_defines(params, collect: int = 1, rng_rounds: int = 20) -> Defines:
+    """The ``-D`` set of an env (``env_step.cuh``): ``DR_GLOBAL`` only for
+    the global observation, ``DR_COLLECT`` only for ``collect`` > 1 and
+    the round count only where it is not 20, so the set of a window build
+    that collects one drone at 20 rounds is unchanged."""
+    options = (("DR_GLOBAL", "1"),) if params.wrapper == "global" else ()
+    options += (("DR_COLLECT", str(collect)),) if collect != 1 else ()
+    if rng_rounds != 20:  # threefry.cuh: the env side's hashes
+        options += (("DR_RNG_ROUNDS", str(rng_rounds)),)
+    return options + (
         ("DR_GRID", str(params.grid_size)),
         ("DR_NDRONES", str(params.n_drones)),
         ("DR_RADIUS", str(params.window_radius)),
@@ -79,22 +84,32 @@ def env_defines(params) -> Defines:
     )
 
 
-def tick_defines(params, widths: Sequence[int]) -> Defines:
+def tick_defines(params, widths: Sequence[int], collect: int = 1,
+                 rng_rounds: int = 20, actor_rounds=None) -> Defines:
     """The ``-D`` set of the full tick kernel for an env and Q-net widths
-    (``widths`` = obs_dim, hidden..., num_actions)."""
-    return env_defines(params) + net_defines(widths)
+    (``widths`` = obs_dim, hidden..., num_actions), the drones collected
+    and the round counts (``actor_rounds``, the actor's uniform field's
+    ``DR_ACTOR_ROUNDS``, only where it is given and is not ``rng_rounds``)."""
+    actor = (() if actor_rounds in (None, rng_rounds)
+             else (("DR_ACTOR_ROUNDS", str(actor_rounds)),))
+    return env_defines(params, collect, rng_rounds) + actor + net_defines(
+        widths)
 
 
-def tick_config(params, widths: Sequence[int]) -> Config:
-    """The full tick kernel's library (B1 and B3) for an env and Q-net
-    widths."""
-    return (TICK_SOURCE, tick_defines(params, widths))
+def tick_config(params, widths: Sequence[int], collect: int = 1,
+                rng_rounds: int = 20, actor_rounds=None) -> Config:
+    """The full tick kernel's library (B1 and B3) for an env, Q-net
+    widths, the drones collected and the round counts."""
+    return (TICK_SOURCE, tick_defines(params, widths, collect, rng_rounds,
+                                      actor_rounds))
 
 
-def env_config(params) -> Config:
-    """The env kernel's library for an env: the feature-major tick (B4,
-    ``tick_launch``) and the row-major step (B5, ``step_launch``)."""
-    return (ENV_SOURCE, env_defines(params))
+def env_config(params, collect: int = 1, rng_rounds: int = 20) -> Config:
+    """The env kernel's library for an env, the drones collected and the
+    round count: the feature-major tick (B4, ``tick_launch``) and the
+    row-major step (B5, ``step_launch``, whose wrapper takes the default
+    library: one drone, 20 rounds)."""
+    return (ENV_SOURCE, env_defines(params, collect, rng_rounds))
 
 
 def learner_config(widths: Sequence[int]) -> Config:

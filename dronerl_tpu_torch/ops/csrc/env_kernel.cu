@@ -6,7 +6,10 @@
 //   and drone fields and actions (N, E), and the observation of the
 //   stepped state (the window, or with DR_GLOBAL the whole board) into a
 //   new (OBS, E) f32 array. Env e steps with row e of
-//   split(step_key, E), the same row as the full tick's S[e]. No actor and
+//   split(step_key, E), the same row as the full tick's S[e]. With
+//   DR_COLLECT = k the first k drones' observations go into a (k OBS, E)
+//   array, drone-major; with DR_RNG_ROUNDS every hash runs that many
+//   threefry rounds (threefry.cuh). No actor and
 //   no reset: the fused engine resets outside the kernel, in plain PyTorch,
 //   as the JAX trainer does in XLA.
 // * step_launch replaces dronerl_tpu/ops/step_kernel.py::_step_kernel
@@ -242,8 +245,12 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) env_kernel(const EnvArgs a)
 
   // --- the observation (feature-major), the state, rewards and dones -------
   if constexpr (FM) {
-    warp::observe_tile<EB, BLOCK>(a.obs_out + e0, (long long)E, s_board, s_x, s_y, s_carry,
-                                  s_charge, ne);
+    // Drone i's observation into rows [i OBS, (i + 1) OBS).
+#pragma unroll 1
+    for (int i = 0; i < COLLECT; ++i) {
+      warp::observe_tile<EB, BLOCK>(i, a.obs_out + (long long)i * OBS * E + e0, (long long)E,
+                                    s_board, s_x, s_y, s_carry, s_charge, ne);
+    }
   }
   store<FM>(a.ground_out, s_board, C, E, e0, ne);
   store<FM>(a.ax_out, s_x, N, E, e0, ne);

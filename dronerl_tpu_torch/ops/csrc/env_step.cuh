@@ -45,6 +45,13 @@ constexpr bool GLOBAL = true;
 constexpr bool GLOBAL = false;
 #endif
 constexpr int OBS = (GLOBAL ? C : W * W) * NUM_CH;
+// The drones whose observations a tick writes (collect_drones, -D
+// DR_COLLECT where it is not 1): the first COLLECT drones' views as row
+// groups of OBS rows, drone-major (the global view once for each).
+#if !defined(DR_COLLECT)
+#define DR_COLLECT 1
+#endif
+constexpr int COLLECT = DR_COLLECT;
 constexpr int NPACK = DR_NPACKETS;
 constexpr int NDROP = DR_NDROPZONES;
 constexpr int NSTAT = DR_NSTATIONS;
@@ -54,6 +61,7 @@ constexpr int DISCHARGE = DR_DISCHARGE;
 constexpr int NUM_ACTIONS = 5;
 
 static_assert(NPACK >= N, "the step respawn needs num_packets >= n_drones");
+static_assert(COLLECT >= 1 && COLLECT <= N, "collect_drones in [1, n_drones]");
 
 enum Code : int { EMPTY = 0, SKYSCRAPER = 2, STATION = 3, DROPZONE = 4, PACKET = 5 };
 enum Move : int { LEFT = 0, DOWN = 1, RIGHT = 2, UP = 3, STAY = 4 };

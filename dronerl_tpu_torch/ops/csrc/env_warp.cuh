@@ -26,9 +26,10 @@
 //   (the env's cells at stride `ld`) for the drones' target lookups; the
 //   board being stepped is in the lanes' registers.
 // * The observation is a block-wide pass over (position, env) items once
-//   every env of the tile has stepped (observe_tile: the window, or with
-//   DR_GLOBAL the whole board): a warp per env would leave most lanes of
-//   its last pass idle and serialise the drone lookups.
+//   every env of the tile has stepped (observe_tile: a drone's window, or
+//   with DR_GLOBAL the whole board), one pass for each collected drone: a
+//   warp per env would leave most lanes of its last pass idle and
+//   serialise the drone lookups.
 //
 // Two bodies, chosen at compile time. The narrow one (C <= 256, N <= 32:
 // B1, B3, B4, and B5 on small boards) keys a pick 0x80000000 | u23 << 8 |
@@ -484,23 +485,23 @@ __device__ __forceinline__ void reset_env(const Key* placement, int* g, Drone* d
   erase_where(g, under, up);
 }
 
-// core.observe's window of drone 0 of every env of a block tile, flattened
-// (position, channel), into the columns of `obs` (row stride `ld`):
+// core.observe's window of drone `drone` of every env of a block tile,
+// flattened (position, channel), into the columns of `obs` (row stride `ld`):
 // thread t of THREADS takes the (position p, env el) items p * EBT + el =
 // t, t + THREADS, ..., so neighbouring threads touch neighbouring envs.
 // The board is the (C, EBT) tile, the drones the (N, EBT) tiles; envs
 // from `ne` on are not written.
 template <int EBT, int THREADS, typename T, typename Ld>
-__device__ __forceinline__ void observe_window_tile(T* obs, Ld ld, const int8_t* board,
-                                                    const int* xs, const int* ys,
-                                                    const int8_t* carry, const float* charge,
-                                                    int ne) {
+__device__ __forceinline__ void observe_window_tile(int drone, T* obs, Ld ld,
+                                                    const int8_t* board, const int* xs,
+                                                    const int* ys, const int8_t* carry,
+                                                    const float* charge, int ne) {
 #pragma unroll 2
   for (int it = threadIdx.x; it < W * W * EBT; it += THREADS) {
     const int p = it / EBT, el = it % EBT;
     if (el >= ne) continue;
-    const int wy = ys[el] + p / W - R;
-    const int wx = xs[el] + p % W - R;
+    const int wy = ys[drone * EBT + el] + p / W - R;
+    const int wx = xs[drone * EBT + el] + p % W - R;
     const bool inside = wy >= 0 && wy < G && wx >= 0 && wx < G;
     int code = SKYSCRAPER;
     float chg = 0.0f;  // charge + 1 where a drone is, else 0
@@ -512,7 +513,7 @@ __device__ __forceinline__ void observe_window_tile(T* obs, Ld ld, const int8_t*
       }
     }
     bool is_packet = code == PACKET;
-    if (p == (W * W) / 2) is_packet = is_packet || carry[el] != 0;
+    if (p == (W * W) / 2) is_packet = is_packet || carry[drone * EBT + el] != 0;
     T* out = obs + p * NUM_CH * ld + el;
     obs_store(out + 0 * ld, chg > 0.0f ? 1.0f : 0.0f);
     obs_store(out + 1 * ld, is_packet ? 1.0f : 0.0f);
@@ -561,16 +562,17 @@ __device__ __forceinline__ void observe_global_tile(T* obs, Ld ld, const int8_t*
   }
 }
 
-// The observation of every env of a block tile (env_step.cuh's OBS rows):
-// the window of drone 0, or with DR_GLOBAL the whole board.
+// Drone `drone`'s observation of every env of a block tile (env_step.cuh's
+// OBS rows): its window, or with DR_GLOBAL the whole board, which every
+// drone sees alike.
 template <int EBT, int THREADS, typename T, typename Ld>
-__device__ __forceinline__ void observe_tile(T* obs, Ld ld, const int8_t* board, const int* xs,
-                                             const int* ys, const int8_t* carry,
+__device__ __forceinline__ void observe_tile(int drone, T* obs, Ld ld, const int8_t* board,
+                                             const int* xs, const int* ys, const int8_t* carry,
                                              const float* charge, int ne = EBT) {
   if constexpr (GLOBAL) {
     observe_global_tile<EBT, THREADS>(obs, ld, board, xs, ys, carry, charge, ne);
   } else {
-    observe_window_tile<EBT, THREADS>(obs, ld, board, xs, ys, carry, charge, ne);
+    observe_window_tile<EBT, THREADS>(drone, obs, ld, board, xs, ys, carry, charge, ne);
   }
 }
 

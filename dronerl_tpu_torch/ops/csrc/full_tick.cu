@@ -8,8 +8,15 @@
 //   written into the same ring at write_col, in place (other ring columns
 //   keep their contents).
 // * full_tick_launch: as full_tick_fused launches it (B3). The observation
-//   is read from obs_t (OBS, E) f32 and the next one written into a new
-//   array of the same shape.
+//   is read from obs_t (COLLECT OBS, E) f32 and the next one written into a
+//   new array of the same shape.
+//
+// With DR_COLLECT = k (collect_drones) a column holds the first k drones'
+// observations as row groups of OBS rows, drone-major; the actor reads
+// rows [0, OBS), drone 0's. With DR_RNG_ROUNDS / DR_ACTOR_ROUNDS (the
+// fast-RNG mode) the env side's hashes / the actor's uniform field run
+// that many threefry rounds (threefry.cuh), where the TPU kernel's
+// rng_rounds / actor_rng_rounds take them.
 //
 // Both run one kernel: per-env threefry keys, the epsilon-greedy actor on
 // obs_in's column, move / crash / battery / pickup / delivery, packet,
@@ -686,7 +693,7 @@ __global__ void __launch_bounds__(BLOCK, Layout<T>::MIN_BLOCKS)
     } else if (el < ne && role == 1) {
       // Row 0 of the epsilon-greedy actor's (N + 1, E) uniform field.
       const Key actor_key = split_row(step_key, (uint32_t)E);
-      const float u0 = bits_to_unit_float(uniform_bits(actor_key, (uint32_t)e));
+      const float u0 = bits_to_unit_float(uniform_bits<ACTOR_ROUNDS>(actor_key, (uint32_t)e));
       greedy = !(u0 < __ldg(a.eps));
       s_greedy[el] = greedy ? 1 : 0;
     } else if (el < ne && role >= 3) {
@@ -694,7 +701,8 @@ __global__ void __launch_bounds__(BLOCK, Layout<T>::MIN_BLOCKS)
       const Key actor_key = split_row(step_key, (uint32_t)E);
 #pragma unroll 1
       for (int i = role - 3; i < N; i += BLOCK / EB - 3) {
-        const float u = bits_to_unit_float(uniform_bits(actor_key, (uint32_t)((i + 1) * E + e)));
+        const float u =
+            bits_to_unit_float(uniform_bits<ACTOR_ROUNDS>(actor_key, (uint32_t)((i + 1) * E + e)));
         const int v = (int)floorf(u * (float)NUM_ACTIONS);
         s_act[i * EB + el] = v < 0 ? 0 : (v > NUM_ACTIONS - 1 ? NUM_ACTIONS - 1 : v);
       }
@@ -793,24 +801,36 @@ __global__ void __launch_bounds__(BLOCK, Layout<T>::MIN_BLOCKS)
   __syncthreads();
 
   // --- the next observation: a (position, env) item a thread ---------------
+  // Drone i's observation goes to rows [i OBS, (i + 1) OBS) of the output
+  // column. Drone 0's, and the global view (the same for every drone), is
+  // made once in the one-observation tile and stored with coalesced 16-byte
+  // stores, COLLECT times for the global view; the windows of drones 1 ..
+  // COLLECT - 1 go from the observation pass straight to obs_out, which
+  // measured 1-3.5% faster than a pass through the tile each
+  // (scripts/torch_tick_compare.py). The actor has read every input column
+  // of the block (the barrier above), and no other block's column is
+  // written, so every row group may go out at once.
   const int col0 = blockIdx.x * EB;
-  if constexpr (Lay::OBS_GLOBAL) {
-    // Straight to obs_out: the actor has read every input column of the
-    // block (the barrier above), and no other block's column is written.
-    warp::observe_tile<EB, BLOCK>(static_cast<T*>(a.obs_out) + a.write_col + col0, a.out_ld,
-                                  s_board, s_x, s_y, s_carry, s_charge, ne_b);
-  } else {
-    warp::observe_tile<EB, BLOCK>(tile, Lay::S, s_board, s_x, s_y, s_carry, s_charge);
+  using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, float>::type;
+#pragma unroll 1
+  for (int i = 0; i < COLLECT; ++i) {
+    const long long rows = (long long)i * OBS * a.out_ld;  // drone i's row group
+    if (Lay::OBS_GLOBAL || (!GLOBAL && i > 0)) {
+      // Straight to obs_out.
+      warp::observe_tile<EB, BLOCK>(i, static_cast<T*>(a.obs_out) + rows + a.write_col + col0,
+                                    a.out_ld, s_board, s_x, s_y, s_carry, s_charge, ne_b);
+    } else {
+      if (i == 0) {
+        warp::observe_tile<EB, BLOCK>(i, tile, Lay::S, s_board, s_x, s_y, s_carry, s_charge);
+        __syncthreads();
+      }
+      Tile::template store_rows<Raw, Lay::S>(static_cast<Raw*>(a.obs_out) + rows,
+                                             reinterpret_cast<const Raw*>(tile), a.out_ld,
+                                             a.write_col + col0, OBS, ne_b);
+    }
   }
-  __syncthreads();
 
-  // --- store the state, the outputs and the next observation ---------------
-  if constexpr (!Lay::OBS_GLOBAL) {
-    using Raw = typename std::conditional<sizeof(T) == 2, uint16_t, float>::type;
-    Tile::template store_rows<Raw, Lay::S>(static_cast<Raw*>(a.obs_out),
-                                           reinterpret_cast<const Raw*>(tile), a.out_ld,
-                                           a.write_col + col0, OBS, ne_b);
-  }
+  // --- store the state and the outputs --------------------------------------
   Tile::template store_rows<int8_t, EB>(a.ground_out, s_board, a.num_envs, col0, C, ne_b);
   Tile::template store_rows<int32_t, EB>(a.ax_out, s_x, a.num_envs, col0, N, ne_b);
   Tile::template store_rows<int32_t, EB>(a.ay_out, s_y, a.num_envs, col0, N, ne_b);

@@ -34,6 +34,15 @@ rows 1..N are random actions ``floor(u * NUM_ACTIONS)``), and the
 periodic reset is ``core.reset_batch(S[E+1], params, E)``. :func:`tick_fused`
 steps env e with row e of ``split(step_key, E)``, which is ``S[e]``.
 
+With ``collect`` = k (``collect_drones``) the next observation is the
+first k drones' observations stacked as row groups, drone-major: (k ·
+obs_dim, E), where the actor reads rows ``[0, obs_dim)``, drone 0's. With
+``rng_rounds`` < 20 (the fast-RNG mode, ``--fast_rng``) every in-kernel
+hash of the env side (the per-env keys and splits, the spawn fields, the
+reset chain) runs that many threefry rounds, and ``actor_rng_rounds`` (by
+default ``rng_rounds``) those of the actor's uniform field, as the JAX
+kernels' arguments of those names do.
+
 The observation's charge channel (``charge / 100``) may differ from the
 JAX package by 1 ULP, where XLA turns the divide into a reciprocal
 multiply; every other output is bit-identical.
@@ -101,6 +110,27 @@ def obs_rows(params: EnvParams) -> int:
     """Rows of one observation (the flattened window)."""
     h, w, _ = params.obs_shape
     return h * w * NUM_OBS_CHANNELS
+
+
+def actor_rounds(rng_rounds: int, actor_rng_rounds: Optional[int]) -> int:
+    """The actor's round count: ``actor_rng_rounds``, else ``rng_rounds``."""
+    return rng_rounds if actor_rng_rounds is None else actor_rng_rounds
+
+
+def tick_problems(params: EnvParams, collect: int, rng_rounds: int,
+                  actor_rng_rounds: Optional[int] = None) -> List[str]:
+    """What the tick kernels do not take of the drones collected and the
+    round counts (the JAX kernels' own ranges)."""
+    problems = []
+    if not 1 <= collect <= params.n_drones:
+        problems.append(f"collect={collect} outside [1, n_drones="
+                        f"{params.n_drones}]")
+    for name, r in (("rng_rounds", rng_rounds),
+                    ("actor_rng_rounds", actor_rounds(rng_rounds,
+                                                      actor_rng_rounds))):
+        if r not in rng.ROUNDS:
+            problems.append(f"{name}={r} (a multiple of 4 in [4, 20])")
+    return problems
 
 
 def chain_widths(chain: Sequence[torch.Tensor]) -> Tuple[int, ...]:
@@ -223,22 +253,26 @@ def flatten_net_params(net: QNet, net_spec=None) -> List[torch.Tensor]:
 
 # --- plain version ---------------------------------------------------------
 
-def actor_uniforms(actor_key: torch.Tensor, n: int, num_envs: int):
-    """(N+1, E) uniforms from the actor key: row 0 gates exploration,
-    rows 1..N give random actions. Returns (u, random_actions (N, E))."""
-    u_act = rng.uniform(actor_key, (n + 1, num_envs))
+def actor_uniforms(actor_key: torch.Tensor, n: int, num_envs: int,
+                   rounds: int = 20):
+    """(N+1, E) uniforms from the actor key (Threefry-2x32-``rounds``):
+    row 0 gates exploration, rows 1..N give random actions. Returns (u,
+    random_actions (N, E))."""
+    u_act = rng.uniform(actor_key, (n + 1, num_envs), rounds)
     rand = torch.floor(u_act[1:] * float(NUM_ACTIONS)).to(torch.int32)
     return u_act, rand.clamp(0, NUM_ACTIONS - 1)
 
 
 def plain_actions(actor_key: torch.Tensor, obs_ring: torch.Tensor,
                   read_slot: int, chain: Sequence[torch.Tensor],
-                  epsilon: torch.Tensor, params: EnvParams, num_envs: int):
+                  epsilon: torch.Tensor, params: EnvParams, num_envs: int,
+                  rounds: int = 20):
     """The ε-greedy actor of the plain version: ``(actions (N, E) int32,
     q (A, E))``. Greedy is the lowest-index argmax of the Q forward of the
-    actor ``chain`` on the ring's observations at ``read_slot``, cast to
-    f32."""
-    u_act, rand = actor_uniforms(actor_key, params.n_drones, num_envs)
+    actor ``chain`` on drone 0's rows of the ring's observations at
+    ``read_slot``, cast to f32; the uniforms at ``rounds``."""
+    u_act, rand = actor_uniforms(actor_key, params.n_drones, num_envs,
+                                 rounds)
     with torch.no_grad():
         obs_t = obs_ring[:obs_rows(params), read_slot:read_slot + num_envs]
         q = chain_forward_t(chain, obs_t.to(torch.float32))
@@ -337,30 +371,32 @@ def split_forward_t(chain: Sequence[torch.Tensor], obs_t: torch.Tensor,
 
 
 def _env_tick_plain(env_keys, tstate: TState, actions: torch.Tensor,
-                    reset_key: Optional[torch.Tensor], params: EnvParams):
+                    reset_key: Optional[torch.Tensor], params: EnvParams,
+                    collect: int = 1, rounds: int = 20):
     """``core.step_batch`` of every env with its key (E, 2) and actions
-    (N, E); then, with ``reset_key``, ``core.reset_batch``; then the
-    observation. Returns ``(tstate', rewards (N, E), dones (N, E) bool,
-    obs (obs_dim, E) f32)``."""
+    (N, E); then, with ``reset_key``, ``core.reset_batch``; then the first
+    ``collect`` drones' observations, drone-major; every draw at
+    ``rounds``. Returns ``(tstate', rewards (N, E), dones (N, E) bool,
+    obs (collect · obs_dim, E) f32)``."""
     num_envs = tstate.ground.shape[1]
     state = from_tstate(tstate, params)
     stepped, rewards, dones = core.step_batch(
-        env_keys, state, actions.t(), params)
+        env_keys, state, actions.t(), params, rounds)
     if reset_key is not None:
-        stepped = core.reset_batch(reset_key, params, num_envs)
-    obs = core.observe_batch(stepped, params, 1).reshape(
-        num_envs, obs_rows(params)).t()
+        stepped = core.reset_batch(reset_key, params, num_envs, rounds)
+    obs = core.observe_batch(stepped, params, collect).reshape(
+        num_envs, collect * obs_rows(params)).t()
     return (to_tstate(stepped), rewards.t().contiguous(),
             dones.t().contiguous(), obs)
 
 
 def _plain_tick_actions(keys, obs, read_slot, chain, epsilon, params,
-                        actions_override):
+                        actions_override, rounds):
     num_envs = keys.shape[0] - 2
     if actions_override is not None:
         return actions_override.to(device=obs.device, dtype=torch.int32)
     return plain_actions(keys[num_envs], obs, read_slot, chain,
-                         epsilon, params, num_envs)[0]
+                         epsilon, params, num_envs, rounds)[0]
 
 
 def full_tick_ring_plain(
@@ -374,22 +410,28 @@ def full_tick_ring_plain(
     do_reset: bool,
     params: EnvParams,
     actions_override: Optional[torch.Tensor] = None,
+    collect: int = 1,
+    rng_rounds: int = 20,
+    actor_rng_rounds: Optional[int] = None,
 ):
     """The ring launch's function in plain PyTorch, on any device.
 
     ``actions_override`` (N, E) replaces the actor's actions (the env
     side is then checked bitwise against the kernel's, independently of
-    near-tie Q-values). Writes the ring in place; returns
-    ``(tstate', rewards (N, E), dones (N, E) bool, actions (N, E) int32,
-    obs_ring)``.
+    near-tie Q-values). Writes the ring (collect · obs_dim rows) in place;
+    returns ``(tstate', rewards (N, E), dones (N, E) bool, actions (N, E)
+    int32, obs_ring)``.
     """
     num_envs = tstate.ground.shape[1]
-    keys = rng.split(step_key.to(tstate.ground.device), num_envs + 2)
-    actions = _plain_tick_actions(keys, obs_ring, read_slot, chain,
-                                  epsilon, params, actions_override)
+    keys = rng.split(step_key.to(tstate.ground.device), num_envs + 2,
+                     rng_rounds)
+    actions = _plain_tick_actions(
+        keys, obs_ring, read_slot, chain, epsilon, params, actions_override,
+        actor_rounds(rng_rounds, actor_rng_rounds))
     tstate, rewards, dones, obs = _env_tick_plain(
         keys[:num_envs], tstate, actions,
-        keys[num_envs + 1] if do_reset else None, params)
+        keys[num_envs + 1] if do_reset else None, params, collect,
+        rng_rounds)
     obs_ring[:obs.shape[0], write_slot:write_slot + num_envs] = obs.to(
         obs_ring.dtype)
     return tstate, rewards, dones, actions.contiguous(), obs_ring
@@ -404,32 +446,39 @@ def full_tick_plain(
     do_reset: bool,
     params: EnvParams,
     actions_override: Optional[torch.Tensor] = None,
+    collect: int = 1,
+    rng_rounds: int = 20,
+    actor_rng_rounds: Optional[int] = None,
 ):
     """:func:`full_tick_fused`'s function in plain PyTorch, on any device
     (``actions_override`` as in :func:`full_tick_ring_plain`). Returns
     ``(tstate', rewards (N, E), dones (N, E) bool, actions (N, E) int32,
-    obs_t' (obs_dim, E) f32)``; ``obs_t`` is not written."""
+    obs_t' (collect · obs_dim, E) f32)``; ``obs_t`` is not written."""
     num_envs = tstate.ground.shape[1]
-    keys = rng.split(step_key.to(tstate.ground.device), num_envs + 2)
-    actions = _plain_tick_actions(keys, obs_t, 0, chain, epsilon,
-                                  params, actions_override)
+    keys = rng.split(step_key.to(tstate.ground.device), num_envs + 2,
+                     rng_rounds)
+    actions = _plain_tick_actions(
+        keys, obs_t, 0, chain, epsilon, params, actions_override,
+        actor_rounds(rng_rounds, actor_rng_rounds))
     tstate, rewards, dones, obs = _env_tick_plain(
         keys[:num_envs], tstate, actions,
-        keys[num_envs + 1] if do_reset else None, params)
+        keys[num_envs + 1] if do_reset else None, params, collect,
+        rng_rounds)
     return tstate, rewards, dones, actions.contiguous(), obs.contiguous()
 
 
 def tick_plain(step_key: torch.Tensor, tstate: TState,
-               actions_t: torch.Tensor, params: EnvParams):
+               actions_t: torch.Tensor, params: EnvParams, collect: int = 1,
+               rng_rounds: int = 20):
     """:func:`tick_fused`'s function in plain PyTorch, on any device:
     ``core.step_batch`` with row e of ``split(step_key, E)`` for env e and
     ``observe_batch``, feature-major. Returns ``(tstate', rewards (N, E),
-    dones (N, E) bool, obs_t' (obs_dim, E) f32)``."""
+    dones (N, E) bool, obs_t' (collect · obs_dim, E) f32)``."""
     num_envs = tstate.ground.shape[1]
-    keys = rng.split(step_key.to(tstate.ground.device), num_envs)
+    keys = rng.split(step_key.to(tstate.ground.device), num_envs, rng_rounds)
     actions = actions_t.to(device=tstate.ground.device, dtype=torch.int32)
-    tstate, rewards, dones, obs = _env_tick_plain(keys, tstate, actions,
-                                                  None, params)
+    tstate, rewards, dones, obs = _env_tick_plain(
+        keys, tstate, actions, None, params, collect, rng_rounds)
     return tstate, rewards, dones, obs.contiguous()
 
 
@@ -476,10 +525,14 @@ class EnvArgs(ctypes.Structure):
     ] + _REWARD_FIELDS
 
 
-def kernel_config(params: EnvParams, chain: Sequence[torch.Tensor]):
-    """The full tick kernel's library (B1 and B3) for the actor ``chain``:
-    source and compile-time configuration (see ops/_build.py)."""
-    return _build.tick_config(params, chain_widths(chain))
+def kernel_config(params: EnvParams, chain: Sequence[torch.Tensor],
+                  collect: int = 1, rng_rounds: int = 20,
+                  actor_rng_rounds: Optional[int] = None):
+    """The full tick kernel's library (B1 and B3) for the actor ``chain``,
+    the drones collected and the round counts: source and compile-time
+    configuration (see ops/_build.py)."""
+    return _build.tick_config(params, chain_widths(chain), collect,
+                              rng_rounds, actor_rng_rounds)
 
 
 def kernel_occupancy(config, obs_bf16: bool) -> Tuple[int, int, int]:
@@ -514,30 +567,37 @@ def env_block_shape(config) -> Dict[str, int]:
 
 def prepare_kernel(params: EnvParams,
                    chain: Optional[Sequence[torch.Tensor]] = None,
-                   in_kernel_td: bool = False, env_tick: bool = False):
+                   in_kernel_td: bool = False, env_tick: bool = False,
+                   collect: int = 1, rng_rounds: int = 20,
+                   actor_rng_rounds: Optional[int] = None):
     """Build (or load) the CUDA kernels for this configuration before the
     first tick, so that the builds stay out of any timed region: the full
     tick kernel for the actor ``chain``, with ``in_kernel_td`` the learner
     kernel for it too (a dense net's chain), with ``env_tick`` the env
-    tick kernel (B4)."""
+    tick kernel (B4); each for the drones collected and the round
+    counts."""
     configs = []
     if chain is not None:
-        configs.append(kernel_config(params, chain))
+        configs.append(kernel_config(params, chain, collect, rng_rounds,
+                                     actor_rng_rounds))
     if in_kernel_td:
         configs.append(_build.learner_config(chain_widths(chain)))
     if env_tick:
-        configs.append(_build.env_config(params))
+        configs.append(_build.env_config(params, collect, rng_rounds))
     _build.build(configs)
     return [_build.load(c) for c in configs]
 
 
-def _check_state(step_key, tstate: TState, params: EnvParams, widths=None):
+def _check_state(step_key, tstate: TState, params: EnvParams, widths=None,
+                 collect: int = 1, rng_rounds: int = 20,
+                 actor_rng_rounds: Optional[int] = None):
     """Check a tick's key and state against the kernels' limits (with the
-    actor chain's ``widths``, against the tick kernel's); returns (device,
-    num_envs)."""
+    actor chain's ``widths``, against the tick kernel's), the drones
+    collected and the round counts; returns (device, num_envs)."""
     device = tstate.ground.device
     num_envs = tstate.ground.shape[1]
-    problems = kernel_problems(params, num_envs, widths)
+    problems = kernel_problems(params, num_envs, widths) + tick_problems(
+        params, collect, rng_rounds, actor_rng_rounds)
     if problems:
         raise ValueError("the CUDA tick kernel does not take this "
                          "configuration: " + "; ".join(problems))
@@ -577,23 +637,26 @@ def _fill_env(a, step_key, tstate: TState, params: EnvParams):
 
 def _tick_args(step_key, tstate: TState, obs_in, read_slot: int, obs_out,
                write_slot: int, chain: Sequence[torch.Tensor], epsilon,
-               do_reset: bool, params: EnvParams):
+               do_reset: bool, params: EnvParams, collect: int = 1,
+               rng_rounds: int = 20, actor_rng_rounds: Optional[int] = None):
     """Check the inputs of a full tick launch (B1 or B3), allocate its
     outputs and fill its argument block. The observation is read from
-    ``obs_in``'s columns ``read_slot:read_slot+E`` and written into
-    ``obs_out``'s ``write_slot:write_slot+E``. Where the activations do
-    not fit the block's shared memory (``tick_layout``), the block holds
-    its device-memory scratch. Returns ``(args, (tstate', rewards, dones,
-    actions))``."""
+    ``obs_in``'s columns ``read_slot:read_slot+E`` (drone 0's rows) and
+    the ``collect`` drones' next ones written into ``obs_out``'s
+    ``write_slot:write_slot+E``; both hold collect · obs_dim rows. Where
+    the activations do not fit the block's shared memory
+    (``tick_layout``), the block holds its device-memory scratch. Returns
+    ``(args, (tstate', rewards, dones, actions))``."""
     obs_dim = obs_rows(params)
     widths = chain_widths(chain)
-    device, num_envs = _check_state(step_key, tstate, params, widths)
+    device, num_envs = _check_state(step_key, tstate, params, widths,
+                                    collect, rng_rounds, actor_rng_rounds)
     if obs_in.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"obs dtype {obs_in.dtype} (float32 or bfloat16)")
     for name, obs, slot in (("obs_in", obs_in, read_slot),
                             ("obs_out", obs_out, write_slot)):
-        check_tensor(obs, name, obs_in.dtype, (obs_dim, obs.shape[-1]),
-                     device)
+        check_tensor(obs, name, obs_in.dtype,
+                     (collect * obs_dim, obs.shape[-1]), device)
         if not 0 <= slot <= obs.shape[-1] - num_envs:
             raise ValueError(f"slot {slot} out of {name}")
     check_tensor(epsilon, "epsilon", torch.float32, (), device)
@@ -629,41 +692,47 @@ def _tick_args(step_key, tstate: TState, obs_in, read_slot: int, obs_out,
 
 def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
                  write_slot: int, chain: Sequence[torch.Tensor], epsilon,
-                 do_reset: bool, params: EnvParams):
+                 do_reset: bool, params: EnvParams, **rng_collect):
     """The ring launch's (B1) argument block: the ring is both the
     observation read and the one written, at columns that must not
-    overlap unless they are equal. Returns ``(args, (tstate', rewards,
-    dones, actions))``."""
+    overlap unless they are equal; ``rng_collect`` the keywords
+    ``collect``, ``rng_rounds`` and ``actor_rng_rounds`` of
+    :func:`_tick_args`. Returns ``(args, (tstate', rewards, dones,
+    actions))``."""
     num_envs = tstate.ground.shape[1]
     if read_slot != write_slot and abs(read_slot - write_slot) < num_envs:
         raise ValueError("the read and write columns overlap")
     return _tick_args(step_key, tstate, obs_ring, read_slot, obs_ring,
-                      write_slot, chain, epsilon, do_reset, params)
+                      write_slot, chain, epsilon, do_reset, params,
+                      **rng_collect)
 
 
 def _full_args(step_key, tstate: TState, obs_t, chain: Sequence[torch.Tensor],
-               epsilon, do_reset: bool, params: EnvParams):
-    """The obs launch's (B3) argument block: ``obs_t`` (obs_dim, E) f32 is
-    read, a new array of its shape written. Returns ``(args, (tstate',
-    rewards, dones, actions, obs_t'))``."""
+               epsilon, do_reset: bool, params: EnvParams, **rng_collect):
+    """The obs launch's (B3) argument block: ``obs_t`` (collect · obs_dim,
+    E) f32 is read, a new array of its shape written (``rng_collect`` as
+    :func:`_kernel_args`). Returns ``(args, (tstate', rewards, dones,
+    actions, obs_t'))``."""
     num_envs = tstate.ground.shape[1]
     if obs_t.dtype != torch.float32 or obs_t.shape[-1] != num_envs:
         raise ValueError(f"obs_t must be float32 (obs_dim, {num_envs})")
     obs_next = torch.empty_like(obs_t)
     a, outs = _tick_args(step_key, tstate, obs_t, 0, obs_next, 0,
-                         chain, epsilon, do_reset, params)
+                         chain, epsilon, do_reset, params, **rng_collect)
     return a, outs + (obs_next,)
 
 
-def _env_tick_args(step_key, tstate: TState, actions_t, params: EnvParams):
+def _env_tick_args(step_key, tstate: TState, actions_t, params: EnvParams,
+                   collect: int = 1, rng_rounds: int = 20):
     """The env tick launch's (B4) argument block. Returns ``(args,
-    (tstate', rewards, dones, obs_t'))``."""
-    device, num_envs = _check_state(step_key, tstate, params)
+    (tstate', rewards, dones, obs_t' (collect · obs_dim, E)))``."""
+    device, num_envs = _check_state(step_key, tstate, params, None, collect,
+                                    rng_rounds)
     check_tensor(actions_t, "actions_t", torch.int32,
                  (params.n_drones, num_envs), device)
     a = EnvArgs()
     out, rewards, dones = _fill_env(a, step_key, tstate, params)
-    obs_next = torch.empty((obs_rows(params), num_envs),
+    obs_next = torch.empty((collect * obs_rows(params), num_envs),
                            dtype=torch.float32, device=device)
     a.actions, a.obs_out = actions_t.data_ptr(), obs_next.data_ptr()
     return a, (out, rewards, dones, obs_next)
@@ -691,15 +760,18 @@ def full_tick_fused_ring(
     td_hparams: Optional[Tuple[float, float, float, float, float]] = None,
     td_batch: Optional[Dict[str, torch.Tensor]] = None,
     td_aux=None,
+    rng_rounds: int = 20,
+    actor_rng_rounds: Optional[int] = None,
 ):
     """One training tick's env side, writing the next obs into the ring.
 
     ``step_key`` is a host key (2,); ``read_slot``/``write_slot`` are
     ring columns; ``chain`` is the actor's matmul chain
-    (:func:`flatten_net_params`); ``do_reset`` is a host bool. The ring is
-    written in place (only columns ``write_slot:write_slot+E``). Returns
-    ``(tstate', rewards (N, E) f32, dones (N, E) bool, actions (N, E)
-    int32, obs_ring)``.
+    (:func:`flatten_net_params`); ``do_reset`` is a host bool. The ring
+    holds ``collect`` · obs_dim rows (the module docstring, as the round
+    counts) and is written in place (only columns
+    ``write_slot:write_slot+E``). Returns ``(tstate', rewards (N, E) f32,
+    dones (N, E) bool, actions (N, E) int32, obs_ring)``.
 
     With ``td_hparams = (gamma, lr, b1, b2, eps)`` the TD(0) + Adam step
     runs too (dense nets only), on ``td_batch`` (obs / next_obs (obs_dim,
@@ -717,25 +789,25 @@ def full_tick_fused_ring(
     launches``); CPU tensors run the plain versions. There is no
     fallback between the two.
     """
-    if collect != 1:
-        raise NotImplementedError("collect_drones > 1 is not ported yet")
     td = td_hparams is not None
     if td and (td_batch is None or td_aux is None):
         raise ValueError("in-kernel TD needs td_batch and td_aux")
     if td and not isinstance(td_aux[0], DenseQNet):
         raise ValueError("in-kernel TD supports dense networks only")
+    rng_collect = dict(collect=collect, rng_rounds=rng_rounds,
+                       actor_rng_rounds=actor_rng_rounds)
     if tstate.ground.is_cuda:
         args, outs = _kernel_args(step_key, tstate, obs_ring, read_slot,
                                   write_slot, chain, epsilon, do_reset,
-                                  params)
-        _launch(kernel_config(params, chain), "full_tick_ring_launch",
-                args, tstate.ground.device)
+                                  params, **rng_collect)
+        _launch(kernel_config(params, chain, **rng_collect),
+                "full_tick_ring_launch", args, tstate.ground.device)
         full_tick_fused_ring.launches += 1
         out = outs + (obs_ring,)
     else:
         out = full_tick_ring_plain(step_key, tstate, obs_ring, read_slot,
                                    write_slot, chain, epsilon, do_reset,
-                                   params)
+                                   params, **rng_collect)
     if not td:
         return out
     gamma, lr, b1, b2, adam_eps = td_hparams
@@ -755,26 +827,29 @@ full_tick_fused_ring.launches = 0
 def full_tick_fused(step_key: torch.Tensor, tstate: TState,
                     obs_t: torch.Tensor, chain: Sequence[torch.Tensor],
                     epsilon: torch.Tensor, do_reset: bool,
-                    params: EnvParams, collect: int = 1):
+                    params: EnvParams, collect: int = 1,
+                    rng_rounds: int = 20,
+                    actor_rng_rounds: Optional[int] = None):
     """The whole env side of a full-engine tick (B3): the ε-greedy actor
-    (the matmul ``chain``) on ``obs_t`` (obs_dim, E) f32, the physics and
-    respawns, the reset
-    when ``do_reset`` (a host bool), and the next observation into a new
-    array. Returns ``(tstate', rewards (N, E) f32, dones (N, E) bool,
-    actions (N, E) int32, obs_t' (obs_dim, E) f32)``.
+    (the matmul ``chain``) on drone 0's rows of ``obs_t`` (collect ·
+    obs_dim, E) f32, the physics and respawns, the reset when ``do_reset``
+    (a host bool), and the next observation into a new array (the module
+    docstring, as the round counts). Returns ``(tstate', rewards (N, E)
+    f32, dones (N, E) bool, actions (N, E) int32, obs_t' (collect ·
+    obs_dim, E) f32)``.
 
     CUDA tensors launch the kernel (counted in ``full_tick_fused.
     launches``); CPU tensors run :func:`full_tick_plain`.
     """
-    if collect != 1:
-        raise NotImplementedError("collect_drones > 1 is not ported yet")
+    rng_collect = dict(collect=collect, rng_rounds=rng_rounds,
+                       actor_rng_rounds=actor_rng_rounds)
     if not tstate.ground.is_cuda:
         return full_tick_plain(step_key, tstate, obs_t, chain, epsilon,
-                               do_reset, params)
+                               do_reset, params, **rng_collect)
     args, outs = _full_args(step_key, tstate, obs_t, chain, epsilon,
-                            do_reset, params)
-    _launch(kernel_config(params, chain), "full_tick_launch", args,
-            tstate.ground.device)
+                            do_reset, params, **rng_collect)
+    _launch(kernel_config(params, chain, **rng_collect), "full_tick_launch",
+            args, tstate.ground.device)
     full_tick_fused.launches += 1
     return outs
 
@@ -784,22 +859,23 @@ full_tick_fused.launches = 0
 
 def tick_fused(step_key: torch.Tensor, tstate: TState,
                actions_t: torch.Tensor, params: EnvParams,
-               collect: int = 1):
+               collect: int = 1, rng_rounds: int = 20):
     """Step and observe every env with the caller's actions (B4):
-    ``actions_t`` (N, E) int32, ``step_key`` a host key (2,). Returns
-    ``(tstate', rewards (N, E) f32, dones (N, E) bool, obs_t' (obs_dim, E)
-    f32)``.
+    ``actions_t`` (N, E) int32, ``step_key`` a host key (2,); the first
+    ``collect`` drones' observations, every hash at ``rng_rounds``.
+    Returns ``(tstate', rewards (N, E) f32, dones (N, E) bool, obs_t'
+    (collect · obs_dim, E) f32)``.
 
     CUDA tensors launch the kernel (counted in ``tick_fused.launches``);
     CPU tensors run :func:`tick_plain`.
     """
-    if collect != 1:
-        raise NotImplementedError("collect_drones > 1 is not ported yet")
     if not tstate.ground.is_cuda:
-        return tick_plain(step_key, tstate, actions_t, params)
-    args, outs = _env_tick_args(step_key, tstate, actions_t, params)
-    _launch(_build.env_config(params), "tick_launch", args,
-            tstate.ground.device)
+        return tick_plain(step_key, tstate, actions_t, params, collect,
+                          rng_rounds)
+    args, outs = _env_tick_args(step_key, tstate, actions_t, params,
+                                collect, rng_rounds)
+    _launch(_build.env_config(params, collect, rng_rounds), "tick_launch",
+            args, tstate.ground.device)
     tick_fused.launches += 1
     return outs
 
@@ -810,34 +886,61 @@ tick_fused.launches = 0
 # --- ring companions ---------------------------------------------------------
 
 def ring_scalar_writes(a_ring, r_ring, d_ring, actions_t, rewards_t, dones_t,
-                       read_slot: int):
-    """Record drone 0's scalars at the slot of this tick's input obs
-    (in place; ``collect_drones`` = 1 layout)."""
+                       read_slot: int, collect: int = 1):
+    """Record this tick's scalars at the slot of its input obs (in place):
+    drone 0's into flat (capacity,) rings for ``collect`` = 1, the first k
+    drones' into (k, capacity) rings for k > 1."""
     num_envs = actions_t.shape[1]
-    a_ring[read_slot:read_slot + num_envs] = actions_t[0]
-    r_ring[read_slot:read_slot + num_envs] = rewards_t[0]
-    d_ring[read_slot:read_slot + num_envs] = dones_t[0].to(torch.int8)
+    cols = slice(read_slot, read_slot + num_envs)
+    drones = 0 if collect == 1 else slice(0, collect)
+    a_ring[..., cols] = actions_t[drones]
+    r_ring[..., cols] = rewards_t[drones]
+    d_ring[..., cols] = dones_t[drones].to(torch.int8)
     return a_ring, r_ring, d_ring
 
 
 def ring_gather_batch(sample_key, ring, a_ring, r_ring, d_ring, valid: int,
                       base_step: int, *, num_envs: int, capacity: int,
-                      batch_size: int) -> Dict[str, torch.Tensor]:
+                      batch_size: int, collect: int = 1,
+                      obs_dim: Optional[int] = None
+                      ) -> Dict[str, torch.Tensor]:
     """Uniform replay sample over ``valid`` columns from ``base_step``'s
     slot; next_obs is the column one env-batch later. The indices are
-    drawn on the host from ``sample_key`` (``jax.random.randint``)."""
+    drawn on the host from ``sample_key`` (``jax.random.randint``): a
+    (batch_size,) draw for ``collect`` = 1; for k > 1 a (k, batch_size //
+    k) draw, row j's columns gathered from drone j's row group (``obs_dim``
+    rows) and scalar ring, the drones concatenated in order."""
     nb = capacity // num_envs
     base_slot = (base_step % nb) * num_envs
-    raw = rng.randint(sample_key, (batch_size,), 0, max(valid, 1))
+    k = collect
+    shape = (batch_size,) if k == 1 else (k, batch_size // k)
+    raw = rng.randint(sample_key, shape, 0, max(valid, 1))
     phys = (base_slot + raw.to(torch.int64)) % capacity
     nxt = (phys + num_envs) % capacity
-    idx = torch.cat([phys, nxt]).to(ring.device, non_blocking=True)
-    both = ring[:, idx].to(torch.float32)
-    phys = idx[:batch_size]
+    idx = torch.stack([phys, nxt]).to(ring.device, non_blocking=True)
+    if k == 1:
+        both = ring[:, idx.reshape(-1)].to(torch.float32)
+        phys = idx[0]
+        return {
+            "obs": both[:, :batch_size],
+            "next_obs": both[:, batch_size:],
+            "actions": a_ring[phys],
+            "rewards": r_ring[phys],
+            "dones": d_ring[phys].to(torch.float32),
+        }
+    # Column c of the batch is drone c // (batch_size // k)'s: its rows of
+    # the ring are that drone's row group. One gather of (obs_dim, 2 B),
+    # obs then next_obs, as for k = 1.
+    drone = torch.arange(k, device=ring.device).repeat_interleave(
+        batch_size // k)
+    rows = (torch.arange(obs_dim, device=ring.device)[:, None]
+            + drone * obs_dim).repeat(1, 2)
+    both = ring[rows, idx.reshape(1, -1)].to(torch.float32)
+    phys = idx[0].reshape(-1)
     return {
         "obs": both[:, :batch_size],
         "next_obs": both[:, batch_size:],
-        "actions": a_ring[phys],
-        "rewards": r_ring[phys],
-        "dones": d_ring[phys].to(torch.float32),
+        "actions": a_ring[drone, phys],
+        "rewards": r_ring[drone, phys],
+        "dones": d_ring[drone, phys].to(torch.float32),
     }

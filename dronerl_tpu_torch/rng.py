@@ -27,9 +27,10 @@ def _rotl(x, d):
     return ((x << d) | (x >> (32 - d))) & MASK32
 
 
-def _threefry(k1, k2, x0, x1):
-    """The 20 rounds on Python ints or int64 tensors alike (every value
-    held in [0, 2**32))."""
+def _threefry(k1, k2, x0, x1, rounds=20):
+    """``rounds`` rounds (a multiple of 4 in [4, 20]) on Python ints or
+    int64 tensors alike (every value held in [0, 2**32)): each group of
+    four rotations is followed by its key injection, as JAX's schedule."""
     ks0, ks1 = k1, k2
     ks2 = k1 ^ k2 ^ 0x1BD11BDA
     x0 = (x0 + ks0) & MASK32
@@ -37,7 +38,7 @@ def _threefry(k1, k2, x0, x1):
     schedule = ((_ROT0, ks1, ks2, 1), (_ROT1, ks2, ks0, 2),
                 (_ROT0, ks0, ks1, 3), (_ROT1, ks1, ks2, 4),
                 (_ROT0, ks2, ks0, 5))
-    for rots, inj0, inj1, i in schedule:
+    for rots, inj0, inj1, i in schedule[:rounds // 4]:
         for r in rots:
             x0 = (x0 + x1) & MASK32
             x1 = _rotl(x1, r)
@@ -47,16 +48,32 @@ def _threefry(k1, k2, x0, x1):
     return x0, x1
 
 
-def threefry2x32(k1, k2, x0, x1):
-    """Threefry-2x32 with 20 rounds, elementwise over broadcast int64 args.
+# The round counts of Threefry-2x32-R that the JAX package's
+# ``threefry2x32`` takes: a multiple of 4 in [4, 20].
+ROUNDS = (4, 8, 12, 16, 20)
+
+
+def check_rounds(rounds: int) -> int:
+    """``rounds`` if it is one of :data:`ROUNDS`, else ValueError."""
+    if rounds not in ROUNDS:
+        raise ValueError(f"threefry rounds {rounds}: a multiple of 4 in "
+                         "[4, 20]")
+    return rounds
+
+
+def threefry2x32(k1, k2, x0, x1, rounds: int = 20):
+    """Threefry-2x32, elementwise over broadcast int64 args.
 
     Same rotations and key injections as jax's lowering and as
-    ``dronerl_tpu/ops/step_kernel.py::threefry2x32``.
+    ``dronerl_tpu/ops/step_kernel.py::threefry2x32``: 20 rounds are
+    ``jax.random``'s, fewer (``rounds``, a multiple of 4) the
+    reduced-round Threefry-2x32-R of the fast-RNG mode.
     """
+    check_rounds(rounds)
     k1 = torch.as_tensor(k1, dtype=torch.int64)
     as64 = functools.partial(torch.as_tensor, dtype=torch.int64,
                              device=k1.device)
-    return _threefry(k1, as64(k2), as64(x0), as64(x1))
+    return _threefry(k1, as64(k2), as64(x0), as64(x1), rounds)
 
 
 def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
@@ -72,27 +89,29 @@ def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
 _HOST_COUNTS = 64
 
 
-def _hash_counts(key: torch.Tensor, n: int):
+def _hash_counts(key: torch.Tensor, n: int, rounds: int = 20):
     """Threefry words (b1, b2) of counters 0..n-1 under key (..., 2)."""
     if key.device.type == "cpu" and key.dim() == 1 and n <= _HOST_COUNTS:
         k1, k2 = (int(v) for v in key.tolist())
-        words = [_threefry(k1, k2, 0, i) for i in range(n)]
+        check_rounds(rounds)
+        words = [_threefry(k1, k2, 0, i, rounds) for i in range(n)]
         return (torch.tensor([w[0] for w in words], dtype=torch.int64),
                 torch.tensor([w[1] for w in words], dtype=torch.int64))
     counts = torch.arange(n, dtype=torch.int64, device=key.device)
-    return threefry2x32(key[..., 0:1], key[..., 1:2], 0, counts)
+    return threefry2x32(key[..., 0:1], key[..., 1:2], 0, counts, rounds)
 
 
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: key (..., 2) -> (..., num, 2)."""
-    b1, b2 = _hash_counts(key, num)
+def split(key: torch.Tensor, num: int = 2, rounds: int = 20) -> torch.Tensor:
+    """``jax.random.split``: key (..., 2) -> (..., num, 2); with ``rounds``
+    < 20 the same split hashed by Threefry-2x32-``rounds``."""
+    b1, b2 = _hash_counts(key, num, rounds)
     return torch.stack([b1, b2], dim=-1)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape, rounds: int = 20) -> torch.Tensor:
     """32-bit random words for key (..., 2) -> (..., *shape) int64."""
     shape = tuple(shape)
-    b1, b2 = _hash_counts(key, math.prod(shape))
+    b1, b2 = _hash_counts(key, math.prod(shape), rounds)
     return (b1 ^ b2).reshape(*key.shape[:-1], *shape)
 
 
@@ -102,9 +121,10 @@ def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return fbits.view(torch.float32) - 1.0
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` (float32 in [0, 1))."""
-    return bits_to_unit_float(random_bits(key, shape))
+def uniform(key: torch.Tensor, shape, rounds: int = 20) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` (float32 in [0, 1)); with
+    ``rounds`` < 20 its bits from Threefry-2x32-``rounds``."""
+    return bits_to_unit_float(random_bits(key, shape, rounds))
 
 
 def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:

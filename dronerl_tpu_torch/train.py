@@ -45,6 +45,16 @@ buffer holds a batch; the schedules; the periodic reset. It launches no
 kernel of the port: the JAX CLI runs it where its fused kernels do not
 apply (fewer than 128 envs, among others), and so does this one.
 
+With ``collect_drones`` = k the first k drones of every env feed the
+replay, as in the JAX trainers: the ring engine's columns hold k row
+groups of observations, its scalar rings (k, columns), and a sample draws
+batch_size // k columns per drone; the StreamReplay engines push E · k
+transitions a tick (the drones' observations concatenated drone-major);
+the actor still acts for drone 0 alone. ``rng_rounds`` /
+``actor_rng_rounds`` (the CLI's ``--fast_rng``) reach the tick kernels'
+in-kernel hashes; the host's draws (the per-tick split, the replay
+sample, the fused engine's opponents and ``act_t``) stay at 20 rounds.
+
 The CLI chooses an engine as the JAX CLI does (:func:`choose_engine`).
 
 The step counter, the ring slot arithmetic, the reset flag, the count of
@@ -82,21 +92,27 @@ logger = logging.getLogger("dronerl_tpu_torch.train")
 def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
                           capacity: int, batch_size: int,
                           reset_env_every: int, collect_drones: int = 1,
-                          in_kernel_td: Optional[bool] = None):
+                          in_kernel_td: Optional[bool] = None,
+                          rng_rounds: int = 20,
+                          actor_rng_rounds: Optional[int] = None):
     """The ring-engine tick: ``tick(carry) -> (carry, (rewards (E,),
     epsilon, loss))``, with the JAX trainer's carry layout ``(rng,
     (tstate, ring), (a_ring, r_ring, d_ring), ag_state, aux, step)``.
 
-    ``loss`` is ``NO_TRAIN_LOSS`` on ticks where the ring holds fewer
-    than ``batch_size`` complete transitions. With ``in_kernel_td`` (pass
-    the same to :func:`init_ring_carry`) the learner kernel trains inside
-    tick t+1 on the batch gathered after tick t, carried in ``aux``;
-    tick 0 never trains.
+    ``capacity`` counts ring columns; each holds ``collect_drones`` = k
+    transitions (pass the same k to :func:`init_ring_carry`), and
+    ``batch_size`` must be a multiple of k. ``loss`` is ``NO_TRAIN_LOSS``
+    on ticks where the ring holds fewer than ``batch_size // k`` complete
+    columns. With ``in_kernel_td`` (pass the same to
+    :func:`init_ring_carry`) the learner kernel trains inside tick t+1 on
+    the batch gathered after tick t, carried in ``aux``; tick 0 never
+    trains.
     """
-    if collect_drones != 1:
-        raise NotImplementedError("collect_drones > 1 is not ported yet")
+    k = collect_drones
     if capacity % num_envs != 0 or capacity < 2 * num_envs:
         raise ValueError("capacity must be a multiple of num_envs, >= 2x")
+    if batch_size % k != 0:
+        raise ValueError("batch_size must be a multiple of collect_drones")
     _require_kernel_actor(agent, "ring")
     if in_kernel_td and agent.config.network_type != "dense":
         raise ValueError(
@@ -104,6 +120,8 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
             % agent.config.network_type)
     nb = capacity // num_envs  # ring length in ticks
     device = agent.device
+    rng_collect = dict(collect=k, rng_rounds=rng_rounds,
+                       actor_rng_rounds=actor_rng_rounds)
     td_hparams = None
     if in_kernel_td:
         td_hparams = (float(agent.config.gamma),
@@ -126,33 +144,35 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
             # The carried batch was gathered after the tick before with
             # valid = min(step, nb-1) columns (zero-seeded at step 0,
             # which never trains).
-            can_train = min(step, nb - 1) * num_envs >= batch_size
+            can_train = min(step, nb - 1) * num_envs >= batch_size // k
             adam = ag_state.opt_state
             tstate, rewards_t, dones_t, actions_t, ring, _, _, _, loss = (
                 fused_tick.full_tick_fused_ring(
                     *args, td_hparams=td_hparams, td_batch=aux,
                     td_aux=(ag_state.params, ag_state.target_params,
-                            adam.mu, adam.nu, can_train, adam.count)))
+                            adam.mu, adam.nu, can_train, adam.count),
+                    **rng_collect))
             if can_train:
                 adam.count += 1
         else:
             tstate, rewards_t, dones_t, actions_t, ring = (
-                fused_tick.full_tick_fused_ring(*args))
+                fused_tick.full_tick_fused_ring(*args, **rng_collect))
 
         # Scalars live at the same slot as this tick's input observation.
         a_ring, r_ring, d_ring = fused_tick.ring_scalar_writes(
-            a_ring, r_ring, d_ring, actions_t, rewards_t, dones_t, read_slot)
+            a_ring, r_ring, d_ring, actions_t, rewards_t, dones_t, read_slot,
+            k)
 
-        # Complete tuples after tick t: steps [max(0, t+2-nb), t].
+        # Complete columns after tick t: steps [max(0, t+2-nb), t].
         valid = min(step + 1, nb - 1) * num_envs
-        if td_hparams is not None or valid >= batch_size:
+        if td_hparams is not None or valid >= batch_size // k:
             batch = fused_tick.ring_gather_batch(
                 sample_key, ring, a_ring, r_ring, d_ring, valid,
                 max(0, step + 2 - nb), num_envs=num_envs, capacity=capacity,
-                batch_size=batch_size)
+                batch_size=batch_size, collect=k, obs_dim=agent.obs_dim)
         if td_hparams is not None:
             aux = batch  # trained on inside the next tick
-        elif valid >= batch_size:
+        elif valid >= batch_size // k:
             ag_state, loss = agent.train_step_t(ag_state, batch)
         else:
             loss = torch.tensor(NO_TRAIN_LOSS, device=device)
@@ -169,10 +189,13 @@ def init_ring_carry(agent: DQN, env_params: EnvParams, num_envs: int,
                     capacity: int, rng: torch.Tensor,
                     obs_dtype=torch.float32,
                     batch_size: Optional[int] = None,
-                    in_kernel_td: Optional[bool] = None):
+                    in_kernel_td: Optional[bool] = None,
+                    collect_drones: int = 1):
     """Initial carry for :func:`build_train_step_ring`: envs reset with
-    ``rng``, the ring seeded with their observation at slot 0, a fresh
-    agent drawn from ``rng`` as the JAX trainer draws it.
+    ``rng``, the ring (k · obs_dim rows for ``collect_drones`` = k, the
+    drones' observations drone-major) seeded with their observations at
+    slot 0, scalar rings (capacity,) for k = 1 and (k, capacity) beyond, a
+    fresh agent drawn from ``rng`` as the JAX trainer draws it.
 
     With ``in_kernel_td`` (pass the same to the tick's builder) ``aux``
     is a zero batch of ``batch_size`` columns, never trained on; else
@@ -193,20 +216,28 @@ def init_ring_carry(agent: DQN, env_params: EnvParams, num_envs: int,
             "rewards": zeros((batch_size,), dtype=torch.float32),
             "dones": zeros((batch_size,), dtype=torch.float32),
         }
+    k = collect_drones
     env_states = env_core.reset_batch(rng.to(device), env_params, num_envs)
     tstate = fused_tick.to_tstate(env_states)
-    obs0 = env_core.observe_batch(env_states, env_params, 1).reshape(
-        num_envs, agent.obs_dim).t()
-    ring = torch.zeros((agent.obs_dim, capacity), dtype=obs_dtype,
+    ring = torch.zeros((k * agent.obs_dim, capacity), dtype=obs_dtype,
                        device=device)
-    ring[:, :num_envs] = obs0.to(obs_dtype)
+    ring[:, :num_envs] = _stacked_obs(env_states, env_params, k).to(
+        obs_dtype)
+    scalar_shape = (capacity,) if k == 1 else (k, capacity)
     return (
         rng.cpu(), (tstate, ring),
-        (torch.zeros(capacity, dtype=torch.int32, device=device),
-         torch.zeros(capacity, dtype=torch.float32, device=device),
-         torch.zeros(capacity, dtype=torch.int8, device=device)),
+        (torch.zeros(scalar_shape, dtype=torch.int32, device=device),
+         torch.zeros(scalar_shape, dtype=torch.float32, device=device),
+         torch.zeros(scalar_shape, dtype=torch.int8, device=device)),
         agent.init_state(rng), aux, 0,
     )
+
+
+def _stacked_obs(states, env_params: EnvParams, k: int) -> torch.Tensor:
+    """The first k drones' observations of every env, feature-major and
+    drone-major: (k · obs_dim, E) f32."""
+    obs = env_core.observe_batch(states, env_params, k)
+    return obs.reshape(obs.shape[0], -1).t().contiguous()
 
 
 def _require_kernel_actor(agent: DQN, engine: str) -> None:
@@ -223,13 +254,20 @@ def _require_kernel_actor(agent: DQN, engine: str) -> None:
 
 def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
                     ag_state, sample_key, obs_t, actions_t, rewards_t,
-                    dones_t):
-    """Push the tick's input observation with drone 0's action, reward and
-    done; sample and take the TD step once the replay can be sampled
-    (else loss ``NO_TRAIN_LOSS``). Returns ``(bstate, ag_state, loss)``."""
+                    dones_t, k: int):
+    """Push the tick's input observations of the first k drones (the
+    drones' row groups side by side, drone-major: (obs_dim, k · E)) with
+    their actions, rewards and dones; sample and take the TD step once
+    the replay can be sampled (else loss ``NO_TRAIN_LOSS``). Returns
+    ``(bstate, ag_state, loss)``."""
+    obs_dim = agent.obs_dim
+    num_envs = obs_t.shape[-1]
+    obs = obs_t if k == 1 else obs_t.reshape(k, obs_dim, num_envs).permute(
+        1, 0, 2).reshape(obs_dim, k * num_envs)
     bstate = buffer.push_many(bstate, {
-        "obs": obs_t, "actions": actions_t[0], "rewards": rewards_t[0],
-        "dones": dones_t[0]})
+        "obs": obs, "actions": actions_t[:k].reshape(-1),
+        "rewards": rewards_t[:k].reshape(-1),
+        "dones": dones_t[:k].reshape(-1)})
     if buffer.can_sample(bstate):
         batch = buffer.sample(sample_key, bstate)
         batch["dones"] = batch["dones"].to(torch.float32)
@@ -241,14 +279,16 @@ def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
 
 def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
                           env_params: EnvParams, num_envs: int,
-                          reset_env_every: int, collect_drones: int = 1):
+                          reset_env_every: int, collect_drones: int = 1,
+                          rng_rounds: int = 20,
+                          actor_rng_rounds: Optional[int] = None):
     """The full-engine tick around the full tick kernel (B3): ``tick(carry)
     -> (carry, (rewards (E,), epsilon, loss))`` with the JAX trainer's
     carry ``(rng, tstate, obs_t, ag_state, bstate, step)``
-    (:func:`init_stream_carry`). ``loss`` is ``NO_TRAIN_LOSS`` on ticks
-    where the replay holds fewer than a batch of transitions."""
-    if collect_drones != 1:
-        raise NotImplementedError("collect_drones > 1 is not ported yet")
+    (:func:`init_stream_carry`). The replay's stride is E ·
+    ``collect_drones``. ``loss`` is ``NO_TRAIN_LOSS`` on ticks where the
+    replay holds fewer than a batch of transitions."""
+    k = collect_drones
     _require_kernel_actor(agent, "full")
 
     def tick(carry):
@@ -259,10 +299,11 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
         tstate, rewards_t, dones_t, actions_t, next_obs_t = (
             fused_tick.full_tick_fused(
                 step_key, tstate, obs_t, chain, ag_state.epsilon,
-                step % reset_env_every == 0, env_params))
+                step % reset_env_every == 0, env_params, k, rng_rounds,
+                actor_rng_rounds))
         bstate, ag_state, loss = _push_and_learn(
             agent, buffer, bstate, ag_state, sample_key, obs_t, actions_t,
-            rewards_t, dones_t)
+            rewards_t, dones_t, k)
         ag_state = agent.apply_schedules(ag_state, step, dones_t[0, 0])
         carry = (rng, tstate, next_obs_t, ag_state, bstate, step + 1)
         return carry, (rewards_t[0], ag_state.epsilon, loss)
@@ -272,14 +313,15 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
 
 def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
                            env_params: EnvParams, num_envs: int,
-                           reset_env_every: int, collect_drones: int = 1):
+                           reset_env_every: int, collect_drones: int = 1,
+                           rng_rounds: int = 20):
     """The fused-engine tick around the env tick kernel (B4), for any net:
     the actions come from outside the kernel (random opponents and drone
-    0's ``DQN.act_t``, drawn on the device; a conv net's own forward) and
-    the periodic reset runs after the step in plain PyTorch. Carry and
-    outputs as :func:`build_train_step_full`."""
-    if collect_drones != 1:
-        raise NotImplementedError("collect_drones > 1 is not ported yet")
+    0's ``DQN.act_t``, drawn on the device at 20 rounds; a conv net's own
+    forward) and the periodic reset runs after the step in plain PyTorch
+    at 20 rounds, as in the JAX trainer; ``rng_rounds`` reaches the
+    kernel. Carry and outputs as :func:`build_train_step_full`."""
+    k = collect_drones
     obs_dim = agent.obs_dim
     device = agent.device
 
@@ -293,17 +335,16 @@ def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
                                     NUM_ACTIONS)
         actions_t[0] = agent.act_t(act_key, obs_t[:obs_dim], ag_state)
         tstate, rewards_t, dones_t, next_obs_t = fused_tick.tick_fused(
-            step_key, tstate, actions_t, env_params)
+            step_key, tstate, actions_t, env_params, k, rng_rounds)
         bstate, ag_state, loss = _push_and_learn(
             agent, buffer, bstate, ag_state, sample_key, obs_t, actions_t,
-            rewards_t, dones_t)
+            rewards_t, dones_t, k)
         ag_state = agent.apply_schedules(ag_state, step, dones_t[0, 0])
         if step % reset_env_every == 0:
             states = env_core.reset_batch(reset_key.to(device), env_params,
                                           num_envs)
             tstate = fused_tick.to_tstate(states)
-            next_obs_t = env_core.observe_batch(states, env_params, 1).reshape(
-                num_envs, obs_dim).t().contiguous()
+            next_obs_t = _stacked_obs(states, env_params, k)
         carry = (rng, tstate, next_obs_t, ag_state, bstate, step + 1)
         return carry, (rewards_t[0], ag_state.epsilon, loss)
 
@@ -311,15 +352,16 @@ def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
 
 
 def init_stream_carry(agent: DQN, env_params: EnvParams, num_envs: int,
-                      buffer: replay.StreamReplay, rng: torch.Tensor):
+                      buffer: replay.StreamReplay, rng: torch.Tensor,
+                      collect_drones: int = 1):
     """Initial carry ``(rng, tstate, obs_t, ag_state, bstate, 0)`` for the
-    StreamReplay engines: envs reset with ``rng``, their observation
-    (obs_dim, E) f32, a fresh agent drawn from ``rng`` as the JAX trainer
-    draws it and an empty replay on the agent's device."""
+    StreamReplay engines: envs reset with ``rng``, the first
+    ``collect_drones`` = k drones' observations (k · obs_dim, E) f32,
+    drone-major, a fresh agent drawn from ``rng`` as the JAX trainer draws
+    it and an empty replay on the agent's device."""
     device = agent.device
     env_states = env_core.reset_batch(rng.to(device), env_params, num_envs)
-    obs_t = env_core.observe_batch(env_states, env_params, 1).reshape(
-        num_envs, agent.obs_dim).t().contiguous()
+    obs_t = _stacked_obs(env_states, env_params, collect_drones)
     bstate = buffer.init({
         "obs": torch.zeros((agent.obs_dim,), dtype=torch.float32),
         "actions": torch.zeros((), dtype=torch.int32),
@@ -466,16 +508,50 @@ def choose_engine(args, env_params: EnvParams) -> str:
         if problems:
             logger.info("Fused engines skipped (%s)", "; ".join(problems))
         return "jnp"
-    push_size = args.num_envs  # collect_drones = 1
+    push_size = args.num_envs * args.collect_drones
     capacity = math.ceil(args.memory_size / push_size) * push_size
     dense = args.network_type == "dense" or args.conv_matmul
     skip = ring_skip_reasons(dense, max(capacity, 2 * push_size), push_size,
-                             args.batch_size, 1)
+                             args.batch_size, args.collect_drones)
     engine = "ring" if not skip else ("full" if dense else "fused")
     logger.info("Engine: %s", engine)
     if skip:
         logger.info("Ring engine skipped (%s)", "; ".join(skip))
     return engine
+
+
+def rng_rounds_from_args(args):
+    """``--fast_rng {off,actor,full}`` as the tick kernels' round counts
+    ``(rng_rounds, actor_rng_rounds)``, as the JAX CLI maps it: ``off`` is
+    (20, None), everything at ``jax.random``'s 20 rounds; ``actor`` (20,
+    8), the actor's uniform field alone at 8 rounds, the env's
+    transitions unchanged; ``full`` (8, None), every in-kernel hash at 8
+    rounds, the transitions no longer the reference env's."""
+    mode = getattr(args, "fast_rng", "off")
+    if mode in (False, None, "off"):
+        return 20, None
+    if mode == "actor":
+        return 20, 8
+    return 8, None
+
+
+def engine_rng_rounds(args, engine: str):
+    """The round counts that ``engine`` runs for ``--fast_rng``, with the
+    JAX CLI's two warnings: the jnp engine launches no tick kernel and
+    runs 20 rounds; ``actor`` changes nothing on the fused engine, whose
+    actor runs outside the kernel (its kernel takes ``rng_rounds``
+    only)."""
+    rng_rounds, actor_rng_rounds = rng_rounds_from_args(args)
+    if (rng_rounds, actor_rng_rounds) != (20, None) and engine == "jnp":
+        logger.warning("--fast_rng only affects the fused engines; the jnp "
+                       "engine always uses 20-round threefry draws")
+        return 20, None
+    if actor_rng_rounds is not None and engine == "fused":
+        logger.warning(
+            "--fast_rng actor is a no-op on the fused engine: the actor "
+            "runs outside the kernel; env uniforms stay at the parity 20 "
+            "rounds")
+    return rng_rounds, actor_rng_rounds
 
 
 # --- CLI ---------------------------------------------------------------------
@@ -519,6 +595,7 @@ def agent_config_from_args(args) -> DQNConfig:
         epsilon_decay_every=args.epsilon_decay_every,
         gamma=args.gamma,
         learning_rate=args.learning_rate,
+        tau=args.tau,
     )
 
 
@@ -585,6 +662,18 @@ def parse_args(argv=None):
     p.add_argument("--epsilon_decay_every", type=int, default=5)
     p.add_argument("--target_update_interval", type=int, default=10)
     p.add_argument("--reset_env_every", type=int, default=100)
+    p.add_argument("--tau", type=float, default=1.0,
+                   help="target update: 1.0 a hard copy, < 1 an EMA")
+    p.add_argument("--collect_drones", type=int, default=1,
+                   help="learn from the first k drones of every env")
+    p.add_argument(
+        "--fast_rng", nargs="?", const="full", default="off",
+        choices=["off", "actor", "full"],
+        help="the tick kernels' reduced-round Threefry-2x32-8: 'full' (also "
+        "the bare flag) runs every in-kernel hash at 8 rounds, and the env "
+        "transitions are no longer the reference's at a fixed seed; "
+        "'actor' only the epsilon-greedy actor's uniforms, the env's stay "
+        "at 20 rounds")
     p.add_argument("--ring_obs_dtype", choices=["bfloat16", "float32"],
                    default="bfloat16", help="the ring engine's ring")
     p.add_argument("--engine", choices=["auto", "fused", "jnp"],
@@ -602,13 +691,13 @@ def parse_args(argv=None):
     args, unknown = p.parse_known_args(argv)
     if unknown:
         raise SystemExit(
-            "not supported by the PyTorch port yet (collect_drones=1 "
-            "only): "
-            + " ".join(unknown))
+            "not supported by the PyTorch port yet: " + " ".join(unknown))
     if args.num_envs <= 0:
         raise ValueError("num_envs must be >= 1")
     if args.num_steps <= 0:
         raise ValueError("num_steps must be >= 1")
+    if args.collect_drones < 1 or args.collect_drones > args.n_drones:
+        raise ValueError("collect_drones must be in [1, n_drones]")
     return args
 
 
@@ -617,10 +706,13 @@ def train(args) -> dict:
     env_params = env_params_from_args(args)
     env_params.validate()
     agent = DQN(agent_config_from_args(args), env_params, device=device)
-    num_envs = args.num_envs
-    capacity = math.ceil(args.memory_size / num_envs) * num_envs
-    ring_capacity = max(capacity, 2 * num_envs)
+    num_envs, k = args.num_envs, args.collect_drones
+    # The replay rounded up to whole pushes of E · k transitions.
+    push_size = num_envs * k
+    capacity = math.ceil(args.memory_size / push_size) * push_size
+    ring_capacity = max(capacity, 2 * push_size)
     engine = choose_engine(args, env_params)
+    rng_rounds, actor_rng_rounds = engine_rng_rounds(args, engine)
     rng = rng_mod.PRNGKey(args.seed)
     if engine == "jnp":
         logger.info("env %s | agent %s | %d envs, ReplayBuffer of %d slots "
@@ -629,35 +721,45 @@ def train(args) -> dict:
         buffer = replay.ReplayBuffer(capacity, args.batch_size,
                                      uniform_pushes=True)
         tick = build_train_step(agent, buffer, env_params, num_envs,
-                                args.reset_env_every)
-        carry = init_jnp_carry(agent, env_params, num_envs, buffer, rng)
+                                args.reset_env_every, k)
+        carry = init_jnp_carry(agent, env_params, num_envs, buffer, rng, k)
     elif engine == "ring":
+        ring_columns = ring_capacity // k  # k transitions a column
         logger.info("env %s | agent %s | %d envs, ring %d columns (%s) on %s",
-                    env_params, agent.config, num_envs, ring_capacity,
+                    env_params, agent.config, num_envs, ring_columns,
                     args.ring_obs_dtype, device)
         tick = build_train_step_ring(
-            agent, env_params, num_envs, ring_capacity, args.batch_size,
-            args.reset_env_every)
-        carry = init_ring_carry(agent, env_params, num_envs, ring_capacity,
+            agent, env_params, num_envs, ring_columns, args.batch_size,
+            args.reset_env_every, k, rng_rounds=rng_rounds,
+            actor_rng_rounds=actor_rng_rounds)
+        carry = init_ring_carry(agent, env_params, num_envs, ring_columns,
                                 rng, obs_dtype=getattr(
-                                    torch, args.ring_obs_dtype))
+                                    torch, args.ring_obs_dtype),
+                                collect_drones=k)
     else:
         logger.info("env %s | agent %s | %d envs, StreamReplay of %d slots "
                     "(float32) on %s", env_params, agent.config, num_envs,
                     ring_capacity, device)
         buffer = replay.StreamReplay(ring_capacity, args.batch_size,
-                                     stride=num_envs)
-        build = (build_train_step_full if engine == "full"
-                 else build_train_step_fused)
-        tick = build(agent, buffer, env_params, num_envs,
-                     args.reset_env_every)
-        carry = init_stream_carry(agent, env_params, num_envs, buffer, rng)
+                                     stride=push_size)
+        if engine == "full":
+            tick = build_train_step_full(
+                agent, buffer, env_params, num_envs, args.reset_env_every, k,
+                rng_rounds, actor_rng_rounds)
+        else:
+            tick = build_train_step_fused(
+                agent, buffer, env_params, num_envs, args.reset_env_every, k,
+                rng_rounds)
+            actor_rng_rounds = None  # the kernel has no actor
+        carry = init_stream_carry(agent, env_params, num_envs, buffer, rng,
+                                  k)
     if device.type == "cuda" and engine != "jnp":
         t0 = time.perf_counter()
         fused_tick.prepare_kernel(
             env_params, None if engine == "fused" else
             fused_tick.flatten_net_params(carry[3].params, agent.net_spec),
-            env_tick=engine == "fused")
+            env_tick=engine == "fused", collect=k, rng_rounds=rng_rounds,
+            actor_rng_rounds=actor_rng_rounds)
         logger.info("kernel ready in %.1fs", time.perf_counter() - t0)
         torch.cuda.synchronize(device)
 

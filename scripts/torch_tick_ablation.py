@@ -273,10 +273,10 @@ def ring_block(net, params, device, eps_value):
     ring[:, :NUM_ENVS] = core.observe_batch(state, params, 1).reshape(
         NUM_ENVS, obs_dim).t().to(torch.bfloat16)
     eps = torch.tensor(eps_value, device=device)
+    tstate = fused_tick.to_tstate(state)
     block, outs = fused_tick._kernel_args(
-        rng.PRNGKey(7), fused_tick.to_tstate(state), ring, 0, NUM_ENVS,
-        chain, eps, False, params)
-    return block, (outs, ring, eps, st, state, chain)
+        rng.PRNGKey(7), tstate, ring, 0, NUM_ENVS, chain, eps, False, params)
+    return block, (outs, ring, eps, st, tstate, chain)
 
 
 def time_launches(launch, block) -> float:

@@ -310,8 +310,13 @@ def test_init_stream_carry_layout():
         "obs": torch.float32, "actions": torch.int32,
         "rewards": torch.float32, "dones": torch.bool}
     assert tuple(bstate.storage["obs"].shape) == (294, 4 * E)
-    with pytest.raises(NotImplementedError):
-        train.build_train_step_full(ta, buf, tp, E, 100, collect_drones=2)
+    # Two drones collected: (2 obs_dim, E) observations, pushes of 2 E.
+    buf2 = replay.StreamReplay(4 * E, BATCH, stride=2 * E)
+    carry = train.init_stream_carry(ta, tp, E, buf2, rng, collect_drones=2)
+    assert tuple(carry[2].shape) == (2 * 294, E)
+    tick = train.build_train_step_full(ta, buf2, tp, E, 100, collect_drones=2)
+    carry, _ = tick(carry)
+    assert tuple(carry[2].shape) == (2 * 294, E) and carry[4].size == 2 * E
 
 
 def _jax_engine(num_envs, memory_size, batch_size):

@@ -104,8 +104,8 @@ def test_carry_layout_and_ring_seed():
     assert carry[-1] == 3
     with pytest.raises(ValueError):
         train.build_train_step_ring(ta, tp, E, E, BATCH, 100)
-    with pytest.raises(NotImplementedError):
-        train.build_train_step_ring(ta, tp, E, CAP, BATCH, 100,
+    with pytest.raises(ValueError, match="multiple of collect_drones"):
+        train.build_train_step_ring(ta, tp, E, CAP, BATCH + 1, 100,
                                     collect_drones=2)
 
 
@@ -150,7 +150,7 @@ def test_cli_runs_on_cpu():
 
 def test_cli_rejects_unported_flags():
     with pytest.raises(SystemExit, match="not supported"):
-        train.parse_args(["--collect_drones", "2"])
+        train.parse_args(["--resume_from", "run/state.msgpack"])
 
 
 def test_cli_epsilon_half_life_rule():
