@@ -126,7 +126,28 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    4`` at 16,384 envs (``--memory_size 1000000``: the full engine) and at
    64 (the jnp engine): launches equal ticks, losses finite, params move,
    ε decays, the replay takes E · k transitions a tick;
-5. print the kernel table line, the card line, and the result line last.
+5. the trainer's lifecycle through ``train.train(parse_args(...))`` at the
+   bench configuration (65,536 envs, memory 100,000, bf16 ring: the ring
+   engine), for LIFE_RUNS (warm-started from dqn-agent-3, (128,64) from
+   --seed, and the warm start with ``--in_kernel_td``):
+5a. 300 ticks in 2 chunks of 150 with an eval of 5 seeds x 1,000 steps
+   before the second and at the end, both checkpoints and the train
+   state: B1 (and B2) launch once a tick and nothing else does; then 150
+   ticks, a train state, a resume and 150 more: the final carry equals the
+   whole run's tensor for tensor, bitwise; prints obs/s beside phase 4's,
+   the eval times and means;
+5b. the checkpoints written on the card load on the CPU through the
+   port's reader and give the card's params' Q-values on 1,024 seeded
+   observations bitwise; the warm start puts dqn-agent-3's params into
+   the online and target nets bitwise;
+5c. ``evaluate_checkpoints`` over the five baselines (10 seeds x 1,000
+   steps) on the card and on the CPU: the actions agree step by step up
+   to the first near tie of each episode (the CPU's best-minus-second Q
+   gap at most 1e-5 of max |q|); prints both score vectors beside the JAX
+   package's CPU lock and each episode's first parting step;
+then print the kernel table line, the card line, and the result line last.
+CLI runs write their run dirs under ``output/chip_smoke/`` (removed at
+the end).
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -137,6 +158,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -235,6 +257,34 @@ CHARGE_ATOL = 1.3e-7
 NEAR_TIE = 1e-5
 LEARNER_RTOL, LEARNER_ATOL = 1e-5, 1e-6
 TD_HPARAMS = (0.9, 1e-3, 0.9, 0.999, 1e-8)  # gamma, lr, Adam b1, b2, eps
+# Phase 5, the trainer's lifecycle through the CLI at the bench's
+# configuration (nothing cut): LIFE_STEPS ticks in chunks of LIFE_CHUNK
+# with an eval of LIFE_EVALS seeds x LIFE_EVAL_STEPS before the second and
+# at the end; then LIFE_CHUNK ticks, a train state, a resume and
+# LIFE_CHUNK more. epsilon's decay is pinned: the derived one depends on
+# --num_steps.
+LIFE_STEPS, LIFE_CHUNK = 300, 150
+LIFE_EVALS, LIFE_EVAL_STEPS = 5, 1000
+LIFE_BASE = ["--num_envs", str(NUM_ENVS), "--grid_size", str(GRID),
+             "--n_drones", str(DRONES), "--window_radius", str(RADIUS),
+             "--batch_size", str(BATCH), "--reset_env_every",
+             str(RESET_EVERY), "--memory_size", "100000",
+             "--ring_obs_dtype", "bfloat16", "--epsilon_decay", "0.995",
+             "--seed", "0"]
+BASELINES = os.path.join("dronerl_tpu_torch", "evaluator", "baselines")
+AGENT_3 = os.path.join(BASELINES, "dqn-agent-3.safetensors")
+# (name, CLI flags, net): dqn-agent-3 is dense (16,16), the bench's first
+# net.
+LIFE_RUNS = (
+    ("warm3", ["--load_from_checkpoint", AGENT_3], (16, 16)),
+    ("seed128x64", ["--hidden_layers", "128", "64"], (128, 64)),
+    ("warm3_in_kernel_td", ["--load_from_checkpoint", AGENT_3,
+                            "--in_kernel_td"], (16, 16)),
+)
+LIFE_PROBE = 1024          # 5b: seeded observations for the Q-values
+# 5c: the JAX package's CPU scores of the five baselines' round robin
+# (tests/test_evaluator_regression.py), printed beside the port's.
+JAX_CPU_LOCK = (-56.02, -72.12, -58.05, -52.30, -46.46)
 # H100 SXM published peaks: HBM bytes/s and
 # f32 FLOP/s on the CUDA cores. Integer hash operations are counted at
 # the f32 rate too, a rate no lower than the card's int32 rate, so the
@@ -306,6 +356,14 @@ def main() -> None:
 
     def counts():
         return {k: fn.launches for k, fn in counters.items()}
+
+    runs = os.path.join(here, "output", "chip_smoke")
+    shutil.rmtree(runs, ignore_errors=True)
+
+    def cli(argv):
+        """The CLI without the final eval, its run dir under ``runs``."""
+        return train.main(argv + ["--skip_final_eval", "--run_dir",
+                                  os.path.join(runs, "cli")])
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -1273,7 +1331,7 @@ def main() -> None:
 
     # --- 4e. the CLI chooses the full engine past the ring gate --------------
     zero_counts()
-    metrics = train.main(["--num_envs", str(CLI_ENVS), "--num_steps",
+    metrics = cli(["--num_envs", str(CLI_ENVS), "--num_steps",
                           str(CLI_STEPS)])
     n = counts()
     if metrics["engine"] != "full":
@@ -1291,7 +1349,7 @@ def main() -> None:
 
     # --- 4f. the CLI's jnp engine below 128 envs ----------------------------
     zero_counts()
-    metrics = train.main(["--num_envs", str(JNP_ENVS), "--num_steps",
+    metrics = cli(["--num_envs", str(JNP_ENVS), "--num_steps",
                           str(JNP_STEPS)])
     n = counts()
     if metrics["engine"] != "jnp":
@@ -1422,7 +1480,7 @@ def main() -> None:
 
     # --- 4h. the CLI with conv nets and the global observation --------------
     zero_counts()
-    metrics = train.main(["--num_envs", str(CLI_ENVS), "--num_steps",
+    metrics = cli(["--num_envs", str(CLI_ENVS), "--num_steps",
                           str(CLI_CONV_STEPS), "--network_type", "conv",
                           "--conv_matmul"])
     n = counts()
@@ -1438,7 +1496,7 @@ def main() -> None:
         f"{metrics['td_loss_mean']:.5f}, obs/s {metrics['obs_per_sec']:.1f} "
         f"over {CLI_CONV_STEPS} steps (with warm-up), on {metrics['device']}")
     zero_counts()
-    metrics = train.main(["--num_envs", str(JNP_ENVS), "--num_steps",
+    metrics = cli(["--num_envs", str(JNP_ENVS), "--num_steps",
                           str(CLI_CONV_STEPS), "--network_type", "conv",
                           "--wrapper", "global"])
     n = counts()
@@ -1560,7 +1618,7 @@ def main() -> None:
                            "1000000"], "full"),
                          (["--num_envs", str(JNP_ENVS)], "jnp")):
         zero_counts()
-        metrics = train.main(argv + ["--num_steps", str(CLI_STEPS),
+        metrics = cli(argv + ["--num_steps", str(CLI_STEPS),
                                      "--collect_drones", str(COLLECT)])
         n = counts()
         if metrics["engine"] != engine:
@@ -1611,11 +1669,193 @@ def main() -> None:
             "library_ms": None,
         })
 
+    # --- 5. the trainer's lifecycle: checkpoints, resume, evaluation -------
+    lifecycle(torch, train, zero_counts, counts, card, obs_per_s, runs)
+    shutil.rmtree(runs, ignore_errors=True)
+
     print(json.dumps({"kernels": kernels + learners + stream}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def lifecycle(torch, train, zero_counts, counts, card, obs_per_s, runs):
+    """Phase 5: the CLI's lifecycle on the card at the bench configuration
+    (5a), its checkpoints read back on the CPU (5b) and the competition
+    arena on the card against the CPU (5c)."""
+    from dronerl_tpu_torch.agents.dqn import DQN
+    from dronerl_tpu_torch.env.types import EnvParams
+    from dronerl_tpu_torch.evaluator import evaluator
+    from dronerl_tpu_torch.interop import safetensors_io
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    params = EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
+    eval_seconds = []
+    evaluate = train.evaluate
+
+    def timed_evaluate(*args):
+        t0 = time.perf_counter()
+        out = evaluate(*args)
+        torch.cuda.synchronize()
+        eval_seconds.append(time.perf_counter() - t0)
+        return out
+
+    train.evaluate = timed_evaluate
+
+    def run(name, argv, ticks, td):
+        """One CLI run, every count zeroed just before: returns its
+        metrics, wall seconds and run dir; fails unless B1 (and with
+        in-kernel TD B2) launched once a tick and nothing else did."""
+        run_dir = os.path.join(runs, name)
+        zero_counts()
+        t0 = time.perf_counter()
+        metrics = train.train(train.parse_args(
+            LIFE_BASE + argv + ["--run_dir", run_dir]))
+        seconds = time.perf_counter() - t0
+        n = counts()
+        want = {k: 0 for k in n}
+        want.update(full_tick_ring=ticks, td_adam=ticks if td else 0)
+        if metrics["engine"] != "ring" or n != want:
+            fail(f"5a {name}: engine {metrics['engine']}, launches {n}, "
+                 f"want {want}")
+        return metrics, seconds, run_dir, n
+
+    state_file = train.TRAIN_STATE_FILE
+    gen = torch.Generator().manual_seed(0)
+    probe = (torch.rand((LIFE_PROBE, 294), generator=gen) < 0.3).float()
+    probe[:, 4::6] = torch.randint(0, 101, (LIFE_PROBE, 49),
+                                   generator=gen) / 100.0  # charge
+    for name, flags, hidden in LIFE_RUNS:
+        td = "--in_kernel_td" in flags
+        metrics, seconds, whole_dir, n = run(name, flags + [
+            "--num_steps", str(LIFE_STEPS), "--max_scan_steps",
+            str(LIFE_CHUNK), "--eval_while_training", "--num_evals",
+            str(LIFE_EVALS), "--num_eval_steps", str(LIFE_EVAL_STEPS),
+            "--save_final_checkpoint", "--save_train_state"], LIFE_STEPS, td)
+        evals = eval_seconds[-2:]
+        if len(eval_seconds) < 2 or not math.isfinite(
+                metrics["eval_reward_mean"]):
+            fail(f"5a {name}: evals {eval_seconds}, metrics {metrics}")
+        half, half_s, half_dir, _ = run(name + "_half1", flags + [
+            "--num_steps", str(LIFE_CHUNK), "--skip_final_eval",
+            "--save_train_state"], LIFE_CHUNK, td)
+        _, _, resumed_dir, _ = run(name + "_half2", flags + [
+            "--num_steps", str(LIFE_CHUNK), "--skip_final_eval",
+            "--save_train_state", "--resume_from",
+            os.path.join(half_dir, state_file)], LIFE_CHUNK, td)
+        a, meta_a = safetensors_io.read(os.path.join(whole_dir, state_file))
+        b, meta_b = safetensors_io.read(os.path.join(resumed_dir, state_file))
+        differ = sorted(k for k in a if k not in b or not torch.equal(
+            a[k], b[k]))
+        if set(a) != set(b) or meta_a != meta_b or differ:
+            worst = {k: float((a[k].double() - b[k].double()).abs().max())
+                     for k in differ[:12] if k in b and a[k].dtype.is_floating_point}
+            fail(f"5a {name}: the resumed carry differs from the whole "
+                 f"run's: {differ[:12]} (max abs {worst}; numbers "
+                 f"{meta_a.get('numbers')} vs {meta_b.get('numbers')})")
+        log(f"5a {name}: {LIFE_STEPS} ticks x {NUM_ENVS} envs, launches "
+            f"{ {k: v for k, v in n.items() if v} }; obs/s "
+            f"{metrics['obs_per_sec']:.1f} over the 2 chunks (the eval "
+            f"before the second included), {half['obs_per_sec']:.1f} over "
+            f"{LIFE_CHUNK} ticks without eval, phase 4's default path "
+            f"{obs_per_s[hidden]:.1f}; evals of {LIFE_EVALS} seeds x "
+            f"{LIFE_EVAL_STEPS} steps {[round(e, 3) for e in evals]} s, "
+            f"final agent {metrics['eval_reward_mean']:.4f} +- "
+            f"{metrics['eval_reward_std']:.4f}; run {seconds:.1f} s; "
+            f"{LIFE_CHUNK} + save + resume + {LIFE_CHUNK} equals the whole "
+            f"run bitwise ({len(a)} tensors, {meta_a['numbers']}) on {card}")
+
+        # --- 5b. its checkpoints on the CPU ---------------------------------
+        cpu_agent = DQN(train.agent_config_from_args(train.parse_args(
+            LIFE_BASE + flags)), params, "cpu")
+        if "--load_from_checkpoint" in flags:
+            cpu_agent = DQN.restore(os.path.join(here, AGENT_3), params,
+                                    "cpu")[0]
+        card_net = cpu_agent.make_net()
+        with torch.no_grad():
+            for i, p in enumerate(card_net.flat()):
+                p.copy_(a[f"3.params.{i}"])
+            want = cpu_agent.q_values(card_net, probe)
+            for fmt in ("jax", "torch"):
+                path = os.path.join(
+                    whole_dir, f"agent_{LIFE_STEPS}_steps_{fmt}.safetensors")
+                agent, net = DQN.restore(path, params, "cpu")
+                got = agent.q_values(net, probe)
+                if not torch.equal(got, want):
+                    fail(f"5b {name} {fmt}: Q-values differ from the card's "
+                         f"params by {float((got - want).abs().max())}")
+        log(f"5b {name}: both checkpoints load on the CPU with the card's "
+            f"params; Q-values on {LIFE_PROBE} seeded observations bitwise")
+        if "--load_from_checkpoint" in flags:
+            check_warm_start(torch, train, params, flags, name)
+
+    train.evaluate = evaluate
+    # --- 5c. the competition arena on the card and the CPU -------------------
+    paths = [os.path.join(here, BASELINES, f"dqn-agent-{i}.safetensors")
+             for i in range(1, 6)]
+    t0 = time.perf_counter()
+    card_run = evaluator.evaluate_checkpoints(paths, device="cuda")
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_run = evaluator.evaluate_checkpoints(paths, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    firsts = []
+    for ep, seed in enumerate(evaluator.EPISODE_SEEDS):
+        diff = (card_run["actions"][:, ep] != cpu_run["actions"][:, ep]).any(
+            axis=-1)
+        ties = (cpu_run["q_gap"][:, ep] <= NEAR_TIE).any(axis=-1)
+        first_div = int(diff.argmax()) if diff.any() else None
+        first_tie = int(ties.argmax()) if ties.any() else None
+        if first_div is not None and (first_tie is None
+                                      or first_div < first_tie):
+            fail(f"5c seed {seed}: the card's actions part from the CPU's "
+                 f"at step {first_div}, before the first near tie "
+                 f"({first_tie})")
+        at_tie = first_div is not None and bool(
+            (cpu_run["q_gap"][first_div, ep] <= NEAR_TIE)[
+                card_run["actions"][first_div, ep]
+                != cpu_run["actions"][first_div, ep]].all())
+        firsts.append((seed, first_div, first_tie, at_tie))
+    rounded = lambda v: [round(float(x), 4) for x in v]  # noqa: E731
+    log(f"5c round robin of the five baselines, {len(paths)} drones on grid "
+        f"{evaluator.arena_params(len(paths)).grid_size}, "
+        f"{len(evaluator.EPISODE_SEEDS)} seeds x "
+        f"{evaluator.TOTAL_EPISODE_STEPS} steps: card mean "
+        f"{rounded(card_run['mean'])} std {rounded(card_run['std'])} in "
+        f"{card_s:.2f} s; CPU mean {rounded(cpu_run['mean'])} std "
+        f"{rounded(cpu_run['std'])} in {cpu_s:.2f} s; the JAX CPU lock "
+        f"{list(JAX_CPU_LOCK)} (information); per seed (seed, first step "
+        f"where the actions part or None, first near tie on the CPU, the "
+        f"parting agents at a near tie there): {firsts}; on {card}")
+
+
+def check_warm_start(torch, train, params, flags, name):
+    """5b: the warm start the trainer makes (``train._warm_start``, the
+    agent's init from --seed, ``state_with_params``) puts dqn-agent-3's
+    params into the online and target nets on the card, bitwise."""
+    from dronerl_tpu_torch import rng
+    from dronerl_tpu_torch.agents.dqn import DQN
+    from dronerl_tpu_torch.interop import safetensors_io
+    from dronerl_tpu_torch.interop.from_jax import qnet_from_flax
+
+    args = train.parse_args(LIFE_BASE + flags)
+    config, warm = train._warm_start(args, train.agent_config_from_args(args))
+    agent = DQN(config, params, "cuda")
+    state = agent.init_state(rng.PRNGKey(args.seed))
+    agent.state_with_params(state, qnet_from_flax(
+        warm, agent.device, params.obs_shape, config.conv_specs()))
+    src = safetensors_io.load_file(args.load_from_checkpoint)
+    leaves = []
+    for i in range(len(state.params.kernels)):
+        leaves += [src[f"params.Dense_{i}.kernel"], src[f"params.Dense_{i}.bias"]]
+    for net in (state.params, state.target_params):
+        for p, want in zip(net.flat(), leaves):
+            if not torch.equal(p.detach().cpu(), torch.from_numpy(want)):
+                fail(f"5b {name}: the warm-started net is not dqn-agent-3's")
+    log(f"5b {name}: the warm-started online and target nets on the card "
+        f"equal dqn-agent-3's params bitwise "
+        f"({sum(int(x.size) for x in leaves)} values)")
 
 
 def cuda_ms(torch, fn, count):

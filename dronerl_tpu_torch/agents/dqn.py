@@ -407,12 +407,15 @@ class DQN:
         return self._epsilon_greedy(key, torch.argmax(q, dim=0), state)
 
     def act(self, key: torch.Tensor, obs: torch.Tensor,
-            state: DQNState) -> torch.Tensor:
+            state: DQNState, greedy: bool = False) -> torch.Tensor:
         """ε-greedy actions for row-major observations (B, obs_dim) or (B,
         H, W, C) → (B,) int32: greedy on :meth:`q_values`, the draws as
-        :meth:`act_t`'s."""
+        :meth:`act_t`'s; with ``greedy`` the argmax alone (``key``
+        unused)."""
         with torch.no_grad():
             q = self.q_values(state.params, obs)
+        if greedy:
+            return torch.argmax(q, dim=1).to(torch.int32)
         return self._epsilon_greedy(key, torch.argmax(q, dim=1), state)
 
     def train_step(
@@ -515,4 +518,43 @@ class DQN:
                                         state.epsilon)
         elif do_e:
             self.decay_epsilon(state)
+        return state
+
+    # --- persistence -------------------------------------------------------
+
+    def save(self, path: str, state: DQNState) -> None:
+        """The online net as a jax-format safetensors checkpoint."""
+        from dronerl_tpu_torch.interop import safetensors_io
+
+        safetensors_io.save_jax(path, state.params, self.config,
+                                self.env_params)
+
+    def save_as_torch(self, path: str, state: DQNState) -> None:
+        """The online net as a torch-format safetensors checkpoint."""
+        from dronerl_tpu_torch.interop import safetensors_io
+
+        safetensors_io.save_torch(path, state.params, self.config,
+                                  self.env_params)
+
+    @staticmethod
+    def restore(path: str, env_params: EnvParams,
+                device="cuda") -> Tuple["DQN", QNet]:
+        """Load any checkpoint (jax- or torch-format) → (agent, net on
+        ``device``); the topology comes from the checkpoint's metadata."""
+        from dronerl_tpu_torch.interop import safetensors_io
+        from dronerl_tpu_torch.interop.from_jax import qnet_from_flax
+
+        config, params = safetensors_io.load_checkpoint(path)
+        agent = DQN(config, env_params, device)
+        net = qnet_from_flax(params, agent.device, env_params.obs_shape,
+                             config.conv_specs())
+        return agent, net
+
+    def state_with_params(self, state: DQNState, params: QNet) -> DQNState:
+        """Install loaded params into both the online and the target net
+        (copied in place; the Adam moments and ε stay as they are)."""
+        with torch.no_grad():
+            for net in (state.params, state.target_params):
+                torch._foreach_copy_(net.flat(), [
+                    p.to(net.flat()[0].device) for p in params.flat()])
         return state

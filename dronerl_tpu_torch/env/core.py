@@ -11,7 +11,7 @@ quirks included (see ``dronerl_tpu/env/core.py`` and
 and the body of the fused tick kernel's plain version.
 """
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -19,7 +19,7 @@ from dronerl_tpu_torch import rng
 from dronerl_tpu_torch.constants import Action, NUM_OBS_CHANNELS, Object
 from dronerl_tpu_torch.env.spawn import (
     place_in_air, place_on_ground, respawn_ground_pair)
-from dronerl_tpu_torch.env.types import EnvParams, EnvState
+from dronerl_tpu_torch.env.types import EnvParams, EnvState, env_fields
 from dronerl_tpu_torch.ops.collision import same_cell_conflicts
 from dronerl_tpu_torch.ops.pointops import (
     flag_mask, flag_mask_scatter_order, place_values, point_lookup,
@@ -272,13 +272,11 @@ def _observe_global(state: EnvState, params: EnvParams) -> torch.Tensor:
 
 
 def _unbatch(state: EnvState) -> EnvState:
-    return EnvState(*(getattr(state, f)[0] for f in (
-        "ground", "air_x", "air_y", "carrying_package", "charge")))
+    return EnvState(*(t[0] for t in env_fields(state)))
 
 
 def _batch(state: EnvState) -> EnvState:
-    return EnvState(*(getattr(state, f)[None] for f in (
-        "ground", "air_x", "air_y", "carrying_package", "charge")))
+    return EnvState(*(t[None] for t in env_fields(state)))
 
 
 def reset(key: torch.Tensor, params: EnvParams) -> EnvState:
@@ -298,3 +296,22 @@ def observe(state: EnvState, params: EnvParams,
     """One env: (M, 2r+1, 2r+1, 6) window or (M, G, G, 6) global
     observations."""
     return observe_batch(_batch(state), params, limit)[0]
+
+
+def rollout(key: torch.Tensor, state: EnvState, params: EnvParams,
+            num_steps: int, policy: Callable[[torch.Tensor, EnvState],
+                                             torch.Tensor]
+            ) -> Tuple[EnvState, torch.Tensor, torch.Tensor]:
+    """``core.rollout``: ``num_steps`` ticks of one env under ``policy(key,
+    state) -> (N,) actions``, each tick splitting its key three ways
+    (carry, policy, step; the step key moved to the state's device).
+    Returns the final state and the stacked
+    rewards and dones, (num_steps, N) each."""
+    rewards, dones = [], []
+    for _ in range(num_steps):
+        key, policy_key, step_key = rng.split(key, 3)
+        state, rew, done = step(step_key.to(state.ground.device), state,
+                                policy(policy_key, state), params)
+        rewards.append(rew)
+        dones.append(done)
+    return state, torch.stack(rewards), torch.stack(dones)

@@ -100,3 +100,10 @@ class EnvState:
     air_y: torch.Tensor             # int32 (E, N) row coordinates
     carrying_package: torch.Tensor  # bool (E, N)
     charge: torch.Tensor            # float32 (E, N) battery in [0, 100]
+
+
+def env_fields(state: EnvState):
+    """The state's tensors in field order: ``EnvState(*env_fields(s))``
+    rebuilds it."""
+    return (state.ground, state.air_x, state.air_y, state.carrying_package,
+            state.charge)

@@ -5,8 +5,9 @@ Counterpart of ``dronerl_tpu/replay.py``'s row-major buffer (``init``,
 ``push``, ``push_many``, ``sample``, ``can_sample`` and the
 ``ReplayBuffer`` facade: slots on the leading axis, each experience
 stored whole, ``next_obs`` included), its feature-major storage
-(``init_t``, ``push_many_t``: slots on the last axis, a per-slot leaf of
-shape (D,) stored as (D, capacity)) and ``StreamReplay``, with the same
+(``init_t``, ``push_many_t``, ``sample_t`` and ``FeatureMajorReplay``:
+slots on the last axis, a per-slot leaf of shape (D,) stored as (D,
+capacity)), ``StreamReplay`` and ``inspect_memory``, with the same
 semantics: ring writes at a rolling cursor, uniform sampling with
 replacement.
 
@@ -19,9 +20,11 @@ Two differences of form, none of result:
   place and returns a ``ReplayState`` holding the same tensors.
 """
 
+import collections
 from dataclasses import dataclass
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from dronerl_tpu_torch import rng
@@ -145,12 +148,17 @@ def init_t(template: Dict[str, torch.Tensor], capacity: int,
 
 
 def push_many_t(state: ReplayState, batch: Dict[str, Any],
-                capacity: int) -> ReplayState:
+                capacity: int, aligned: bool = False) -> ReplayState:
     """Write a last-axis batch of slots at the cursor, wrapping around the
-    ring (in place; each item cast to its storage's dtype)."""
+    ring (in place; each item cast to its storage's dtype). ``aligned`` as
+    :func:`push_many`'s: the start clamps to ``capacity - n``."""
     n = next(iter(batch.values())).shape[-1]
     cursor = state.cursor
-    if cursor + n <= capacity:
+    if aligned and capacity % n == 0:
+        start = min(cursor, capacity - n)
+        for name, buf in state.storage.items():
+            buf[..., start:start + n] = batch[name]
+    elif cursor + n <= capacity:
         for name, buf in state.storage.items():
             buf[..., cursor:cursor + n] = batch[name]
     else:
@@ -159,6 +167,44 @@ def push_many_t(state: ReplayState, batch: Dict[str, Any],
             buf[..., slots.to(buf.device)] = batch[name].to(buf.dtype)
     return ReplayState(storage=state.storage, cursor=(cursor + n) % capacity,
                        size=min(state.size + n, capacity))
+
+
+def sample_t(key: torch.Tensor, state: ReplayState,
+             batch_size: int) -> Dict[str, torch.Tensor]:
+    """Uniform with-replacement sample of slot columns (feature-major): the
+    slots of ``jax.random.randint(key, (batch_size,), 0, size)``, drawn on
+    the host."""
+    idx = rng.randint(key, (batch_size,), 0, state.size).to(torch.int64)
+    return {name: buf[..., idx.to(buf.device, non_blocking=True)]
+            for name, buf in state.storage.items()}
+
+
+class FeatureMajorReplay:
+    """Ring replay with the slots on the last axis: :class:`ReplayBuffer`'s
+    semantics (ring writes, uniform sampling with replacement) in the
+    feature-major layout of the tick kernels."""
+
+    def __init__(self, capacity: int = 10_000, batch_size: int = 64,
+                 uniform_pushes: bool = False):
+        self.capacity = capacity
+        self.batch_size = batch_size
+        self.uniform_pushes = uniform_pushes
+
+    def init(self, template: Dict[str, torch.Tensor],
+             device=None) -> ReplayState:
+        return init_t(template, self.capacity, device)
+
+    def push_many(self, state: ReplayState,
+                  batch: Dict[str, Any]) -> ReplayState:
+        return push_many_t(state, batch, self.capacity,
+                           aligned=self.uniform_pushes)
+
+    def sample(self, key: torch.Tensor,
+               state: ReplayState) -> Dict[str, torch.Tensor]:
+        return sample_t(key, state, self.batch_size)
+
+    def can_sample(self, state: ReplayState) -> bool:
+        return can_sample(state, self.batch_size)
 
 
 class StreamReplay:
@@ -229,3 +275,92 @@ class StreamReplay:
 
     def can_sample(self, state: ReplayState) -> bool:
         return state.size - self.stride >= self.batch_size
+
+
+# --- diagnostics ----------------------------------------------------------------
+
+def inspect_memory(state: ReplayState, top_n: int = 10, max_col: int = 80,
+                   plot: bool = False, printer: Callable = print,
+                   slot_axis: Optional[int] = None) -> dict:
+    """Buffer introspection (``dronerl_tpu/replay.py::inspect_memory``):
+    fetches the valid slots to the host once and reports the action and
+    reward counters, the done proportion and the ``top_n`` most frequent
+    (next_)observations, with the JAX package's printed lines.
+
+    Works on row-major (slots leading) and feature-major (slots last)
+    storage: pass ``slot_axis`` (0 for ``ReplayBuffer``, -1 for
+    ``StreamReplay`` and ``FeatureMajorReplay``); when omitted it is the
+    one axis whose length is the slot count, and a shape with several
+    such axes raises. ``plot=True`` draws the reward and action bar
+    charts with matplotlib (imported here). Returns the counters."""
+    storage = {name: buf.detach().cpu().numpy()
+               for name, buf in state.storage.items()}
+    size = int(state.size)
+    actions = storage["actions"].reshape(-1)
+    slots = actions.shape[0]
+
+    def valid(arr):
+        if arr.ndim == 1:
+            return arr[:size]
+        if slot_axis is not None:
+            axis = slot_axis % arr.ndim
+        else:
+            candidates = [i for i, s in enumerate(arr.shape) if s == slots]
+            if not candidates:
+                raise ValueError(
+                    f"no axis of shape {arr.shape} matches the slot count "
+                    f"{slots}; pass slot_axis= explicitly")
+            if len(candidates) > 1:
+                raise ValueError(
+                    f"slot axis of shape {arr.shape} is ambiguous (several "
+                    f"axes have length {slots}); pass slot_axis= explicitly "
+                    f"(0 for ReplayBuffer, -1 for StreamReplay)")
+            axis = candidates[0]
+        return np.moveaxis(arr, axis, 0)[:size]
+
+    counters = collections.defaultdict(collections.Counter)
+    counters["action"].update(valid(actions).tolist())
+    counters["reward"].update(
+        np.round(valid(storage["rewards"]), 6).tolist())
+    counters["done"].update(valid(storage["dones"]).astype(bool).tolist())
+    for field, key in (("obs", "state"), ("next_obs", "next_state")):
+        if field in storage:
+            rows = valid(storage[field])
+            counters[key].update(
+                tuple(np.round(row, 6).tolist()) for row in rows)
+
+    def top_states(counter):
+        for i, (obs, count) in enumerate(counter.most_common(top_n), 1):
+            label = str(np.asarray(obs)).replace("\n", " ")
+            if len(label) > max_col:
+                label = label[:max_col] + ".."
+            printer(f"{i:>2}) Count: {count} state: {label}")
+
+    printer(f"Replay memory: {size}/{slots} slots filled")
+    printer(f"Actions: {dict(counters['action'].most_common())}")
+    printer(f"Rewards: {dict(counters['reward'].most_common(top_n))}")
+    if "state" in counters:
+        printer("Top state:")
+        top_states(counters["state"])
+        printer("Top next_state:")
+        top_states(counters["next_state"])
+    done_frac = counters["done"][True] / max(1, size)
+    printer(f"Proportion of done: {100 * done_frac:.2f}%")
+
+    if plot:
+        import matplotlib.pyplot as plt
+
+        fig, (ax1, ax2) = plt.subplots(nrows=1, ncols=2, figsize=(12, 4))
+        for counter, ax, label in ((counters["reward"], ax1, "rewards"),
+                                   (counters["action"], ax2, "actions")):
+            pairs = counter.most_common()
+            total = sum(c for _, c in pairs) or 1
+            ax.bar(range(len(pairs)), [c / total for _, c in pairs])
+            ax.set_xticks(range(len(pairs)))
+            ax.set_xticklabels([str(k) for k, _ in pairs])
+            ax.set_ylabel("proportion")
+            ax.set_xlabel(label)
+            ax.set_title("Replay Memory")
+        plt.show()
+
+    return dict(counters)

@@ -12,7 +12,6 @@ returns the two output words per counter, and random bits are
 ``b1 ^ b2``.
 """
 
-import functools
 import hashlib
 import math
 
@@ -71,9 +70,14 @@ def threefry2x32(k1, k2, x0, x1, rounds: int = 20):
     """
     check_rounds(rounds)
     k1 = torch.as_tensor(k1, dtype=torch.int64)
-    as64 = functools.partial(torch.as_tensor, dtype=torch.int64,
-                             device=k1.device)
-    return _threefry(k1, as64(k2), as64(x0), as64(x1), rounds)
+
+    def word(x):
+        # A Python int stays one: a tensor made from it on the card would
+        # be a host-to-device copy, which a CUDA graph cannot capture.
+        return x if isinstance(x, int) else torch.as_tensor(
+            x, dtype=torch.int64, device=k1.device)
+
+    return _threefry(k1, word(k2), word(x0), word(x1), rounds)
 
 
 def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
@@ -112,7 +116,7 @@ def random_bits(key: torch.Tensor, shape, rounds: int = 20) -> torch.Tensor:
     """32-bit random words for key (..., 2) -> (..., *shape) int64."""
     shape = tuple(shape)
     b1, b2 = _hash_counts(key, math.prod(shape), rounds)
-    return (b1 ^ b2).reshape(*key.shape[:-1], *shape)
+    return (b1 ^ b2).reshape((*key.shape[:-1], *shape))
 
 
 def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:

@@ -55,7 +55,14 @@ the actor still acts for drone 0 alone. ``rng_rounds`` /
 in-kernel hashes; the host's draws (the per-tick split, the replay
 sample, the fused engine's opponents and ``act_t``) stay at 20 rounds.
 
-The CLI chooses an engine as the JAX CLI does (:func:`choose_engine`).
+The CLI chooses an engine as the JAX CLI does (:func:`choose_engine`)
+and runs the JAX CLI's lifecycle around it (:func:`train`): the warm
+start and resume, chunks of ``--max_scan_steps`` ticks with per-chunk
+scalars and histograms, the eval while training and the final eval
+(:func:`evaluate`, the plain env core with the seeds as a batch),
+``--profile``, ``--inspect_memory``, both weights checkpoints, the train
+state, the video and ``metrics.json``. It takes every flag of the JAX
+CLI but the sharding flags and ``--jax_cache_dir`` (``REFUSED_FLAGS``).
 
 The step counter, the ring slot arithmetic, the reset flag, the count of
 valid columns, the replay's cursor and size and the rng chain stay on the
@@ -68,14 +75,20 @@ Run:  python -m dronerl_tpu_torch.train --num_envs 65536 --num_steps 300
 
 import argparse
 import ast
+import contextlib
+import dataclasses
 import functools
 import json
 import logging
 import math
+import os
+import statistics
 import sys
 import time
+from datetime import datetime
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dronerl_tpu_torch import replay, resolve_device, rng as rng_mod
@@ -83,10 +96,18 @@ from dronerl_tpu_torch.agents.dqn import (
     ADAM_B1, ADAM_B2, ADAM_EPS, DQN, DQNConfig)
 from dronerl_tpu_torch.constants import NO_TRAIN_LOSS, NUM_ACTIONS
 from dronerl_tpu_torch.env import core as env_core
-from dronerl_tpu_torch.env.types import EnvParams
+from dronerl_tpu_torch.env.types import EnvParams, EnvState, env_fields
+from dronerl_tpu_torch.evaluator.evaluator import seed_keys
+from dronerl_tpu_torch.interop import safetensors_io, train_state_io
+from dronerl_tpu_torch.interop.from_jax import qnet_from_flax
 from dronerl_tpu_torch.ops import fused_tick
+from dronerl_tpu_torch.utils import profiling
+from dronerl_tpu_torch.utils.graphs import scan
+from dronerl_tpu_torch.utils.metrics import NoLogger, build_logger
 
 logger = logging.getLogger("dronerl_tpu_torch.train")
+
+TRAIN_STATE_FILE = "train_state.safetensors"
 
 
 def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
@@ -489,7 +510,8 @@ def fused_engine_problems(env_params: EnvParams, num_envs: int) -> list:
     return problems
 
 
-def choose_engine(args, env_params: EnvParams) -> str:
+def choose_engine(args, env_params: EnvParams,
+                  agent_config: Optional[DQNConfig] = None) -> str:
     """``"jnp"``, ``"ring"``, ``"full"`` or ``"fused"``, by the JAX CLI's
     rule: the jnp engine for ``--engine jnp`` and, under ``auto``, wherever
     :func:`fused_engine_problems` finds a reason; else the ring engine
@@ -498,7 +520,9 @@ def choose_engine(args, env_params: EnvParams) -> str:
     full engine where the actor runs in the kernel (a dense net, or a conv
     net with ``--conv_matmul``) and the fused engine where it does not.
     ``--engine fused`` on a configuration with problems raises, naming
-    them. Logs the choice and why the faster engines were skipped."""
+    them. The net is ``agent_config``'s where given (a warm start's comes
+    from its checkpoint), else the CLI's. Logs the choice and why the
+    faster engines were skipped."""
     problems = fused_engine_problems(env_params, args.num_envs)
     if args.engine == "fused" and problems:
         raise ValueError("--engine fused is not available for this "
@@ -510,7 +534,8 @@ def choose_engine(args, env_params: EnvParams) -> str:
         return "jnp"
     push_size = args.num_envs * args.collect_drones
     capacity = math.ceil(args.memory_size / push_size) * push_size
-    dense = args.network_type == "dense" or args.conv_matmul
+    cfg = agent_config or args
+    dense = cfg.network_type == "dense" or cfg.conv_matmul
     skip = ring_skip_reasons(dense, max(capacity, 2 * push_size), push_size,
                              args.batch_size, args.collect_drones)
     engine = "ring" if not skip else ("full" if dense else "fused")
@@ -556,10 +581,25 @@ def engine_rng_rounds(args, engine: str):
 
 # --- CLI ---------------------------------------------------------------------
 
-def env_params_from_args(args) -> EnvParams:
-    return EnvParams(
-        n_drones=args.n_drones,
-        grid_size=args.grid_size,
+def env_params_from_args(args, eval_mode: bool = False) -> EnvParams:
+    """The train arena, or with ``eval_mode`` the eval arena
+    (``--eval_n_drones``, ``--eval_grid_size``), validated up front so an
+    impossible eval arena fails before training: the global wrapper's
+    observation is the whole board, so a trained net cannot evaluate on
+    another grid size."""
+    n_drones, grid_size = args.n_drones, args.grid_size
+    if eval_mode:
+        n_drones = args.eval_n_drones or n_drones
+        grid_size = args.eval_grid_size or grid_size
+        if args.wrapper == "global" and grid_size != args.grid_size:
+            raise ValueError(
+                f"--eval_grid_size {grid_size} != --grid_size "
+                f"{args.grid_size} is impossible with --wrapper global: "
+                "the full-grid observation's dimensionality is the grid, "
+                "so the trained network cannot evaluate on another size")
+    params = EnvParams(
+        n_drones=n_drones,
+        grid_size=grid_size,
         window_radius=args.window_radius,
         wrapper=args.wrapper,
         pickup_reward=args.pickup_reward,
@@ -571,6 +611,9 @@ def env_params_from_args(args) -> EnvParams:
         stations_factor=args.stations_factor,
         skyscrapers_factor=args.skyscrapers_factor,
     )
+    if eval_mode:
+        params.validate()
+    return params
 
 
 def agent_config_from_args(args) -> DQNConfig:
@@ -599,6 +642,95 @@ def agent_config_from_args(args) -> DQNConfig:
     )
 
 
+# --- evaluation ----------------------------------------------------------------
+
+def _eval_tick_keys(keys: torch.Tensor):
+    """Four independent streams per eval tick, split from each key (...,
+    2): the carry, the opponents' random actions, the agent's act call and
+    the env step."""
+    split = rng_mod.split(keys, 4)
+    return tuple(split[..., i, :] for i in range(4))
+
+
+def evaluate(args, agent: DQN, ag_state):
+    """Greedy drone 0 against random opponents over ``--num_evals`` seeds
+    (``--eval_seed`` on), ``--num_eval_steps`` ticks each, every seed an
+    env of one batch on the agent's device (the ticks one CUDA graph on
+    the card, ``utils.graphs.scan``). Returns ``((mean, std), (random
+    mean, random std))`` of the per-seed mean rewards of drone 0 and
+    drone 1."""
+    env_params = env_params_from_args(args, eval_mode=True)
+    device = agent.device
+    num_seeds = args.num_evals
+    keys = seed_keys(args.eval_seed + np.arange(num_seeds)).to(device)
+    state = env_core.reset_keys(keys, env_params)
+
+    def tick(carry):
+        keys, state = carry[0], EnvState(*carry[1:])
+        keys, opp_key, act_key, step_key = _eval_tick_keys(keys)
+        actions = rng_mod.randint(opp_key, (env_params.n_drones,), 0,
+                                  NUM_ACTIONS)
+        obs = env_core.observe_batch(state, env_params, 1).reshape(
+            num_seeds, agent.obs_dim)
+        actions[:, 0] = agent.act(act_key, obs, ag_state, greedy=True)
+        state, rewards, _ = env_core.step_batch(step_key, state, actions,
+                                                env_params)
+        return (keys, *env_fields(state)), (rewards,)
+
+    with torch.no_grad():
+        _, (rewards,) = scan(tick, (keys, *env_fields(state)),
+                             args.num_eval_steps)  # (steps, seeds, N)
+    per_seed_agent = rewards[:, :, 0].mean(dim=0).tolist()
+    per_seed_random = (rewards[:, :, 1].mean(dim=0).tolist()
+                       if env_params.n_drones > 1 else [0.0] * num_seeds)
+    spread = statistics.stdev if num_seeds > 1 else (lambda _: 0.0)
+    return ((statistics.mean(per_seed_agent), spread(per_seed_agent)),
+            (statistics.mean(per_seed_random), spread(per_seed_random)))
+
+
+def log_chunk_histograms(metrics_logger, agent: DQN, carry, losses,
+                         use_ring: bool, use_fused: bool, step: int,
+                         probe: int = 1024) -> None:
+    """Per-chunk q-value, TD-loss and replay-action histograms: the TD
+    losses of the chunk's trained ticks, the online net's Q-values on a
+    probe of replay observations and the replay's action column. On the
+    ring engine only the slots written so far count (obs slot 0 is seeded
+    before the first tick, each tick writes one env-batch of columns and
+    its scalars at the read slot), and with ``collect_drones`` > 1 drone
+    0's rows."""
+    losses = torch.as_tensor(losses).reshape(-1)
+    trained = losses[losses >= 0.0]
+    if trained.numel():
+        metrics_logger.log_histogram("td_loss", trained, step)
+    ag_state = carry[-3]
+    if use_ring:
+        tstate, ring = carry[1]
+        num_envs = tstate.ground.shape[1]  # feature-major: (cells, E)
+        steps_done = int(carry[-1])
+        if not steps_done:
+            return
+        valid_obs = min(ring.shape[1], (steps_done + 1) * num_envs)
+        obs = ring[:agent.obs_dim, :min(probe, valid_obs)].t().float()
+        actions = carry[2][0]
+        if actions.dim() == 2:  # (k, capacity) scalar rings: drone 0's row
+            actions = actions[0]
+        actions = actions[:min(actions.shape[0], steps_done * num_envs)]
+    else:
+        bstate = carry[-2]
+        if not bstate.size:
+            return
+        obs = bstate.storage["obs"]
+        obs = (obs[:, :min(probe, bstate.size)].t() if use_fused
+               else obs[:min(probe, bstate.size)])
+        actions = bstate.storage["actions"][:bstate.size]
+    with torch.no_grad():
+        q = agent.q_values(ag_state.params, obs.float())
+    metrics_logger.log_histogram("q_values", q, step)
+    metrics_logger.log_histogram("replay_actions", actions, step)
+
+
+# --- the trainer ---------------------------------------------------------------
+
 def parse_conv_layers(value: str):
     """``--conv_layers``: a JSON (or Python literal) list of conv layer
     dicts, or one dict."""
@@ -613,6 +745,16 @@ def parse_conv_layers(value: str):
     if isinstance(layers, dict):
         return (layers,)
     return tuple(layers)
+
+
+# The JAX CLI's options the port refuses, and why.
+_MULTI_GPU = "multi-GPU training waits for a later slice of the port"
+REFUSED_FLAGS = {
+    **dict.fromkeys(("--use_sharding", "--coordinator_address",
+                     "--num_processes", "--process_id"), _MULTI_GPU),
+    "--jax_cache_dir": "it has no counterpart: the port caches its nvcc "
+    "builds under dronerl_tpu_torch/ops/_build/",
+}
 
 
 def parse_args(argv=None):
@@ -639,6 +781,10 @@ def parse_args(argv=None):
     p.add_argument("--num_steps", type=int, default=1000)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--memory_size", type=int, default=100_000)
+    p.add_argument("--max_scan_steps", type=int, default=100_000,
+                   help="ticks a chunk: per-chunk scalars and the eval "
+                   "while training come between chunks, and a run takes "
+                   "ceil(num_steps / max_scan_steps) whole chunks")
     p.add_argument("--network_type", choices=["dense", "conv"],
                    default="dense")
     p.add_argument("--hidden_layers", nargs="+", type=int, default=(16, 16))
@@ -686,12 +832,69 @@ def parse_args(argv=None):
                    "full engine, or for a conv net without --conv_matmul "
                    "the fused engine; jnp: plain PyTorch over a row-major "
                    "ReplayBuffer")
+    p.add_argument("--in_kernel_td", action="store_true",
+                   help="ring engine, dense nets: the TD(0) + Adam step as "
+                   "one launch of the learner kernel after the tick "
+                   "kernel's, on the batch gathered the tick before")
     p.add_argument("--device", default="cuda",
-                   help="cuda (the kernel) or cpu (the plain PyTorch path)")
+                   help="cuda (the kernels) or cpu (the plain PyTorch path)")
+    # checkpoints, state, diagnostics
+    p.add_argument("--save_final_checkpoint", action="store_true",
+                   help="write the online net as agent_<steps>_steps_jax"
+                   ".safetensors and _torch.safetensors in the run dir")
+    p.add_argument(
+        "--load_from_checkpoint", type=str, default=None,
+        help="warm-start the online and target nets from a safetensors "
+        "checkpoint (either format); the topology comes from its metadata")
+    p.add_argument("--save_train_state", action="store_true",
+                   help="write the whole carry (nets, Adam, epsilon, "
+                   "replay, envs, key, step) to train_state.safetensors in "
+                   "the run dir")
+    p.add_argument("--resume_from", type=str, default=None,
+                   help="a train state of this port to resume from")
+    p.add_argument(
+        "--tensorboard_dir", type=str, default=None,
+        help="write per-chunk training curves (reward/ε/TD loss) and "
+        "eval points to TensorBoard under this directory")
+    p.add_argument(
+        "--log_histograms", action=argparse.BooleanOptionalAction,
+        default=True,
+        help="with an active metrics sink, also log per-chunk q-value / "
+        "TD-loss / replay-action histograms")
+    p.add_argument("--run_dir", type=str, default=None)
+    p.add_argument("--profile", action="store_true",
+                   help="after one untimed chunk, trace the run with "
+                   "torch.profiler into <run_dir>/profile/trace.json")
+    p.add_argument("--inspect_memory", action="store_true",
+                   help="dump replay-buffer diagnostics (action/reward/done "
+                   "distributions, top states) after training")
+    # eval
+    p.add_argument("--eval_n_drones", type=int, default=None)
+    p.add_argument("--eval_grid_size", type=int, default=None)
+    p.add_argument("--eval_seed", type=int, default=0)
+    p.add_argument("--num_eval_steps", type=int, default=10_000)
+    p.add_argument("--num_evals", type=int, default=5)
+    p.add_argument("--eval_while_training", action="store_true")
+    p.add_argument("--skip_final_eval", action="store_true")
+    # video
+    p.add_argument("--render_video", action="store_true")
+    p.add_argument("--render_video_steps", type=int, default=200)
+    # W&B
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--wandb_project", type=str, default="dronerl-tpu")
+    p.add_argument("--wandb_entity", type=str, default=None)
+    p.add_argument("--wandb_group", type=str, default=None)
     args, unknown = p.parse_known_args(argv)
+    refused = [f"{flag}: {why}" for flag, why in REFUSED_FLAGS.items()
+               if any(u.split("=")[0] == flag for u in unknown)]
+    if refused:
+        raise SystemExit("not supported by the PyTorch port: "
+                         + "; ".join(refused))
     if unknown:
         raise SystemExit(
             "not supported by the PyTorch port yet: " + " ".join(unknown))
+    if isinstance(args.conv_layers, str):
+        args.conv_layers = parse_conv_layers(args.conv_layers)
     if args.num_envs <= 0:
         raise ValueError("num_envs must be >= 1")
     if args.num_steps <= 0:
@@ -701,19 +904,36 @@ def parse_args(argv=None):
     return args
 
 
-def train(args) -> dict:
-    device = resolve_device(args.device)
-    env_params = env_params_from_args(args)
-    env_params.validate()
-    agent = DQN(agent_config_from_args(args), env_params, device=device)
+def _warm_start(args, agent_config: DQNConfig):
+    """``--load_from_checkpoint``: (the agent config with the
+    checkpoint's topology, its flax params), or (config, None)."""
+    if not args.load_from_checkpoint:
+        return agent_config, None
+    ckpt_config, params = safetensors_io.load_checkpoint(
+        args.load_from_checkpoint)
+    agent_config = dataclasses.replace(
+        agent_config, network_type=ckpt_config.network_type,
+        hidden_layers=ckpt_config.hidden_layers,
+        conv_layers=ckpt_config.conv_layers,
+        conv_dense_layers=ckpt_config.conv_dense_layers)
+    logger.info("Warm start from %s (%s network)", args.load_from_checkpoint,
+                ckpt_config.network_type)
+    return agent_config, params
+
+
+def _build_engine(args, agent: DQN, env_params: EnvParams, engine: str,
+                  rng_rounds: int, actor_rng_rounds: Optional[int]):
+    """The engine's tick and its initial carry from ``--seed``."""
     num_envs, k = args.num_envs, args.collect_drones
+    device = agent.device
     # The replay rounded up to whole pushes of E · k transitions.
     push_size = num_envs * k
     capacity = math.ceil(args.memory_size / push_size) * push_size
     ring_capacity = max(capacity, 2 * push_size)
-    engine = choose_engine(args, env_params)
-    rng_rounds, actor_rng_rounds = engine_rng_rounds(args, engine)
     rng = rng_mod.PRNGKey(args.seed)
+    if args.in_kernel_td and engine != "ring":
+        raise ValueError(f"--in_kernel_td runs on the ring engine only; this "
+                         f"configuration runs the {engine} engine")
     if engine == "jnp":
         logger.info("env %s | agent %s | %d envs, ReplayBuffer of %d slots "
                     "(float32) on %s", env_params, agent.config, num_envs,
@@ -722,71 +942,242 @@ def train(args) -> dict:
                                      uniform_pushes=True)
         tick = build_train_step(agent, buffer, env_params, num_envs,
                                 args.reset_env_every, k)
-        carry = init_jnp_carry(agent, env_params, num_envs, buffer, rng, k)
-    elif engine == "ring":
+        return tick, init_jnp_carry(agent, env_params, num_envs, buffer, rng,
+                                    k)
+    if engine == "ring":
         ring_columns = ring_capacity // k  # k transitions a column
-        logger.info("env %s | agent %s | %d envs, ring %d columns (%s) on %s",
-                    env_params, agent.config, num_envs, ring_columns,
-                    args.ring_obs_dtype, device)
+        logger.info("env %s | agent %s | %d envs, ring %d columns (%s)%s on "
+                    "%s", env_params, agent.config, num_envs, ring_columns,
+                    args.ring_obs_dtype,
+                    ", in-kernel TD" if args.in_kernel_td else "", device)
         tick = build_train_step_ring(
             agent, env_params, num_envs, ring_columns, args.batch_size,
-            args.reset_env_every, k, rng_rounds=rng_rounds,
-            actor_rng_rounds=actor_rng_rounds)
-        carry = init_ring_carry(agent, env_params, num_envs, ring_columns,
-                                rng, obs_dtype=getattr(
-                                    torch, args.ring_obs_dtype),
-                                collect_drones=k)
+            args.reset_env_every, k, in_kernel_td=args.in_kernel_td,
+            rng_rounds=rng_rounds, actor_rng_rounds=actor_rng_rounds)
+        return tick, init_ring_carry(
+            agent, env_params, num_envs, ring_columns, rng,
+            obs_dtype=getattr(torch, args.ring_obs_dtype),
+            batch_size=args.batch_size, in_kernel_td=args.in_kernel_td,
+            collect_drones=k)
+    logger.info("env %s | agent %s | %d envs, StreamReplay of %d slots "
+                "(float32) on %s", env_params, agent.config, num_envs,
+                ring_capacity, device)
+    buffer = replay.StreamReplay(ring_capacity, args.batch_size,
+                                 stride=push_size)
+    if engine == "full":
+        tick = build_train_step_full(
+            agent, buffer, env_params, num_envs, args.reset_env_every, k,
+            rng_rounds, actor_rng_rounds)
     else:
-        logger.info("env %s | agent %s | %d envs, StreamReplay of %d slots "
-                    "(float32) on %s", env_params, agent.config, num_envs,
-                    ring_capacity, device)
-        buffer = replay.StreamReplay(ring_capacity, args.batch_size,
-                                     stride=push_size)
-        if engine == "full":
-            tick = build_train_step_full(
-                agent, buffer, env_params, num_envs, args.reset_env_every, k,
-                rng_rounds, actor_rng_rounds)
-        else:
-            tick = build_train_step_fused(
-                agent, buffer, env_params, num_envs, args.reset_env_every, k,
-                rng_rounds)
-            actor_rng_rounds = None  # the kernel has no actor
-        carry = init_stream_carry(agent, env_params, num_envs, buffer, rng,
-                                  k)
+        tick = build_train_step_fused(
+            agent, buffer, env_params, num_envs, args.reset_env_every, k,
+            rng_rounds)
+    return tick, init_stream_carry(agent, env_params, num_envs, buffer, rng,
+                                   k)
+
+
+def train(args, metrics_logger=None) -> dict:
+    """The JAX CLI's run: the engine of :func:`choose_engine`; the warm
+    start (``--load_from_checkpoint``: the loaded net in the online and
+    target nets, a fresh Adam and ε), then ``--resume_from`` (which
+    overrides it), both before the kernels are built; ``ceil(num_steps /
+    max_scan_steps)`` chunks of ``max_scan_steps`` ticks (with
+    ``--profile`` one more, untimed, before the trace), an eval before
+    every chunk but the first with ``--eval_while_training``, per-chunk
+    scalars and histograms into ``metrics_logger``; then
+    ``--inspect_memory``, ``--save_final_checkpoint``,
+    ``--save_train_state``, the final eval unless ``--skip_final_eval``,
+    ``--render_video`` and ``metrics.json`` in the run dir."""
+    device = resolve_device(args.device)
+    env_params = env_params_from_args(args)
+    env_params.validate()
+    if args.eval_while_training or not args.skip_final_eval:
+        env_params_from_args(args, eval_mode=True)
+    agent_config, warm_params = _warm_start(args, agent_config_from_args(args))
+
+    run = None
+    if args.wandb:
+        import wandb
+
+        run = wandb.init(project=args.wandb_project, group=args.wandb_group,
+                         entity=args.wandb_entity, config=vars(args))
+    if metrics_logger is None:
+        metrics_logger = build_logger(tensorboard_dir=args.tensorboard_dir,
+                                      wandb_run=run)
+    log_metrics = not isinstance(metrics_logger, NoLogger)
+    run_dir = args.run_dir or os.path.join(
+        "output", f"run_{datetime.now().strftime('%Y%m%d_%H%M%S')}")
+    os.makedirs(run_dir, exist_ok=True)
+    logger.info("Run dir: %s", run_dir)
+
+    agent = DQN(agent_config, env_params, device=device)
+    engine = choose_engine(args, env_params, agent_config)
+    rng_rounds, actor_rng_rounds = engine_rng_rounds(args, engine)
+    tick, carry = _build_engine(args, agent, env_params, engine, rng_rounds,
+                                actor_rng_rounds)
+    if warm_params is not None:
+        agent.state_with_params(carry[3], qnet_from_flax(
+            warm_params, device, env_params.obs_shape,
+            agent_config.conv_specs()))
+    if args.resume_from:
+        carry = train_state_io.restore(args.resume_from, carry)
+        logger.info("Resumed training state from %s (step %s)",
+                    args.resume_from, carry[-1])
     if device.type == "cuda" and engine != "jnp":
         t0 = time.perf_counter()
         fused_tick.prepare_kernel(
             env_params, None if engine == "fused" else
             fused_tick.flatten_net_params(carry[3].params, agent.net_spec),
-            env_tick=engine == "fused", collect=k, rng_rounds=rng_rounds,
-            actor_rng_rounds=actor_rng_rounds)
+            in_kernel_td=args.in_kernel_td, env_tick=engine == "fused",
+            collect=args.collect_drones, rng_rounds=rng_rounds,
+            actor_rng_rounds=None if engine == "fused" else actor_rng_rounds)
         logger.info("kernel ready in %.1fs", time.perf_counter() - t0)
         torch.cuda.synchronize(device)
 
-    losses = []
-    t0 = time.perf_counter()
-    for _ in range(args.num_steps):
-        carry, (rewards, epsilon, loss) = tick(carry)
-        losses.append(loss)
-    mean_reward = float(rewards.mean())  # host sync: the loop is done
-    elapsed = time.perf_counter() - t0
-    losses = torch.stack(losses).cpu()
+    scan_steps = min(args.num_steps, args.max_scan_steps)
+    num_chunks = math.ceil(args.num_steps / scan_steps)
+
+    def run_chunk(carry):
+        rewards, losses = [], []
+        for _ in range(scan_steps):
+            carry, (reward, epsilon, loss) = tick(carry)
+            losses.append(loss)
+            if log_metrics or not rewards:
+                rewards.append(reward)
+            else:
+                rewards[0] = reward
+        return carry, (rewards, epsilon, losses)
+
+    profile_dir = os.path.join(run_dir, "profile")
+    if args.profile:
+        carry, _ = run_chunk(carry)  # warm-up outside the trace
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    all_losses = []
+    with (profiling.trace(profile_dir) if args.profile
+          else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        for chunk in range(num_chunks):
+            if args.eval_while_training and chunk > 0:
+                step = chunk * scan_steps
+                (emean, estd), (rmean, rstd) = evaluate(args, agent,
+                                                        carry[3])
+                logger.info("eval @ step %s: agent %.3f ± %.3f | random "
+                            "%.3f ± %.3f", f"{step:,}", emean, estd, rmean,
+                            rstd)
+                metrics_logger.log_scalars(
+                    {"eval_reward": emean, "random_reward": rmean},
+                    step=step)
+            carry, (rewards, epsilon, losses) = run_chunk(carry)
+            all_losses += losses
+            if log_metrics:
+                _log_chunk(metrics_logger, args, agent, carry, engine,
+                           rewards, epsilon, losses, chunk,
+                           (chunk + 1) * scan_steps)
+        mean_reward = float(rewards[-1].mean())  # host sync: the loop is done
+        elapsed = time.perf_counter() - t0
+    if args.profile:
+        logger.info("Profiler trace written under %s", profile_dir)
+
+    total_steps = num_chunks * scan_steps
+    losses = torch.stack(all_losses).cpu()
     trained = losses[losses >= 0]
-    metrics = {
-        "engine": engine,
-        "obs_per_sec": num_envs * args.num_steps / elapsed,
-        "time_taken": elapsed,
-        "last_reward_mean": mean_reward,
-        "epsilon": float(epsilon),
-        "td_loss_mean": float(trained.mean()) if len(trained) else None,
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
-    }
+    metrics = {"obs_per_sec": args.num_envs * total_steps / elapsed,
+               "time_taken": elapsed}
     logger.info("Trained %s steps × %s envs in %.2fs → %s obs/s on %s "
-                "(%s engine)", f"{args.num_steps:,}", f"{num_envs:,}",
-                elapsed, f"{metrics['obs_per_sec']:,.0f}", metrics["device"],
-                engine)
-    return metrics
+                "(%s engine)", f"{total_steps:,}", f"{args.num_envs:,}",
+                elapsed, f"{metrics['obs_per_sec']:,.0f}",
+                torch.cuda.get_device_name(device)
+                if device.type == "cuda" else "cpu", engine)
+
+    ag_state = carry[3]
+    if args.inspect_memory:
+        if engine == "ring":
+            logger.warning("--inspect_memory: the ring engine keeps no "
+                           "ReplayState (observations live in the kernel's "
+                           "ring); use --engine jnp or a larger "
+                           "--memory_size")
+        else:
+            replay.inspect_memory(carry[4], printer=logger.info,
+                                  slot_axis=0 if engine == "jnp" else -1)
+    if args.save_final_checkpoint:
+        jax_path = os.path.join(
+            run_dir, f"agent_{args.num_steps}_steps_jax.safetensors")
+        torch_path = os.path.join(
+            run_dir, f"agent_{args.num_steps}_steps_torch.safetensors")
+        agent.save(jax_path, ag_state)
+        agent.save_as_torch(torch_path, ag_state)
+        logger.info("Saved checkpoints: %s, %s", jax_path, torch_path)
+        if run:
+            import wandb
+
+            artifact = wandb.Artifact(
+                name=f"checkpoint_{args.num_steps}_steps", type="model")
+            artifact.add_file(local_path=jax_path)
+            artifact.add_file(local_path=torch_path)
+            run.log_artifact(artifact)
+    if args.save_train_state:
+        state_path = os.path.join(run_dir, TRAIN_STATE_FILE)
+        train_state_io.save(state_path, carry)
+        logger.info("Saved full training state to %s", state_path)
+    if not args.skip_final_eval:
+        (emean, estd), (rmean, rstd) = evaluate(args, agent, ag_state)
+        metrics["eval_reward_mean"] = emean
+        metrics["eval_reward_std"] = estd
+        logger.info("Final eval: agent %.3f ± %.3f | random %.3f ± %.3f",
+                    emean, estd, rmean, rstd)
+        metrics_logger.log_scalars(
+            {"eval_reward": emean, "random_reward": rmean},
+            step=args.num_steps)
+    if args.render_video:
+        from dronerl_tpu_torch.render.video import render_policy_video
+
+        video_path = os.path.join(
+            run_dir, f"training_{args.num_steps}_steps.mp4")
+        video_path = render_policy_video(
+            env_params, agent, ag_state, video_path,
+            num_steps=args.render_video_steps)
+        logger.info("Rendered video: %s", video_path)
+        if run:
+            import wandb
+
+            run.log({"eval_video": wandb.Video(video_path, format="mp4")},
+                    step=args.num_steps)
+
+    with open(os.path.join(run_dir, "metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    metrics_logger.close()
+    if run:
+        run.finish()
+    return {**metrics, "engine": engine,
+            "last_reward_mean": mean_reward, "epsilon": float(epsilon),
+            "td_loss_mean": float(trained.mean()) if len(trained) else None,
+            "device": (torch.cuda.get_device_name(device)
+                       if device.type == "cuda" else "cpu")}
+
+
+def _log_chunk(metrics_logger, args, agent: DQN, carry, engine: str,
+               rewards, epsilon, losses, chunk: int, step: int) -> None:
+    """A chunk's scalars (the mean reward of drone 0, the last ε, the mean
+    TD loss over the trained ticks: warm-up ticks carry NO_TRAIN_LOSS,
+    which is negative, and a NaN loss is kept and warned about) and,
+    with ``--log_histograms``, its histograms."""
+    flat = torch.stack(losses).reshape(-1).cpu()
+    trained = ~(flat < 0.0)
+    n_trained = int(trained.sum())
+    scalars = {"train_reward": float(torch.stack(rewards).mean()),
+               "epsilon": float(epsilon)}
+    if n_trained:
+        scalars["td_loss"] = float(
+            torch.where(trained, flat, 0.0).sum() / n_trained)
+        if not math.isfinite(scalars["td_loss"]):
+            logger.warning("non-finite TD loss in chunk %d (training has "
+                           "diverged?)", chunk)
+    metrics_logger.log_scalars(scalars, step=step)
+    if args.log_histograms:
+        log_chunk_histograms(metrics_logger, agent, carry, flat,
+                             engine == "ring", engine in ("full", "fused"),
+                             step=step)
 
 
 def main(argv=None):

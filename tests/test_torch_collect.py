@@ -274,12 +274,13 @@ def test_cli_collect_drones_checks():
     (["--num_envs", "64"], "jnp"),
     (["--num_envs", "128", "--memory_size", "512"], "ring"),
     (["--num_envs", "128", "--memory_size", "2048"], "full")])
-def test_cli_runs_collect_drones_on_cpu(argv, engine):
+def test_cli_runs_collect_drones_on_cpu(argv, engine, tmp_path):
     """``--collect_drones 2`` on the three engines the CLI chooses for a
     dense net: the replay takes E · 2 transitions a tick, the ring 2 row
     groups a column."""
     metrics = train.main(["--device", "cpu", "--num_steps", "3",
-                          "--collect_drones", "2"] + argv)
+                          "--collect_drones", "2", "--skip_final_eval",
+                          "--run_dir", str(tmp_path)] + argv)
     assert metrics["engine"] == engine
     assert metrics["td_loss_mean"] is not None
     assert np.isfinite(metrics["td_loss_mean"])

@@ -265,9 +265,10 @@ def test_cli_conv_flags():
 @pytest.mark.parametrize("flags,engine", [
     (["--memory_size", "256", "--conv_matmul"], "ring"),
     (["--memory_size", "1024"], "fused")])
-def test_cli_runs_conv_on_cpu(flags, engine):
+def test_cli_runs_conv_on_cpu(flags, engine, tmp_path):
     metrics = train.main(["--device", "cpu", "--num_envs", "128",
                           "--num_steps", "3", "--network_type", "conv",
+                          "--skip_final_eval", "--run_dir", str(tmp_path),
                           *flags])
     assert metrics["engine"] == engine
     assert np.isfinite(metrics["td_loss_mean"])

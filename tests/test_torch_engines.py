@@ -372,11 +372,11 @@ def test_cli_engine_flags(caplog):
         train.choose_engine(args, train.env_params_from_args(args))
 
 
-def test_cli_runs_full_engine_on_cpu():
+def test_cli_runs_full_engine_on_cpu(tmp_path):
     """The issue's example: 1,024 slots > 4 x 128 chooses the full engine."""
     metrics = train.main([
         "--device", "cpu", "--num_envs", "128", "--memory_size", "1024",
-        "--num_steps", "3"])
+        "--num_steps", "3", "--skip_final_eval", "--run_dir", str(tmp_path)])
     assert metrics["engine"] == "full" and metrics["device"] == "cpu"
     assert metrics["td_loss_mean"] is not None
     assert np.isfinite(metrics["td_loss_mean"])

@@ -119,7 +119,9 @@ def test_engine_rng_rounds_warnings(caplog):
     (["--num_envs", "128", "--memory_size", "256", "--fast_rng", "actor"],
      "ring"),
     (["--num_envs", "128", "--memory_size", "1024", "--fast_rng"], "full")])
-def test_cli_runs_fast_rng_on_cpu(argv, engine):
-    metrics = train.main(["--device", "cpu", "--num_steps", "3"] + argv)
+def test_cli_runs_fast_rng_on_cpu(argv, engine, tmp_path):
+    metrics = train.main(["--device", "cpu", "--num_steps", "3",
+                          "--skip_final_eval", "--run_dir", str(tmp_path)]
+                         + argv)
     assert metrics["engine"] == engine
     assert np.isfinite(metrics["td_loss_mean"])

@@ -90,7 +90,7 @@ def test_ring_engine_global_matches_jax():
     run_engines("ring", dict(hidden_layers=(16, 16)), wrapper="global")
 
 
-def test_cli_global_flags():
+def test_cli_global_flags(tmp_path):
     """``--wrapper global`` reaches the env and the obs size: 9 x 9 x 6 on
     the default board; the jnp engine below 128 envs and the ring engine
     at 128 run on the CPU."""
@@ -101,6 +101,7 @@ def test_cli_global_flags():
     for num_envs, engine in ((64, "jnp"), (128, "ring")):
         metrics = train.main([
             "--device", "cpu", "--wrapper", "global", "--num_envs",
-            str(num_envs), "--num_steps", "3", "--memory_size", "256"])
+            str(num_envs), "--num_steps", "3", "--memory_size", "256",
+            "--skip_final_eval", "--run_dir", str(tmp_path)])
         assert metrics["engine"] == engine
         assert np.isfinite(metrics["td_loss_mean"])

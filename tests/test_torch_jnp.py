@@ -290,10 +290,11 @@ def test_choose_engine_matches_jax_gate(num_envs):
         _jax_engine(num_envs, 1000, 8))
 
 
-def test_cli_runs_jnp_engine_on_cpu():
+def test_cli_runs_jnp_engine_on_cpu(tmp_path):
     """The CLI's default single env trains on the jnp engine."""
     metrics = train.main(["--device", "cpu", "--num_envs", "1",
-                          "--num_steps", "20"])
+                          "--num_steps", "20", "--skip_final_eval",
+                          "--run_dir", str(tmp_path)])
     assert metrics["engine"] == "jnp" and metrics["device"] == "cpu"
     assert metrics["td_loss_mean"] is not None
     assert np.isfinite(metrics["td_loss_mean"])
