@@ -145,9 +145,35 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    to the first near tie of each episode (the CPU's best-minus-second Q
    gap at most 1e-5 of max |q|); prints both score vectors beside the JAX
    package's CPU lock and each episode's first parting step;
-then print the kernel table line, the card line, and the result line last.
-CLI runs write their run dirs under ``output/chip_smoke/`` (removed at
-the end).
+6. multi-GPU training (``parallel/``) and the periphery:
+6a. the CLI with ``--use_sharding`` at world size 1 over NCCL at the bench
+   configuration, 150 ticks each: the sharded ring engine (memory 100,000)
+   and the sharded fused engine over B3 (memory 1,000,000) for both nets,
+   and over B4 with a conv net: the engine's kernel launches once a tick
+   and nothing else launches, one gradient all-reduce for each trained
+   tick, finite losses, ε decays; obs/s beside phase 4's, and the
+   all-reduce's time a trained tick for both nets;
+6b. two ranks on the one card over gloo (``parallel.launch.spawn``): the
+   sharded ring, fused-dense (B3) and fused-conv (B4) engines at 2 x 256
+   envs for 12 ticks (a reset every 5) in lockstep with the same ranks'
+   plain versions on the CPU (each tick from the card's state): env state,
+   the next observation and the tick's scalars bitwise but the charge
+   channel (within 1.3e-7), except where drone 0's action parts at a near
+   tie of the CPU's Q-values; losses within rtol 1e-5, params within atol
+   1e-5; the ranks' params bitwise equal; then the ring engine at 2 x
+   32,768 envs for 150 ticks: obs/s, launches, and the all-reduce on CUDA
+   and on CPU tensors (gloo's staging through the host);
+6c. each rank saves its train state after 6 ticks; 6 more equal a restore
+   and 6 more, bitwise, on both ranks;
+6d. ``benchmark.py``'s phase split (Default, 4 drones, 256 envs, 100
+   steps) and ``DeliveryDronesEnv`` for 100 steps on the card against the
+   CPU, beside the card's name and power limit; then what NCCL says to
+   two ranks on one card (information);
+then print the kernel table line (phase 6a's launches of B1, B3 and B4 as
+``*_sharded`` entries, each kernel compared with its plain version and
+timed in place on a world-1 sharded trainer's carry at 6a's shapes, with
+6b's launches of the same builds per rank), the card line, and the result line last. CLI runs write
+their run dirs under ``output/chip_smoke/`` (removed at the end).
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -285,6 +311,42 @@ LIFE_PROBE = 1024          # 5b: seeded observations for the Q-values
 # 5c: the JAX package's CPU scores of the five baselines' round robin
 # (tests/test_evaluator_regression.py), printed beside the port's.
 JAX_CPU_LOCK = (-56.02, -72.12, -58.05, -52.30, -46.46)
+# Phase 6, multi-GPU training. 6a: the CLI with --use_sharding at world
+# size 1 (NCCL) at the bench configuration, MG_TICKS ticks a run: (engine,
+# --memory_size, net flags, the kernel, the nets). 6b: MG_RANKS ranks on
+# the one card over gloo, MG_SMALL envs a rank for MG_COMPARE_TICKS ticks
+# in lockstep with the plain versions (MG_CASES: name, engine, net, the
+# kernel), then the ring engine at MG_BIG envs a rank for MG_BIG_TICKS
+# ticks; 6c saves a rank's train state after MG_RESUME_AT ticks.
+MG_TICKS = 150
+MG_CLI_RUNS = (("ring", "100000", [], "full_tick_ring", NETS),
+               ("fused", "1000000", [], "full_tick", NETS),
+               ("fused", "1000000", ["--network_type", "conv"], "tick",
+                (None,)))
+MG_REPLACES = {
+    "full_tick_ring": ("dronerl_tpu/parallel/distributed.py:417 "
+                       "(full_tick_fused_ring per shard)"),
+    "full_tick": ("dronerl_tpu/parallel/distributed.py:320 (full_tick_fused "
+                  "per shard)"),
+    "tick": "dronerl_tpu/parallel/distributed.py:337 (tick_fused per shard)",
+}
+MG_RANKS, MG_SMALL, MG_COMPARE_TICKS, MG_RESET = 2, 256, 12, 5
+MG_BIG, MG_BIG_TICKS, MG_RESUME_AT = 32768, 150, 6
+MG_NET = dict(epsilon_start=0.5, epsilon_decay=0.995, epsilon_decay_every=5,
+              target_update_interval=10, gamma=0.9)
+MG_CASES = (
+    ("ring", "ring", dict(MG_NET, hidden_layers=(16, 16)), "full_tick_ring"),
+    ("fused_dense", "fused", dict(MG_NET, hidden_layers=(16, 16)),
+     "full_tick"),
+    ("fused_conv", "fused", dict(
+        MG_NET, network_type="conv", conv_dense_layers=(16,),
+        conv_layers=({"out_channels": 8, "kernel_size": 3, "stride": 1,
+                      "padding": 1},)), "tick"),
+)
+MG_REDUCES = 200           # all-reduce calls timed
+MG_BENCH_STEPS = 100       # 6d: benchmark.py's steps
+MG_GYM_STEPS = 100         # 6d: DeliveryDronesEnv steps, card vs CPU
+MG_PROBE_SECONDS = 90      # NCCL with two ranks on one card
 # H100 SXM published peaks: HBM bytes/s and
 # f32 FLOP/s on the CUDA cores. Integer hash operations are counted at
 # the f32 rate too, a rate no lower than the card's int32 rate, so the
@@ -1671,9 +1733,14 @@ def main() -> None:
 
     # --- 5. the trainer's lifecycle: checkpoints, resume, evaluation -------
     lifecycle(torch, train, zero_counts, counts, card, obs_per_s, runs)
+
+    # --- 6. multi-GPU training: the sharded engines, then the periphery -----
+    sharded = multi_gpu(torch, train, zero_counts, counts, card, obs_per_s,
+                        runs, {e["name"]: e for e in kernels + stream})
     shutil.rmtree(runs, ignore_errors=True)
 
-    print(json.dumps({"kernels": kernels + learners + stream}), flush=True)
+    print(json.dumps({"kernels": kernels + learners + stream + sharded}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind,
@@ -1828,6 +1895,534 @@ def lifecycle(torch, train, zero_counts, counts, card, obs_per_s, runs):
         f"{list(JAX_CPU_LOCK)} (information); per seed (seed, first step "
         f"where the actions part or None, first near tie on the CPU, the "
         f"parting agents at a near tie there): {firsts}; on {card}")
+
+
+# --- 6. multi-GPU training ----------------------------------------------------
+
+def multi_gpu(torch, train, zero_counts, counts, card, obs_per_s, runs,
+              timed):
+    """Phase 6: the sharded engines. 6a the CLI with ``--use_sharding`` at
+    world size 1 over NCCL; 6b and 6c two ranks on the one card over gloo
+    (``parallel.launch.spawn``), lockstep against the plain versions, and
+    a per-rank train state; 6d the periphery; then what NCCL says to two
+    ranks on one card. Returns the kernel line's sharded entries: 6a's
+    launches, each kernel compared and timed in place on a 6a trainer's
+    carry (``sharded_in_place``), and 6b's launches of the same builds."""
+    from dronerl_tpu_torch.agents import dqn as dqn_mod
+    from dronerl_tpu_torch.parallel import launch, mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    # --- 6a ---------------------------------------------------------------
+    mesh = mesh_mod.make_env_mesh(device="cuda")
+    backend = torch.distributed.get_backend(mesh.group)
+    entries = []
+    for engine, memory, net_flags, kernel, nets in MG_CLI_RUNS:
+        for hidden in nets:
+            flags = net_flags + (["--hidden_layers", *map(str, hidden)]
+                                 if hidden else [])
+            zero_counts()
+            dqn_mod.all_reduce_mean.calls = 0
+            t0 = time.perf_counter()
+            metrics = train.main(LIFE_BASE + flags + [
+                "--use_sharding", "--num_steps", str(MG_TICKS),
+                "--memory_size", memory, "--skip_final_eval", "--run_dir",
+                os.path.join(runs, "sharded")])
+            seconds = time.perf_counter() - t0
+            n = counts()
+            calls = dqn_mod.all_reduce_mean.calls
+            tag = f"6a sharded {engine} {' '.join(flags)}"
+            if (metrics["engine"] != f"sharded-{engine}"
+                    or metrics["world_size"] != 1):
+                fail(f"{tag}: engine {metrics['engine']}, world "
+                     f"{metrics.get('world_size')}")
+            if n[kernel] != MG_TICKS or sum(n.values()) != MG_TICKS:
+                fail(f"{tag}: launches {n} in {MG_TICKS} ticks")
+            if not 0 < metrics["trained_ticks"] == calls:
+                fail(f"{tag}: {calls} all-reduces for "
+                     f"{metrics['trained_ticks']} trained ticks")
+            if metrics["td_loss_mean"] is None or not math.isfinite(
+                    metrics["td_loss_mean"]) or not metrics["epsilon"] < 1.0:
+                fail(f"{tag}: loss {metrics['td_loss_mean']}, epsilon "
+                     f"{metrics['epsilon']}")
+            beside = (f"phase 4's single-card ring engine "
+                      f"{obs_per_s[hidden]:.1f}" if hidden else
+                      "phase 4d's fused engine above")
+            log(f"{tag}: {backend} world 1, {MG_TICKS} ticks x {NUM_ENVS} "
+                f"envs, launches { {k: v for k, v in n.items() if v} }, "
+                f"{calls} all-reduces for {metrics['trained_ticks']} trained "
+                f"ticks, loss {metrics['td_loss_mean']:.5f}, eps "
+                f"{metrics['epsilon']:.4f}; obs/s "
+                f"{metrics['obs_per_sec']:.1f} (the CLI's clock over "
+                f"{MG_TICKS} ticks, warm-up included) beside {beside}; run "
+                f"{seconds:.1f} s on {card}")
+            base = timed[kernel + ("_" + "x".join(map(str, hidden))
+                                   if hidden else "")]
+            entries.append(dict(
+                name=base["name"] + "_sharded", route=base["route"],
+                source=base["source"], replaces=MG_REPLACES[kernel] + "; "
+                + base["replaces"], launches=n[kernel],
+                **sharded_in_place(torch, mesh, engine, kernel, hidden,
+                                   int(memory), f"{tag} in place", card),
+                library_ms=None))
+    for hidden in NETS:  # the learner's all-reduce: grads and loss
+        size = 1 + sum(i * o + o for i, o in zip((294, *hidden),
+                                                 (*hidden, 5)))
+        buf = torch.zeros(size, device="cuda")
+        reduce = lambda: dqn_mod.all_reduce_mean([buf], mesh.group)  # noqa
+        dev_ms = cuda_ms(torch, reduce, MG_REDUCES)
+        log(f"6a all-reduce of the net {hidden}'s {size} floats over "
+            f"{backend} at world 1: {dev_ms:.5f} ms a trained tick (CUDA "
+            f"events over {MG_REDUCES} calls), host "
+            f"{host_ms(torch, reduce, MG_REDUCES):.5f} ms; on {card}")
+    torch.distributed.destroy_process_group()
+
+    # --- 6b, 6c -----------------------------------------------------------
+    t0 = time.perf_counter()
+    ranks = launch.spawn(rank_6b, MG_RANKS, (os.path.join(runs, "6c"),),
+                         device="cuda", backend="gloo", timeout=600)
+    spawn_s = time.perf_counter() - t0
+    for name, _, _, kernel in MG_CASES:
+        got = [r["cases"][name] for r in ranks]
+        for r, g in zip(ranks, got):
+            want = {k: 0 for k in g["launches"]}
+            want[kernel] = MG_COMPARE_TICKS
+            if g["launches"] != want:
+                fail(f"6b {name} rank {r['rank']}: launches {g['launches']}")
+            if g["calls"] != 2 * g["trained"] or not g["trained"]:
+                fail(f"6b {name} rank {r['rank']}: {g['calls']} all-reduces "
+                     f"for {g['trained']} trained ticks on the card and the "
+                     "CPU")
+        for a, b in zip(got[0]["params"], got[1]["params"]):
+            if not torch.equal(a, b):
+                fail(f"6b {name}: the ranks' params differ")
+        log(f"6b {name}: 2 ranks x {MG_SMALL} envs on {ranks[0]['device']} "
+            f"(gloo), {MG_COMPARE_TICKS} ticks (reset every {MG_RESET}) in "
+            f"lockstep with the plain versions on the CPU: launches "
+            f"{[g['launches'][kernel] for g in got]}, trained ticks "
+            f"{got[0]['trained']}, env state, rewards and dones bitwise but "
+            f"at near ties {[g['ties'] for g in got]} (max charge-channel "
+            f"error {max(g['charge_err'] for g in got):.3g}), loss max rel "
+            f"err {max(g['loss_err'] for g in got):.3g}, params max abs err "
+            f"{max(g['param_err'] for g in got):.3g}; the ranks' params "
+            "bitwise equal")
+    big = [r["big"] for r in ranks]
+    log(f"6b sharded ring engine, 2 ranks x {MG_BIG} envs on one card over "
+        f"gloo, {MG_BIG_TICKS} ticks: B1 launches "
+        f"{[b['launches'] for b in big]}, obs/s (both ranks' envs) "
+        f"{[round(b['obs_per_s'], 1) for b in big]}, all-reduce "
+        f"{[round(b['reduce_ms'], 4) for b in big]} ms a trained tick for "
+        f"CUDA tensors vs {[round(b['reduce_cpu_ms'], 4) for b in big]} ms "
+        f"for CPU tensors (the staging through the host), on {card}")
+    for entry in entries:  # 6b's launches of the same builds, per rank
+        for name, _, cfg, kernel in MG_CASES:
+            if entry["name"] == timed[kernel + ("_16x16" if kernel != "tick"
+                                                else "")]["name"] + "_sharded":
+                entry["launches_6b_two_ranks"] = [
+                    r["cases"][name]["launches"][kernel]
+                    + (r["big"]["launches"] if kernel == "full_tick_ring"
+                       else 0) for r in ranks]
+    log(f"6c per-rank train states: 6 ticks, save, 6 more equals a restore "
+        f"of the save and 6 more, bitwise, on both ranks "
+        f"({ranks[0]['resume_tensors']} tensors each); 6b+6c took "
+        f"{spawn_s:.1f} s, the ranks' start included")
+
+    # --- 6d ---------------------------------------------------------------
+    from dronerl_tpu_torch import benchmark
+    from dronerl_tpu_torch.env.gymapi import DeliveryDronesEnv
+
+    t0 = time.perf_counter()
+    row = benchmark.bench_config("Default", {}, DRONES, MG_BENCH_STEPS,
+                                 benchmark.NUM_ENVS, "cuda")
+    log(f"6d benchmark.py Default, {DRONES} drones, {benchmark.NUM_ENVS} "
+        f"envs, {MG_BENCH_STEPS} steps: env {row['env_steps_per_s']:.1f} "
+        f"steps/s, act {row['act_steps_per_s']:.1f}, learn "
+        f"{row['learn_steps_per_s']:.1f} it/s, full loop "
+        f"{row['fused_obs_per_s']:.1f} obs/s ({time.perf_counter() - t0:.1f}"
+        f" s) on {benchmark.device_line(torch.device('cuda', 0))}")
+    envs = [DeliveryDronesEnv({"n_drones": DRONES, "grid_size": GRID},
+                              device=d) for d in ("cuda", "cpu")]
+    obs = [e.reset(seed=0)[0] for e in envs]
+    moves = torch.randint(0, 5, (MG_GYM_STEPS, DRONES),
+                          generator=torch.Generator().manual_seed(0))
+    t_gym = [0.0, 0.0]
+    for t in range(MG_GYM_STEPS + 1):
+        for i in range(DRONES):
+            a, b = obs[0][i], obs[1][i]
+            if not ((a[..., :4] == b[..., :4]).all()
+                    and (a[..., 5] == b[..., 5]).all()
+                    and abs(a[..., 4] - b[..., 4]).max() <= CHARGE_ATOL):
+                fail(f"6d DeliveryDronesEnv: drone {i}'s observation on the "
+                     f"card differs from the CPU's at step {t}")
+        if t == MG_GYM_STEPS:
+            break
+        action = {i: int(m) for i, m in enumerate(moves[t])}
+        out = []
+        for j, env in enumerate(envs):
+            t0 = time.perf_counter()
+            out.append(env.step(action))
+            t_gym[j] += time.perf_counter() - t0
+        if out[0][1:3] != out[1][1:3]:
+            fail(f"6d DeliveryDronesEnv: rewards or dones differ at step {t}")
+        obs = [o[0] for o in out]
+    if envs[0].render() != envs[1].render():
+        fail("6d DeliveryDronesEnv: the boards differ")
+    log(f"6d DeliveryDronesEnv {MG_GYM_STEPS} steps on the card equal the "
+        f"CPU's (observations, rewards, dones, the board): {t_gym[0]:.2f} s "
+        f"on {card}, {t_gym[1]:.2f} s on the CPU")
+
+    # --- NCCL with two ranks on one card ------------------------------------
+    try:
+        launch.spawn(rank_nccl_probe, 2, (), device="cuda", backend="nccl",
+                     timeout=MG_PROBE_SECONDS)
+        said = "it ran an all-reduce"
+    except RuntimeError as err:  # NCCL's refusal is the expected outcome
+        lines = [ln.strip() for ln in str(err).splitlines()]
+        said = " | ".join(ln for ln in lines if "Duplicate GPU" in ln
+                          or ln.startswith("torch.distributed."))[:600]
+        said = said or lines[0]
+    log(f"6 NCCL with two ranks on one card: {said}")
+    log(f"phase 6 took {time.perf_counter() - t_phase:.1f} s by the log's "
+        "clock")
+    return entries
+
+
+def sharded_in_place(torch, mesh, engine, kernel, hidden, memory, tag,
+                     card):
+    """Phase 6a's kernel in place: a world-1 ``DistributedTrainer`` on
+    ``mesh`` at the CLI run's configuration (the bench board, NUM_ENVS
+    envs, the net ``hidden`` or the CLI's conv net, ``memory``), 3 ticks,
+    then one launch of the kernel's wrapper on the carry against its
+    plain version on the same inputs (ε = 0.5): env state, rewards and
+    dones bitwise, the observation bitwise but the charge channel (within
+    CHARGE_ATOL), B1/B3's actions equal to the plain actor's outside near
+    ties; then the kernel timed on the carry as phases 3-4 time it.
+    Returns the kernel line's max_abs_err and timing keys."""
+    from dronerl_tpu_torch import rng
+    from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
+    from dronerl_tpu_torch.env.types import EnvParams
+    from dronerl_tpu_torch.ops import _build, fused_tick
+    from dronerl_tpu_torch.parallel.distributed import DistributedTrainer
+
+    params = EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
+    decay = dict(epsilon_decay=0.995, epsilon_decay_every=5)  # the CLI's
+    cfg = (DQNConfig(hidden_layers=hidden, **decay) if hidden
+           else DQNConfig(network_type="conv", **decay))
+    agent = DQN(cfg, params, device=mesh.device)
+    trainer = DistributedTrainer(
+        agent, params, mesh, num_envs=NUM_ENVS,
+        buffer_capacity_per_shard=memory, batch_size_per_shard=BATCH,
+        reset_env_every=RESET_EVERY, engine=engine)
+    if trainer.local_engine != {"full_tick_ring": "ring", "full_tick": "full",
+                                "tick": "fused"}[kernel]:
+        fail(f"{tag}: local engine {trainer.local_engine}")
+    carry = trainer.init_carry(rng.PRNGKey(0))
+    tick = trainer.build_tick()
+    for _ in range(3):
+        carry, _ = tick(carry)
+    torch.cuda.synchronize()
+    key, eps = rng.PRNGKey(7), torch.tensor(0.5, device=mesh.device)
+    chain = carry[3].params.flat()
+    if kernel == "full_tick_ring":
+        tstate, ring = carry[1]
+        ring_plain = ring.clone()
+        out_k = fused_tick.full_tick_fused_ring(
+            key, tstate, ring, 0, NUM_ENVS, chain, eps, False, params)
+        out_p = fused_tick.full_tick_ring_plain(
+            key, tstate, ring_plain, 0, NUM_ENVS, chain, eps, False, params,
+            actions_override=out_k[3])
+        obs = (ring[:, NUM_ENVS:2 * NUM_ENVS],
+               ring_plain[:, NUM_ENVS:2 * NUM_ENVS])
+        obs_in = ring
+    elif kernel == "full_tick":
+        tstate, obs_in = carry[1], carry[2]
+        out_k = fused_tick.full_tick_fused(key, tstate, obs_in, chain, eps,
+                                           False, params)
+        out_p = fused_tick.full_tick_plain(key, tstate, obs_in, chain, eps,
+                                           False, params,
+                                           actions_override=out_k[3])
+        obs = out_k[4], out_p[4]
+    else:
+        tstate = carry[1]
+        actions = rng.randint(rng.PRNGKey(8).to(mesh.device),
+                              (DRONES, NUM_ENVS), 0, 5)
+        out_k = fused_tick.tick_fused(key, tstate, actions, params)
+        out_p = fused_tick.tick_plain(key, tstate, actions, params)
+        obs = out_k[3], out_p[3]
+    torch.cuda.synchronize()
+    for name, a, b in zip(fused_tick.TState._fields + ("rewards", "dones"),
+                          out_k[0] + out_k[1:3], out_p[0] + out_p[1:3]):
+        if not torch.equal(a, b):
+            fail(f"{tag}: {name} differs from the plain version's")
+    obs_k, obs_p = (o.float().reshape(-1, 6, NUM_ENVS) for o in obs)
+    ch = torch.arange(6, device=mesh.device) != 4
+    if not torch.equal(obs_k[:, ch], obs_p[:, ch]):
+        fail(f"{tag}: observation channels differ from the plain version's")
+    err = float((obs_k[:, 4] - obs_p[:, 4]).abs().max())
+    if err > CHARGE_ATOL:
+        fail(f"{tag}: charge channel off by {err}")
+    ties = 0
+    if kernel != "tick":
+        keys = rng.split(key.to(mesh.device), NUM_ENVS + 2)
+        act_p, q = fused_tick.plain_actions(
+            keys[NUM_ENVS], obs_in, 0, chain, eps, params, NUM_ENVS,
+            fused_tick.actor_rounds(20, None))
+        top2 = q.topk(2, dim=0).values
+        tie = (top2[0] - top2[1]) <= NEAR_TIE * q.abs().amax(dim=0)
+        differ = (out_k[3] != act_p).any(dim=0)
+        if bool((differ & ~tie).any()):
+            fail(f"{tag}: {int((differ & ~tie).sum())} actions differ from "
+                 "the plain actor's outside near ties")
+        ties = int(tie.sum())
+    log(f"{tag}: one launch == plain at {NUM_ENVS} envs; env bitwise, "
+        f"charge max err {err:.3e}, near-tie envs {ties}")
+    if kernel == "full_tick_ring":
+        ms, plain_ms, bound_ms, bound_by = time_kernel(
+            torch, _build, fused_tick, rng, agent, carry, hidden, card)
+        timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by)
+    elif kernel == "full_tick":
+        timing = time_obs_kernel(torch, _build, fused_tick, rng, agent,
+                                 carry, hidden, card)
+    else:
+        timing = time_env_tick(torch, _build, fused_tick, rng, carry[1],
+                               params, card)
+    return dict(max_abs_err=err, **timing)
+
+
+def _tensors(node):
+    """The tensors of a carry in a fixed order (nets by ``flat()``)."""
+    import torch
+
+    if isinstance(node, torch.Tensor):
+        yield node
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _tensors(v)
+    elif isinstance(node, dict):
+        for v in node.values():
+            yield from _tensors(v)
+    elif hasattr(node, "flat"):
+        yield from node.flat()
+    elif dataclasses.is_dataclass(node):
+        for f in dataclasses.fields(node):
+            yield from _tensors(getattr(node, f.name))
+
+
+def _numbers(carry):
+    """The carry's host numbers: the step, a replay's cursor and size, the
+    Adam count."""
+    nums = [carry[-1], carry[3].opt_state.count]
+    if hasattr(carry[4], "cursor"):
+        nums += [carry[4].cursor, carry[4].size]
+    return nums
+
+
+def rank_6b(state_dir, device="cuda"):
+    """One of phase 6b's two ranks, both on the card over gloo: MG_CASES
+    each in lockstep with the plain versions on the CPU (the card's carry
+    copied to the CPU replica before each tick; env state, next
+    observation and this tick's scalars per env bitwise, but the charge
+    channel, except where drone 0's action differs at a near tie of the
+    CPU's Q-values; the learner within phase 3's limits), the ring engine
+    at MG_BIG envs timed, the all-reduce on CUDA and CPU tensors, and
+    6c's save and resume."""
+    import torch
+    from dronerl_tpu_torch import rng
+    from dronerl_tpu_torch.agents import dqn as dqn_mod
+    from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
+    from dronerl_tpu_torch.env.types import EnvParams
+    from dronerl_tpu_torch.interop import train_state_io
+    from dronerl_tpu_torch.ops import fused_tick
+    from dronerl_tpu_torch.parallel import mesh as mesh_mod
+    from dronerl_tpu_torch.parallel.distributed import DistributedTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_mod.make_env_mesh(device=device)
+    cpu_mesh = dataclasses.replace(mesh, device=torch.device("cpu"))
+    params = EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
+    kernels = {"full_tick_ring": fused_tick.full_tick_fused_ring,
+               "full_tick": fused_tick.full_tick_fused,
+               "tick": fused_tick.tick_fused}
+    out = {"rank": mesh.rank, "device": str(mesh.device), "cases": {}}
+
+    def make(cfg, engine, m, num_envs, memory):
+        agent = DQN(DQNConfig(**cfg), params, device=m.device)
+        trainer = DistributedTrainer(
+            agent, params, m, num_envs=MG_RANKS * num_envs,
+            buffer_capacity_per_shard=memory, batch_size_per_shard=BATCH // 2,
+            reset_env_every=MG_RESET, engine=engine)
+        return agent, trainer
+
+    for name, engine, cfg, kernel in MG_CASES:
+        memory = MG_SMALL * (4 if engine == "ring" else 8)
+        agent, card = make(cfg, engine, mesh, MG_SMALL, memory)
+        cpu_agent, cpu = make(cfg, engine, cpu_mesh, MG_SMALL, memory)
+        carry = card.init_carry(rng.PRNGKey(0))
+        ref = cpu.init_carry(rng.PRNGKey(0))
+        for a, b in zip(_tensors(carry), _tensors(ref)):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{name}: the init carries differ")
+        tick, cpu_tick = card.build_tick(), cpu.build_tick()
+        for fn in kernels.values():
+            fn.launches = 0
+        dqn_mod.all_reduce_mean.calls = 0
+        stats = dict(ties=0, charge_err=0.0, loss_err=0.0, param_err=0.0,
+                     trained=0)
+        for t in range(MG_COMPARE_TICKS):
+            with torch.no_grad():
+                for a, b in zip(_tensors(ref), _tensors(carry)):
+                    a.copy_(b)
+            q, slot = _pre_tick(torch, cpu_agent, ref, engine, MG_SMALL)
+            carry, (_, _, loss) = tick(carry)
+            ref, (_, _, cpu_loss) = cpu_tick(ref)
+            _lockstep(torch, name, t, carry, ref, loss, cpu_loss, q, slot,
+                      engine, MG_SMALL, stats)
+        torch.cuda.synchronize()
+        out["cases"][name] = dict(
+            stats, launches={k: fn.launches for k, fn in kernels.items()},
+            calls=dqn_mod.all_reduce_mean.calls,
+            params=[p.detach().cpu() for p in carry[3].params.flat()])
+
+    # the ring engine at MG_BIG envs a rank, timed
+    agent, big = make(MG_CASES[0][2], "ring", mesh, MG_BIG, 100_000 // 2)
+    carry = big.init_carry(rng.PRNGKey(0))
+    tick = big.build_tick()
+    for _ in range(WARMUP_TICKS):
+        carry, _ = tick(carry)
+    torch.cuda.synchronize()
+    fused_tick.full_tick_fused_ring.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(MG_BIG_TICKS):
+        carry, (rewards, eps, loss) = tick(carry)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not (bool(torch.isfinite(loss)) and float(eps) < 1.0):
+        raise AssertionError(f"6b big ring: loss {loss}, eps {eps}")
+    size = 1 + sum(p.numel() for p in carry[3].params.flat())
+    reduce_ms = []
+    for d in (device, "cpu"):
+        buf = torch.zeros(size, device=d)
+        reduce_ms.append(host_ms(torch, lambda: dqn_mod.all_reduce_mean(
+            [buf], mesh.group), MG_REDUCES))
+    out["big"] = dict(
+        launches=fused_tick.full_tick_fused_ring.launches,
+        obs_per_s=MG_RANKS * MG_BIG * MG_BIG_TICKS / seconds,
+        reduce_ms=reduce_ms[0], reduce_cpu_ms=reduce_ms[1])
+
+    # 6c: a rank-local train state, saved and resumed on the card
+    os.makedirs(state_dir, exist_ok=True)
+    path = os.path.join(state_dir, f"rank{mesh.rank}.safetensors")
+    shard = (mesh.rank, mesh.world_size)
+    _, trainer = make(MG_CASES[0][2], "ring", mesh, MG_SMALL, 4 * MG_SMALL)
+    tick = trainer.build_tick()
+    carry = trainer.init_carry(rng.PRNGKey(1))
+    for _ in range(MG_RESUME_AT):
+        carry, _ = tick(carry)
+    train_state_io.save(path, carry, shard=shard)
+    for _ in range(MG_RESUME_AT):
+        carry, _ = tick(carry)
+    resumed = train_state_io.restore(
+        path, trainer.init_carry(rng.PRNGKey(2)), shard=shard)
+    for _ in range(MG_RESUME_AT):
+        resumed, _ = tick(resumed)
+    whole, again = list(_tensors(carry)), list(_tensors(resumed))
+    if len(whole) != len(again) or any(not torch.equal(a, b) for a, b in zip(
+            whole, again)) or _numbers(carry) != _numbers(resumed):
+        raise AssertionError("6c: the resumed carry differs")
+    out["resume_tensors"] = len(whole)
+    return out
+
+
+def _pre_tick(torch, agent, carry, engine, num_envs):
+    """The CPU replica's Q-values of drone 0 before a tick (for the near
+    ties) and where this tick's scalars land: the ring's read slot, or
+    the replay's cursor."""
+    step = carry[-1]
+    if engine == "ring":
+        nb = carry[1][1].shape[1] // num_envs
+        slot = (step % nb) * num_envs
+        obs = carry[1][1][:agent.obs_dim, slot:slot + num_envs].float()
+    else:
+        slot = carry[4].cursor
+        obs = carry[2][:agent.obs_dim]
+    with torch.no_grad():
+        return agent.q_values_t(carry[3].params, obs), slot
+
+
+def _lockstep(torch, name, t, carry, ref, loss, cpu_loss, q, slot, engine,
+              num_envs, stats):
+    """One tick of the card (``carry``) against the CPU replica (``ref``)
+    from the same state; raises outside phase 3's limits."""
+    tag = f"6b {name} tick {t}"
+    if engine == "ring":
+        nb = carry[1][1].shape[1] // num_envs
+        write = ((t + 1) % nb) * num_envs
+        obs_pairs = [(carry[1][1][:, write:write + num_envs],
+                      ref[1][1][:, write:write + num_envs])]
+        state_pairs = list(zip(carry[1][0], ref[1][0]))
+        scalars = [(a[..., slot:slot + num_envs], b[..., slot:slot + num_envs])
+                   for a, b in zip(carry[2], ref[2])]
+    else:
+        obs_pairs = [(carry[2], ref[2])]
+        state_pairs = list(zip(carry[1], ref[1]))
+        scalars = [(carry[4].storage[k][..., slot:slot + num_envs],
+                    ref[4].storage[k][..., slot:slot + num_envs])
+                   for k in ("actions", "rewards", "dones")]
+    bad = torch.zeros(num_envs, dtype=torch.bool)
+    for a, b in state_pairs + scalars:
+        a = a.cpu()
+        bad |= (a != b).reshape(-1, num_envs).any(0)
+    for a, b in obs_pairs:
+        a = a.float().cpu().reshape(-1, 6, num_envs)
+        b = b.float().reshape(-1, 6, num_envs)
+        ch = torch.arange(6) != 4
+        bad |= (a[:, ch] != b[:, ch]).reshape(-1, num_envs).any(0)
+        err = (a[:, 4] - b[:, 4]).abs()
+        bad |= (err > CHARGE_ATOL).any(0)
+        stats["charge_err"] = max(stats["charge_err"],
+                                  float(err[:, ~bad].max()) if (~bad).any()
+                                  else 0.0)
+    if bad.any():
+        acts = scalars[0]
+        differs = (acts[0].cpu() != acts[1]).reshape(-1, num_envs)[0]
+        top = q.topk(2, dim=0).values
+        tie = (top[0] - top[1]) <= NEAR_TIE * q.abs().max(0).values
+        if not bool((differs & tie)[bad].all()):
+            envs = bad.nonzero().flatten()[:8].tolist()
+            raise AssertionError(f"{tag}: envs {envs} differ from the CPU's "
+                                 "outside a near tie")
+        stats["ties"] += int(bad.sum())
+    if _numbers(carry) != _numbers(ref) or not torch.equal(
+            carry[0], ref[0]):
+        raise AssertionError(f"{tag}: the step, rng or counts differ")
+    loss, cpu_loss = float(loss), float(cpu_loss)
+    if (loss < 0) != (cpu_loss < 0) or (cpu_loss >= 0 and abs(
+            loss - cpu_loss) > 1e-5 * abs(cpu_loss)):
+        raise AssertionError(f"{tag}: loss {loss} vs the CPU's {cpu_loss}")
+    if cpu_loss >= 0:
+        stats["trained"] += 1
+        stats["loss_err"] = max(stats["loss_err"], abs(loss - cpu_loss) / max(
+            abs(cpu_loss), 1e-30))
+    if not torch.equal(carry[3].epsilon.cpu(), ref[3].epsilon):
+        raise AssertionError(f"{tag}: epsilon differs")
+    for net in ("params", "target_params"):
+        for a, b in zip(getattr(carry[3], net).flat(),
+                        getattr(ref[3], net).flat()):
+            err = float((a.detach().cpu() - b.detach()).abs().max())
+            stats["param_err"] = max(stats["param_err"], err)
+            if err > 1e-5:
+                raise AssertionError(f"{tag}: {net} differ by {err}")
+
+
+def rank_nccl_probe():
+    """An all-reduce over NCCL with this rank's card (both ranks on one)."""
+    import torch
+
+    buf = torch.ones(4, device="cuda")
+    torch.distributed.all_reduce(buf)
+    torch.cuda.synchronize()
+    return float(buf[0])
 
 
 def check_warm_start(torch, train, params, flags, name):

@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from dronerl_tpu_torch import resolve_device, rng
@@ -36,6 +37,27 @@ from dronerl_tpu_torch.ops import conv2mat
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
+
+
+def all_reduce_mean(tensors: List[torch.Tensor],
+                    group) -> List[torch.Tensor]:
+    """The mean over ``group``'s ranks of every tensor (f32, one device),
+    as one collective: flattened into one contiguous buffer, summed by
+    ``all_reduce``, divided by the world size (``lax.pmean``'s psum / n)
+    and split back into the tensors' shapes. Counted in
+    ``all_reduce_mean.calls``."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat /= dist.get_world_size(group)
+    all_reduce_mean.calls += 1
+    out, offset = [], 0
+    for t in tensors:
+        out.append(flat[offset:offset + t.numel()].view(t.shape))
+        offset += t.numel()
+    return out
+
+
+all_reduce_mean.calls = 0
 
 
 def _freeze_conv_specs(specs) -> Tuple[Tuple[Tuple[str, int], ...], ...]:
@@ -419,27 +441,31 @@ class DQN:
         return self._epsilon_greedy(key, torch.argmax(q, dim=1), state)
 
     def train_step(
-        self, state: DQNState, batch: Dict[str, torch.Tensor],
+        self, state: DQNState, batch: Dict[str, torch.Tensor], group=None,
     ) -> Tuple[DQNState, torch.Tensor]:
         """TD(0) MSE step with Adam on a row-major batch: obs / next_obs (B,
         obs_dim); actions, rewards and dones (B,). Updates the online
         parameters and the moments in place and returns ``(state,
-        loss)``."""
-        return self._td_step(state, batch, self.q_values, 1)
+        loss)``; ``group`` as :meth:`train_step_t`."""
+        return self._td_step(state, batch, self.q_values, 1, group)
 
     def train_step_t(
-        self, state: DQNState, batch: Dict[str, torch.Tensor],
+        self, state: DQNState, batch: Dict[str, torch.Tensor], group=None,
     ) -> Tuple[DQNState, torch.Tensor]:
         """TD(0) MSE step with Adam on a feature-major batch.
 
         ``batch``: obs / next_obs (obs_dim, B) float32; actions (B,) int;
         rewards and dones (B,) float32. Updates the online parameters and
-        the moments in place and returns ``(state, loss)``.
+        the moments in place and returns ``(state, loss)``. With a process
+        ``group`` (the JAX package's ``axis_name``) the gradients and the
+        loss are averaged over its ranks before the (replicated) update:
+        one all-reduce of one buffer (:func:`all_reduce_mean`).
         """
-        return self._td_step(state, batch, self.q_values_t, 0)
+        return self._td_step(state, batch, self.q_values_t, 0, group)
 
     def _td_step(self, state: DQNState, batch: Dict[str, torch.Tensor],
-                 q_values, axis: int) -> Tuple[DQNState, torch.Tensor]:
+                 q_values, axis: int,
+                 group=None) -> Tuple[DQNState, torch.Tensor]:
         """The TD(0) step on Q-values ``q_values(params, obs)`` whose action
         axis is ``axis``."""
         cfg = self.config
@@ -455,6 +481,9 @@ class DQN:
             taken = q.gather(axis, actions.unsqueeze(axis)).squeeze(axis)
             loss = torch.mean(torch.square(taken - target))
             grads = torch.autograd.grad(loss, params)
+        loss = loss.detach()
+        if group is not None:
+            *grads, loss = all_reduce_mean([*grads, loss], group)
 
         adam = state.opt_state
         count = adam.count + 1
@@ -478,7 +507,7 @@ class DQN:
             torch._foreach_add_(
                 params, torch._foreach_mul(update, -cfg.learning_rate))
         adam.count = count
-        return state, loss.detach()
+        return state, loss
 
     def should_decay_epsilon(self, step: int, done: torch.Tensor):
         """Decay every N steps if configured, else at episode boundaries."""

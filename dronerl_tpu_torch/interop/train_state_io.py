@@ -20,11 +20,15 @@ the two frameworks (weights checkpoints do).
 file must hold exactly the template's paths, each tensor of the
 template's shape and dtype (flax's ``from_bytes`` checks the same). Each
 tensor lands on its template tensor's device, contiguous.
+
+A sharded run's ranks each save their own shard of the carry (no rank
+reads another's): ``shard = (rank, world_size)`` goes into the metadata,
+and a restore for another rank or world size is refused.
 """
 
 import dataclasses
 import json
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -65,13 +69,23 @@ def _flatten(node, prefix: str, tensors: Dict[str, torch.Tensor],
                         "cannot be saved")
 
 
-def save(path: str, carry: Any) -> None:
-    """Write ``carry`` (any trainer's) to ``path``."""
+def _shard_metadata(shard: Optional[Tuple[int, int]]) -> Dict[str, str]:
+    if shard is None:
+        return {}
+    rank, world_size = shard
+    return {"rank": str(rank), "world_size": str(world_size)}
+
+
+def save(path: str, carry: Any,
+         shard: Optional[Tuple[int, int]] = None) -> None:
+    """Write ``carry`` (any trainer's) to ``path``; a sharded run's rank
+    passes ``shard = (rank, world_size)``."""
     tensors, numbers = {}, {}
     _flatten(carry, "", tensors, numbers)
     safetensors_io.write(path, tensors, {
         "format": FORMAT, "version": VERSION,
-        "numbers": json.dumps(numbers, sort_keys=True)})
+        "numbers": json.dumps(numbers, sort_keys=True),
+        **_shard_metadata(shard)})
 
 
 def _rebuild(node, prefix: str, tensors, numbers):
@@ -109,15 +123,27 @@ def _rebuild(node, prefix: str, tensors, numbers):
     return dataclasses.replace(node, **values)
 
 
-def restore(path: str, template: Any) -> Any:
+def restore(path: str, template: Any,
+            shard: Optional[Tuple[int, int]] = None) -> Any:
     """The carry saved in ``path``, in ``template``'s structure (a carry
-    built from the same arguments; its nets are overwritten in place)."""
+    built from the same arguments; its nets are overwritten in place).
+    ``shard`` is the restoring rank's ``(rank, world_size)`` (None
+    unsharded): it must be the one the file was saved with."""
     tensors, metadata = safetensors_io.read(path)
     if metadata.get("format") != FORMAT:
         raise safetensors_io.CheckpointFormatError(
             f"{path} is not a train state of the PyTorch port (format="
             f"{metadata.get('format')!r}); the JAX package's msgpack train "
             "states do not load here")
+    saved = {k: metadata[k] for k in ("rank", "world_size") if k in metadata}
+    if saved != _shard_metadata(shard):
+        def name(meta):
+            return (f"rank {meta['rank']} of a world of {meta['world_size']}"
+                    if meta else "an unsharded run")
+
+        raise ValueError(f"train state {path} was saved by {name(saved)}; "
+                         f"this is {name(_shard_metadata(shard))} (resume "
+                         "with the world size that saved it)")
     numbers = json.loads(metadata["numbers"])
     want_t, want_n = {}, {}
     _flatten(template, "", want_t, want_n)

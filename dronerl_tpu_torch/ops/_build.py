@@ -11,7 +11,9 @@ feature-major tick and the row-major step, on the same warp-per-env body
 learner kernel (``td_adam.cu``) on the widths alone (``-D`` constants, as
 the TPU kernels are specialised on their static arguments). Each config
 is cached under ``ops/_build/`` by a hash of the sources, the source name
-and the ``-D`` set. ``--use_fast_math`` is never passed: the
+and the ``-D`` set; one process builds at a time (a lock file there), so
+ranks that start together build each library once. ``--use_fast_math``
+is never passed: the
 observation's charge channel divides by 100 and must round as IEEE
 division does, and the learner's Adam step keeps IEEE divides and roots.
 
@@ -20,6 +22,7 @@ plain PyTorch version.
 """
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -186,15 +189,24 @@ class _Build:
 
 def build(configs: Iterable[Config]) -> Dict[str, float]:
     """Build every config in ``configs`` that is not built yet, all nvcc
-    processes at once; returns {library path: seconds}."""
-    pending = [_Build(c) for c in dict.fromkeys(_config(c) for c in configs)
+    processes at once; returns {library path: seconds}. Holds the build
+    directory's lock meanwhile: another process's wave finishes first, and
+    what it built is not built again."""
+    configs = [c for c in dict.fromkeys(_config(c) for c in configs)
                if not os.path.exists(library_path(c))]
-    seconds, errors = {}, []
-    for b in pending:  # wait for every process before raising
-        try:
-            seconds[b.path] = b.finish()
-        except RuntimeError as err:
-            errors.append(str(err))
+    if not configs:
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        pending = [_Build(c) for c in configs
+                   if not os.path.exists(library_path(c))]
+        seconds, errors = {}, []
+        for b in pending:  # wait for every process before raising
+            try:
+                seconds[b.path] = b.finish()
+            except RuntimeError as err:
+                errors.append(str(err))
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds

@@ -62,7 +62,11 @@ scalars and histograms, the eval while training and the final eval
 (:func:`evaluate`, the plain env core with the seeds as a batch),
 ``--profile``, ``--inspect_memory``, both weights checkpoints, the train
 state, the video and ``metrics.json``. It takes every flag of the JAX
-CLI but the sharding flags and ``--jax_cache_dir`` (``REFUSED_FLAGS``).
+CLI but ``--jax_cache_dir`` (``REFUSED_FLAGS``). With ``--use_sharding``
+each process is one rank of a process group and runs its shard of the
+sharded engine (:func:`sharded_engine`, ``parallel.DistributedTrainer``:
+the single-card tick with the JAX sharded trainers' key chain and one
+gradient all-reduce a trained tick).
 
 The step counter, the ring slot arithmetic, the reset flag, the count of
 valid columns, the replay's cursor and size and the rng chain stay on the
@@ -108,6 +112,22 @@ from dronerl_tpu_torch.utils.metrics import NoLogger, build_logger
 logger = logging.getLogger("dronerl_tpu_torch.train")
 
 TRAIN_STATE_FILE = "train_state.safetensors"
+TRAIN_STATE_RANK_FILE = "train_state.rank{rank}.safetensors"
+
+
+def host_keys(num: int):
+    """The single-card trainers' per-tick keys: ``rng, k_1 .. k_num =
+    split(rng, num + 1)``, as ``keys(rng, step) -> (rng', (num, 2) keys)``.
+    A tick builder's ``keys`` takes any such function (the sharded
+    trainers' is ``parallel.distributed.shard_keys``) and its ``group``
+    the process group its learner averages its gradients over (None: no
+    all-reduce)."""
+
+    def keys(rng, step):
+        split = rng_mod.split(rng, num + 1)
+        return split[0], split[1:]
+
+    return keys
 
 
 def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
@@ -115,10 +135,13 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
                           reset_env_every: int, collect_drones: int = 1,
                           in_kernel_td: Optional[bool] = None,
                           rng_rounds: int = 20,
-                          actor_rng_rounds: Optional[int] = None):
+                          actor_rng_rounds: Optional[int] = None,
+                          keys=None, group=None):
     """The ring-engine tick: ``tick(carry) -> (carry, (rewards (E,),
     epsilon, loss))``, with the JAX trainer's carry layout ``(rng,
     (tstate, ring), (a_ring, r_ring, d_ring), ag_state, aux, step)``.
+    ``keys`` and ``group`` as :func:`host_keys` (the tick draws a step key
+    and a sample key).
 
     ``capacity`` counts ring columns; each holds ``collect_drones`` = k
     transitions (pass the same k to :func:`init_ring_carry`), and
@@ -143,8 +166,13 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
     device = agent.device
     rng_collect = dict(collect=k, rng_rounds=rng_rounds,
                        actor_rng_rounds=actor_rng_rounds)
+    keys = keys or host_keys(2)
     td_hparams = None
     if in_kernel_td:
+        if group is not None:
+            raise ValueError(
+                "in_kernel_td runs Adam inside the learner kernel, with no "
+                "point for the gradient all-reduce")
         td_hparams = (float(agent.config.gamma),
                       float(agent.config.learning_rate),
                       ADAM_B1, ADAM_B2, ADAM_EPS)  # optax.adam's defaults
@@ -152,8 +180,7 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
     def tick(carry):
         rng, (tstate, ring), (a_ring, r_ring, d_ring), ag_state, aux, step = (
             carry)
-        keys = rng_mod.split(rng, 3)
-        rng, step_key, sample_key = keys[0], keys[1], keys[2]
+        rng, (step_key, sample_key) = keys(rng, step)
 
         read_slot = (step % nb) * num_envs
         write_slot = ((step + 1) % nb) * num_envs
@@ -194,7 +221,7 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
         if td_hparams is not None:
             aux = batch  # trained on inside the next tick
         elif valid >= batch_size // k:
-            ag_state, loss = agent.train_step_t(ag_state, batch)
+            ag_state, loss = agent.train_step_t(ag_state, batch, group)
         else:
             loss = torch.tensor(NO_TRAIN_LOSS, device=device)
         ag_state = agent.apply_schedules(ag_state, step, dones_t[0, 0])
@@ -275,12 +302,12 @@ def _require_kernel_actor(agent: DQN, engine: str) -> None:
 
 def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
                     ag_state, sample_key, obs_t, actions_t, rewards_t,
-                    dones_t, k: int):
+                    dones_t, k: int, group=None):
     """Push the tick's input observations of the first k drones (the
     drones' row groups side by side, drone-major: (obs_dim, k · E)) with
-    their actions, rewards and dones; sample and take the TD step once
-    the replay can be sampled (else loss ``NO_TRAIN_LOSS``). Returns
-    ``(bstate, ag_state, loss)``."""
+    their actions, rewards and dones; sample and take the TD step (over
+    ``group``) once the replay can be sampled (else loss
+    ``NO_TRAIN_LOSS``). Returns ``(bstate, ag_state, loss)``."""
     obs_dim = agent.obs_dim
     num_envs = obs_t.shape[-1]
     obs = obs_t if k == 1 else obs_t.reshape(k, obs_dim, num_envs).permute(
@@ -292,7 +319,7 @@ def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
     if buffer.can_sample(bstate):
         batch = buffer.sample(sample_key, bstate)
         batch["dones"] = batch["dones"].to(torch.float32)
-        ag_state, loss = agent.train_step_t(ag_state, batch)
+        ag_state, loss = agent.train_step_t(ag_state, batch, group)
     else:
         loss = torch.tensor(NO_TRAIN_LOSS, device=agent.device)
     return bstate, ag_state, loss
@@ -302,19 +329,22 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
                           env_params: EnvParams, num_envs: int,
                           reset_env_every: int, collect_drones: int = 1,
                           rng_rounds: int = 20,
-                          actor_rng_rounds: Optional[int] = None):
+                          actor_rng_rounds: Optional[int] = None,
+                          keys=None, group=None):
     """The full-engine tick around the full tick kernel (B3): ``tick(carry)
     -> (carry, (rewards (E,), epsilon, loss))`` with the JAX trainer's
     carry ``(rng, tstate, obs_t, ag_state, bstate, step)``
     (:func:`init_stream_carry`). The replay's stride is E ·
     ``collect_drones``. ``loss`` is ``NO_TRAIN_LOSS`` on ticks where the
-    replay holds fewer than a batch of transitions."""
+    replay holds fewer than a batch of transitions. ``keys`` and
+    ``group`` as :func:`host_keys` (a step key and a sample key)."""
     k = collect_drones
     _require_kernel_actor(agent, "full")
+    keys = keys or host_keys(2)
 
     def tick(carry):
         rng, tstate, obs_t, ag_state, bstate, step = carry
-        rng, step_key, sample_key = rng_mod.split(rng, 3)
+        rng, (step_key, sample_key) = keys(rng, step)
         chain = fused_tick.flatten_net_params(ag_state.params,
                                               agent.net_spec)
         tstate, rewards_t, dones_t, actions_t, next_obs_t = (
@@ -324,7 +354,7 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
                 actor_rng_rounds))
         bstate, ag_state, loss = _push_and_learn(
             agent, buffer, bstate, ag_state, sample_key, obs_t, actions_t,
-            rewards_t, dones_t, k)
+            rewards_t, dones_t, k, group)
         ag_state = agent.apply_schedules(ag_state, step, dones_t[0, 0])
         carry = (rng, tstate, next_obs_t, ag_state, bstate, step + 1)
         return carry, (rewards_t[0], ag_state.epsilon, loss)
@@ -335,21 +365,24 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
 def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
                            env_params: EnvParams, num_envs: int,
                            reset_env_every: int, collect_drones: int = 1,
-                           rng_rounds: int = 20):
+                           rng_rounds: int = 20, keys=None, group=None):
     """The fused-engine tick around the env tick kernel (B4), for any net:
     the actions come from outside the kernel (random opponents and drone
     0's ``DQN.act_t``, drawn on the device at 20 rounds; a conv net's own
     forward) and the periodic reset runs after the step in plain PyTorch
     at 20 rounds, as in the JAX trainer; ``rng_rounds`` reaches the
-    kernel. Carry and outputs as :func:`build_train_step_full`."""
+    kernel. Carry and outputs as :func:`build_train_step_full`; ``keys``
+    and ``group`` as :func:`host_keys` (the opponents', the actor's, the
+    step's, the sample's and the reset's keys)."""
     k = collect_drones
     obs_dim = agent.obs_dim
     device = agent.device
+    keys = keys or host_keys(5)
 
     def tick(carry):
         rng, tstate, obs_t, ag_state, bstate, step = carry
-        rng, rand_key, act_key, step_key, sample_key, reset_key = (
-            rng_mod.split(rng, 6))
+        rng, (rand_key, act_key, step_key, sample_key, reset_key) = keys(
+            rng, step)
         # N x E and E counters: hashed on the device, not the host.
         actions_t = rng_mod.randint(rand_key.to(device),
                                     (env_params.n_drones, num_envs), 0,
@@ -359,7 +392,7 @@ def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
             step_key, tstate, actions_t, env_params, k, rng_rounds)
         bstate, ag_state, loss = _push_and_learn(
             agent, buffer, bstate, ag_state, sample_key, obs_t, actions_t,
-            rewards_t, dones_t, k)
+            rewards_t, dones_t, k, group)
         ag_state = agent.apply_schedules(ag_state, step, dones_t[0, 0])
         if step % reset_env_every == 0:
             states = env_core.reset_batch(reset_key.to(device), env_params,
@@ -397,16 +430,20 @@ def init_stream_carry(agent: DQN, env_params: EnvParams, num_envs: int,
 
 def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
                      env_params: EnvParams, num_envs: int,
-                     reset_env_every: int, collect_drones: int = 1):
+                     reset_env_every: int, collect_drones: int = 1,
+                     keys=None, group=None):
     """The jnp-engine tick (``dronerl_tpu/train.py::build_train_step``):
     ``tick(carry) -> (carry, (rewards (E,), epsilon, loss))`` with the
     carry ``(rng, env_states, obs (E, k, obs_dim), ag_state, bstate,
     step)`` (:func:`init_jnp_carry`); ``k`` = ``collect_drones`` drones
     of every env feed the replay. ``loss`` is ``NO_TRAIN_LOSS`` until the
-    buffer holds a batch."""
+    buffer holds a batch. ``keys`` and ``group`` as :func:`host_keys`
+    (the opponents', the actor's, the step's, the sample's and the
+    reset's keys)."""
     obs_dim = agent.obs_dim
     device = agent.device
     k = collect_drones
+    keys = keys or host_keys(5)
 
     def learner_obs(states):
         return env_core.observe_batch(states, env_params, k).reshape(
@@ -414,8 +451,8 @@ def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
 
     def tick(carry):
         rng, env_states, obs, ag_state, bstate, step = carry
-        rng, rand_key, act_key, step_key, sample_key, reset_key = (
-            rng_mod.split(rng, 6))
+        rng, (rand_key, act_key, step_key, sample_key, reset_key) = keys(
+            rng, step)
         actions = rng_mod.randint(rand_key.to(device),
                                   (num_envs, env_params.n_drones), 0,
                                   NUM_ACTIONS)
@@ -434,7 +471,7 @@ def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
         if buffer.can_sample(bstate):
             batch = buffer.sample(sample_key, bstate)
             batch["dones"] = batch["dones"].to(torch.float32)
-            ag_state, loss = agent.train_step(ag_state, batch)
+            ag_state, loss = agent.train_step(ag_state, batch, group)
         else:
             loss = torch.tensor(NO_TRAIN_LOSS, device=device)
         ag_state = agent.apply_schedules(ag_state, step, dones[0, 0])
@@ -748,10 +785,7 @@ def parse_conv_layers(value: str):
 
 
 # The JAX CLI's options the port refuses, and why.
-_MULTI_GPU = "multi-GPU training waits for a later slice of the port"
 REFUSED_FLAGS = {
-    **dict.fromkeys(("--use_sharding", "--coordinator_address",
-                     "--num_processes", "--process_id"), _MULTI_GPU),
     "--jax_cache_dir": "it has no counterpart: the port caches its nvcc "
     "builds under dronerl_tpu_torch/ops/_build/",
 }
@@ -838,6 +872,18 @@ def parse_args(argv=None):
                    "kernel's, on the batch gathered the tick before")
     p.add_argument("--device", default="cuda",
                    help="cuda (the kernels) or cpu (the plain PyTorch path)")
+    # sharding
+    p.add_argument("--use_sharding", action="store_true",
+                   help="shard the envs and replay over the ranks of a "
+                   "process group, one process a device, the learner "
+                   "replicated (one process alone: a mesh of one rank)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of process 0 for multi-process runs "
+                   "(else torchrun's environment, else one process)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="total process count for multi-process runs")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank for multi-process runs")
     # checkpoints, state, diagnostics
     p.add_argument("--save_final_checkpoint", action="store_true",
                    help="write the online net as agent_<steps>_steps_jax"
@@ -901,6 +947,11 @@ def parse_args(argv=None):
         raise ValueError("num_steps must be >= 1")
     if args.collect_drones < 1 or args.collect_drones > args.n_drones:
         raise ValueError("collect_drones must be in [1, n_drones]")
+    if args.use_sharding and args.in_kernel_td:
+        raise ValueError(
+            "--in_kernel_td cannot run with --use_sharding: the learner "
+            "kernel applies Adam inside the kernel, with no point for the "
+            "gradient all-reduce")
     return args
 
 
@@ -976,10 +1027,129 @@ def _build_engine(args, agent: DQN, env_params: EnvParams, engine: str,
                                    k)
 
 
+def sharded_engine(args, env_params: EnvParams, world_size: int,
+                   agent_config: Optional[DQNConfig] = None) -> str:
+    """The sharded engine (``"ring"``, ``"fused"`` or ``"jnp"``), by the JAX
+    CLI's gate for ``--use_sharding``: the fused family where
+    ``--engine fused``, or under ``auto`` where :func:`fused_engine_problems`
+    finds no reason at the shard's env count; in it the ring engine when
+    the actor runs in the kernel, the shard's batch divides by
+    ``--collect_drones`` and its ring holds at most 4 env-batches. Logs the
+    choice and why the ring engine was skipped."""
+    envs_per_shard = args.num_envs // world_size
+    problems = fused_engine_problems(env_params, envs_per_shard)
+    if args.engine == "fused" and problems:
+        raise ValueError("--engine fused is not available for this "
+                         "config: " + "; ".join(problems))
+    use_fused = args.engine == "fused" or (args.engine == "auto"
+                                           and not problems)
+    cfg = agent_config or args
+    dense = cfg.network_type == "dense" or cfg.conv_matmul
+    k = args.collect_drones
+    batch = max(1, args.batch_size // world_size)
+    ring_capacity = max(
+        math.ceil(max(1, args.memory_size // world_size) / envs_per_shard)
+        * envs_per_shard, 2 * envs_per_shard)
+    skip = ring_skip_reasons(dense, ring_capacity, envs_per_shard * k,
+                             batch, k)
+    engine = ("jnp" if not use_fused else "fused" if skip else "ring")
+    logger.info("Sharded engine: %s (%d ranks x %d envs)", engine,
+                world_size, envs_per_shard)
+    if problems and args.engine == "auto":
+        logger.info("Fused engines skipped (%s)", "; ".join(problems))
+    if engine == "fused":
+        logger.info("Per-shard ring engine skipped (%s)", "; ".join(skip))
+    return engine
+
+
+def _join_mesh(args, device: torch.device):
+    """The data-parallel mesh of ``--use_sharding`` (None without it),
+    after joining the process group of ``--coordinator_address`` /
+    ``--num_processes`` / ``--process_id`` or torchrun's environment."""
+    from dronerl_tpu_torch.parallel import mesh as mesh_mod
+
+    flags = args.coordinator_address or (args.num_processes or 0) > 1
+    if (flags or args.use_sharding) and not torch.distributed.is_initialized():
+        mesh_mod.initialize_distributed(
+            args.coordinator_address, args.num_processes, args.process_id,
+            device=device.type)
+    if not args.use_sharding:
+        return None
+    mesh = mesh_mod.make_env_mesh(device=device.type)
+    if args.num_envs % mesh.world_size:
+        raise ValueError(
+            f"num_envs ({args.num_envs}) must be divisible by the device "
+            f"count ({mesh.world_size}) when sharding")
+    return mesh
+
+
+def _build_sharded(args, agent: DQN, env_params: EnvParams, mesh):
+    """This rank's sharded trainer (``parallel.DistributedTrainer``, the
+    shard's replay and batch the CLI's divided by the world size), its
+    tick and its initial carry from ``--seed``, and the tick kernels'
+    round counts."""
+    from dronerl_tpu_torch.parallel.distributed import (
+        DistributedTrainer, local_engine)
+
+    if agent.config.epsilon_decay_every is None:
+        raise ValueError(
+            "--use_sharding requires --epsilon_decay_every (episode-"
+            "boundary ε decay is not defined across env shards)")
+    world = mesh.world_size
+    engine = sharded_engine(args, env_params, world, agent.config)
+    rounds = engine_rng_rounds(args, local_engine(engine, agent))
+    trainer = DistributedTrainer(
+        agent, env_params, mesh, num_envs=args.num_envs,
+        buffer_capacity_per_shard=max(1, args.memory_size // world),
+        batch_size_per_shard=max(1, args.batch_size // world),
+        collect_drones=args.collect_drones,
+        reset_env_every=args.reset_env_every, engine=engine,
+        rng_rounds=rounds[0], actor_rng_rounds=rounds[1])
+    if args.log_histograms:
+        logger.info("--log_histograms: per-chunk q/action histograms read "
+                    "the single-card replay layouts and are unavailable "
+                    "for sharded carries; scalar curves (reward/ε/td_loss) "
+                    "still log per chunk")
+    carry = trainer.init_carry(rng_mod.PRNGKey(args.seed),
+                               obs_dtype=getattr(torch, args.ring_obs_dtype))
+    return trainer, trainer.build_tick(), carry, rounds
+
+
+def train_state_path(run_dir: str, mesh=None) -> str:
+    """Where a run keeps its train state: ``train_state.safetensors``, or
+    under ``--use_sharding`` each rank its own ``train_state.rank<r>.
+    safetensors``."""
+    if mesh is None:
+        return os.path.join(run_dir, TRAIN_STATE_FILE)
+    return os.path.join(run_dir, TRAIN_STATE_RANK_FILE.format(rank=mesh.rank))
+
+
+def _resume_path(path: str, mesh) -> str:
+    """``--resume_from`` for this rank: a train state file, or under
+    ``--use_sharding`` the run dir that holds the ranks' files."""
+    if mesh is not None and os.path.isdir(path):
+        return train_state_path(path, mesh)
+    return path
+
+
+def _shared_run_dir(args, mesh) -> str:
+    """``--run_dir``, else ``output/run_<time>`` on rank 0's clock (every
+    rank keeps its train state there)."""
+    run_dir = args.run_dir or os.path.join(
+        "output", f"run_{datetime.now().strftime('%Y%m%d_%H%M%S')}")
+    if mesh is not None and mesh.world_size > 1:
+        holder = [run_dir]
+        torch.distributed.broadcast_object_list(holder, src=0,
+                                                group=mesh.group)
+        run_dir = holder[0]
+    return run_dir
+
+
 def train(args, metrics_logger=None) -> dict:
-    """The JAX CLI's run: the engine of :func:`choose_engine`; the warm
-    start (``--load_from_checkpoint``: the loaded net in the online and
-    target nets, a fresh Adam and ε), then ``--resume_from`` (which
+    """The JAX CLI's run: the engine of :func:`choose_engine` (with
+    ``--use_sharding`` this rank's shard of :func:`sharded_engine`'s); the
+    warm start (``--load_from_checkpoint``: the loaded net in the online
+    and target nets, a fresh Adam and ε), then ``--resume_from`` (which
     overrides it), both before the kernels are built; ``ceil(num_steps /
     max_scan_steps)`` chunks of ``max_scan_steps`` ticks (with
     ``--profile`` one more, untimed, before the trace), an eval before
@@ -987,8 +1157,19 @@ def train(args, metrics_logger=None) -> dict:
     scalars and histograms into ``metrics_logger``; then
     ``--inspect_memory``, ``--save_final_checkpoint``,
     ``--save_train_state``, the final eval unless ``--skip_final_eval``,
-    ``--render_video`` and ``metrics.json`` in the run dir."""
+    ``--render_video`` and ``metrics.json`` in the run dir.
+
+    Under ``--use_sharding`` rank 0 alone writes the metrics, the
+    checkpoints, the video and ``metrics.json``, runs the evals (the
+    learner is replicated) and inspects its replay; each rank saves and
+    resumes its own train state (:func:`train_state_path`); obs/s counts
+    every rank's envs."""
     device = resolve_device(args.device)
+    owns_group = not torch.distributed.is_initialized()
+    mesh = _join_mesh(args, device)
+    if mesh is not None:
+        device = mesh.device
+    rank0 = mesh is None or mesh.rank == 0
     env_params = env_params_from_args(args)
     env_params.validate()
     if args.eval_while_training or not args.skip_final_eval:
@@ -996,33 +1177,42 @@ def train(args, metrics_logger=None) -> dict:
     agent_config, warm_params = _warm_start(args, agent_config_from_args(args))
 
     run = None
-    if args.wandb:
+    if args.wandb and rank0:
         import wandb
 
         run = wandb.init(project=args.wandb_project, group=args.wandb_group,
                          entity=args.wandb_entity, config=vars(args))
-    if metrics_logger is None:
+    if not rank0:
+        metrics_logger = NoLogger()
+    elif metrics_logger is None:
         metrics_logger = build_logger(tensorboard_dir=args.tensorboard_dir,
                                       wandb_run=run)
     log_metrics = not isinstance(metrics_logger, NoLogger)
-    run_dir = args.run_dir or os.path.join(
-        "output", f"run_{datetime.now().strftime('%Y%m%d_%H%M%S')}")
+    run_dir = _shared_run_dir(args, mesh)
     os.makedirs(run_dir, exist_ok=True)
     logger.info("Run dir: %s", run_dir)
 
     agent = DQN(agent_config, env_params, device=device)
-    engine = choose_engine(args, env_params, agent_config)
-    rng_rounds, actor_rng_rounds = engine_rng_rounds(args, engine)
-    tick, carry = _build_engine(args, agent, env_params, engine, rng_rounds,
-                                actor_rng_rounds)
+    if mesh is None:
+        engine = choose_engine(args, env_params, agent_config)
+        rng_rounds, actor_rng_rounds = engine_rng_rounds(args, engine)
+        tick, carry = _build_engine(args, agent, env_params, engine,
+                                    rng_rounds, actor_rng_rounds)
+        engine_name = engine
+    else:
+        trainer, tick, carry, (rng_rounds, actor_rng_rounds) = (
+            _build_sharded(args, agent, env_params, mesh))
+        engine, engine_name = trainer.local_engine, f"sharded-{trainer.engine}"
     if warm_params is not None:
         agent.state_with_params(carry[3], qnet_from_flax(
             warm_params, device, env_params.obs_shape,
             agent_config.conv_specs()))
+    shard = None if mesh is None else (mesh.rank, mesh.world_size)
     if args.resume_from:
-        carry = train_state_io.restore(args.resume_from, carry)
+        resume_path = _resume_path(args.resume_from, mesh)
+        carry = train_state_io.restore(resume_path, carry, shard=shard)
         logger.info("Resumed training state from %s (step %s)",
-                    args.resume_from, carry[-1])
+                    resume_path, carry[-1])
     if device.type == "cuda" and engine != "jnp":
         t0 = time.perf_counter()
         fused_tick.prepare_kernel(
@@ -1049,16 +1239,17 @@ def train(args, metrics_logger=None) -> dict:
         return carry, (rewards, epsilon, losses)
 
     profile_dir = os.path.join(run_dir, "profile")
-    if args.profile:
+    profile = args.profile and rank0
+    if profile:
         carry, _ = run_chunk(carry)  # warm-up outside the trace
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     all_losses = []
-    with (profiling.trace(profile_dir) if args.profile
+    with (profiling.trace(profile_dir) if profile
           else contextlib.nullcontext()):
         t0 = time.perf_counter()
         for chunk in range(num_chunks):
-            if args.eval_while_training and chunk > 0:
+            if args.eval_while_training and chunk > 0 and rank0:
                 step = chunk * scan_steps
                 (emean, estd), (rmean, rstd) = evaluate(args, agent,
                                                         carry[3])
@@ -1073,10 +1264,10 @@ def train(args, metrics_logger=None) -> dict:
             if log_metrics:
                 _log_chunk(metrics_logger, args, agent, carry, engine,
                            rewards, epsilon, losses, chunk,
-                           (chunk + 1) * scan_steps)
+                           (chunk + 1) * scan_steps, mesh is None)
         mean_reward = float(rewards[-1].mean())  # host sync: the loop is done
         elapsed = time.perf_counter() - t0
-    if args.profile:
+    if profile:
         logger.info("Profiler trace written under %s", profile_dir)
 
     total_steps = num_chunks * scan_steps
@@ -1088,19 +1279,21 @@ def train(args, metrics_logger=None) -> dict:
                 "(%s engine)", f"{total_steps:,}", f"{args.num_envs:,}",
                 elapsed, f"{metrics['obs_per_sec']:,.0f}",
                 torch.cuda.get_device_name(device)
-                if device.type == "cuda" else "cpu", engine)
+                if device.type == "cuda" else "cpu", engine_name)
 
     ag_state = carry[3]
-    if args.inspect_memory:
+    if args.inspect_memory and rank0:
         if engine == "ring":
             logger.warning("--inspect_memory: the ring engine keeps no "
                            "ReplayState (observations live in the kernel's "
                            "ring); use --engine jnp or a larger "
                            "--memory_size")
         else:
+            if mesh is not None:
+                logger.info("--inspect_memory: rank 0's replay shard")
             replay.inspect_memory(carry[4], printer=logger.info,
                                   slot_axis=0 if engine == "jnp" else -1)
-    if args.save_final_checkpoint:
+    if args.save_final_checkpoint and rank0:
         jax_path = os.path.join(
             run_dir, f"agent_{args.num_steps}_steps_jax.safetensors")
         torch_path = os.path.join(
@@ -1117,10 +1310,10 @@ def train(args, metrics_logger=None) -> dict:
             artifact.add_file(local_path=torch_path)
             run.log_artifact(artifact)
     if args.save_train_state:
-        state_path = os.path.join(run_dir, TRAIN_STATE_FILE)
-        train_state_io.save(state_path, carry)
+        state_path = train_state_path(run_dir, mesh)
+        train_state_io.save(state_path, carry, shard=shard)
         logger.info("Saved full training state to %s", state_path)
-    if not args.skip_final_eval:
+    if not args.skip_final_eval and rank0:
         (emean, estd), (rmean, rstd) = evaluate(args, agent, ag_state)
         metrics["eval_reward_mean"] = emean
         metrics["eval_reward_std"] = estd
@@ -1129,7 +1322,7 @@ def train(args, metrics_logger=None) -> dict:
         metrics_logger.log_scalars(
             {"eval_reward": emean, "random_reward": rmean},
             step=args.num_steps)
-    if args.render_video:
+    if args.render_video and rank0:
         from dronerl_tpu_torch.render.video import render_policy_video
 
         video_path = os.path.join(
@@ -1144,24 +1337,32 @@ def train(args, metrics_logger=None) -> dict:
             run.log({"eval_video": wandb.Video(video_path, format="mp4")},
                     step=args.num_steps)
 
-    with open(os.path.join(run_dir, "metrics.json"), "w") as f:
-        json.dump(metrics, f, indent=2)
+    if rank0:
+        with open(os.path.join(run_dir, "metrics.json"), "w") as f:
+            json.dump(metrics, f, indent=2)
     metrics_logger.close()
     if run:
         run.finish()
-    return {**metrics, "engine": engine,
-            "last_reward_mean": mean_reward, "epsilon": float(epsilon),
-            "td_loss_mean": float(trained.mean()) if len(trained) else None,
-            "device": (torch.cuda.get_device_name(device)
-                       if device.type == "cuda" else "cpu")}
+    out = {**metrics, "engine": engine_name,
+           "last_reward_mean": mean_reward, "epsilon": float(epsilon),
+           "td_loss_mean": float(trained.mean()) if len(trained) else None,
+           "trained_ticks": len(trained),
+           "device": (torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else "cpu")}
+    if mesh is not None:
+        out.update(rank=mesh.rank, world_size=mesh.world_size)
+    if owns_group and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return out
 
 
 def _log_chunk(metrics_logger, args, agent: DQN, carry, engine: str,
-               rewards, epsilon, losses, chunk: int, step: int) -> None:
+               rewards, epsilon, losses, chunk: int, step: int,
+               histograms: bool = True) -> None:
     """A chunk's scalars (the mean reward of drone 0, the last ε, the mean
     TD loss over the trained ticks: warm-up ticks carry NO_TRAIN_LOSS,
     which is negative, and a NaN loss is kept and warned about) and,
-    with ``--log_histograms``, its histograms."""
+    with ``--log_histograms`` and ``histograms``, its histograms."""
     flat = torch.stack(losses).reshape(-1).cpu()
     trained = ~(flat < 0.0)
     n_trained = int(trained.sum())
@@ -1174,7 +1375,7 @@ def _log_chunk(metrics_logger, args, agent: DQN, carry, engine: str,
             logger.warning("non-finite TD loss in chunk %d (training has "
                            "diverged?)", chunk)
     metrics_logger.log_scalars(scalars, step=step)
-    if args.log_histograms:
+    if args.log_histograms and histograms:
         log_chunk_histograms(metrics_logger, agent, carry, flat,
                              engine == "ring", engine in ("full", "fused"),
                              step=step)

@@ -21,6 +21,37 @@ import torch
 Carry = Tuple[torch.Tensor, ...]
 
 
+class Graphed:
+    """``tick`` captured into a CUDA graph from ``carry`` (a tuple of
+    tensors on one CUDA device):
+    :meth:`replay` runs it and returns its outputs (the graph's own
+    buffers, which may alias ``carry``), :meth:`advance` then copies its
+    new carry into the graph's input carry ``carry``."""
+
+    def __init__(self, tick: Callable[[Carry], Tuple[Carry, Carry]],
+                 carry: Carry):
+        device = carry[0].device
+        self.carry = tuple(t.clone() for t in carry)
+        # Lazy initialisations (cuBLAS handles and the like) happen in an
+        # eager tick on a side stream, as graph capture requires.
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            tick(tuple(t.clone() for t in self.carry))
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._new_carry, self.outs = tick(self.carry)
+
+    def replay(self) -> Carry:
+        self.graph.replay()
+        return self.outs
+
+    def advance(self) -> None:
+        for s, n in zip(self.carry, self._new_carry):
+            s.copy_(n)
+
+
 def scan(tick: Callable[[Carry], Tuple[Carry, Carry]], carry: Carry,
          length: int) -> Tuple[Carry, Carry]:
     """``length`` ticks ``carry, outs = tick(carry)`` from ``carry`` (a
@@ -33,23 +64,11 @@ def scan(tick: Callable[[Carry], Tuple[Carry, Carry]], carry: Carry,
             carry, outs = tick(carry)
             steps.append(outs)
         return carry, tuple(torch.stack(o) for o in zip(*steps))
-    static = tuple(t.clone() for t in carry)
-    # Lazy initialisations (cuBLAS handles and the like) happen in an
-    # eager tick on a side stream, as graph capture requires.
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        tick(tuple(t.clone() for t in static))
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        new_carry, outs = tick(static)
+    graphed = Graphed(tick, carry)
     stacked = tuple(torch.empty((length, *o.shape), dtype=o.dtype,
-                                device=device) for o in outs)
+                                device=device) for o in graphed.outs)
     for i in range(length):
-        graph.replay()
-        for buf, o in zip(stacked, outs):
+        for buf, o in zip(stacked, graphed.replay()):
             buf[i].copy_(o)
-        for s, n in zip(static, new_carry):
-            s.copy_(n)
-    return static, stacked
+        graphed.advance()
+    return graphed.carry, stacked

@@ -15,6 +15,7 @@ import time
 from typing import Iterator, Optional
 
 import torch
+import torch.distributed
 
 logger = logging.getLogger(__name__)
 
@@ -65,15 +66,23 @@ class Stopwatch:
             self.elapsed = time.perf_counter() - self.start
 
 
+def current_device() -> torch.device:
+    """The CUDA device this process launches on (``torch.cuda.
+    set_device``'s: a rank's own card)."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def device_memory_stats(device: Optional[torch.device] = None) -> dict:
     """Live and peak device memory of one CUDA device (empty without
     CUDA): ``bytes_in_use``, ``peak_bytes_in_use`` (the caching
     allocator's allocated bytes) and ``bytes_limit`` (the card's memory),
-    as the JAX package names them."""
+    as the JAX package names them. ``device`` defaults to the current
+    device, and ``"cuda"`` without an index means it too."""
     if not torch.cuda.is_available():
         return {}
-    device = torch.device("cuda", 0) if device is None else torch.device(
-        device)
+    device = current_device() if device is None else torch.device(device)
+    if device.index is None:
+        device = current_device()
     stats = torch.cuda.memory_stats(device)
     _, total = torch.cuda.mem_get_info(device)
     return {
@@ -84,10 +93,16 @@ def device_memory_stats(device: Optional[torch.device] = None) -> dict:
 
 
 def log_device_memory(prefix: str = "") -> None:
+    """Log every card's memory, or under a process group (one rank a
+    card) this rank's card alone."""
     if not torch.cuda.is_available():
         return
-    for index in range(torch.cuda.device_count()):
-        device = torch.device("cuda", index)
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        devices = [current_device()]
+    else:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    for device in devices:
         stats = device_memory_stats(device)
         logger.info("%s%s: %.1f MiB in use (peak %.1f / limit %.1f)",
                     prefix, device, stats["bytes_in_use"] / 2**20,

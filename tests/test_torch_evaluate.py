@@ -145,21 +145,22 @@ def _options(parse, monkeypatch):
 
 
 def test_cli_options_match_jax(monkeypatch):
-    """Every option of the JAX CLI but the four sharding flags and
-    --jax_cache_dir, which are refused with their reason; the port adds
+    """Every option of the JAX CLI (the four sharding flags included) but
+    --jax_cache_dir, which is refused with its reason; the port adds
     --device and --in_kernel_td; a default run takes the final eval."""
     jax_opts = _options(jax_train.parse_args, monkeypatch)
     ours = _options(train.parse_args, monkeypatch)
     refused = set(train.REFUSED_FLAGS)
-    assert refused == {"--use_sharding", "--coordinator_address",
-                       "--num_processes", "--process_id", "--jax_cache_dir"}
+    assert refused == {"--jax_cache_dir"}
     assert jax_opts - refused <= ours
     assert not ours & refused
     assert ours - jax_opts == {"--device", "--in_kernel_td"}
-    for flag, value in (("--use_sharding", None), ("--process_id", "1"),
-                        ("--jax_cache_dir", "c")):
-        with pytest.raises(SystemExit, match=re.escape(flag)):
-            train.parse_args([flag] + ([value] if value else []))
+    with pytest.raises(SystemExit, match=re.escape("--jax_cache_dir")):
+        train.parse_args(["--jax_cache_dir", "c"])
+    sharded = train.parse_args(["--use_sharding", "--num_processes", "2",
+                                "--process_id", "1", "--coordinator_address",
+                                "127.0.0.1:1234"])
+    assert sharded.use_sharding and sharded.process_id == 1
     args = train.parse_args([])
     assert not args.skip_final_eval and args.num_evals == 5
     assert args.num_eval_steps == 10_000 and args.max_scan_steps == 100_000

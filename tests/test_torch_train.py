@@ -150,8 +150,13 @@ def test_cli_runs_on_cpu(tmp_path):
 
 
 def test_cli_rejects_unported_flags():
+    """--jax_cache_dir (the one JAX flag without a counterpart) and flags
+    the JAX CLI does not have are refused; the sharding flags are taken."""
     with pytest.raises(SystemExit, match="not supported"):
-        train.parse_args(["--use_sharding"])
+        train.parse_args(["--jax_cache_dir", "cache"])
+    with pytest.raises(SystemExit, match="not supported"):
+        train.parse_args(["--no_such_flag"])
+    assert train.parse_args(["--use_sharding"]).use_sharding
 
 
 def test_cli_epsilon_half_life_rule():

@@ -134,13 +134,50 @@ def test_profiling_hooks(tmp_path):
     profiling.log_device_memory("test ")
 
 
+def test_memory_stats_read_the_current_device(monkeypatch, caplog):
+    """Without an index the memory helpers read the current CUDA device
+    (a rank's own card after ``set_device``), not cuda:0; under a process
+    group ``log_device_memory`` logs that card alone. The CUDA calls are
+    stand-ins that record the device asked for."""
+    asked = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "memory_stats", lambda d: asked.append(
+        d) or {"allocated_bytes.all.current": 2**20})
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d: (0, 2**30))
+    cuda = torch.device
+    assert profiling.device_memory_stats()["bytes_limit"] == 2**30
+    profiling.device_memory_stats("cuda")
+    profiling.device_memory_stats("cuda:1")
+    assert asked == [cuda("cuda", 3), cuda("cuda", 3), cuda("cuda", 1)]
+    asked.clear()
+    with caplog.at_level("INFO", logger=profiling.logger.name):
+        profiling.log_device_memory()
+        assert asked == [cuda("cuda", i) for i in range(4)]
+        asked.clear()
+        monkeypatch.setattr(torch.distributed, "is_initialized",
+                            lambda: True)
+        profiling.log_device_memory("rank ")
+    assert asked == [cuda("cuda", 3)]
+    assert "rank cuda:3: 1.0 MiB in use" in caplog.text
+
+
 BLOCKED = ("safetensors", "msgpack", "PIL", "tensorboard", "wandb", "jax",
-           "jaxlib", "flax", "optax", "dronerl_tpu")
+           "jaxlib", "flax", "optax", "dronerl_tpu", "matplotlib")
+# The modules of the port's last slice, which must be among those imported.
+PERIPHERY = ("dronerl_tpu_torch.parallel.mesh",
+             "dronerl_tpu_torch.parallel.launch",
+             "dronerl_tpu_torch.parallel.distributed",
+             "dronerl_tpu_torch.env.debug", "dronerl_tpu_torch.env.gymapi",
+             "dronerl_tpu_torch.helpers", "dronerl_tpu_torch.sweep",
+             "dronerl_tpu_torch.benchmark")
 
 
 def test_port_runs_without_the_missing_packages(tmp_path):
-    """With safetensors, msgpack, PIL, tensorboard and wandb (and JAX and
-    the JAX package) blocked, every module of the port and chip_smoke.py
+    """With safetensors, msgpack, PIL, tensorboard, wandb and matplotlib
+    (and JAX and the JAX package) blocked, every module of the port (the
+    sharded trainer and the periphery among them) and chip_smoke.py
     import, and a CLI run writes both checkpoints and a train state that
     a second run resumes from."""
     code = f"""
@@ -153,6 +190,7 @@ names = [m.name for m in pkgutil.walk_packages(
     dronerl_tpu_torch.__path__, "dronerl_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert set({PERIPHERY!r}) <= set(names), names
 import chip_smoke
 from dronerl_tpu_torch import train
 from dronerl_tpu_torch.agents.dqn import DQN
