@@ -169,11 +169,36 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    steps) and ``DeliveryDronesEnv`` for 100 steps on the card against the
    CPU, beside the card's name and power limit; then what NCCL says to
    two ranks on one card (information);
+7. the repo's last entry points and locks:
+7a. ``scripts/torch_numerics_lock.py``'s scenario (256 envs, 64 ticks,
+   bf16 ring, ε pinned at 1.0) through B1: launches 64 in 64, Tier A
+   (the env state's and the reward trace's SHA-256 digests, the ring's
+   summary) equal to the JAX package's TPU record
+   (``scripts/tpu_numerics_lock.json``) and to the plain path's on the
+   CPU, Tier B inside the card's own record
+   (``scripts/torch_numerics_lock.json``); prints the largest Tier B
+   difference from the CPU's plain run;
+7b. ``scripts/torch_evaluate_agent.py`` on dqn-agent-3 on the card (the
+   arena's plain env core: no kernel launches); six finite scores; where
+   PIL is missing the episode video is skipped (the evaluator, like the
+   JAX package's, raises without it);
+7c. ``scripts/torch_create_baselines.py`` at EP_BASELINE_STEPS steps into
+   ``output/chip_smoke/baselines``: five checkpoints that the evaluator
+   loads and scores;
+7d. the CLI with ``--tensorboard_dir`` at the bench configuration
+   without tensorboard (blocked if it is installed): it warns
+   "tensorboard unavailable; skipping TB logging", writes no TB files and
+   completes, B1 launching once a tick;
+   then the learner kernel's bound at batch 256 (B6) for both nets, and
+   the phase's seconds;
 then print the kernel table line (phase 6a's launches of B1, B3 and B4 as
 ``*_sharded`` entries, each kernel compared with its plain version and
 timed in place on a world-1 sharded trainer's carry at 6a's shapes, with
-6b's launches of the same builds per rank), the card line, and the result line last. CLI runs write
-their run dirs under ``output/chip_smoke/`` (removed at the end).
+6b's launches of the same builds per rank; B1's entries also carry
+phase 7's launches, ``launches_7a_numerics_lock`` and
+``launches_7d_cli_tensorboard``),
+the card line, and the result line last. CLI runs write their run dirs
+under ``output/chip_smoke/`` (removed at the end).
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -347,6 +372,15 @@ MG_REDUCES = 200           # all-reduce calls timed
 MG_BENCH_STEPS = 100       # 6d: benchmark.py's steps
 MG_GYM_STEPS = 100         # 6d: DeliveryDronesEnv steps, card vs CPU
 MG_PROBE_SECONDS = 90      # NCCL with two ranks on one card
+# Phase 7, the repo's last entry points and locks: 7c trains the five
+# baselines EP_BASELINE_STEPS steps each and scores them over
+# EP_SCORE_SEEDS x EP_SCORE_STEPS; 7d runs the CLI with --tensorboard_dir
+# for EP_CLI_STEPS steps; the learner bound at EP_LEARNER_BATCH (B6's
+# batch) is printed for both nets.
+EP_BASELINE_STEPS = 200
+EP_SCORE_SEEDS, EP_SCORE_STEPS = (1, 2), 100
+EP_CLI_STEPS = 20
+EP_LEARNER_BATCH = 256
 # H100 SXM published peaks: HBM bytes/s and
 # f32 FLOP/s on the CUDA cores. Integer hash operations are counted at
 # the f32 rate too, a rate no lower than the card's int32 rate, so the
@@ -1737,6 +1771,10 @@ def main() -> None:
     # --- 6. multi-GPU training: the sharded engines, then the periphery -----
     sharded = multi_gpu(torch, train, zero_counts, counts, card, obs_per_s,
                         runs, {e["name"]: e for e in kernels + stream})
+
+    # --- 7. the last entry points and locks ---------------------------------
+    entry_points(torch, train, zero_counts, counts, card, runs, here,
+                 kernels, device)
     shutil.rmtree(runs, ignore_errors=True)
 
     print(json.dumps({"kernels": kernels + learners + stream + sharded}),
@@ -2084,6 +2122,174 @@ def multi_gpu(torch, train, zero_counts, counts, card, obs_per_s, runs,
     log(f"phase 6 took {time.perf_counter() - t_phase:.1f} s by the log's "
         "clock")
     return entries
+
+
+def load_script(here, name):
+    """``scripts/<name>.py`` of the checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(here, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def entry_points(torch, train, zero_counts, counts, card, runs, here,
+                 kernels, device):
+    """Phase 7: 7a the numerics lock (B1 against the TPU record's Tier A
+    and the card's record's Tier B), 7b the competition CLI, 7c the
+    baseline creator, 7d the CLI with ``--tensorboard_dir`` and no
+    tensorboard. Adds B1's launches of 7a and 7d to ``kernels``' B1
+    entries."""
+    import importlib.util
+    import logging
+
+    from dronerl_tpu_torch.env.types import EnvParams
+    from dronerl_tpu_torch.evaluator import evaluator
+    from dronerl_tpu_torch.ops import fused_tick
+
+    def only(n, kernel, want, tag):
+        expected = {key: want if key == kernel else 0 for key in n}
+        if n != expected:
+            fail(f"{tag}: launches {n}, want {expected}")
+
+    b1 = {e["name"]: e for e in kernels
+          if e["name"].startswith("full_tick_ring_")}
+    flags = ["--device", device.type]
+    seconds = {}
+    t_phase = time.perf_counter()
+
+    # --- 7a ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    lock = load_script(here, "torch_numerics_lock")
+    zero_counts()
+    now = lock.run_scenario(device)
+    n = counts()
+    only(n, "full_tick_ring", lock.STEPS, "7a numerics lock")
+    errs = lock.check(now)
+    if errs:
+        fail("7a numerics lock: " + "; ".join(errs))
+    cpu = lock.run_scenario(torch.device("cpu"))
+    cpu_errs = lock.check(cpu, card=False)
+    if cpu_errs:
+        fail("7a the plain path's Tier A: " + "; ".join(cpu_errs))
+    b1["full_tick_ring_16x16"]["launches_7a_numerics_lock"] = (
+        n["full_tick_ring"])
+    with open(lock.RECORD) as f:
+        meta = json.load(f)["meta"]
+    seconds["7a"] = time.perf_counter() - t0
+    log(f"7a numerics lock ({lock.NUM_ENVS} envs, {lock.STEPS} ticks, bf16 "
+        f"ring, eps 1.0): B1 launches {n['full_tick_ring']} in "
+        f"{lock.STEPS}; Tier A (digests {sorted(now['int_digests'])}, "
+        f"ring sum {now['env_floats']['ring_sum']}, non-zero "
+        f"{now['env_floats']['ring_nonzero']}) equals the TPU record's, and "
+        f"the plain path's on the CPU; Tier B inside the card's record "
+        f"({meta['nvidia_smi']}, torch {meta['torch_version']}); largest "
+        f"Tier B difference from the CPU's plain run "
+        f"{lock.tier_b_max_diff(now, cpu):.6g} (loss tail "
+        f"{now['learner']['loss_tail_mean']:.6g} vs "
+        f"{cpu['learner']['loss_tail_mean']:.6g}); {seconds['7a']:.1f} s "
+        f"on {card}")
+
+    # --- 7b ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    competition = load_script(here, "torch_evaluate_agent")
+    has_pil = importlib.util.find_spec("PIL") is not None
+    render = evaluator.DroneRacerEvaluator._render_first_episode
+    if not has_pil:  # the scores alone: the video needs PIL
+        evaluator.DroneRacerEvaluator._render_first_episode = (
+            lambda self, paths, names, output_path: None)
+    zero_counts()
+    try:
+        result = competition.main([
+            os.path.join(here, AGENT_3), "--video_output_path",
+            os.path.join(runs, "episode0.mp4"), *flags])
+    finally:
+        evaluator.DroneRacerEvaluator._render_first_episode = render
+    only(counts(), None, 0, "7b competition CLI")
+    if len(result["all_scores"]) != 6 or not all(
+            math.isfinite(v) for v in result["all_scores"].values()):
+        fail(f"7b competition CLI: scores {result['all_scores']}")
+    seconds["7b"] = time.perf_counter() - t0
+    video = result["media_video_path"]
+    log(f"7b torch_evaluate_agent.py {AGENT_3}: score "
+        f"{result['score']:.3f} ± {result['score_secondary']:.3f}, video "
+        f"{os.path.relpath(video, here) if has_pil else 'skipped (no PIL)'}"
+        f", {seconds['7b']:.1f} s on {card}")
+
+    # --- 7c ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    creator = load_script(here, "torch_create_baselines")
+    out = os.path.join(runs, "baselines")
+    zero_counts()
+    written = creator.main(["--num_steps", str(EP_BASELINE_STEPS),
+                            "--out_dir", out, *flags])
+    only(counts(), None, 0, "7c baseline creator (the jnp engine)")
+    judge = evaluator.DroneRacerEvaluator(answer_folder_path=out,
+                                          device=device.type)
+    scores = evaluator.evaluate_checkpoints(
+        list(judge.participating_agents.values()), EP_SCORE_SEEDS,
+        EP_SCORE_STEPS, device=device.type)
+    if len(written) != 5 or not all(
+            math.isfinite(float(v))
+            for v in scores["episode_scores"].reshape(-1)):
+        fail(f"7c baseline creator: {written}, {scores['episode_scores']}")
+    seconds["7c"] = time.perf_counter() - t0
+    log(f"7c torch_create_baselines.py --num_steps {EP_BASELINE_STEPS}: "
+        f"{len(written)} checkpoints under {os.path.relpath(out, here)}, "
+        f"loaded by the evaluator, scores over {len(EP_SCORE_SEEDS)} x "
+        f"{EP_SCORE_STEPS} steps {[round(float(v), 3) for v in scores['mean']]}"
+        f"; {seconds['7c']:.1f} s on {card}")
+
+    # --- 7d ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    installed = importlib.util.find_spec("tensorboard") is not None
+    # Blocked where it is installed, so that the run meets what C3 is about.
+    saved = {m: sys.modules.pop(m) for m in list(sys.modules)
+             if m.split(".")[0] == "tensorboard"
+             or m.startswith("torch.utils.tensorboard")}
+    sys.modules["tensorboard"] = None
+    warnings = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: warnings.append(record.getMessage())
+    metrics_logger = logging.getLogger("dronerl_tpu_torch.utils.metrics")
+    metrics_logger.addHandler(handler)
+    tb_dir = os.path.join(runs, "tb")
+    try:
+        zero_counts()
+        metrics = train.main(LIFE_BASE + flags + [
+            "--num_steps", str(EP_CLI_STEPS), "--tensorboard_dir", tb_dir,
+            "--skip_final_eval", "--run_dir", os.path.join(runs, "tb_run")])
+        n = counts()
+    finally:
+        metrics_logger.removeHandler(handler)
+        del sys.modules["tensorboard"]
+        sys.modules.update(saved)
+    only(n, "full_tick_ring", EP_CLI_STEPS, "7d CLI --tensorboard_dir")
+    if warnings != ["tensorboard unavailable; skipping TB logging"]:
+        fail(f"7d CLI --tensorboard_dir: warnings {warnings}")
+    if os.path.exists(tb_dir) or metrics["td_loss_mean"] is None or not (
+            math.isfinite(metrics["td_loss_mean"])):
+        fail(f"7d CLI --tensorboard_dir: {metrics}")
+    b1["full_tick_ring_16x16"]["launches_7d_cli_tensorboard"] = (
+        n["full_tick_ring"])
+    seconds["7d"] = time.perf_counter() - t0
+    log(f"7d CLI --tensorboard_dir with tensorboard "
+        f"{'blocked' if installed else 'not installed'}: warned "
+        f"{warnings!r} and completed {EP_CLI_STEPS} steps (engine "
+        f"{metrics['engine']}, B1 launches {n['full_tick_ring']}, loss "
+        f"{metrics['td_loss_mean']:.5f}); {seconds['7d']:.1f} s on {card}")
+
+    params = EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
+    obs_dim = fused_tick.obs_rows(params)
+    for hidden in NETS:
+        bound = learner_bound((obs_dim, *hidden, 5), EP_LEARNER_BATCH, False)
+        log(f"learner kernel (B6) net {hidden} at batch {EP_LEARNER_BATCH}: "
+            f"bound {bound[0]:.6f} ms ({bound[1]}: {bound[2]} B, {bound[3]} "
+            f"FLOP), without sync")
+    log(f"phase 7 took {time.perf_counter() - t_phase:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())})")
 
 
 def sharded_in_place(torch, mesh, engine, kernel, hidden, memory, tag,

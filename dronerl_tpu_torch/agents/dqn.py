@@ -415,17 +415,20 @@ class DQN:
                            greedy_actions.to(torch.int32))
 
     def act_t(self, key: torch.Tensor, obs_t: torch.Tensor,
-              state: DQNState) -> torch.Tensor:
+              state: DQNState, greedy: bool = False) -> torch.Tensor:
         """ε-greedy actions for (obs_dim, B) observations → (B,) int32.
 
-        Greedy is the lowest-index argmax of :meth:`q_values_t`. Else the
-        key splits into explore and action keys: explore where
-        ``uniform(explore_key, (B,)) < ε``, with ``randint(action_key, (B,),
-        0, NUM_ACTIONS)``. The draws run where ``obs_t`` lies (B counters
-        each), so a host key goes to that device first.
+        Greedy is the lowest-index argmax of :meth:`q_values_t`; with
+        ``greedy`` it alone (``key`` unused). Else the key splits into
+        explore and action keys: explore where ``uniform(explore_key,
+        (B,)) < ε``, with ``randint(action_key, (B,), 0, NUM_ACTIONS)``.
+        The draws run where ``obs_t`` lies (B counters each), so a host
+        key goes to that device first.
         """
         with torch.no_grad():
             q = self.q_values_t(state.params, obs_t)
+        if greedy:
+            return torch.argmax(q, dim=0).to(torch.int32)
         return self._epsilon_greedy(key, torch.argmax(q, dim=0), state)
 
     def act(self, key: torch.Tensor, obs: torch.Tensor,

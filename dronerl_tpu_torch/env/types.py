@@ -101,6 +101,27 @@ class EnvState:
     carrying_package: torch.Tensor  # bool (E, N)
     charge: torch.Tensor            # float32 (E, N) battery in [0, 100]
 
+    @property
+    def n_drones(self) -> int:
+        return self.air_x.shape[-1]
+
+    @property
+    def grid_size(self) -> int:
+        return self.ground.shape[-1]
+
+
+def empty_state(params: EnvParams) -> EnvState:
+    """An all-zeros state of one env, without the env axis, with the
+    JAX package's shapes and dtypes (its replay's leaf template)."""
+    g, n = params.grid_size, params.n_drones
+    return EnvState(
+        ground=torch.zeros((g, g), dtype=torch.int8),
+        air_x=torch.zeros((n,), dtype=torch.int32),
+        air_y=torch.zeros((n,), dtype=torch.int32),
+        carrying_package=torch.zeros((n,), dtype=torch.bool),
+        charge=torch.zeros((n,), dtype=torch.float32),
+    )
+
 
 def env_fields(state: EnvState):
     """The state's tensors in field order: ``EnvState(*env_fields(s))``

@@ -43,6 +43,16 @@ def flag_mask(rows: torch.Tensor, cols: torch.Tensor, flags: torch.Tensor,
     return hit.any(dim=1).reshape(e, h, w)
 
 
+def cell_mask(rows: torch.Tensor, cols: torch.Tensor, h: int,
+              w: int) -> torch.Tensor:
+    """(E, h, w) bool: True at every in-range (rows[i], cols[i]), i.e.
+    ``zeros.at[rows, cols].set(True)`` without the wrap: indices outside
+    the board match no cell."""
+    row_sel = rows[:, :, None] == torch.arange(h, device=rows.device)
+    col_sel = cols[:, :, None] == torch.arange(w, device=cols.device)
+    return (row_sel[:, :, :, None] & col_sel[:, :, None, :]).any(dim=1)
+
+
 def flag_mask_scatter_order(rows: torch.Tensor, cols: torch.Tensor,
                             flags: torch.Tensor, h: int,
                             w: int) -> torch.Tensor:

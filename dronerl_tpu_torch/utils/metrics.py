@@ -112,10 +112,13 @@ def build_logger(tensorboard_dir: Optional[str] = None, wandb_run=None,
                  stdout: bool = False) -> Logger:
     """The sinks asked for, fanned out when more than one; ``NoLogger``
     when none. A TensorBoard directory without the ``tensorboard``
-    package raises."""
+    package is skipped with a warning, as the JAX package does."""
     sinks = []
     if tensorboard_dir:
-        sinks.append(TensorBoardLogger(tensorboard_dir))
+        try:
+            sinks.append(TensorBoardLogger(tensorboard_dir))
+        except ImportError:
+            logger.warning("tensorboard unavailable; skipping TB logging")
     if wandb_run is not None:
         sinks.append(WandbLogger(wandb_run))
     if stdout:

@@ -109,12 +109,23 @@ def test_loggers(tmp_path, monkeypatch, caplog):
                for f in os.listdir(tmp_path / "tb"))
 
 
-def test_tensorboard_missing_raises(tmp_path, monkeypatch):
+def test_tensorboard_missing_warns_and_keeps_the_other_sinks(
+        tmp_path, monkeypatch, caplog):
+    """As the JAX package's ``build_logger``: a TensorBoard directory
+    without the package is skipped with a warning, and the other sinks
+    stay."""
     monkeypatch.setitem(sys.modules, "tensorboard", None)
     monkeypatch.delitem(sys.modules, "torch.utils.tensorboard",
                         raising=False)
-    with pytest.raises(ImportError):
-        metrics.build_logger(tensorboard_dir=str(tmp_path / "tb"))
+    with caplog.at_level("WARNING", logger=metrics.logger.name):
+        alone = metrics.build_logger(tensorboard_dir=str(tmp_path / "tb"))
+        rest = metrics.build_logger(tensorboard_dir=str(tmp_path / "tb"),
+                                    stdout=True)
+    assert isinstance(alone, metrics.NoLogger)
+    assert isinstance(rest, metrics.StdoutLogger)
+    assert [r.getMessage() for r in caplog.records] == [
+        "tensorboard unavailable; skipping TB logging"] * 2
+    assert not os.path.exists(tmp_path / "tb")
 
 
 def test_profiling_hooks(tmp_path):
