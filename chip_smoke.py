@@ -191,12 +191,25 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    completes, B1 launching once a tick;
    then the learner kernel's bound at batch 256 (B6) for both nets, and
    the phase's seconds;
+8. the bench program and its companions, each a subprocess of the
+   checkout: ``python -m dronerl_tpu_torch.bench`` at BENCH_ENV (3 repeats
+   of the (16,16) metrics, 2 of the (128,64) ones, 1 call of 200 ticks a
+   repeat): exit 0, ``correct: true``, the card as its device, B1's
+   launches equal to each metric's timed ticks and B2's to the
+   ``in_kernel_td`` ones' (0 elsewhere), each obs/s logged beside phase
+   4's with its quartiles and the traced run's device busy share; then
+   one row each of ``scripts/torch_ring_bench.py`` (65,536 envs),
+   ``torch_config5_bench.py`` (grid 16, 8 drones, 32,768 envs, one
+   drone collected) and ``torch_scaling_bench.py`` (world size 1 over
+   NCCL, the fused engine over B3 at 256 envs): exit 0, finite obs/s on
+   the card, the scaling rank's B3 launches equal to its timed ticks;
 then print the kernel table line (phase 6a's launches of B1, B3 and B4 as
 ``*_sharded`` entries, each kernel compared with its plain version and
 timed in place on a world-1 sharded trainer's carry at 6a's shapes, with
 6b's launches of the same builds per rank; B1's entries also carry
 phase 7's launches, ``launches_7a_numerics_lock`` and
-``launches_7d_cli_tensorboard``),
+``launches_7d_cli_tensorboard``, and with B2's phase 8's,
+``launches_8_bench``),
 the card line, and the result line last. CLI runs write their run dirs
 under ``output/chip_smoke/`` (removed at the end).
 
@@ -381,6 +394,18 @@ EP_BASELINE_STEPS = 200
 EP_SCORE_SEEDS, EP_SCORE_STEPS = (1, 2), 100
 EP_CLI_STEPS = 20
 EP_LEARNER_BATCH = 256
+# Phase 8: the bench program's environment (its other sizes are its
+# defaults: 65,536 envs, 200 ticks a call), the companions' ticks a call
+# and repeats, and config 5's board (built in phase 2's wave).
+BENCH_ENV = {"DRONERL_BENCH_REPEATS": "3", "DRONERL_BENCH_REPEATS_BIG": "2",
+             "DRONERL_BENCH_CALLS": "1"}
+BENCH_SCRIPTS = (("torch_ring_bench", ["--envs", str(NUM_ENVS), "--calls",
+                                       "1"]),
+                 ("torch_config5_bench", ["--collect", "1", "--calls", "1"]),
+                 ("torch_scaling_bench", ["--world_sizes", "1"]))
+BENCH_SCRIPT_STEPS = 50
+BENCH_SCRIPT_REPEATS = 2
+CONFIG5_BOARD = (16, 8)
 # H100 SXM published peaks: HBM bytes/s and
 # f32 FLOP/s on the CUDA cores. Integer hash operations are counted at
 # the f32 rate too, a rate no lower than the card's int32 rate, so the
@@ -518,6 +543,9 @@ def main() -> None:
     configs += [_build.tick_config(collect_params["global"],
                                    collect_widths[("global", h)])
                 for h in NETS]
+    configs += [_build.tick_config(
+        EnvParams(grid_size=CONFIG5_BOARD[0], n_drones=CONFIG5_BOARD[1],
+                  window_radius=RADIUS), widths[NETS[0]])]  # phase 8
     t0 = time.perf_counter()
     built = _build.build(configs)
     log(f"built {len(built)} kernel libraries in "
@@ -1775,6 +1803,10 @@ def main() -> None:
     # --- 7. the last entry points and locks ---------------------------------
     entry_points(torch, train, zero_counts, counts, card, runs, here,
                  kernels, device)
+
+    # --- 8. the bench program and its companions ----------------------------
+    bench_program(here, runs, device_kind, card, obs_per_s,
+                  kernels + learners)
     shutil.rmtree(runs, ignore_errors=True)
 
     print(json.dumps({"kernels": kernels + learners + stream + sharded}),
@@ -2290,6 +2322,87 @@ def entry_points(torch, train, zero_counts, counts, card, runs, here,
             f"FLOP), without sync")
     log(f"phase 7 took {time.perf_counter() - t_phase:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())})")
+
+
+def bench_program(here, runs, device_kind, card, obs_per_s, entries):
+    """Phase 8: the bench (``python -m dronerl_tpu_torch.bench``) and one
+    row of each companion script, each a subprocess of the checkout. Adds
+    the bench's B1 and B2 launches to ``entries`` (``launches_8_bench``)."""
+    from dronerl_tpu_torch import bench
+
+    t_phase = time.perf_counter()
+    os.makedirs(runs, exist_ok=True)
+
+    def run(argv, env=None):
+        proc = subprocess.run([sys.executable, *argv], cwd=here,
+                              env={**os.environ, **(env or {})},
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            fail(f"8: {' '.join(argv)} exited {proc.returncode}:\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        return proc.stdout
+
+    line = json.loads(run(["-m", "dronerl_tpu_torch.bench"],
+                          BENCH_ENV).strip().splitlines()[-1])
+    if line.get("correct") is not True:
+        fail(f"8: the bench's line says correct {line.get('correct')}: "
+             f"{json.dumps(line['checks'])[:3000]}")
+    device = line["device"]
+    if device["platform"] != "gpu" or device["kind"] != device_kind:
+        fail(f"8: the bench ran on {device}, not {device_kind}")
+    metrics = {m["metric"]: m for m in [line] + line["extra_metrics"]}
+    by_name = {e["name"]: e for e in entries}
+    for net, hidden in bench.NETS.items():
+        name = "x".join(map(str, hidden))
+        for td in (False, True):
+            m = metrics.get(bench.metric_name(net, NUM_ENVS, td))
+            if m is None:
+                fail(f"8: no {bench.metric_name(net, NUM_ENVS, td)} in the "
+                     "bench's line")
+            ticks = m["repeats"] * m["steps_per_repeat"]
+            want = {"full_tick_ring": ticks, "td_adam": ticks if td else 0}
+            if m["launches"] != want:
+                fail(f"8: {m['metric']}: launches {m['launches']}, want "
+                     f"{want}")
+            for entry, key in ((f"full_tick_ring_{name}", "full_tick_ring"),
+                               (f"td_adam_{name}", "td_adam")):
+                by_name[entry]["launches_8_bench"] = (
+                    by_name[entry].get("launches_8_bench", 0)
+                    + m["launches"][key])
+            split = line["per_layer"][m["metric"]]
+            log(f"8 bench {m['metric']}: {m['value']:.1f} obs/s (median of "
+                f"{m['repeats']} x {m['steps_per_repeat']} ticks; q1-q3 "
+                f"{m['q1_s']:.4f}-{m['q3_s']:.4f} s) vs phase 4's "
+                f"default path {obs_per_s[hidden]:.1f}; launches "
+                f"{m['launches']}; build {m['build_s']} s, warm-up "
+                f"{m['warmup_s']:.2f} s, peak {m['peak_mem_bytes']} B; "
+                f"traced: busy {split['device_busy_share']:.4f}, device ms "
+                f"a tick {split['device_ms']:.4f}, launches a tick "
+                f"{split['launches_per_tick']:.1f}; on {card}")
+
+    for name, extra in BENCH_SCRIPTS:
+        out = os.path.join(runs, f"{name}.json")
+        run([os.path.join("scripts", f"{name}.py"), *extra, "--steps",
+             str(BENCH_SCRIPT_STEPS), "--repeats", str(BENCH_SCRIPT_REPEATS),
+             "--out", out])
+        with open(out) as f:
+            rows = json.load(f)
+        for row in rows:
+            obs = row.get("obs_per_sec")
+            if (row["device"]["kind"] != device_kind or obs is None
+                    or not math.isfinite(obs) or obs <= 0):
+                fail(f"8: {name}: row {json.dumps(row)[:2000]}")
+            if name == "torch_scaling_bench":
+                want = BENCH_SCRIPT_REPEATS * BENCH_SCRIPT_STEPS
+                got = row["ranks"][0]["launches"]
+                if (got[row["local_engine"]] != want
+                        or sum(got.values()) != want):
+                    fail(f"8: {name}: launches {got}, want {want} of "
+                         f"{row['local_engine']}")
+            brief = {k: v for k, v in row.items()
+                     if k not in ("device", "ranks", "repeat_s")}
+            log(f"8 {name}: {json.dumps(brief)}")
+    log(f"phase 8 took {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 def sharded_in_place(torch, mesh, engine, kernel, hidden, memory, tag,

@@ -1,18 +1,26 @@
 """Profiling hooks: trace capture, timing, device memory (counterpart of
-``dronerl_tpu/utils/profiling.py``).
+``dronerl_tpu/utils/profiling.py``), and the split of a trainer tick.
 
 :func:`trace` records ``torch.profiler`` (host and, where CUDA is
 available, device activity) for everything inside the block and writes a
 Chrome trace; :class:`Stopwatch` times host work and synchronises the
 device before it stops; :func:`device_memory_stats` reads
 ``torch.cuda.memory_stats``.
+
+The tick split (``scripts/torch_tick_profile.py`` and
+``dronerl_tpu_torch.bench``'s ``per_layer``): :func:`tick_phases` names
+the functions a tick of each engine spends its host time in,
+:func:`host_split` times them by wrapping each (:func:`phase_timers`),
+and :func:`device_kernels` / :func:`phase_device_ms` read a
+``torch.profiler`` run of ticks: device time by kernel, and by the phase
+that launched it.
 """
 
 import contextlib
 import logging
 import os
 import time
-from typing import Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed
@@ -108,3 +116,165 @@ def log_device_memory(prefix: str = "") -> None:
                     prefix, device, stats["bytes_in_use"] / 2**20,
                     stats["peak_bytes_in_use"] / 2**20,
                     stats["bytes_limit"] / 2**20)
+
+
+# --- the split of a trainer tick ---------------------------------------------
+
+PHASE_PREFIX = "phase:"
+
+
+def tick_phases(engine: str) -> Dict[str, Tuple[object, str]]:
+    """The host phases of one tick of ``engine`` ("ring", "full" or
+    "fused"): ``{phase: (owner, attribute)}`` of the function each phase
+    is, as :func:`phase_timers` wraps them. A phase's function called
+    inside another phase counts to the outer one (the split inside the
+    gather's randint counts to the gather)."""
+    from dronerl_tpu_torch import replay, rng
+    from dronerl_tpu_torch.agents import dqn
+    from dronerl_tpu_torch.env import core
+    from dronerl_tpu_torch.ops import fused_tick
+
+    by_engine = {
+        "ring": {
+            "kernel": (fused_tick, "full_tick_fused_ring"),
+            "gather": (fused_tick, "ring_gather_batch"),
+            "scalar_writes": (fused_tick, "ring_scalar_writes"),
+        },
+        "full": {
+            "kernel": (fused_tick, "full_tick_fused"),
+            "push": (replay.StreamReplay, "push_many"),
+            "sample": (replay.StreamReplay, "sample"),
+        },
+        "fused": {
+            "kernel": (fused_tick, "tick_fused"),
+            "push": (replay.StreamReplay, "push_many"),
+            "sample": (replay.StreamReplay, "sample"),
+            "actor": (dqn.DQN, "act_t"),
+            "opponents": (rng, "randint"),
+            "reset": (core, "reset_batch"),
+        },
+    }
+    return {**by_engine[engine],
+            "learner": (dqn.DQN, "train_step_t"),
+            "schedules": (dqn.DQN, "apply_schedules"),
+            "rng_split": (rng, "split")}
+
+
+@contextlib.contextmanager
+def replaced(owner, attr: str, wrapper):
+    """Put ``wrapper`` in ``owner.attr``'s place for the block. A kernel
+    wrapper counts its launches in an attribute of the name it is called
+    by (``fused_tick.full_tick_fused_ring.launches``), which inside the
+    block names ``wrapper``: the function's attributes go over to
+    ``wrapper`` and come back after."""
+    fn = getattr(owner, attr)
+    wrapper.__dict__.update(fn.__dict__)
+    setattr(owner, attr, wrapper)
+    try:
+        yield fn
+    finally:
+        setattr(owner, attr, fn)
+        fn.__dict__.update(wrapper.__dict__)
+
+
+@contextlib.contextmanager
+def phase_timers(totals: Dict[str, float],
+                 phases: Dict[str, Tuple[object, str]],
+                 annotate: bool = False):
+    """Add each phase's host wall time (outermost calls only) into
+    ``totals``; with ``annotate`` each outermost call is also a
+    ``torch.profiler`` range named ``PHASE_PREFIX + phase``, which
+    :func:`phase_device_ms` reads."""
+    depth = [0]
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            outer = depth[0] == 0
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                if annotate and outer:
+                    with torch.profiler.record_function(PHASE_PREFIX + name):
+                        return fn(*args, **kwargs)
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if outer:
+                    totals[name] = (totals.get(name, 0.0)
+                                    + time.perf_counter() - t0)
+        return wrapper
+
+    with contextlib.ExitStack() as stack:
+        for name, (owner, attr) in phases.items():
+            stack.enter_context(replaced(owner, attr,
+                                         timed(name, getattr(owner, attr))))
+        yield
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (nothing to wait for on the
+    CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def host_split(tick, carry, ticks: int, phases, device):
+    """Run ``ticks`` ticks with every phase timed; returns ``(carry, host
+    ms a tick by phase, with "other" the rest of the tick, the phase-timed
+    tick's ms)``."""
+    totals = {}
+    with phase_timers(totals, phases):
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            carry, _ = tick(carry)
+        synchronize(device)
+        tick_ms = (time.perf_counter() - t0) / ticks * 1e3
+    host_ms = {k: v / ticks * 1e3 for k, v in totals.items()}
+    host_ms["other"] = tick_ms - sum(host_ms.values())
+    return carry, host_ms, tick_ms
+
+
+def profiled_ticks(tick, carry, ticks: int, device, phases=None):
+    """Run ``ticks`` ticks under ``torch.profiler`` (host, and the card's
+    timeline on a CUDA ``device``); with ``phases``, each an annotated
+    range (:func:`phase_timers`). Returns ``(carry, profile)``."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with contextlib.ExitStack() as stack:
+        prof = stack.enter_context(torch.profiler.profile(activities=acts))
+        if phases:
+            stack.enter_context(phase_timers({}, phases, annotate=True))
+        for _ in range(ticks):
+            carry, _ = tick(carry)
+        synchronize(device)
+    return carry, prof
+
+
+def device_kernels(prof, ticks: int) -> List[Tuple[str, float, float]]:
+    """``(name, device ms a tick, calls a tick)`` of every kernel and copy
+    on the card's timeline in a profile of ``ticks`` ticks, the longest
+    first (the phases' annotated ranges left out)."""
+    per = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.name.startswith(PHASE_PREFIX)):
+            ms, calls = per.get(ev.name, (0.0, 0))
+            per[ev.name] = (ms + ev.time_range.elapsed_us() / 1e3, calls + 1)
+    return sorted(((k, ms / ticks, calls / ticks)
+                   for k, (ms, calls) in per.items()), key=lambda k: -k[1])
+
+
+def phase_device_ms(prof, ticks: int) -> Dict[str, float]:
+    """Device ms a tick of the kernels and copies each annotated phase
+    launched (:func:`profiled_ticks` with ``phases``)."""
+    out = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CPU
+                and ev.name.startswith(PHASE_PREFIX)):
+            name = ev.name[len(PHASE_PREFIX):]
+            us = getattr(ev, "device_time_total", None)
+            if us is None:  # torch before the device_* names
+                us = ev.cuda_time_total
+            out[name] = out.get(name, 0.0) + us / 1e3 / ticks
+    return out

@@ -32,7 +32,6 @@ Run on a machine with a CUDA card, from the repository root:
 """
 
 import argparse
-import contextlib
 import json
 import os
 import subprocess
@@ -45,69 +44,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from dronerl_tpu_torch import replay, rng, train  # noqa: E402
 from dronerl_tpu_torch.agents import dqn  # noqa: E402
-from dronerl_tpu_torch.env import core  # noqa: E402
 from dronerl_tpu_torch.env.types import EnvParams  # noqa: E402
 from dronerl_tpu_torch.ops import fused_tick  # noqa: E402
+from dronerl_tpu_torch.utils import profiling  # noqa: E402
 
 STREAM_CAPACITY = 1048576  # ceil(1e6 / 65,536) env-batches
-
-# Phases by engine; a phase's function called inside another phase counts
-# to the outer one.
-PHASES = {
-    "ring": {
-        "kernel": (fused_tick, "full_tick_fused_ring"),
-        "gather": (fused_tick, "ring_gather_batch"),
-        "scalar_writes": (fused_tick, "ring_scalar_writes"),
-    },
-    "full": {
-        "kernel": (fused_tick, "full_tick_fused"),
-        "push": (replay.StreamReplay, "push_many"),
-        "sample": (replay.StreamReplay, "sample"),
-    },
-    "fused": {
-        "kernel": (fused_tick, "tick_fused"),
-        "push": (replay.StreamReplay, "push_many"),
-        "sample": (replay.StreamReplay, "sample"),
-        "actor": (dqn.DQN, "act_t"),
-        "opponents": (rng, "randint"),
-        "reset": (core, "reset_batch"),
-    },
-}
-COMMON_PHASES = {
-    "learner": (dqn.DQN, "train_step_t"),
-    "schedules": (dqn.DQN, "apply_schedules"),
-    "rng_split": (rng, "split"),
-}
-
-
-@contextlib.contextmanager
-def phase_timers(totals, phases):
-    """Add each phase's host wall time (outermost calls only: the split
-    inside the gather's randint counts to the gather) into ``totals``."""
-    saved, depth = {}, [0]
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            depth[0] += 1
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                depth[0] -= 1
-                if depth[0] == 0:
-                    totals[name] = (totals.get(name, 0.0)
-                                    + time.perf_counter() - t0)
-        wrapper.__dict__.update(fn.__dict__)
-        return wrapper
-
-    for name, (owner, attr) in phases.items():
-        saved[(owner, attr)] = getattr(owner, attr)
-        setattr(owner, attr, timed(name, saved[(owner, attr)]))
-    try:
-        yield
-    finally:
-        for (owner, attr), fn in saved.items():
-            setattr(owner, attr, fn)
 
 
 def main(argv=None):
@@ -172,34 +113,16 @@ def main(argv=None):
     tick_ms = (time.perf_counter() - t0) / args.ticks * 1e3
 
     n = args.ticks
-    totals = {}
-    with phase_timers(totals, {**PHASES[args.engine], **COMMON_PHASES}):
-        t0 = time.perf_counter()
-        for _ in range(n):
-            carry, _ = tick(carry)
-        torch.cuda.synchronize()
-        timed_tick_ms = (time.perf_counter() - t0) / n * 1e3
-    host_ms = {k: v / n * 1e3 for k, v in totals.items()}
-    host_ms["other"] = timed_tick_ms - sum(host_ms.values())
+    device = torch.device("cuda")
+    carry, host_ms, timed_tick_ms = profiling.host_split(
+        tick, carry, n, profiling.tick_phases(args.engine), device)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(args.profile_ticks):
-            carry, _ = tick(carry)
-        torch.cuda.synchronize()
+    carry, prof = profiling.profiled_ticks(tick, carry, args.profile_ticks,
+                                           device)
     if args.trace:
         prof.export_chrome_trace(args.trace)
     # Device time: the kernels and copies on the card's timeline only.
-    per_kernel = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel.setdefault(ev.name, [0.0, 0])
-            per_kernel[ev.name][0] += ev.time_range.elapsed_us() / 1e3
-            per_kernel[ev.name][1] += 1
-    m = args.profile_ticks
-    kernels = sorted(((k, v[0] / m, v[1] / m) for k, v in per_kernel.items()),
-                     key=lambda k: -k[1])
+    kernels = profiling.device_kernels(prof, args.profile_ticks)
     device_ms = sum(k[1] for k in kernels)
     result = {
         "card": card,
