@@ -55,10 +55,13 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    grid 9 (launches = steps);
 3f. ``DQN.init_state(key)`` on the card equals the CPU draw bitwise (the
    JAX package's initial nets, drawn on the CPU and copied);
-4. drive the trainer's main path (``dronerl_tpu_torch.train``) at the
-   bench configuration for both nets: the tick kernel's launch count must
-   equal the ticks, losses be finite, params move and ε decay; report
-   obs/s, the tick kernel's time per launch and its plain version's;
+4. drive the trainer's main path (``dronerl_tpu_torch.train``'s ring
+   chunk, ``build_chunk_ring``: one CUDA graph replay a tick, the graphs
+   captured in the warm-up chunk) at the bench configuration for both
+   nets: the tick kernel's launch count (a replay counts the launches its
+   graph holds) must equal the ticks, losses be finite, params move and ε
+   decay; report obs/s, the tick kernel's time per launch and its plain
+   version's;
 4b. drive the ``in_kernel_td`` main path the same way: both kernels'
    launch counts equal the ticks, the loss -1 at tick 0 and finite and
    >= 0 after, the Adam count ticks - 1; report its obs/s beside phase
@@ -128,7 +131,7 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    ε decays, the replay takes E · k transitions a tick;
 5. the trainer's lifecycle through ``train.train(parse_args(...))`` at the
    bench configuration (65,536 envs, memory 100,000, bf16 ring: the ring
-   engine), for LIFE_RUNS (warm-started from dqn-agent-3, (128,64) from
+   engine, whose chunks the CLI runs as CUDA graphs), for LIFE_RUNS (warm-started from dqn-agent-3, (128,64) from
    --seed, and the warm start with ``--in_kernel_td``):
 5a. 300 ticks in 2 chunks of 150 with an eval of 5 seeds x 1,000 steps
    before the second and at the end, both checkpoints and the train
@@ -194,7 +197,9 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 8. the bench program and its companions, each a subprocess of the
    checkout: ``python -m dronerl_tpu_torch.bench`` at BENCH_ENV (3 repeats
    of the (16,16) metrics, 2 of the (128,64) ones, 1 call of 200 ticks a
-   repeat): exit 0, ``correct: true``, the card as its device, B1's
+   repeat, each a graphed chunk): exit 0, ``correct: true`` (its lockstep
+   check of the graphed chunk against the eager tick included), the card
+   as its device, the graphs it captured, B1's
    launches equal to each metric's timed ticks and B2's to the
    ``in_kernel_td`` ones' (0 elsewhere), each obs/s logged beside phase
    4's with its quartiles and the traced run's device busy share; then
@@ -203,6 +208,14 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    drone collected) and ``torch_scaling_bench.py`` (world size 1 over
    NCCL, the fused engine over B3 at 256 envs): exit 0, finite obs/s on
    the card, the scaling rank's B3 launches equal to its timed ticks;
+9. the graphed ring chunk: for both nets, on the default path and on
+   ``in_kernel_td``, at the bench configuration, 2 chunks of 150 ticks
+   (a reset at tick 100, 30 syncs, 60 decays, every slot) with a train
+   state saved and restored between them, through ``build_chunk_ring``
+   (one CUDA graph replay a tick) and through its eager tick from the same
+   carry: every carry tensor and output bitwise, B1 (and B2) launched
+   once a tick either way; logs both ways' obs/s, host ms a tick and the
+   device's busy share (20 profiled ticks each);
 then print the kernel table line (phase 6a's launches of B1, B3 and B4 as
 ``*_sharded`` entries, each kernel compared with its plain version and
 timed in place on a world-1 sharded trainer's carry at 6a's shapes, with
@@ -345,6 +358,9 @@ LIFE_RUNS = (
     ("warm3_in_kernel_td", ["--load_from_checkpoint", AGENT_3,
                             "--in_kernel_td"], (16, 16)),
 )
+# Phase 9: CHUNK_9 chunks of CHUNK_9_TICKS ticks (a reset at tick 100, 30
+# syncs, 60 decays, every slot), then CHUNK_9_TRACE profiled ticks.
+CHUNK_9, CHUNK_9_TICKS, CHUNK_9_TRACE = 2, 150, 20
 LIFE_PROBE = 1024          # 5b: seeded observations for the Q-values
 # 5c: the JAX package's CPU scores of the five baselines' round robin
 # (tests/test_evaluator_regression.py), printed beside the port's.
@@ -1244,21 +1260,30 @@ def main() -> None:
                     f"{timing['ms'] / base:.3f}x")
 
     # --- 4. the main path, and 4b. the in_kernel_td main path --------------
-    def run_ticks(tag, tick, carry):
-        """Warm-up and timed repeats of a trainer's tick with every launch
-        count zeroed just before: returns (carry, losses, median tick
-        seconds, repeats, ticks, launch counts, rewards, ε)."""
+    def run_ticks(tag, tick, carry, chunk=None):
+        """Warm-up and timed repeats of a trainer's tick (or with
+        ``chunk``, a repeat's ticks as one chunk) with every launch count
+        zeroed just before: returns (carry, losses, median tick seconds,
+        repeats, ticks, launch counts, rewards, ε)."""
+
+        def run(carry, n):
+            if chunk is not None:
+                carry, (rewards, eps, loss) = chunk(carry, n)
+                return carry, rewards[-1], eps[-1], list(loss)
+            out = []
+            for _ in range(n):
+                carry, (rewards, eps, loss) = tick(carry)
+                out.append(loss)
+            return carry, rewards, eps, out
+
         zero_counts()
-        losses, seconds = [], []
-        for _ in range(WARMUP_TICKS):
-            carry, (rewards, eps, loss) = tick(carry)
-            losses.append(loss)
+        seconds = []
+        carry, rewards, eps, losses = run(carry, WARMUP_TICKS)
         torch.cuda.synchronize()
         for _ in range(REPEATS):
             t0 = time.perf_counter()
-            for _ in range(TICKS_PER_REPEAT):
-                carry, (rewards, eps, loss) = tick(carry)
-                losses.append(loss)
+            carry, rewards, eps, more = run(carry, TICKS_PER_REPEAT)
+            losses += more
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         ticks = WARMUP_TICKS + REPEATS * TICKS_PER_REPEAT
@@ -1275,12 +1300,14 @@ def main() -> None:
                 seconds, ticks, counts(), rewards, eps)
 
     def drive(hidden, in_kernel_td):
-        """Run the trainer's main path: returns (agent, carry, losses,
-        median tick seconds, ticks, launch counts)."""
+        """Run the trainer's main path, the ring engine's chunk (one CUDA
+        graph replay a tick; the warm-up chunk captures the graphs):
+        returns (agent, carry, losses, median tick seconds, ticks, launch
+        counts)."""
         agent, _ = make_agent(hidden, 0)
-        tick = build_train_step_ring(agent, params, NUM_ENVS, CAPACITY,
-                                     BATCH, RESET_EVERY,
-                                     in_kernel_td=in_kernel_td)
+        chunk = train.build_chunk_ring(agent, params, NUM_ENVS, CAPACITY,
+                                       BATCH, RESET_EVERY,
+                                       in_kernel_td=in_kernel_td)
         carry = init_ring_carry(agent, params, NUM_ENVS, CAPACITY,
                                 rng.PRNGKey(0), obs_dtype=torch.bfloat16,
                                 batch_size=BATCH, in_kernel_td=in_kernel_td)
@@ -1291,15 +1318,16 @@ def main() -> None:
         p0 = [p.detach().clone() for p in carry[3].params.flat()]
         tag = f"net {hidden}" + (" in_kernel_td" if in_kernel_td else "")
         carry, losses, tick_s, seconds, ticks, n, rewards, eps = run_ticks(
-            tag, tick, carry)
+            tag, None, carry, chunk)
         launches = (n["full_tick_ring"], n["td_adam"])
         if launches[0] != ticks:
             fail(f"{tag}: {launches[0]} tick kernel launches in {ticks} "
                  "ticks")
         if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
             fail(f"{tag}: the params did not move")
-        log(f"main path {tag}: {ticks} ticks, launches {launches}, "
-            f"loss {float(losses[-1]):.5f}, eps {float(eps):.4f}, "
+        log(f"main path {tag}: {ticks} ticks as chunks ({chunk.graphs} "
+            f"graphs captured in {chunk.capture_s:.2f} s), launches "
+            f"{launches}, loss {float(losses[-1]):.5f}, eps {float(eps):.4f}, "
             f"obs/s {NUM_ENVS / tick_s:.1f} (median of {REPEATS} x "
             f"{TICKS_PER_REPEAT} ticks; tick {1e3 * tick_s:.4f} ms; "
             f"repeats {[round(s, 4) for s in seconds]} s) on {card}")
@@ -1807,6 +1835,9 @@ def main() -> None:
     # --- 8. the bench program and its companions ----------------------------
     bench_program(here, runs, device_kind, card, obs_per_s,
                   kernels + learners)
+
+    # --- 9. the graphed ring chunk against the eager tick --------------------
+    graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs)
     shutil.rmtree(runs, ignore_errors=True)
 
     print(json.dumps({"kernels": kernels + learners + stream + sharded}),
@@ -1815,6 +1846,123 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
+                  device=None):
+    """Phase 9: the ring engine's chunk on the card (one CUDA graph replay
+    a tick) against the eager tick, for both nets on the default path and
+    on ``in_kernel_td`` at the bench configuration: CHUNK_9 chunks of
+    CHUNK_9_TICKS ticks with a train state saved and restored between
+    them, graphed and eager from the same carry, every carry tensor and
+    output bitwise; B1 (and B2) counted once a graphed tick. Then
+    CHUNK_9_TRACE ticks of each way under ``torch.profiler`` for the
+    device's busy share."""
+    from dronerl_tpu_torch import rng
+    from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
+    from dronerl_tpu_torch.env.types import EnvParams
+    from dronerl_tpu_torch.interop import train_state_io
+    from dronerl_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    params = EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
+    state_path = os.path.join(runs, "chunk9.safetensors")
+    os.makedirs(runs, exist_ok=True)
+    device = device or torch.device("cuda", 0)
+    ticks = CHUNK_9 * CHUNK_9_TICKS
+    for hidden in NETS:
+        for td in (False, True):
+            tag = f"9 net {hidden}" + (" in_kernel_td" if td else "")
+            agent = DQN(DQNConfig(hidden_layers=hidden,
+                                  epsilon_decay_every=5,
+                                  target_update_interval=10, gamma=0.9),
+                        params, device=device)
+
+            def fresh(seed):
+                return train.init_ring_carry(
+                    agent, params, NUM_ENVS, CAPACITY, rng.PRNGKey(seed),
+                    obs_dtype=torch.bfloat16, batch_size=BATCH,
+                    in_kernel_td=td)
+
+            chunk = train.build_chunk_ring(agent, params, NUM_ENVS,
+                                           CAPACITY, BATCH, RESET_EVERY,
+                                           in_kernel_td=td)
+
+            def eager_chunk(carry, n):
+                outs = []
+                for _ in range(n):
+                    carry, out = chunk.tick(carry)
+                    outs.append(out)
+                return carry, tuple(torch.stack(o) for o in zip(*outs))
+
+            carry = fresh(0)
+            runs_out, stats = {}, {}
+            for way, run in (("graphed", chunk), ("eager", eager_chunk)):
+                c = copy.deepcopy(carry) if way == "graphed" else carry
+                torch.cuda.synchronize()
+                zero_counts()
+                outs, host_s, wall_s = [], 0.0, 0.0
+                for i in range(CHUNK_9):
+                    # The captures (in the first chunk) are set-up: out of
+                    # the times, reported apart.
+                    t0, c0 = time.perf_counter(), chunk.capture_s
+                    c, out = run(c, CHUNK_9_TICKS)
+                    captures = chunk.capture_s - c0 if way == "graphed" else 0
+                    host_s += time.perf_counter() - t0 - captures
+                    torch.cuda.synchronize()
+                    wall_s += time.perf_counter() - t0 - captures
+                    outs.append(out)
+                    if i + 1 < CHUNK_9:
+                        train_state_io.save(state_path, c)
+                        c = train_state_io.restore(state_path, fresh(1))
+                n = counts()
+                expect = {k: 0 for k in n}
+                expect.update(full_tick_ring=ticks,
+                              td_adam=ticks if td else 0)
+                if n != expect:
+                    fail(f"{tag}: {way} launches {n}, want {expect}")
+                runs_out[way] = (c, tuple(torch.cat(o) for o in zip(*outs)))
+                stats[way] = {"obs_per_s": NUM_ENVS * ticks / wall_s,
+                              "host_ms": 1e3 * host_s / ticks,
+                              "tick_ms": 1e3 * wall_s / ticks}
+            (cg, og), (ce, oe) = runs_out["graphed"], runs_out["eager"]
+            got, want = (train_state_io.leaves(x) for x in (cg, ce))
+            if got[1] != want[1] or set(got[0]) != set(want[0]):
+                fail(f"{tag}: the carries' numbers or paths differ: "
+                     f"{got[1]} vs {want[1]}")
+            differ = [p for p, t in want[0].items()
+                      if not torch.equal(got[0][p], t)]
+            differ += [name for name, a, b in zip(
+                ("rewards", "epsilon", "loss"), og, oe)
+                if not torch.equal(a, b)]
+            if differ:
+                fail(f"{tag}: graphed and eager differ in {differ[:12]}")
+            if not bool(torch.isfinite(og[2]).all()) or float(
+                    og[1][-1]) >= 1.0:
+                fail(f"{tag}: a loss is not finite or epsilon did not decay")
+            for way, run, c in (("graphed", chunk, cg), ("eager", eager_chunk,
+                                                         ce)):
+                c, prof = profiling.profiled_ticks(
+                    lambda x: run(x, CHUNK_9_TRACE), c, 1, device)
+                kernels = profiling.device_kernels(prof, CHUNK_9_TRACE)
+                device_ms = sum(k[1] for k in kernels)
+                stats[way].update(
+                    device_ms=device_ms,
+                    busy=device_ms / stats[way]["tick_ms"])
+            g, e = stats["graphed"], stats["eager"]
+            log(f"{tag}: {CHUNK_9} x {CHUNK_9_TICKS} ticks with a train "
+                f"state saved and restored between, graphed == eager "
+                f"bitwise ({len(want[0])} carry tensors, {want[1]}; "
+                f"rewards, epsilon, loss); launches {expect} each way; "
+                f"{chunk.graphs} graphs captured in {chunk.capture_s:.3f} "
+                f"s; graphed {g['obs_per_s']:.1f} obs/s, host "
+                f"{g['host_ms']:.4f} ms a tick, tick {g['tick_ms']:.4f} ms, "
+                f"device {g['device_ms']:.4f} ms, busy {g['busy']:.4f}; "
+                f"eager {e['obs_per_s']:.1f} obs/s, host {e['host_ms']:.4f} "
+                f"ms, tick {e['tick_ms']:.4f} ms, device "
+                f"{e['device_ms']:.4f} ms, busy {e['busy']:.4f}; phase 4's "
+                f"default path {obs_per_s[hidden]:.1f} obs/s; on {card}")
+    log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 def lifecycle(torch, train, zero_counts, counts, card, obs_per_s, runs):
@@ -2374,7 +2522,8 @@ def bench_program(here, runs, device_kind, card, obs_per_s, entries):
                 f"{m['repeats']} x {m['steps_per_repeat']} ticks; q1-q3 "
                 f"{m['q1_s']:.4f}-{m['q3_s']:.4f} s) vs phase 4's "
                 f"default path {obs_per_s[hidden]:.1f}; launches "
-                f"{m['launches']}; build {m['build_s']} s, warm-up "
+                f"{m['launches']}; {m['graphs']} graphs captured in "
+                f"{m['capture_s']:.3f} s; build {m['build_s']} s, warm-up "
                 f"{m['warmup_s']:.2f} s, peak {m['peak_mem_bytes']} B; "
                 f"traced: busy {split['device_busy_share']:.4f}, device ms "
                 f"a tick {split['device_ms']:.4f}, launches a tick "

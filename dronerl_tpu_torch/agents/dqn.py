@@ -33,10 +33,20 @@ from dronerl_tpu_torch import resolve_device, rng
 from dronerl_tpu_torch.constants import NUM_ACTIONS
 from dronerl_tpu_torch.env.types import EnvParams
 from dronerl_tpu_torch.ops import conv2mat
+from dronerl_tpu_torch.utils.graphs import upload
 
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
+
+
+def adam_bias_corrections(count: int) -> Tuple[float, float]:
+    """optax's bias corrections ``1 - b ** count`` of the Adam step that
+    makes the count ``count``, in f32 as optax computes them (numpy f32 on
+    the host, so the values are the same wherever they are used)."""
+    b1, b2 = np.float32(ADAM_B1), np.float32(ADAM_B2)
+    return (float(np.float32(1.0) - b1 ** np.float32(count)),
+            float(np.float32(1.0) - b2 ** np.float32(count)))
 
 
 def all_reduce_mean(tensors: List[torch.Tensor],
@@ -445,15 +455,18 @@ class DQN:
 
     def train_step(
         self, state: DQNState, batch: Dict[str, torch.Tensor], group=None,
+        corrections=None,
     ) -> Tuple[DQNState, torch.Tensor]:
         """TD(0) MSE step with Adam on a row-major batch: obs / next_obs (B,
         obs_dim); actions, rewards and dones (B,). Updates the online
         parameters and the moments in place and returns ``(state,
-        loss)``; ``group`` as :meth:`train_step_t`."""
-        return self._td_step(state, batch, self.q_values, 1, group)
+        loss)``; ``group`` and ``corrections`` as :meth:`train_step_t`."""
+        return self._td_step(state, batch, self.q_values, 1, group,
+                             corrections)
 
     def train_step_t(
         self, state: DQNState, batch: Dict[str, torch.Tensor], group=None,
+        corrections=None,
     ) -> Tuple[DQNState, torch.Tensor]:
         """TD(0) MSE step with Adam on a feature-major batch.
 
@@ -463,12 +476,17 @@ class DQN:
         ``group`` (the JAX package's ``axis_name``) the gradients and the
         loss are averaged over its ranks before the (replicated) update:
         one all-reduce of one buffer (:func:`all_reduce_mean`).
+        ``corrections``: this step's Adam bias corrections as two 0-d f32
+        tensors on the state's device (:func:`adam_bias_corrections` of
+        the count after the step; a CUDA graph's step reads them from a
+        buffer the host fills), else made from the count here.
         """
-        return self._td_step(state, batch, self.q_values_t, 0, group)
+        return self._td_step(state, batch, self.q_values_t, 0, group,
+                             corrections)
 
     def _td_step(self, state: DQNState, batch: Dict[str, torch.Tensor],
-                 q_values, axis: int,
-                 group=None) -> Tuple[DQNState, torch.Tensor]:
+                 q_values, axis: int, group=None,
+                 corrections=None) -> Tuple[DQNState, torch.Tensor]:
         """The TD(0) step on Q-values ``q_values(params, obs)`` whose action
         axis is ``axis``."""
         cfg = self.config
@@ -490,9 +508,10 @@ class DQN:
 
         adam = state.opt_state
         count = adam.count + 1
-        b1, b2 = np.float32(ADAM_B1), np.float32(ADAM_B2)
-        bc1 = float(np.float32(1.0) - b1 ** np.float32(count))
-        bc2 = float(np.float32(1.0) - b2 ** np.float32(count))
+        if corrections is None:
+            corrections = upload(adam_bias_corrections(count), torch.float32,
+                                 loss.device)
+        bc1, bc2 = corrections[0], corrections[1]
         # optax's formulas, one op at a time over every leaf at once (a
         # foreach op is one launch for all leaves).
         with torch.no_grad():
@@ -518,6 +537,14 @@ class DQN:
             return done
         return step % self.config.epsilon_decay_every == 0
 
+    def schedule_flags(self, step: int) -> Tuple[bool, Optional[bool]]:
+        """The host flags of ``step``'s schedules: ``(target sync, ε
+        decay)``, the decay None where it follows the episode's done (no
+        ``epsilon_decay_every``)."""
+        every = self.config.epsilon_decay_every
+        return (step % self.config.target_update_interval == 0,
+                None if every is None else step % every == 0)
+
     def update_target(self, state: DQNState) -> DQNState:
         """``tau·params + (1-tau)·target`` into the target net, in place
         (optax's ``incremental_update``; a hard copy at ``tau`` = 1)."""
@@ -538,13 +565,17 @@ class DQN:
         state.epsilon = self.decayed_epsilon(state)
         return state
 
-    def apply_schedules(self, state: DQNState, step: int,
-                        done: torch.Tensor) -> DQNState:
+    def apply_schedules(self, state: DQNState, step: Optional[int],
+                        done: torch.Tensor, flags=None) -> DQNState:
         """Target sync every ``target_update_interval`` steps (EMA with
-        ``tau``, a hard copy at 1.0) and the ε decay, in place."""
-        if step % self.config.target_update_interval == 0:
+        ``tau``, a hard copy at 1.0) and the ε decay, in place; ``flags``
+        (:meth:`schedule_flags`) in place of ``step``'s."""
+        sync, do_e = flags if flags is not None else self.schedule_flags(
+            step)
+        if sync:
             self.update_target(state)
-        do_e = self.should_decay_epsilon(step, done)
+        if do_e is None:
+            do_e = done
         if isinstance(do_e, torch.Tensor):
             state.epsilon = torch.where(do_e, self.decayed_epsilon(state),
                                         state.epsilon)

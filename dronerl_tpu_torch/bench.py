@@ -5,38 +5,48 @@ The workload is ``bench.py``'s (``:98-126``): grid 9, 4 drones, window
 radius 3, the dense (16,16) and (128,64) nets, ε decay every 5 ticks,
 target sync every 10, γ 0.9, 65,536 envs, replay batch 8, a reset every
 100 ticks and a bf16 ring of ``max(ceil(100000 / E) · E, 2 E)`` columns.
-Each metric times the ring engine's tick (``train.build_train_step_ring``
-/ ``init_ring_carry``): the tick kernel (B1) once a tick and, on the
-``_in_kernel_td`` metrics, the learner kernel (B2) after it. obs/s =
-num_envs × ticks / wall time, the metric of ``bench.py``.
+Each metric times the ring engine's chunk (``train.build_chunk_ring`` /
+``init_ring_carry``), the program ``bench.py`` times (``jax.jit(lax.scan(
+tick))``): on the card one CUDA graph replay a tick, which runs the tick
+kernel (B1) and, on the ``_in_kernel_td`` metrics, the learner kernel
+(B2) after it. obs/s = num_envs × ticks / wall time, the metric of
+``bench.py``.
 
 The protocol is ``scripts/_timing.py``'s: the kernels are built in one
 nvcc wave and loaded before any timing (``build_s``, where ``bench.py``
 reports ``compile_s``); ``WARMUP_CALLS`` runs of ``TIMED_STEPS`` ticks
-(``warmup_s``); then each repeat chains ``CALLS_PER_REPEAT`` runs through
-the carry and ends with a synchronise and a scalar readback, and the
-median over repeats is the value. Tracing is off while it times.
+(``warmup_s``, which holds the CUDA graphs' captures: ``graphs``
+signatures in ``capture_s``); then each repeat chains ``CALLS_PER_REPEAT``
+runs through the carry and ends with a synchronise and a scalar readback,
+and the median over repeats is the value. Tracing is off while it
+times.
 
-``correct`` is decided here. (a) Before timing, ``CHECK_TICKS`` ticks of
-each program (tick 0 resets, later ticks train) hold every launch of B1
+``correct`` is decided here. (a) Before timing, ``CHECK_TICKS`` eager
+ticks of each program (tick 0 resets, later ticks train) hold every
+launch of B1
 against its plain version on the same inputs (``full_tick_ring_plain``):
 env state, rewards, dones and the ring bitwise but the charge channel
 (within ``CHARGE_ATOL``), actions equal outside near ties of the plain
 Q-values; on ``in_kernel_td`` the learner's loss and params against the
 autograd learner (``DQN.train_step_t``) on the same batch and state,
-within rtol 1e-5, atol 1e-6 outside cancellations. (b) After timing: the
+within rtol 1e-5, atol 1e-6 outside cancellations. (a') From one carry,
+``max(CHECK_TICKS, 2 nb)`` ticks of the chunk (graphed on the card)
+against as many eager ticks: every carry tensor and every output
+bitwise, the learner included, as both run the same kernels in the same
+order. (b) After timing: the
 step counter equals the ticks run, B1 launched once a timed tick (and
 B2 on ``in_kernel_td``; no launch on the CPU, where the wrappers run the
 plain versions), every loss finite and >= 0 on the ticks that train, ε
 decayed and the params moved. A failed check prints the line with
 ``correct: false`` and exits 1.
 
-``per_layer`` comes from a separate run of ``TRACE_TICKS`` ticks a
-metric: the host ms a tick by phase (``utils/profiling.tick_phases``),
-then the same ticks under ``torch.profiler``: the device's busy share of
-the untraced tick, device ms a tick by kernel (B1, B2, the autograd
-learner's kernels, the gather's) and launches a tick. On the CPU every
-device field is null: not measured.
+``per_layer`` comes from a separate chunk of ``TRACE_TICKS`` ticks a
+metric: the host ms a tick (the table at the chunk's entry, then a copy
+and a graph replay a tick, before the host waits for the card), then the
+same chunk under ``torch.profiler``: the device's busy share of the
+untraced tick, device ms a tick by kernel (B1, B2, the rest) and
+launches a tick. On the CPU every device field is null: not measured.
+The eager tick's split by phase is ``scripts/torch_tick_profile.py``'s.
 
 Environment variables, as ``bench.py``'s: ``DRONERL_BENCH_ENVS``,
 ``_STEPS``, ``_CALLS``, ``_REPEATS`` (the (16,16) metrics),
@@ -67,6 +77,7 @@ from dronerl_tpu_torch.agents.dqn import AdamState, DQN, DQNConfig, DQNState
 from dronerl_tpu_torch.benchmark import device_line
 from dronerl_tpu_torch.constants import NO_TRAIN_LOSS, NUM_ACTIONS
 from dronerl_tpu_torch.env.types import EnvParams
+from dronerl_tpu_torch.interop import train_state_io
 from dronerl_tpu_torch.ops import _build, fused_tick, learner_kernel
 from dronerl_tpu_torch.ops.fused_tick import full_tick_ring_plain
 from dronerl_tpu_torch.utils import profiling
@@ -135,7 +146,8 @@ def metric_name(net: str, num_envs: int, in_kernel_td: bool) -> str:
 
 
 class Program(NamedTuple):
-    """A ring-engine program: its tick, ``run`` (``steps`` ticks, the
+    """A ring-engine program: its chunk (``train.RingChunk``), its eager
+    tick (``chunk.tick``), ``run`` (``steps`` ticks, one chunk: the
     counterpart of ``jax.lax.scan`` over the tick) and ``make_carry``."""
 
     agent: DQN
@@ -146,6 +158,7 @@ class Program(NamedTuple):
     collect_drones: int
     in_kernel_td: bool
     steps: int
+    chunk: Callable
     tick: Callable
     run: Callable
     make_carry: Callable
@@ -155,11 +168,11 @@ def ring_program(agent: DQN, env_params: EnvParams, num_envs: int, *,
                  batch_size: int = BATCH_SIZE, collect_drones: int = 1,
                  in_kernel_td: bool = False, seed: int = 0,
                  steps: int = TIMED_STEPS) -> Program:
-    """The ring engine's tick for ``agent`` with a bf16 ring of
+    """The ring engine's chunk for ``agent`` with a bf16 ring of
     :func:`capacity` columns (each ``collect_drones`` transitions), envs
     and nets drawn from ``seed``."""
     cap = capacity(num_envs)
-    tick = train.build_train_step_ring(
+    chunk = train.build_chunk_ring(
         agent, env_params, num_envs, cap, batch_size, RESET_EVERY,
         collect_drones, in_kernel_td=in_kernel_td)
 
@@ -171,17 +184,12 @@ def ring_program(agent: DQN, env_params: EnvParams, num_envs: int, *,
 
     def run(carry):
         """``steps`` ticks: ``(carry, (rewards (steps, E), epsilon
-        (steps,), loss (steps,)))``, stacked at the end as the scan
-        materialises them."""
-        outs = []
-        for _ in range(steps):
-            carry, out = tick(carry)
-            outs.append(out)
-        return carry, tuple(torch.stack(x) for x in zip(*outs))
+        (steps,), loss (steps,)))``."""
+        return chunk(carry, steps)
 
     return Program(agent, env_params, num_envs, cap, batch_size,
-                   collect_drones, bool(in_kernel_td), steps, tick, run,
-                   make_carry)
+                   collect_drones, bool(in_kernel_td), steps, chunk,
+                   chunk.tick, run, make_carry)
 
 
 def build(net: str, num_envs: int, *, in_kernel_td: bool = False,
@@ -423,7 +431,7 @@ def check_against_plain(prog: Program, ticks: int = CHECK_TICKS) -> dict:
         if td.get("td_hparams") is not None and td["td_aux"][4]:
             net, target, mu, nu, _, count = td["td_aux"]
             ref = DQNState(copy.deepcopy(net), copy.deepcopy(target),
-                           AdamState(count, [m.clone() for m in mu],
+                           AdamState(int(count), [m.clone() for m in mu],
                                      [v.clone() for v in nu]),
                            epsilon.clone())
             batch = {k: v.clone() for k, v in td["td_batch"].items()}
@@ -468,14 +476,42 @@ def check_against_plain(prog: Program, ticks: int = CHECK_TICKS) -> dict:
     return stats
 
 
+def check_lockstep(prog: Program, ticks: Optional[int] = None) -> dict:
+    """Correctness (a'): ``ticks`` (at least ``CHECK_TICKS`` and two
+    passes of the ring) ticks of a chunk of ``prog``'s (graphed on the
+    card; a chunk of its own, so that the timed chunk adopts the timed
+    carry) against as many eager ticks from the same carry: every carry
+    tensor, the carry's numbers and every output bitwise. Returns the
+    tallies and ``problems``."""
+    nb = prog.capacity // prog.num_envs
+    ticks = ticks or max(CHECK_TICKS, 2 * nb)
+    chunk = train.RingChunk(prog.tick)
+    carry = prog.make_carry()
+    eager = copy.deepcopy(carry)
+    carry, outs = chunk(carry, ticks)
+    ref = []
+    for _ in range(ticks):
+        eager, out = prog.tick(eager)
+        ref.append(out)
+    got, want = (train_state_io.leaves(c) for c in (carry, eager))
+    problems = []
+    if got[1] != want[1]:
+        problems.append(f"lockstep: the carry's numbers {got[1]} != the "
+                        f"eager ticks' {want[1]}")
+    for path, t in want[0].items():
+        if path not in got[0] or not torch.equal(got[0][path], t):
+            problems.append(f"lockstep: carry tensor {path} differs")
+    for i, name in enumerate(("rewards", "epsilon", "loss")):
+        if not torch.equal(outs[i], torch.stack([o[i] for o in ref])):
+            problems.append(f"lockstep: the {name} differ")
+    return {"ticks": ticks, "graphs": chunk.graphs,
+            "tensors": len(want[0]), "problems": problems}
+
+
 def trains(prog: Program, step: int) -> bool:
-    """Whether the tick at ``step`` takes a learner step (the rule of
-    ``train.build_train_step_ring``; on ``in_kernel_td`` on the batch of
-    the tick before)."""
-    k, nb = prog.collect_drones, prog.capacity // prog.num_envs
-    if prog.in_kernel_td:
-        return min(step, nb - 1) * prog.num_envs >= prog.batch_size // k
-    return min(step + 1, nb - 1) * prog.num_envs >= prog.batch_size // k
+    """Whether the tick at ``step`` takes a learner step (its signature's;
+    on ``in_kernel_td`` on the batch of the tick before)."""
+    return prog.tick.signature(step).trains
 
 
 def check_timed(prog: Program, carry, first_step: int, ticks: int, aux,
@@ -520,37 +556,35 @@ def check_timed(prog: Program, carry, first_step: int, ticks: int, aux,
 # --- the traced per-layer run ---------------------------------------------------
 
 def per_layer(prog: Program, carry, tick_ms: float, device: torch.device):
-    """The traced split of ``TRACE_TICKS`` ticks: host ms a tick by
-    phase, then device time by kernel and phase under ``torch.profiler``
-    (null on the CPU). Returns ``(carry, split)``."""
-    phases = profiling.tick_phases("ring")
-    carry, host_ms, phase_tick_ms = profiling.host_split(
-        prog.tick, carry, TRACE_TICKS, phases, device)
+    """The traced split of a chunk of ``TRACE_TICKS`` ticks: the host ms a
+    tick (up to the last replay's launch, before the host waits), then
+    device time by kernel under ``torch.profiler`` (null on the CPU).
+    Returns ``(carry, split)``."""
     t0 = time.perf_counter()
-    carry, prof = profiling.profiled_ticks(prog.tick, carry, TRACE_TICKS,
-                                           device, phases)
+    carry, (rewards, *_aux) = prog.chunk(carry, TRACE_TICKS)
+    host_ms = (time.perf_counter() - t0) / TRACE_TICKS * 1e3
+    profiling.synchronize(device)
+    chunk_tick_ms = (time.perf_counter() - t0) / TRACE_TICKS * 1e3
+    t0 = time.perf_counter()
+    carry, prof = profiling.profiled_ticks(
+        lambda c: prog.chunk(c, TRACE_TICKS), carry, 1, device)
     profiled_tick_ms = (time.perf_counter() - t0) / TRACE_TICKS * 1e3
     split = {"ticks": TRACE_TICKS, "tick_ms": tick_ms,
-             "phase_timed_tick_ms": phase_tick_ms,
+             "host_ms_per_tick": host_ms, "chunk_tick_ms": chunk_tick_ms,
              "profiled_tick_ms": profiled_tick_ms,
-             "host_ms_by_phase": host_ms, "device_busy_share": None,
-             "device_ms": None, "device_ms_by_kernel": None,
-             "launches_per_tick": None, "top_device_kernels": None}
+             "device_busy_share": None, "device_ms": None,
+             "device_ms_by_kernel": None, "launches_per_tick": None,
+             "top_device_kernels": None}
     if device.type != "cuda":
         return carry, split
     kernels = profiling.device_kernels(prof, TRACE_TICKS)
-    by_phase = profiling.phase_device_ms(prof, TRACE_TICKS)
     device_ms = sum(k[1] for k in kernels)
 
     def named(part):
         return sum(ms for name, ms, _ in kernels if part in name)
 
     by_kernel = {"full_tick_ring": named("full_tick_kernel"),
-                 "td_adam": named("td_adam_kernel"),
-                 "learner_aten": by_phase.get("learner", 0.0),
-                 "gather": by_phase.get("gather", 0.0),
-                 "scalar_writes": by_phase.get("scalar_writes", 0.0),
-                 "schedules": by_phase.get("schedules", 0.0)}
+                 "td_adam": named("td_adam_kernel")}
     by_kernel["other"] = device_ms - sum(by_kernel.values())
     split.update(
         device_busy_share=device_ms / tick_ms, device_ms=device_ms,
@@ -572,7 +606,9 @@ def measure(name: str, prog: Program, settings: Settings, repeats: int,
     _stage(f"[{name}] checking {CHECK_TICKS} ticks against the plain "
            "versions")
     plain = check_against_plain(prog)
-    if on_card:  # the timed run's peak: its carry and its ticks
+    _stage(f"[{name}] the chunk against the eager tick in lockstep")
+    lockstep = check_lockstep(prog)
+    if on_card:  # the timed run's peak: its carry, graphs and ticks
         torch.cuda.reset_peak_memory_stats(device)
     carry = prog.make_carry()
     if on_card:
@@ -600,15 +636,21 @@ def measure(name: str, prog: Program, settings: Settings, repeats: int,
     q1, q3 = quartiles(timing.repeat_s)
     steps_per_repeat = settings.calls * prog.steps
     value = prog.num_envs * steps_per_repeat / timing.median_s
-    ok = not plain["problems"] and not timed["problems"]
-    _stage(f"[{name}] {value:.1f} obs/s, correct {ok}")
+    ok = not (plain["problems"] or lockstep["problems"]
+              or timed["problems"])
+    _stage(f"[{name}] {value:.1f} obs/s, correct {ok}, {prog.chunk.graphs} "
+           f"graphs; device memory now "
+           f"{torch.cuda.memory_allocated(device) if on_card else None} B, "
+           f"peak {peak} B")
     return {
         "metric": name, "value": value, "unit": "obs/s",
         "repeat_s": timing.repeat_s, "median_s": timing.median_s,
         "q1_s": q1, "q3_s": q3, "repeats": repeats,
         "steps_per_repeat": steps_per_repeat, "build_s": build_s,
+        "graphs": prog.chunk.graphs, "capture_s": prog.chunk.capture_s,
         "warmup_s": warmup_s, "peak_mem_bytes": peak, "launches": launches,
-        "_correct": ok, "_checks": {"plain": plain, "timed": timed},
+        "_correct": ok,
+        "_checks": {"plain": plain, "lockstep": lockstep, "timed": timed},
         "_clocks": {"before": clocks_before, "after": clocks(device)},
         "_per_layer": split,
     }
@@ -646,11 +688,15 @@ def main(argv=None) -> int:
                 for net, td in variants]
     build_s, build_wall = build_kernels(programs, device)
     _stage(f"kernels built or loaded: {build_wall} s")
-    results = [measure(metric_name(net, settings.num_envs, td), prog,
-                       settings, settings.repeats if net == "dense16"
-                       else settings.repeats_big, device, build_s[i],
-                       not args.no_trace)
-               for i, (prog, (net, td)) in enumerate(zip(programs, variants))]
+    results = []
+    for i, (net, td) in enumerate(variants):
+        results.append(measure(
+            metric_name(net, settings.num_envs, td), programs[i], settings,
+            settings.repeats if net == "dense16" else settings.repeats_big,
+            device, build_s[i], not args.no_trace))
+        # Its chunk's carry, graphs and buffers go before the next metric,
+        # whose peak memory is its own.
+        programs[i] = None
     correct = all(r["_correct"] for r in results)
     line = {k: v for k, v in results[0].items() if not k.startswith("_")}
     line["extra_metrics"] = [

@@ -69,6 +69,14 @@ def _flatten(node, prefix: str, tensors: Dict[str, torch.Tensor],
                         "cannot be saved")
 
 
+def leaves(carry: Any) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """``carry``'s tensors and Python numbers, each by its path in the
+    carry (``3.opt_state.mu.0``), as :func:`save` writes them."""
+    tensors, numbers = {}, {}
+    _flatten(carry, "", tensors, numbers)
+    return tensors, numbers
+
+
 def _shard_metadata(shard: Optional[Tuple[int, int]]) -> Dict[str, str]:
     if shard is None:
         return {}
@@ -80,8 +88,7 @@ def save(path: str, carry: Any,
          shard: Optional[Tuple[int, int]] = None) -> None:
     """Write ``carry`` (any trainer's) to ``path``; a sharded run's rank
     passes ``shard = (rank, world_size)``."""
-    tensors, numbers = {}, {}
-    _flatten(carry, "", tensors, numbers)
+    tensors, numbers = leaves(carry)
     safetensors_io.write(path, tensors, {
         "format": FORMAT, "version": VERSION,
         "numbers": json.dumps(numbers, sort_keys=True),

@@ -130,6 +130,7 @@ struct TickArgs {
   const int8_t* carry_in;
   const float* charge_in;
   const float* eps;
+  const uint32_t* key;  // the step key's two words, in device memory
   int8_t* ground_out;
   int32_t* ax_out;
   int32_t* ay_out;
@@ -147,8 +148,6 @@ struct TickArgs {
   long long write_col;
   int num_envs;
   int obs_bf16;
-  uint32_t key0;
-  uint32_t key1;
   int do_reset;
   float pickup_reward;
   float delivery_reward;
@@ -667,7 +666,7 @@ __global__ void __launch_bounds__(BLOCK, Layout<T>::MIN_BLOCKS)
   const int E = a.num_envs;
   const int e0 = blockIdx.x * EB;
   const int ne = cmini(EB, E - e0);
-  const Key step_key{a.key0, a.key1};
+  const Key step_key{__ldg(a.key), __ldg(a.key + 1)};
 
   // --- stage the env state (in flight while the keys are hashed) ----------
   Tile::template stage_rows<int8_t, EB>(s_board, a.ground_in, E, e0, C, ne);
@@ -866,7 +865,7 @@ int launch_t(const TickArgs* args, cudaStream_t s) {
 }
 
 int launch(const TickArgs* args, void* stream) {
-  if (args->num_envs <= 0) return (int)cudaErrorInvalidValue;
+  if (args->num_envs <= 0 || args->key == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return args->obs_bf16 ? launch_t<__nv_bfloat16>(args, s) : launch_t<float>(args, s);
 }

@@ -91,8 +91,10 @@
 // scripts/torch_learner_compare.py.
 //
 // The net widths are compile-time constants (-D, see ops/_build.py); the
-// batch size, the hyperparameters, the Adam count and the flags are launch
-// arguments from the host, as the TPU kernels take them by scalar prefetch.
+// batch size, the hyperparameters and the flags are launch arguments from
+// the host, as the TPU kernels take them by scalar prefetch; the Adam count
+// is read from device memory (a CUDA graph's replays of one launch take
+// each tick's count from a buffer the host fills before the chunk).
 
 #include <cooperative_groups.h>
 
@@ -215,8 +217,8 @@ struct LearnArgs {
   float* vb[MAX_LAYERS];
   float* loss;
   float* eps;
+  const int32_t* count;  // the Adam count before the step, in device memory
   int batch;
-  int count;
   int learn;
   int sync;
   int decay;
@@ -703,7 +705,7 @@ __global__ void __launch_bounds__(THREADS, 1) td_adam_kernel(const LearnArgs a, 
   cp_async_wait<0>();
   __syncthreads();
   if (a.learn || a.sync) {
-    const float cf = (float)(a.count + 1);
+    const float cf = (float)(__ldg(a.count) + 1);
     const float bc1 = 1.0f - expf(cf * logf(a.b1));
     const float bc2 = 1.0f - expf(cf * logf(a.b2));
     update<0>(a, c, a.learn && tiled, bc1, bc2);
@@ -775,7 +777,7 @@ cudaLaunchConfig_t launch_config(long long bytes, cudaStream_t stream,
 
 extern "C" int td_adam_launch(const dronerl_td::LearnArgs* args, void* stream) {
   using namespace dronerl_td;
-  if (args->batch < 1 || args->batch > MAX_BATCH || args->count < 0) {
+  if (args->batch < 1 || args->batch > MAX_BATCH || args->count == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   if (args->decay && args->eps == nullptr) return (int)cudaErrorInvalidValue;

@@ -60,6 +60,7 @@ from dronerl_tpu_torch.env import core
 from dronerl_tpu_torch.env.types import EnvParams, EnvState
 from dronerl_tpu_torch.ops import _build, conv2mat, learner_kernel
 from dronerl_tpu_torch.ops.learner_kernel import check_tensor
+from dronerl_tpu_torch.utils.graphs import upload
 
 # Limits of the CUDA kernel (csrc/full_tick.cu), as the JAX package's
 # fused_tick.supports() states them for the TPU kernel.
@@ -496,7 +497,7 @@ class _TickArgs(ctypes.Structure):
     """Mirror of ``TickArgs`` in csrc/full_tick.cu (field order matters)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "obs_in", "obs_out", *_STATE_FIELDS, "eps", *_OUT_FIELDS,
+        "obs_in", "obs_out", *_STATE_FIELDS, "eps", "key", *_OUT_FIELDS,
         "rewards", "dones", "actions", "scratch")] + [
         ("w", ctypes.c_void_p * MAX_LAYERS),
         ("b", ctypes.c_void_p * MAX_LAYERS),
@@ -506,8 +507,6 @@ class _TickArgs(ctypes.Structure):
         ("write_col", ctypes.c_longlong),
         ("num_envs", ctypes.c_int),
         ("obs_bf16", ctypes.c_int),
-        ("key0", ctypes.c_uint32),
-        ("key1", ctypes.c_uint32),
         ("do_reset", ctypes.c_int),
     ] + _REWARD_FIELDS
 
@@ -588,12 +587,12 @@ def prepare_kernel(params: EnvParams,
     return [_build.load(c) for c in configs]
 
 
-def _check_state(step_key, tstate: TState, params: EnvParams, widths=None,
+def _check_state(tstate: TState, params: EnvParams, widths=None,
                  collect: int = 1, rng_rounds: int = 20,
                  actor_rng_rounds: Optional[int] = None):
-    """Check a tick's key and state against the kernels' limits (with the
-    actor chain's ``widths``, against the tick kernel's), the drones
-    collected and the round counts; returns (device, num_envs)."""
+    """Check a tick's state against the kernels' limits (with the actor
+    chain's ``widths``, against the tick kernel's), the drones collected
+    and the round counts; returns (device, num_envs)."""
     device = tstate.ground.device
     num_envs = tstate.ground.shape[1]
     problems = kernel_problems(params, num_envs, widths) + tick_problems(
@@ -608,14 +607,37 @@ def _check_state(step_key, tstate: TState, params: EnvParams, widths=None,
                         ("carrying", tstate.carrying, torch.int8),
                         ("charge", tstate.charge, torch.float32)):
         check_tensor(t, name, dt, (params.n_drones, num_envs), device)
-    if step_key.device.type != "cpu" or tuple(step_key.shape) != (2,):
-        raise ValueError("step_key must be a host key of shape (2,)")
     return device, num_envs
 
 
-def _fill_env(a, step_key, tstate: TState, params: EnvParams):
-    """Outputs of the env side and the block's state, key and reward
-    fields. Returns ``(tstate', rewards, dones)``."""
+def _host_key_words(step_key) -> List[int]:
+    """A host key (2,) as its two uint32 words."""
+    if step_key.device.type != "cpu" or tuple(step_key.shape) != (2,):
+        raise ValueError("step_key must be a host key of shape (2,)")
+    return [int(v) & rng.MASK32 for v in step_key.tolist()]
+
+
+def key_words(step_key: torch.Tensor, device) -> torch.Tensor:
+    """``step_key`` (2,) as the int32 (2,) tensor on ``device`` whose two
+    words the full tick kernel reads through ``TickArgs.key``. A key on
+    ``device`` stays there: an int32 one is its own words, an int64 one
+    (``rng``'s keys) is narrowed by a device op, so a CUDA graph holds no
+    host value. A host key is copied over (an eager caller's)."""
+    device = torch.device(device)
+    if tuple(step_key.shape) != (2,):
+        raise ValueError("step_key must be a key of shape (2,)")
+    if step_key.device == device:
+        if step_key.dtype == torch.int32 and step_key.is_contiguous():
+            return step_key
+        return step_key.to(torch.int32)
+    words = [w - (1 << 32) if w >= 1 << 31 else w
+             for w in _host_key_words(step_key)]
+    return upload(words, torch.int32, device)
+
+
+def _fill_env(a, tstate: TState, params: EnvParams):
+    """Outputs of the env side and the block's state and reward fields.
+    Returns ``(tstate', rewards, dones)``."""
     device = tstate.ground.device
     n, num_envs = tstate.air_x.shape
     out = TState(*(torch.empty_like(t) for t in tstate))
@@ -627,7 +649,6 @@ def _fill_env(a, step_key, tstate: TState, params: EnvParams):
         setattr(a, name, t.data_ptr())
     a.rewards, a.dones = rewards.data_ptr(), dones.data_ptr()
     a.num_envs = num_envs
-    a.key0, a.key1 = (int(v) for v in step_key.tolist())
     a.pickup_reward = params.pickup_reward
     a.delivery_reward = params.delivery_reward
     a.crash_reward = params.crash_reward
@@ -649,8 +670,8 @@ def _tick_args(step_key, tstate: TState, obs_in, read_slot: int, obs_out,
     ``(args, (tstate', rewards, dones, actions))``."""
     obs_dim = obs_rows(params)
     widths = chain_widths(chain)
-    device, num_envs = _check_state(step_key, tstate, params, widths,
-                                    collect, rng_rounds, actor_rng_rounds)
+    device, num_envs = _check_state(tstate, params, widths, collect,
+                                    rng_rounds, actor_rng_rounds)
     if obs_in.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"obs dtype {obs_in.dtype} (float32 or bfloat16)")
     for name, obs, slot in (("obs_in", obs_in, read_slot),
@@ -670,7 +691,9 @@ def _tick_args(step_key, tstate: TState, obs_in, read_slot: int, obs_out,
     layout = tick_layout(params, widths, obs_in.dtype == torch.bfloat16)
 
     a = _TickArgs()
-    out, rewards, dones = _fill_env(a, step_key, tstate, params)
+    out, rewards, dones = _fill_env(a, tstate, params)
+    a.key_words = key_words(step_key, device)  # kept alive with the block
+    a.key = a.key_words.data_ptr()
     actions = torch.empty_like(tstate.air_x)
     a.obs_in, a.obs_out = obs_in.data_ptr(), obs_out.data_ptr()
     a.eps = epsilon.data_ptr()
@@ -726,12 +749,13 @@ def _env_tick_args(step_key, tstate: TState, actions_t, params: EnvParams,
                    collect: int = 1, rng_rounds: int = 20):
     """The env tick launch's (B4) argument block. Returns ``(args,
     (tstate', rewards, dones, obs_t' (collect · obs_dim, E)))``."""
-    device, num_envs = _check_state(step_key, tstate, params, None, collect,
+    device, num_envs = _check_state(tstate, params, None, collect,
                                     rng_rounds)
     check_tensor(actions_t, "actions_t", torch.int32,
                  (params.n_drones, num_envs), device)
     a = EnvArgs()
-    out, rewards, dones = _fill_env(a, step_key, tstate, params)
+    a.key0, a.key1 = _host_key_words(step_key)
+    out, rewards, dones = _fill_env(a, tstate, params)
     obs_next = torch.empty((collect * obs_rows(params), num_envs),
                            dtype=torch.float32, device=device)
     a.actions, a.obs_out = actions_t.data_ptr(), obs_next.data_ptr()
@@ -765,8 +789,9 @@ def full_tick_fused_ring(
 ):
     """One training tick's env side, writing the next obs into the ring.
 
-    ``step_key`` is a host key (2,); ``read_slot``/``write_slot`` are
-    ring columns; ``chain`` is the actor's matmul chain
+    ``step_key`` is a key (2,), on the host or on the ring's device
+    (:func:`key_words`: the kernel reads its words by pointer);
+    ``read_slot``/``write_slot`` are ring columns; ``chain`` is the actor's matmul chain
     (:func:`flatten_net_params`); ``do_reset`` is a host bool. The ring
     holds ``collect`` · obs_dim rows (the module docstring, as the round
     counts) and is written in place (only columns
@@ -778,7 +803,8 @@ def full_tick_fused_ring(
     B), actions / rewards / dones (B,)) with ``td_aux = (params,
     target_params, mu, nu, can_train, count)``, ``params`` the dense net
     whose parameters ``chain`` is, ``can_train`` a host bool and ``count``
-    the host Adam count. The return gains ``(params, mu, nu, loss)``:
+    the Adam count (a host int, or an int32 tensor on the device that the
+    learner kernel reads by pointer, ``learner_kernel.td_adam``). The return gains ``(params, mu, nu, loss)``:
     params and moments updated in place when ``can_train`` (the caller
     increments the count), untouched otherwise with loss -1. The actor
     reads the params as they were before the step, as the TPU kernel's
@@ -787,7 +813,9 @@ def full_tick_fused_ring(
     CUDA tensors launch the kernels (and count the launches in
     ``full_tick_fused_ring.launches`` and ``learner_kernel.td_adam.
     launches``); CPU tensors run the plain versions. There is no
-    fallback between the two.
+    fallback between the two. A call made while a CUDA graph captures
+    records its launches into the graph; whoever replays the graph adds
+    them to the counts (``train.build_chunk_ring``).
     """
     td = td_hparams is not None
     if td and (td_batch is None or td_aux is None):
@@ -821,6 +849,8 @@ def full_tick_fused_ring(
     return out + (net, mu, nu, loss)
 
 
+# Launches of B1: one a call on CUDA tensors, and one a replay of each
+# launch that a captured CUDA graph holds (added by the graph's owner).
 full_tick_fused_ring.launches = 0
 
 
@@ -906,18 +936,23 @@ def ring_gather_batch(sample_key, ring, a_ring, r_ring, d_ring, valid: int,
                       ) -> Dict[str, torch.Tensor]:
     """Uniform replay sample over ``valid`` columns from ``base_step``'s
     slot; next_obs is the column one env-batch later. The indices are
-    drawn on the host from ``sample_key`` (``jax.random.randint``): a
-    (batch_size,) draw for ``collect`` = 1; for k > 1 a (k, batch_size //
-    k) draw, row j's columns gathered from drone j's row group (``obs_dim``
-    rows) and scalar ring, the drones concatenated in order."""
+    drawn from ``sample_key`` (2,) (``jax.random.randint``) where the key
+    lies: a key on the ring's device draws there, so nothing crosses from
+    the host (the ring chunk's graphs); a host key (the eager tick's)
+    draws on the host and its indices are copied over, the draw's tensor
+    ops costing an eager tick more than the copy. A (batch_size,) draw
+    for ``collect`` = 1; for k > 1 a (k, batch_size // k) draw, row j's
+    columns gathered from drone j's row group (``obs_dim`` rows) and
+    scalar ring, the drones concatenated in order."""
     nb = capacity // num_envs
     base_slot = (base_step % nb) * num_envs
     k = collect
+    device = ring.device
     shape = (batch_size,) if k == 1 else (k, batch_size // k)
-    raw = rng.randint(sample_key, shape, 0, max(valid, 1))
+    raw = rng.randint(sample_key, shape, 0, max(valid, 1)).to(
+        device, non_blocking=True)
     phys = (base_slot + raw.to(torch.int64)) % capacity
-    nxt = (phys + num_envs) % capacity
-    idx = torch.stack([phys, nxt]).to(ring.device, non_blocking=True)
+    idx = torch.stack([phys, (phys + num_envs) % capacity])
     if k == 1:
         both = ring[:, idx.reshape(-1)].to(torch.float32)
         phys = idx[0]
@@ -931,9 +966,8 @@ def ring_gather_batch(sample_key, ring, a_ring, r_ring, d_ring, valid: int,
     # Column c of the batch is drone c // (batch_size // k)'s: its rows of
     # the ring are that drone's row group. One gather of (obs_dim, 2 B),
     # obs then next_obs, as for k = 1.
-    drone = torch.arange(k, device=ring.device).repeat_interleave(
-        batch_size // k)
-    rows = (torch.arange(obs_dim, device=ring.device)[:, None]
+    drone = torch.arange(batch_size, device=device) // (batch_size // k)
+    rows = (torch.arange(obs_dim, device=device)[:, None]
             + drone * obs_dim).repeat(1, 2)
     both = ring[rows, idx.reshape(1, -1)].to(torch.float32)
     phys = idx[0].reshape(-1)

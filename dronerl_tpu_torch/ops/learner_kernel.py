@@ -21,6 +21,10 @@ The update is in place: params, target, Adam moments and ε are the port's
 own tensors, written by the kernel (or by :func:`td_adam_plain` on the
 CPU), as the TPU kernels alias every state array in and out. The Adam
 count is the host ``int`` of ``AdamState.count``; the caller increments it.
+The kernel reads the count from device memory: :func:`td_adam` takes the
+int (copied over a launch) or an int32 tensor on the device (a CUDA
+graph's launch reads each replay's count from it, checked by
+:func:`check_count` where the host fills it).
 
 On CUDA tensors :func:`td_adam` launches the kernel (and counts the launch
 in ``td_adam.launches``); on CPU tensors it runs :func:`td_adam_plain`,
@@ -37,6 +41,7 @@ from dronerl_tpu_torch.agents.dqn import (
     ADAM_B1, ADAM_B2, ADAM_EPS, DenseQNet, DQNConfig, DQNState)
 from dronerl_tpu_torch.constants import NO_TRAIN_LOSS, NUM_ACTIONS
 from dronerl_tpu_torch.ops import _build
+from dronerl_tpu_torch.utils.graphs import upload
 
 # Limits and launch shape of the CUDA kernel (csrc/td_adam.cu).
 MAX_LAYERS = _build.MAX_LAYERS
@@ -317,17 +322,37 @@ class _LearnArgs(ctypes.Structure):
         ("dones", ctypes.c_void_p)] + [
         (name, ctypes.c_void_p * MAX_LAYERS)
         for name in ("w", "b", "tw", "tb", "mw", "mb", "vw", "vb")] + [
-        ("loss", ctypes.c_void_p), ("eps", ctypes.c_void_p)] + [
+        ("loss", ctypes.c_void_p), ("eps", ctypes.c_void_p),
+        ("count", ctypes.c_void_p)] + [
         (name, ctypes.c_int)
-        for name in ("batch", "count", "learn", "sync", "decay")] + [
+        for name in ("batch", "learn", "sync", "decay")] + [
         (name, ctypes.c_float)
         for name in ("gamma", "lr", "b1", "b2", "one_minus_b1",
                      "one_minus_b2", "adam_eps", "tau", "one_minus_tau",
                      "eps_decay", "eps_end", "inv_batch", "two_over_batch")]
 
 
+def check_count(count: int) -> int:
+    """``count`` if the kernel's int32 Adam count holds it (and the
+    increment after it), else ValueError."""
+    if not 0 <= count < 2**31 - 1:
+        raise ValueError(f"Adam count {count} out of int32")
+    return count
+
+
+def count_tensor(count, device) -> torch.Tensor:
+    """The Adam count as the int32 tensor the kernel reads: a host int
+    checked and copied to ``device``, or a tensor of one int32 on
+    ``device`` as it is (its values were checked where they were
+    written)."""
+    if isinstance(count, torch.Tensor):
+        check_tensor(count.reshape(()), "count", torch.int32, (), device)
+        return count
+    return upload([check_count(int(count))], torch.int32, device)
+
+
 def _learner_args(batch, params: DenseQNet, target: DenseQNet, mu, nu,
-                  count: int, *, learn: bool, sync_target: bool,
+                  count, *, learn: bool, sync_target: bool,
                   decay_eps: bool, epsilon, gamma: float, lr: float,
                   tau: float, eps_decay: float, eps_end: float, b1: float,
                   b2: float, adam_eps: float):
@@ -363,8 +388,7 @@ def _learner_args(batch, params: DenseQNet, target: DenseQNet, mu, nu,
         if epsilon is None:
             raise ValueError("decay_eps needs epsilon")
         check_tensor(epsilon, "epsilon", torch.float32, (), device)
-    if not 0 <= count < 2**31 - 1:
-        raise ValueError(f"Adam count {count} out of int32")
+    counts = count_tensor(count, device)
 
     loss = torch.empty((), dtype=torch.float32, device=device)
     a = _LearnArgs()
@@ -382,7 +406,8 @@ def _learner_args(batch, params: DenseQNet, target: DenseQNet, mu, nu,
             b_ptrs[i] = leaves[2 * i + 1].data_ptr()
     a.loss = loss.data_ptr()
     a.eps = epsilon.data_ptr() if decay_eps else None
-    a.batch, a.count = bsz, count
+    a.counts = counts  # kept alive with the block
+    a.batch, a.count = bsz, counts.data_ptr()
     a.learn, a.sync, a.decay = (int(bool(f)) for f in (learn, sync_target,
                                                        decay_eps))
     # Python floats reach the kernel rounded to f32, as the plain version's
@@ -418,7 +443,7 @@ def launch_shape(config, batch: int) -> Dict[str, int]:
                     (int(v) for v in out)))
 
 
-def td_adam(batch, params: DenseQNet, target: DenseQNet, mu, nu, count: int,
+def td_adam(batch, params: DenseQNet, target: DenseQNet, mu, nu, count,
             *, learn: bool, sync_target: bool, decay_eps: bool,
             epsilon: Optional[torch.Tensor], gamma: float, lr: float,
             tau: float = 1.0, eps_decay: float = 1.0, eps_end: float = 0.0,
@@ -426,13 +451,17 @@ def td_adam(batch, params: DenseQNet, target: DenseQNet, mu, nu, count: int,
             adam_eps: float = ADAM_EPS) -> torch.Tensor:
     """:func:`td_adam_plain`'s function: one kernel launch on CUDA tensors
     (counted in ``td_adam.launches``), the plain version on CPU tensors.
-    The launch goes on the current stream and does not synchronise; the
-    loss is a device tensor the kernel writes."""
+    ``count``: a host int, or an int32 tensor of one element on the
+    params' device (:func:`count_tensor`). The launch goes on the current
+    stream and does not synchronise; the loss is a device tensor the
+    kernel writes."""
     kw = dict(learn=learn, sync_target=sync_target, decay_eps=decay_eps,
               epsilon=epsilon, gamma=gamma, lr=lr, tau=tau,
               eps_decay=eps_decay, eps_end=eps_end, b1=b1, b2=b2,
               adam_eps=adam_eps)
     if not params.kernels[0].is_cuda:
+        if isinstance(count, torch.Tensor):
+            count = int(count)  # a host tensor: no device to wait for
         return td_adam_plain(batch, params, target, mu, nu, count, **kw)
     args, loss = _learner_args(batch, params, target, mu, nu, count, **kw)
     lib = _build.load(kernel_config(params))
@@ -445,6 +474,9 @@ def td_adam(batch, params: DenseQNet, target: DenseQNet, mu, nu, count: int,
     return loss
 
 
+# Launches of the learner kernel: one a call on CUDA tensors, and one a
+# replay of each launch that a captured CUDA graph holds (added by the
+# graph's owner, ``train.build_chunk_ring``).
 td_adam.launches = 0
 
 

@@ -88,19 +88,23 @@ def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
     return torch.tensor([0, seed & MASK32], dtype=torch.int64, device=device)
 
 
-# A single host key hashing few counters (the trainer's per-tick chain)
-# runs on Python ints: a tensor op per round costs far more than the hash.
+# Host keys hashing few counters in all (the trainer's per-tick chain, the
+# replay sample's draw) run on Python ints: a tensor op per round costs far
+# more than the hash.
 _HOST_COUNTS = 64
 
 
 def _hash_counts(key: torch.Tensor, n: int, rounds: int = 20):
     """Threefry words (b1, b2) of counters 0..n-1 under key (..., 2)."""
-    if key.device.type == "cpu" and key.dim() == 1 and n <= _HOST_COUNTS:
-        k1, k2 = (int(v) for v in key.tolist())
+    if key.device.type == "cpu" and key.numel() // 2 * n <= _HOST_COUNTS:
         check_rounds(rounds)
-        words = [_threefry(k1, k2, 0, i, rounds) for i in range(n)]
-        return (torch.tensor([w[0] for w in words], dtype=torch.int64),
-                torch.tensor([w[1] for w in words], dtype=torch.int64))
+        words = [_threefry(k1, k2, 0, i, rounds)
+                 for k1, k2 in key.reshape(-1, 2).tolist() for i in range(n)]
+        shape = (*key.shape[:-1], n)
+        return (torch.tensor([w[0] for w in words],
+                             dtype=torch.int64).reshape(shape),
+                torch.tensor([w[1] for w in words],
+                             dtype=torch.int64).reshape(shape))
     counts = torch.arange(n, dtype=torch.int64, device=key.device)
     return threefry2x32(key[..., 0:1], key[..., 1:2], 0, counts, rounds)
 
@@ -143,9 +147,9 @@ def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
     for v in (minval, maxval):
         if not -(1 << 31) <= v < (1 << 31):
             raise ValueError(f"bound {v} is outside the int32 range")
-    k = split(key, 2)
-    higher = random_bits(k[..., 0, :], shape)
-    lower = random_bits(k[..., 1, :], shape)
+    # Both halves' words in one hash over the two keys of split(key, 2).
+    bits = random_bits(split(key, 2), shape)
+    higher, lower = (bits.select(key.dim() - 1, i) for i in (0, 1))
     span = 1 if maxval <= minval else (maxval - minval) & MASK32
     multiplier = (1 << 16) % span
     multiplier = (multiplier * multiplier & MASK32) % span

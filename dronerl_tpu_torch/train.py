@@ -1,8 +1,8 @@
 """DQN training (counterpart of ``dronerl_tpu/train.py``): the ring engine,
 the two StreamReplay engines and the jnp engine.
 
-Ring engine (:func:`build_train_step_ring`). One tick: split the host
-key three ways; one launch of the fused tick kernel (the whole env side:
+Ring engine (:func:`build_train_step_ring`, and its chunk
+:class:`RingChunk`). One tick: split the host key three ways; one launch of the fused tick kernel (the whole env side:
 actor, physics, respawns, observation, the periodic reset, the write of
 the next observation into the replay ring); the scalar-ring writes; a
 uniform replay sample off the ring; the TD(0) Adam step; the target and
@@ -71,8 +71,13 @@ gradient all-reduce a trained tick).
 The step counter, the ring slot arithmetic, the reset flag, the count of
 valid columns, the replay's cursor and size and the rng chain stay on the
 host: they are a few scalar hashes a tick, and reading them back from the
-device every tick would serialise the loop. The key words reach the
-kernels as launch arguments.
+device every tick would serialise the loop. The ring engine's chunk
+(:class:`RingChunk`, the CLI's on one card) walks them for the whole chunk
+at its entry: the key words, the Adam count and the learner's bias
+corrections go to the device as one table, and on the card each tick is
+one replay of the CUDA graph of its static signature (the slot, the
+reset, the schedules, whether it trains), which reads its words from
+device memory. The other engines' ticks run eagerly.
 
 Run:  python -m dronerl_tpu_torch.train --num_envs 65536 --num_steps 300
 """
@@ -80,6 +85,7 @@ Run:  python -m dronerl_tpu_torch.train --num_envs 65536 --num_steps 300
 import argparse
 import ast
 import contextlib
+import copy
 import dataclasses
 import functools
 import json
@@ -90,23 +96,23 @@ import statistics
 import sys
 import time
 from datetime import datetime
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from dronerl_tpu_torch import replay, resolve_device, rng as rng_mod
 from dronerl_tpu_torch.agents.dqn import (
-    ADAM_B1, ADAM_B2, ADAM_EPS, DQN, DQNConfig)
+    ADAM_B1, ADAM_B2, ADAM_EPS, DQN, DQNConfig, adam_bias_corrections)
 from dronerl_tpu_torch.constants import NO_TRAIN_LOSS, NUM_ACTIONS
 from dronerl_tpu_torch.env import core as env_core
 from dronerl_tpu_torch.env.types import EnvParams, EnvState, env_fields
 from dronerl_tpu_torch.evaluator.evaluator import seed_keys
 from dronerl_tpu_torch.interop import safetensors_io, train_state_io
 from dronerl_tpu_torch.interop.from_jax import qnet_from_flax
-from dronerl_tpu_torch.ops import fused_tick
+from dronerl_tpu_torch.ops import fused_tick, learner_kernel
 from dronerl_tpu_torch.utils import profiling
-from dronerl_tpu_torch.utils.graphs import scan
+from dronerl_tpu_torch.utils.graphs import GraphSet, scan, upload
 from dronerl_tpu_torch.utils.metrics import NoLogger, build_logger
 
 logger = logging.getLogger("dronerl_tpu_torch.train")
@@ -130,6 +136,44 @@ def host_keys(num: int):
     return keys
 
 
+class RingSignature(NamedTuple):
+    """The host values that fix a ring tick's launches (its static
+    signature): the read slot ``step % nb``, the complete columns ``min(step
+    + 1, nb - 1)`` that the replay samples from, the reset, the target
+    sync, the ε decay (None where it follows the episode's done) and
+    whether the tick trains. Ticks of one signature launch the same
+    kernels with the same arguments but the per-tick words."""
+
+    slot: int
+    valid_cols: int
+    reset: bool
+    sync: bool
+    decay: Optional[bool]
+    trains: bool
+
+
+# A ring tick's per-tick words, int32 columns of one row: the step key's two
+# uint32 words, the sample key's, the Adam count before the step, the bias
+# corrections of the autograd learner's step (f32 bits) and the tick's index
+# in its chunk.
+ROW_STEP_KEY, ROW_SAMPLE_KEY, ROW_COUNT = slice(0, 2), slice(2, 4), 4
+ROW_CORRECTIONS, ROW_TICK, ROW_WORDS = slice(5, 7), 7, 8
+
+
+def _row_words(step_key, sample_key, count: int, tick: int) -> np.ndarray:
+    """One tick's row (:data:`ROW_WORDS` int32) from its host keys and the
+    Adam count before it."""
+    row = np.zeros(ROW_WORDS, dtype=np.uint32)
+    row[ROW_STEP_KEY] = [int(v) & rng_mod.MASK32 for v in step_key.tolist()]
+    row[ROW_SAMPLE_KEY] = [int(v) & rng_mod.MASK32
+                           for v in sample_key.tolist()]
+    row[ROW_COUNT] = learner_kernel.check_count(count)
+    row[ROW_CORRECTIONS] = np.array(adam_bias_corrections(count + 1),
+                                    dtype=np.float32).view(np.uint32)
+    row[ROW_TICK] = tick
+    return row.view(np.int32)
+
+
 def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
                           capacity: int, batch_size: int,
                           reset_env_every: int, collect_drones: int = 1,
@@ -151,6 +195,18 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
     :func:`init_ring_carry`) the learner kernel trains inside tick t+1 on
     the batch gathered after tick t, carried in ``aux``; tick 0 never
     trains.
+
+    The tick is ``tick.body(carry, row, sig)`` on the words of one row
+    (:data:`ROW_WORDS`, an int32 tensor on the carry's device: the keys,
+    the Adam count, the bias corrections) under the static signature
+    ``sig = tick.signature(step)``: the body reads no host value that
+    varies within a signature, copies nothing from the host and leaves
+    the carry's ``rng``, ``step`` and Adam count to its caller. ``tick``
+    makes the row from ``keys(rng, step)`` and copies it over, and hands
+    the body the host sample key too, which the replay sample draws from
+    on the host (``fused_tick.ring_gather_batch``);
+    :func:`build_chunk_ring` makes a chunk's rows at once and draws on
+    the device.
     """
     k = collect_drones
     if capacity % num_envs != 0 or capacity < 2 * num_envs:
@@ -177,30 +233,37 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
                       float(agent.config.learning_rate),
                       ADAM_B1, ADAM_B2, ADAM_EPS)  # optax.adam's defaults
 
-    def tick(carry):
-        rng, (tstate, ring), (a_ring, r_ring, d_ring), ag_state, aux, step = (
-            carry)
-        rng, (step_key, sample_key) = keys(rng, step)
+    def signature(step: int) -> RingSignature:
+        valid_cols = min(step + 1, nb - 1)
+        # The in-kernel learner trains on the batch gathered after the
+        # tick before, with min(step, nb - 1) complete columns.
+        cols = min(step, nb - 1) if td_hparams is not None else valid_cols
+        sync, decay = agent.schedule_flags(step)
+        return RingSignature(step % nb, valid_cols,
+                             step % reset_env_every == 0, sync, decay,
+                             cols * num_envs >= batch_size // k)
 
-        read_slot = (step % nb) * num_envs
-        write_slot = ((step + 1) % nb) * num_envs
+    def body(carry, row, sig: RingSignature, sample_key=None):
+        _, (tstate, ring), (a_ring, r_ring, d_ring), ag_state, aux, _ = carry
+        key_values = row[:4].to(torch.int64) & rng_mod.MASK32
+        step_key = key_values[:2]
+        if sample_key is None:
+            sample_key = key_values[2:]
+        read_slot = sig.slot * num_envs
+        write_slot = ((sig.slot + 1) % nb) * num_envs
         chain = fused_tick.flatten_net_params(ag_state.params,
                                               agent.net_spec)
         args = (step_key, tstate, ring, read_slot, write_slot, chain,
-                ag_state.epsilon, step % reset_env_every == 0, env_params)
+                ag_state.epsilon, sig.reset, env_params)
         if td_hparams is not None:
-            # The carried batch was gathered after the tick before with
-            # valid = min(step, nb-1) columns (zero-seeded at step 0,
-            # which never trains).
-            can_train = min(step, nb - 1) * num_envs >= batch_size // k
             adam = ag_state.opt_state
             tstate, rewards_t, dones_t, actions_t, ring, _, _, _, loss = (
                 fused_tick.full_tick_fused_ring(
                     *args, td_hparams=td_hparams, td_batch=aux,
                     td_aux=(ag_state.params, ag_state.target_params,
-                            adam.mu, adam.nu, can_train, adam.count),
+                            adam.mu, adam.nu, sig.trains, row[ROW_COUNT]),
                     **rng_collect))
-            if can_train:
+            if sig.trains:
                 adam.count += 1
         else:
             tstate, rewards_t, dones_t, actions_t, ring = (
@@ -211,26 +274,228 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
             a_ring, r_ring, d_ring, actions_t, rewards_t, dones_t, read_slot,
             k)
 
-        # Complete columns after tick t: steps [max(0, t+2-nb), t].
-        valid = min(step + 1, nb - 1) * num_envs
-        if td_hparams is not None or valid >= batch_size // k:
+        # Complete columns after tick t: steps [max(0, t+2-nb), t], whose
+        # first slot is (t + 2) % nb once t + 2 >= nb.
+        if td_hparams is not None or sig.trains:
+            base = 0 if sig.valid_cols < nb - 1 else (sig.slot + 2) % nb
             batch = fused_tick.ring_gather_batch(
-                sample_key, ring, a_ring, r_ring, d_ring, valid,
-                max(0, step + 2 - nb), num_envs=num_envs, capacity=capacity,
-                batch_size=batch_size, collect=k, obs_dim=agent.obs_dim)
+                sample_key, ring, a_ring, r_ring, d_ring,
+                sig.valid_cols * num_envs, base, num_envs=num_envs,
+                capacity=capacity, batch_size=batch_size, collect=k,
+                obs_dim=agent.obs_dim)
         if td_hparams is not None:
             aux = batch  # trained on inside the next tick
-        elif valid >= batch_size // k:
-            ag_state, loss = agent.train_step_t(ag_state, batch, group)
+        elif sig.trains:
+            ag_state, loss = agent.train_step_t(
+                ag_state, batch, group,
+                corrections=row[ROW_CORRECTIONS].view(torch.float32))
         else:
-            loss = torch.tensor(NO_TRAIN_LOSS, device=device)
-        ag_state = agent.apply_schedules(ag_state, step, dones_t[0, 0])
+            loss = torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
+                              device=device)
+        ag_state = agent.apply_schedules(ag_state, None, dones_t[0, 0],
+                                         flags=(sig.sync, sig.decay))
 
-        carry = (rng, (tstate, ring), (a_ring, r_ring, d_ring), ag_state,
-                 aux, step + 1)
+        carry = (carry[0], (tstate, ring), (a_ring, r_ring, d_ring),
+                 ag_state, aux, carry[-1])
         return carry, (rewards_t[0], ag_state.epsilon, loss)
 
+    def tick(carry):
+        rng, step, count = carry[0], carry[-1], carry[3].opt_state.count
+        rng, (step_key, sample_key) = keys(rng, step)
+        row = upload(_row_words(step_key, sample_key, count, 0),
+                     torch.int32, device)
+        # The replay sample draws from the host key (fewer launches).
+        carry, outs = body(carry, row, signature(step), sample_key)
+        return (rng, *carry[1:-1], step + 1), outs
+
+    tick.body, tick.signature = body, signature
     return tick
+
+
+class RingChunk:
+    """The ring engine's chunk, the counterpart of the JAX trainer's
+    ``run_chunk`` (``jax.jit(lax.scan(tick))``): ``chunk(carry, length) ->
+    (carry, (rewards (length, E), epsilon (length,), loss (length,)))``,
+    ``length`` ticks of :func:`build_train_step_ring`'s tick ``tick`` (one
+    card, no process group: its keys are ``host_keys(2)``).
+
+    At entry the host walks the chain that the eager tick walks (the keys
+    from the carry's ``rng`` and ``step``, the Adam count from its count)
+    into a (length, :data:`ROW_WORDS`) table of rows and copies it to the
+    device: the chunk's one host-to-device copy. On a card each tick is
+    then one device-to-device copy of its row into a static row and one
+    replay of the CUDA graph of its signature (``tick.signature``),
+    captured on first use (``utils.graphs.GraphSet``; a capture that
+    fails raises). The graphs share one static carry, the first carry
+    passed in (a later carry is copied into it, and the carry returned is
+    it), and write each tick's outputs into preallocated (length, ...)
+    tensors; nothing is read back to the host inside a chunk. At exit the
+    carry's ``rng``, ``step`` and Adam count are set from the chain. On
+    the CPU the same rows run the ticks eagerly.
+
+    A replay adds the launches its capture recorded to
+    ``fused_tick.full_tick_fused_ring.launches`` and
+    ``learner_kernel.td_adam.launches``; a capture's warm-up (on a copy of
+    the carry) and the capture leave the counts as they were.
+    """
+
+    COUNTERS = ((fused_tick, "full_tick_fused_ring"),
+                (learner_kernel, "td_adam"))
+
+    def __init__(self, tick):
+        self.tick = tick
+        self._keys = host_keys(2)
+        self._static = None   # the static carry, its device tensors, row
+        self._graphs = None   # GraphSet, outputs and launches a signature
+        self._capture_s = 0.0
+
+    @property
+    def graphs(self) -> int:
+        """The signatures captured."""
+        return 0 if self._graphs is None else len(self._graphs[0])
+
+    @property
+    def capture_s(self) -> float:
+        """Seconds of the captures (warm-ups included), all chunks."""
+        return self._capture_s + (self._graphs[0].capture_s
+                                  if self._graphs is not None else 0.0)
+
+    def table(self, carry, length: int):
+        """The chunk's rows and signatures and the chain's end: ``(rows
+        (length, ROW_WORDS) int32, signatures, rng, count)``."""
+        rng, step, count = carry[0], carry[-1], carry[3].opt_state.count
+        rows = np.empty((length, ROW_WORDS), dtype=np.int32)
+        sigs = []
+        for t in range(length):
+            rng, (step_key, sample_key) = self._keys(rng, step + t)
+            rows[t] = _row_words(step_key, sample_key, count, t)
+            sigs.append(self.tick.signature(step + t))
+            count += sigs[-1].trains
+        return rows, sigs, rng, count
+
+    def __call__(self, carry, length: int):
+        rows, sigs, rng, count = self.table(carry, length)
+        step = carry[-1]
+        device = carry[1][1].device
+        # The chunk's one host-to-device copy: every tick's words.
+        table = upload(rows.reshape(-1), torch.int32, device).view(
+            length, ROW_WORDS)
+        if device.type != "cuda":
+            outs = ([], [], [])
+            for t in range(length):
+                carry, values = self.tick.body(carry, table[t], sigs[t])
+                for out, value in zip(outs, values):
+                    out.append(value)
+            outs = tuple(torch.stack(o) for o in outs)
+        else:
+            carry = self._adopt(carry, length)
+            graphs, buffers, recorded = self._graphs
+            row = self._static[2]
+            for t, sig in enumerate(sigs):
+                row.copy_(table[t])
+                if sig not in graphs:
+                    self._capture(sig)
+                graphs.replay(sig)
+                self._add_launches(recorded[sig])
+            outs = tuple(b[:length].clone() for b in buffers)
+        carry[3].opt_state.count = count
+        return (rng, *carry[1:-1], step + length), outs
+
+    # --- the graphs ----------------------------------------------------------
+
+    def _launches(self):
+        return [getattr(owner, name).launches
+                for owner, name in self.COUNTERS]
+
+    def _add_launches(self, added):
+        for (owner, name), n in zip(self.COUNTERS, added):
+            getattr(owner, name).launches += n
+
+    def _adopt(self, carry, length: int):
+        """The static carry with ``carry``'s tensors copied into it (the
+        first carry passed in becomes it), and output buffers of at least
+        ``length`` ticks."""
+        tensors = train_state_io.leaves(carry)[0]
+        if self._static is None:
+            device = carry[1][1].device
+            self._static = (carry, {p: t for p, t in tensors.items()
+                                    if t.is_cuda},
+                            torch.zeros(ROW_WORDS, dtype=torch.int32,
+                                        device=device))
+        static, static_tensors, row = self._static
+        for path, t in static_tensors.items():
+            given = tensors[path]
+            if given is not t:
+                if given.shape != t.shape or given.dtype != t.dtype:
+                    raise ValueError(
+                        f"carry {path}: {given.dtype} {tuple(given.shape)}, "
+                        f"the chunk's {t.dtype} {tuple(t.shape)}")
+                with torch.no_grad():
+                    t.copy_(given)
+        if self._graphs is None or self._graphs[1][1].shape[0] < length:
+            # The graphs write into these buffers: new buffers, new graphs.
+            if self._graphs is not None:
+                self._capture_s += self._graphs[0].capture_s
+            num_envs = carry[1][0].ground.shape[1]
+            buffers = tuple(torch.empty(shape, dtype=torch.float32,
+                                        device=row.device)
+                            for shape in ((length, num_envs), (length,),
+                                          (length,)))
+            self._graphs = (GraphSet(row.device), buffers, {})
+        return static
+
+    def _capture(self, sig: RingSignature) -> None:
+        """Capture the step of ``sig``: the tick's body on the static carry
+        and row, its new tensors copied into the static carry and its
+        outputs into row ``ROW_TICK`` of the output buffers."""
+        static, static_tensors, row = self._static
+        graphs, buffers, recorded = self._graphs
+
+        def shell():
+            # The learner state's objects copied, so that the step rebinds
+            # ε and the count there; the tensors are the static carry's.
+            ag = static[3]
+            ag = dataclasses.replace(
+                ag, opt_state=dataclasses.replace(ag.opt_state))
+            return (*static[:3], ag, *static[4:])
+
+        def step():
+            new, values = self.tick.body(shell(), row, sig)
+            new = train_state_io.leaves(new)[0]
+            with torch.no_grad():
+                for path, t in static_tensors.items():
+                    if new[path] is not t:
+                        t.copy_(new[path])
+            at = row[ROW_TICK:ROW_TICK + 1].to(torch.int64)
+            for buffer, value in zip(buffers, values):
+                buffer.index_copy_(0, at, value.reshape(1,
+                                                        *buffer.shape[1:]))
+
+        marks = []
+
+        def warm_up():
+            self.tick.body(copy.deepcopy(static), row, sig)
+            marks.append(self._launches())
+
+        before = self._launches()
+        graphs.capture(sig, step, warm_up)
+        after = self._launches()
+        recorded[sig] = [a - m for a, m in zip(after, marks[0])]
+        self._add_launches([b - a for a, b in zip(after, before)])
+
+
+def build_chunk_ring(agent: DQN, env_params: EnvParams, num_envs: int,
+                     capacity: int, batch_size: int, reset_env_every: int,
+                     collect_drones: int = 1,
+                     in_kernel_td: Optional[bool] = None,
+                     rng_rounds: int = 20,
+                     actor_rng_rounds: Optional[int] = None) -> RingChunk:
+    """:class:`RingChunk` over :func:`build_train_step_ring`'s tick with
+    these arguments."""
+    return RingChunk(build_train_step_ring(
+        agent, env_params, num_envs, capacity, batch_size, reset_env_every,
+        collect_drones, in_kernel_td=in_kernel_td, rng_rounds=rng_rounds,
+        actor_rng_rounds=actor_rng_rounds))
 
 
 def init_ring_carry(agent: DQN, env_params: EnvParams, num_envs: int,
@@ -974,7 +1239,9 @@ def _warm_start(args, agent_config: DQNConfig):
 
 def _build_engine(args, agent: DQN, env_params: EnvParams, engine: str,
                   rng_rounds: int, actor_rng_rounds: Optional[int]):
-    """The engine's tick and its initial carry from ``--seed``."""
+    """The engine's tick and its initial carry from ``--seed``; the ring
+    engine's is its chunk (:class:`RingChunk`: CUDA graphs on the card,
+    eager ticks on the CPU), as the JAX CLI runs ``run_chunk``."""
     num_envs, k = args.num_envs, args.collect_drones
     device = agent.device
     # The replay rounded up to whole pushes of E · k transitions.
@@ -1001,7 +1268,7 @@ def _build_engine(args, agent: DQN, env_params: EnvParams, engine: str,
                     "%s", env_params, agent.config, num_envs, ring_columns,
                     args.ring_obs_dtype,
                     ", in-kernel TD" if args.in_kernel_td else "", device)
-        tick = build_train_step_ring(
+        tick = build_chunk_ring(
             agent, env_params, num_envs, ring_columns, args.batch_size,
             args.reset_env_every, k, in_kernel_td=args.in_kernel_td,
             rng_rounds=rng_rounds, actor_rng_rounds=actor_rng_rounds)
@@ -1228,6 +1495,10 @@ def train(args, metrics_logger=None) -> dict:
     num_chunks = math.ceil(args.num_steps / scan_steps)
 
     def run_chunk(carry):
+        if isinstance(tick, RingChunk):
+            carry, (rewards, epsilon, losses) = tick(carry, scan_steps)
+            return carry, (list(rewards) if log_metrics else [rewards[-1]],
+                           epsilon[-1], list(losses))
         rewards, losses = [], []
         for _ in range(scan_steps):
             carry, (reward, epsilon, loss) = tick(carry)

@@ -12,13 +12,42 @@ loop runs eagerly.
 A tick must keep its shapes and dtypes from one call to the next and
 must not read a tensor's value on the host (a capture raises where it
 does, and the error is not caught).
+
+:class:`GraphSet` holds several graphs of one step function, one a static
+signature (the host values that fix the step's launches), over one set of
+static tensors that all of them read and write: the ring engine's chunk
+(``train.build_chunk_ring``) replays one of them a tick.
 """
 
-from typing import Callable, Tuple
+import time
+from typing import Callable, Dict, Hashable, Sequence, Tuple
 
 import torch
 
 Carry = Tuple[torch.Tensor, ...]
+
+
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def side_stream(device) -> "torch.cuda.Stream":
+    """The one stream of ``device`` that every graph's eager warm-up runs
+    on: each stream a cuBLAS call runs on keeps a workspace of its own, so
+    a fresh stream a capture would keep one more every time."""
+    device = torch.device(device)
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
+def upload(values: Sequence, dtype: torch.dtype, device) -> torch.Tensor:
+    """``values`` as a 1-d tensor on ``device``: on a card through pinned
+    memory without blocking the host (an eager caller's copy; a CUDA graph
+    never holds one), on the CPU as they are."""
+    out = torch.tensor(list(values), dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return out
+    return out.pin_memory().to(device, non_blocking=True)
 
 
 class Graphed:
@@ -34,7 +63,7 @@ class Graphed:
         self.carry = tuple(t.clone() for t in carry)
         # Lazy initialisations (cuBLAS handles and the like) happen in an
         # eager tick on a side stream, as graph capture requires.
-        side = torch.cuda.Stream(device)
+        side = side_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             tick(tuple(t.clone() for t in self.carry))
@@ -72,3 +101,50 @@ def scan(tick: Callable[[Carry], Tuple[Carry, Carry]], carry: Carry,
             buf[i].copy_(o)
         graphed.advance()
     return graphed.carry, stacked
+
+
+class GraphSet:
+    """CUDA graphs of one step, captured on first use, one for each key
+    (the step's static signature), sharing one memory pool.
+
+    Every graph reads and writes the same static tensors, which the
+    caller owns (nothing is cloned per graph), and leaves nothing in the
+    pool that a later replay reads: a graph's results go into static
+    tensors inside the graph. So the graphs may replay in any order.
+
+    :meth:`capture` first runs the step once eagerly on a side stream
+    (``warm_up``: on a copy of the state, so that lazy set-up such as a
+    kernel's shared-memory opt-in happens outside the capture), then
+    records ``step``. A capture that fails raises; nothing falls back to
+    the eager step.
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs: Dict[Hashable, torch.cuda.CUDAGraph] = {}
+        self.capture_s = 0.0
+
+    def __contains__(self, key) -> bool:
+        return key in self.graphs
+
+    def __len__(self) -> int:
+        return len(self.graphs)
+
+    def capture(self, key: Hashable, step: Callable[[], None],
+                warm_up: Callable[[], None]) -> None:
+        t0 = time.perf_counter()
+        side = side_stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            warm_up()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool):
+            step()
+        self.graphs[key] = graph
+        torch.cuda.synchronize(self.device)
+        self.capture_s += time.perf_counter() - t0
+
+    def replay(self, key: Hashable) -> None:
+        self.graphs[key].replay()

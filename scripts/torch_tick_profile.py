@@ -14,8 +14,13 @@ env-batches). It reports:
   fused engine's actor and random opponents and its reset, the learner
   step, the schedules, the host rng split), timed by wrapping each
   phase's function;
-* under ``torch.profiler``: device time per kernel, launches per tick,
-  and the device's busy share of the unprofiled tick.
+* under ``torch.profiler``: device time per kernel and per phase (each
+  phase an annotated range), launches per tick, and the device's busy
+  share of the unprofiled tick.
+
+This is the eager tick, the ring chunk's reference; the ring chunk that
+the CLI and the bench run on a card (``train.build_chunk_ring``, one CUDA
+graph replay a tick) is traced by the bench's ``per_layer``.
 
 With ``--in_kernel_td`` the trainer runs its in-kernel TD path: the
 learner is one launch of the learner kernel, whose wrapper's host time
@@ -117,8 +122,9 @@ def main(argv=None):
     carry, host_ms, timed_tick_ms = profiling.host_split(
         tick, carry, n, profiling.tick_phases(args.engine), device)
 
+    phases = profiling.tick_phases(args.engine)
     carry, prof = profiling.profiled_ticks(tick, carry, args.profile_ticks,
-                                           device)
+                                           device, phases)
     if args.trace:
         prof.export_chrome_trace(args.trace)
     # Device time: the kernels and copies on the card's timeline only.
@@ -137,6 +143,8 @@ def main(argv=None):
         "device_busy_share": device_ms / tick_ms,
         "device_launches_per_tick": sum(k[2] for k in kernels),
         "host_ms_per_tick_by_phase": host_ms,
+        "device_ms_per_tick_by_phase": profiling.phase_device_ms(
+            prof, args.profile_ticks),
         "phase_timed_tick_ms": timed_tick_ms,
         "top_device_kernels_ms_per_tick": [
             {"name": k[0][:90], "ms": k[1], "calls": k[2]}

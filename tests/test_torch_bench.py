@@ -29,8 +29,8 @@ TINY = {"DRONERL_BENCH_ENVS": "128", "DRONERL_BENCH_STEPS": "3",
         "DRONERL_BENCH_CALLS": "1", "DRONERL_BENCH_REPEATS": "2",
         "DRONERL_BENCH_REPEATS_BIG": "2"}
 METRIC_KEYS = {"metric", "value", "unit", "repeat_s", "median_s", "q1_s",
-               "q3_s", "repeats", "steps_per_repeat", "build_s", "warmup_s",
-               "peak_mem_bytes", "launches"}
+               "q3_s", "repeats", "steps_per_repeat", "build_s", "graphs",
+               "capture_s", "warmup_s", "peak_mem_bytes", "launches"}
 LINE_KEYS = METRIC_KEYS | {"extra_metrics", "num_envs", "engine", "seed",
                            "device", "clocks", "correct", "checks",
                            "per_layer"}
@@ -73,17 +73,21 @@ def test_json_line_on_the_cpu(tiny, capsys):
         # The CPU runs the plain versions: no kernel launches, no build.
         assert m["launches"] == {"full_tick_ring": 0, "td_adam": 0}
         assert m["build_s"] is None and m["peak_mem_bytes"] is None
+        # The CPU runs the chunk's ticks eagerly: no graph is captured.
+        assert m["graphs"] == 0 and m["capture_s"] == 0.0
         checks = line["checks"][m["metric"]]
         assert checks["plain"]["problems"] == []
         assert checks["plain"]["ticks"] == bench.CHECK_TICKS
         assert checks["plain"]["reset_ticks"] == 1
         assert checks["plain"]["trained_ticks"] >= 1
+        assert checks["lockstep"]["problems"] == []
+        assert checks["lockstep"]["ticks"] == max(bench.CHECK_TICKS, 4)
         assert checks["timed"]["problems"] == []
         assert checks["timed"]["ticks"] == checks["timed"]["trained_ticks"]
         split = line["per_layer"][m["metric"]]
         assert all(split[k] is None for k in DEVICE_FIELDS)
-        assert {"kernel", "gather", "scalar_writes", "schedules",
-                "rng_split", "other"} <= set(split["host_ms_by_phase"])
+        assert split["ticks"] == bench.TRACE_TICKS
+        assert 0 < split["host_ms_per_tick"] <= split["chunk_tick_ms"]
         assert line["clocks"][m["metric"]] == {"before": None, "after": None}
     assert line["device"] == {"platform": "cpu", "kind": "cpu", "count": 1,
                               "power_limit_w": None}

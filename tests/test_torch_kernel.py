@@ -24,6 +24,7 @@ from dronerl_tpu_torch import replay, rng, train
 from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
 from dronerl_tpu_torch.env import core
 from dronerl_tpu_torch.env.types import EnvParams
+from dronerl_tpu_torch.interop import train_state_io
 from dronerl_tpu_torch.ops import (
     _build, fused_tick, learner_kernel, step_kernel)
 
@@ -56,7 +57,10 @@ def test_kernel_args_block():
     assert (block.in_ld, block.read_col, block.out_ld, block.write_col) == (
         2 * E, 0, 2 * E, E)
     assert (block.num_envs, block.do_reset) == (E, 1)
-    assert [block.key0, block.key1] == key.tolist()
+    # The key's two words, read by the kernel through a pointer.
+    assert block.key == block.key_words.data_ptr()
+    assert block.key_words.dtype == torch.int32
+    assert (block.key_words.long() & rng.MASK32).tolist() == key.tolist()
     assert [block.w[i] for i in range(3)] == [
         w.data_ptr() for w in net[0::2]]
     assert block.w[3] is None
@@ -777,3 +781,61 @@ def test_env_tick_kernel_global_on_card(grid):
         assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0, t
         assert float(diff[:, 4].max()) <= CHARGE_ATOL, t
         ts = out_k[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["default", "in_kernel_td", "conv_matmul",
+                                  "collect2_fast_rng"])
+def test_graphed_chunk_equals_eager_ticks_on_card(case, tmp_path):
+    """The ring engine's chunk on the card (one CUDA graph replay a tick)
+    against the eager tick from one carry: two chunks of 7 ticks with a
+    train state saved and restored between them, every carry tensor and
+    output bitwise; B1 (and B2) counted once a replayed tick. Also with a
+    conv net's im2col chain rebuilt inside the graph, and with 2 drones
+    collected at 8 threefry rounds."""
+    dev = _card()
+    tp = EnvParams(**KW)
+    in_kernel_td = case == "in_kernel_td"
+    k = 2 if case == "collect2_fast_rng" else 1
+    cfg = DQNConfig(hidden_layers=(16, 16), epsilon_decay_every=2,
+                    target_update_interval=2, gamma=0.9,
+                    **(dict(network_type="conv", conv_matmul=True)
+                       if case == "conv_matmul" else {}))
+    agent = DQN(cfg, tp, device=dev)
+    cap = 2 * E
+
+    def fresh(seed):
+        return train.init_ring_carry(
+            agent, tp, E, cap, rng.PRNGKey(seed), obs_dtype=torch.bfloat16,
+            batch_size=8, in_kernel_td=in_kernel_td, collect_drones=k)
+
+    chunk = train.build_chunk_ring(agent, tp, E, cap, 8, 3, k,
+                                   in_kernel_td=in_kernel_td,
+                                   rng_rounds=8 if k > 1 else 20)
+    carry = fresh(0)
+    eager = copy.deepcopy(carry)
+    launches = (fused_tick.full_tick_fused_ring.launches,
+                learner_kernel.td_adam.launches)
+    outs = []
+    for _ in range(2):
+        carry, out = chunk(carry, 7)
+        outs.append(out)
+        path = str(tmp_path / "state.safetensors")
+        train_state_io.save(path, carry)
+        carry = train_state_io.restore(path, fresh(1))
+    assert (fused_tick.full_tick_fused_ring.launches,
+            learner_kernel.td_adam.launches) == (
+        launches[0] + 14, launches[1] + 14 * in_kernel_td)
+    assert 0 < chunk.graphs <= 14 and chunk.capture_s > 0
+    ref = []
+    for _ in range(14):
+        eager, out = chunk.tick(eager)
+        ref.append(out)
+    torch.cuda.synchronize()
+    got, want = (train_state_io.leaves(c) for c in (carry, eager))
+    assert got[1] == want[1] and set(got[0]) == set(want[0])
+    for path, t in got[0].items():
+        assert torch.equal(t, want[0][path]), path
+    for i in range(3):
+        assert torch.equal(torch.cat([o[i] for o in outs]),
+                           torch.stack([o[i] for o in ref])), i

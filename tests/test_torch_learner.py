@@ -205,7 +205,9 @@ def test_learner_args_block():
     assert block.w[3] is None
     assert block.loss == loss.data_ptr() and block.eps == kw[
         "epsilon"].data_ptr()
-    assert (block.batch, block.count) == (BATCH, 7)
+    # The Adam count, read by the kernel through a pointer.
+    assert block.batch == BATCH and block.count == block.counts.data_ptr()
+    assert block.counts.dtype == torch.int32 and block.counts.tolist() == [7]
     assert (block.learn, block.sync, block.decay) == (1, 1, 1)
     assert block.one_minus_b1 == np.float32(1 - 0.9)
     assert block.one_minus_b2 == np.float32(1 - 0.999)
