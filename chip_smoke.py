@@ -72,11 +72,13 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    on the same batch;
 4c. drive the full engine (``build_train_step_full`` over a StreamReplay of
    1,048,576 slots, ``--memory_size 1000000`` rounded up to 16 env-batches)
-   the same way for both nets: B3's launch count equals the ticks (and no
+   the same way for both nets, as the CLI runs it (``train.Chunk``: one
+   CUDA graph replay a tick): B3's launch count equals the ticks (and no
    other kernel launches), losses finite once trained, params move, ε
    decays, the replay full; report its obs/s beside phase 4's;
 4d. drive the fused engine (``build_train_step_fused``, dense) on the same
-   configuration: B4's launches equal the ticks; report its obs/s;
+   configuration, as a chunk: B4's launches equal the ticks; report its
+   obs/s;
 4e. run the CLI (``dronerl_tpu_torch.train.main``) at ``--num_envs 16384``
    with the default memory size (114,688 slots > 4 x 16,384): it must
    choose the full engine, and B3's launches equal its steps;
@@ -216,6 +218,19 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    carry: every carry tensor and output bitwise, B1 (and B2) launched
    once a tick either way; logs both ways' obs/s, host ms a tick and the
    device's busy share (20 profiled ticks each);
+10. the jnp, full and fused engines' chunks (``train.Chunk``, the CLI's on
+   one card) with the CLI's nets and schedule but a reset every 50 ticks
+   (ENGINE_CASES): the jnp engine at 1 env (memory 100,000) and at 64
+   (1,024 slots, wrapping), the full engine at 65,536 envs and the fused
+   engine with the CLI's default conv net at 65,536, each over a
+   StreamReplay of 5 env-batches that wraps; 2 chunks of 50 ticks with a
+   train state saved and restored between, graphed and eager from the
+   same carry: every carry tensor, the replay's cursor and size and every
+   output bitwise, B3 and B4
+   launched once a tick either way (the jnp engine none); logs the graphs,
+   capture seconds, both ways' obs/s, ms a tick and busy share; then the
+   host's walk of a 100,000-tick jnp chunk (the CLI's ``--max_scan_steps``)
+   and the CLI at its defaults, which must run the jnp engine as graphs;
 then print the kernel table line (phase 6a's launches of B1, B3 and B4 as
 ``*_sharded`` entries, each kernel compared with its plain version and
 timed in place on a world-1 sharded trainer's carry at 6a's shapes, with
@@ -358,9 +373,22 @@ LIFE_RUNS = (
     ("warm3_in_kernel_td", ["--load_from_checkpoint", AGENT_3,
                             "--in_kernel_td"], (16, 16)),
 )
-# Phase 9: CHUNK_9 chunks of CHUNK_9_TICKS ticks (a reset at tick 100, 30
-# syncs, 60 decays, every slot), then CHUNK_9_TRACE profiled ticks.
-CHUNK_9, CHUNK_9_TICKS, CHUNK_9_TRACE = 2, 150, 20
+# Phases 9 and 10: CHUNKS chunks of each case's ticks, graphed and eager,
+# then TRACE profiled ticks each way. Phase 9: 150 ticks a chunk (a reset
+# at tick 100, 30 syncs, 60 decays, every slot). Phase 10: 50 ticks a
+# chunk, a reset every RESET_10 (at ticks 0 and 50, the second one
+# training) of ENGINE_CASES (engine, envs, memory, CLI flags): the jnp
+# engine at one env with the CLI's memory (no wrap) and at 64 with 1,024
+# slots (a wrap every 16 ticks), the full engine at
+# 65,536 and the fused engine with the CLI's default conv net at 65,536,
+# each over a StreamReplay of 5 env-batches (past the ring gate's 4; a
+# wrap every 5 ticks).
+CHUNKS, TRACE = 2, 20
+CHUNK_9_TICKS, CHUNK_10_TICKS, RESET_10 = 150, 50, 50
+ENGINE_CASES = (("jnp", 1, 100_000, ()), ("jnp", 64, 1_000, ()),
+                ("full", NUM_ENVS, 5 * NUM_ENVS, ()),
+                ("fused", NUM_ENVS, 5 * NUM_ENVS,
+                 ("--network_type", "conv")))
 LIFE_PROBE = 1024          # 5b: seeded observations for the Q-values
 # 5c: the JAX package's CPU scores of the five baselines' round robin
 # (tests/test_evaluator_regression.py), printed beside the port's.
@@ -1281,11 +1309,14 @@ def main() -> None:
         carry, rewards, eps, losses = run(carry, WARMUP_TICKS)
         torch.cuda.synchronize()
         for _ in range(REPEATS):
-            t0 = time.perf_counter()
+            # A capture in a repeat (a signature first met there, such as
+            # a later reset) is set-up: out of the time.
+            t0, c0 = time.perf_counter(), chunk.capture_s if chunk else 0.0
             carry, rewards, eps, more = run(carry, TICKS_PER_REPEAT)
             losses += more
             torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
+            captures = chunk.capture_s - c0 if chunk else 0.0
+            seconds.append(time.perf_counter() - t0 - captures)
         ticks = WARMUP_TICKS + REPEATS * TICKS_PER_REPEAT
         if carry[-1] != ticks:
             fail(f"{tag}: step counter {carry[-1]} != {ticks}")
@@ -1335,13 +1366,15 @@ def main() -> None:
 
     def drive_stream(hidden, engine):
         """Run a StreamReplay engine ("full": B3, "fused": B4) at the bench
-        configuration with a replay of STREAM_CAPACITY slots: returns
-        (agent, carry, median tick seconds, its kernel's launches)."""
+        configuration with a replay of STREAM_CAPACITY slots, as the CLI
+        runs it: its chunk (one CUDA graph replay a tick). Returns (agent,
+        carry, median tick seconds, its kernel's launches)."""
         agent, _ = make_agent(hidden, 0)
         buf = replay.StreamReplay(STREAM_CAPACITY, BATCH, stride=NUM_ENVS)
         build = {"full": train.build_train_step_full,
                  "fused": train.build_train_step_fused}[engine]
-        tick = build(agent, buf, params, NUM_ENVS, RESET_EVERY)
+        chunk = train.Chunk(build(agent, buf, params, NUM_ENVS,
+                                  RESET_EVERY))
         carry = train.init_stream_carry(agent, params, NUM_ENVS, buf,
                                         rng.PRNGKey(0))
         fused_tick.prepare_kernel(
@@ -1351,7 +1384,7 @@ def main() -> None:
         p0 = [p.detach().clone() for p in carry[3].params.flat()]
         tag = f"{engine} engine net {hidden}"
         carry, losses, tick_s, seconds, ticks, n, rewards, eps = run_ticks(
-            tag, tick, carry)
+            tag, None, carry, chunk)
         kernel = {"full": "full_tick", "fused": "tick"}[engine]
         if n[kernel] != ticks or sum(n.values()) != ticks:
             fail(f"{tag}: launches {n} in {ticks} ticks")
@@ -1364,7 +1397,8 @@ def main() -> None:
                 STREAM_CAPACITY, ticks * NUM_ENVS % STREAM_CAPACITY):
             fail(f"{tag}: replay size {bstate.size}, cursor "
                  f"{bstate.cursor} after {ticks} pushes")
-        log(f"{tag}: {ticks} ticks, launches {n}, loss "
+        log(f"{tag}: {ticks} ticks as chunks ({chunk.graphs} graphs "
+            f"captured in {chunk.capture_s:.2f} s), launches {n}, loss "
             f"{float(losses[-1]):.5f}, eps {float(eps):.4f}, obs/s "
             f"{NUM_ENVS / tick_s:.1f} (median of {REPEATS} x "
             f"{TICKS_PER_REPEAT} ticks; tick {1e3 * tick_s:.4f} ms; repeats "
@@ -1838,6 +1872,9 @@ def main() -> None:
 
     # --- 9. the graphed ring chunk against the eager tick --------------------
     graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs)
+
+    # --- 10. the jnp, full and fused engines' chunks against their ticks ----
+    engine_chunks(torch, train, zero_counts, counts, card, runs)
     shutil.rmtree(runs, ignore_errors=True)
 
     print(json.dumps({"kernels": kernels + learners + stream + sharded}),
@@ -1848,28 +1885,112 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def graphed_vs_eager(torch, train, zero_counts, counts, tag, chunk, fresh,
+                     length, expect, state_path, device):
+    """``chunk`` (one CUDA graph replay a tick) against its eager tick
+    (``chunk.tick``) from the carry ``fresh(0)``: CHUNKS chunks of
+    ``length`` ticks each way, a train state saved after each chunk but
+    the last and restored into ``fresh(1)``, every launch count zeroed
+    just before each way and equal to ``expect`` just after; every carry
+    tensor, the carry's numbers and the outputs (rewards, ε, loss)
+    bitwise; finite losses, some trained, ε decayed. Then TRACE ticks of
+    each way under ``torch.profiler`` for the device's busy share.
+    Returns each way's stats (obs/s, host and wall ms a tick, device ms a
+    tick, busy share) and the carry's numbers."""
+    from dronerl_tpu_torch.interop import train_state_io
+    from dronerl_tpu_torch.utils import profiling
+
+    def eager_chunk(carry, n):
+        outs = []
+        for _ in range(n):
+            carry, out = chunk.tick(carry)
+            outs.append(out)
+        return carry, tuple(torch.stack(o) for o in zip(*outs))
+
+    carry = fresh(0)
+    ticks = CHUNKS * length
+    runs_out, stats = {}, {}
+    for way, run in (("graphed", chunk), ("eager", eager_chunk)):
+        c = copy.deepcopy(carry) if way == "graphed" else carry
+        torch.cuda.synchronize()
+        zero_counts()
+        outs, host_s, wall_s = [], 0.0, 0.0
+        for i in range(CHUNKS):
+            # The captures are set-up: out of the times, reported apart.
+            t0, c0 = time.perf_counter(), chunk.capture_s
+            c, out = run(c, length)
+            captures = chunk.capture_s - c0 if way == "graphed" else 0
+            host_s += time.perf_counter() - t0 - captures
+            torch.cuda.synchronize()
+            wall_s += time.perf_counter() - t0 - captures
+            outs.append(out)
+            if i + 1 < CHUNKS:
+                train_state_io.save(state_path, c)
+                c = train_state_io.restore(state_path, fresh(1))
+        n = counts()
+        if n != expect:
+            fail(f"{tag}: {way} launches {n}, want {expect}")
+        runs_out[way] = (c, tuple(torch.cat(o) for o in zip(*outs)))
+        num_envs = outs[0][0].shape[1]
+        stats[way] = {"obs_per_s": num_envs * ticks / wall_s,
+                      "host_ms": 1e3 * host_s / ticks,
+                      "tick_ms": 1e3 * wall_s / ticks}
+    (cg, og), (ce, oe) = runs_out["graphed"], runs_out["eager"]
+    got, want = (train_state_io.leaves(x) for x in (cg, ce))
+    if got[1] != want[1] or set(got[0]) != set(want[0]):
+        fail(f"{tag}: the carries' numbers or paths differ: {got[1]} vs "
+             f"{want[1]}")
+    differ = [p for p, t in want[0].items() if not torch.equal(got[0][p], t)]
+    differ += [name for name, a, b in zip(("rewards", "epsilon", "loss"),
+                                          og, oe) if not torch.equal(a, b)]
+    if differ:
+        fail(f"{tag}: graphed and eager differ in {differ[:12]}")
+    if (not bool(torch.isfinite(og[2]).all()) or not bool((og[2] >= 0).any())
+            or float(og[1][-1]) >= 1.0):
+        fail(f"{tag}: a loss is not finite, no tick trained or epsilon did "
+             "not decay")
+    for way, run, c in (("graphed", chunk, cg), ("eager", eager_chunk, ce)):
+        c, prof = profiling.profiled_ticks(lambda x: run(x, TRACE), c, 1,
+                                           device)
+        kernels = profiling.device_kernels(prof, TRACE)
+        device_ms = sum(k[1] for k in kernels)
+        stats[way].update(device_ms=device_ms,
+                          busy=device_ms / stats[way]["tick_ms"])
+    return stats, want[1]
+
+
+def log_ways(tag, stats, chunk, ticks, expect, numbers, card, beside=""):
+    g, e = stats["graphed"], stats["eager"]
+    log(f"{tag}: {CHUNKS} x {ticks // CHUNKS} ticks with a train state saved "
+        f"and restored between, graphed == eager bitwise (the carry's "
+        f"tensors and numbers {numbers}; rewards, epsilon, loss); launches "
+        f"{expect} each way; {chunk.graphs} graphs captured in "
+        f"{chunk.capture_s:.3f} s; graphed {g['obs_per_s']:.1f} obs/s, host "
+        f"{g['host_ms']:.4f} ms a tick, tick {g['tick_ms']:.4f} ms, device "
+        f"{g['device_ms']:.4f} ms, busy {g['busy']:.4f}; eager "
+        f"{e['obs_per_s']:.1f} obs/s, host {e['host_ms']:.4f} ms, tick "
+        f"{e['tick_ms']:.4f} ms, device {e['device_ms']:.4f} ms, busy "
+        f"{e['busy']:.4f}{beside}; on {card}")
+
+
 def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
                   device=None):
     """Phase 9: the ring engine's chunk on the card (one CUDA graph replay
     a tick) against the eager tick, for both nets on the default path and
-    on ``in_kernel_td`` at the bench configuration: CHUNK_9 chunks of
-    CHUNK_9_TICKS ticks with a train state saved and restored between
-    them, graphed and eager from the same carry, every carry tensor and
-    output bitwise; B1 (and B2) counted once a graphed tick. Then
-    CHUNK_9_TRACE ticks of each way under ``torch.profiler`` for the
-    device's busy share."""
+    on ``in_kernel_td`` at the bench configuration: CHUNKS chunks of
+    CHUNK_9_TICKS ticks, graphed and eager from the same carry
+    (:func:`graphed_vs_eager`); B1 (and B2) counted once a graphed
+    tick."""
     from dronerl_tpu_torch import rng
     from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
     from dronerl_tpu_torch.env.types import EnvParams
-    from dronerl_tpu_torch.interop import train_state_io
-    from dronerl_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
     params = EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
     state_path = os.path.join(runs, "chunk9.safetensors")
     os.makedirs(runs, exist_ok=True)
     device = device or torch.device("cuda", 0)
-    ticks = CHUNK_9 * CHUNK_9_TICKS
+    ticks = CHUNKS * CHUNK_9_TICKS
     for hidden in NETS:
         for td in (False, True):
             tag = f"9 net {hidden}" + (" in_kernel_td" if td else "")
@@ -1887,82 +2008,125 @@ def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
             chunk = train.build_chunk_ring(agent, params, NUM_ENVS,
                                            CAPACITY, BATCH, RESET_EVERY,
                                            in_kernel_td=td)
-
-            def eager_chunk(carry, n):
-                outs = []
-                for _ in range(n):
-                    carry, out = chunk.tick(carry)
-                    outs.append(out)
-                return carry, tuple(torch.stack(o) for o in zip(*outs))
-
-            carry = fresh(0)
-            runs_out, stats = {}, {}
-            for way, run in (("graphed", chunk), ("eager", eager_chunk)):
-                c = copy.deepcopy(carry) if way == "graphed" else carry
-                torch.cuda.synchronize()
-                zero_counts()
-                outs, host_s, wall_s = [], 0.0, 0.0
-                for i in range(CHUNK_9):
-                    # The captures (in the first chunk) are set-up: out of
-                    # the times, reported apart.
-                    t0, c0 = time.perf_counter(), chunk.capture_s
-                    c, out = run(c, CHUNK_9_TICKS)
-                    captures = chunk.capture_s - c0 if way == "graphed" else 0
-                    host_s += time.perf_counter() - t0 - captures
-                    torch.cuda.synchronize()
-                    wall_s += time.perf_counter() - t0 - captures
-                    outs.append(out)
-                    if i + 1 < CHUNK_9:
-                        train_state_io.save(state_path, c)
-                        c = train_state_io.restore(state_path, fresh(1))
-                n = counts()
-                expect = {k: 0 for k in n}
-                expect.update(full_tick_ring=ticks,
-                              td_adam=ticks if td else 0)
-                if n != expect:
-                    fail(f"{tag}: {way} launches {n}, want {expect}")
-                runs_out[way] = (c, tuple(torch.cat(o) for o in zip(*outs)))
-                stats[way] = {"obs_per_s": NUM_ENVS * ticks / wall_s,
-                              "host_ms": 1e3 * host_s / ticks,
-                              "tick_ms": 1e3 * wall_s / ticks}
-            (cg, og), (ce, oe) = runs_out["graphed"], runs_out["eager"]
-            got, want = (train_state_io.leaves(x) for x in (cg, ce))
-            if got[1] != want[1] or set(got[0]) != set(want[0]):
-                fail(f"{tag}: the carries' numbers or paths differ: "
-                     f"{got[1]} vs {want[1]}")
-            differ = [p for p, t in want[0].items()
-                      if not torch.equal(got[0][p], t)]
-            differ += [name for name, a, b in zip(
-                ("rewards", "epsilon", "loss"), og, oe)
-                if not torch.equal(a, b)]
-            if differ:
-                fail(f"{tag}: graphed and eager differ in {differ[:12]}")
-            if not bool(torch.isfinite(og[2]).all()) or float(
-                    og[1][-1]) >= 1.0:
-                fail(f"{tag}: a loss is not finite or epsilon did not decay")
-            for way, run, c in (("graphed", chunk, cg), ("eager", eager_chunk,
-                                                         ce)):
-                c, prof = profiling.profiled_ticks(
-                    lambda x: run(x, CHUNK_9_TRACE), c, 1, device)
-                kernels = profiling.device_kernels(prof, CHUNK_9_TRACE)
-                device_ms = sum(k[1] for k in kernels)
-                stats[way].update(
-                    device_ms=device_ms,
-                    busy=device_ms / stats[way]["tick_ms"])
-            g, e = stats["graphed"], stats["eager"]
-            log(f"{tag}: {CHUNK_9} x {CHUNK_9_TICKS} ticks with a train "
-                f"state saved and restored between, graphed == eager "
-                f"bitwise ({len(want[0])} carry tensors, {want[1]}; "
-                f"rewards, epsilon, loss); launches {expect} each way; "
-                f"{chunk.graphs} graphs captured in {chunk.capture_s:.3f} "
-                f"s; graphed {g['obs_per_s']:.1f} obs/s, host "
-                f"{g['host_ms']:.4f} ms a tick, tick {g['tick_ms']:.4f} ms, "
-                f"device {g['device_ms']:.4f} ms, busy {g['busy']:.4f}; "
-                f"eager {e['obs_per_s']:.1f} obs/s, host {e['host_ms']:.4f} "
-                f"ms, tick {e['tick_ms']:.4f} ms, device "
-                f"{e['device_ms']:.4f} ms, busy {e['busy']:.4f}; phase 4's "
-                f"default path {obs_per_s[hidden]:.1f} obs/s; on {card}")
+            expect = {k: 0 for k in counts()}
+            expect.update(full_tick_ring=ticks, td_adam=ticks if td else 0)
+            stats, numbers = graphed_vs_eager(
+                torch, train, zero_counts, counts, tag, chunk, fresh,
+                CHUNK_9_TICKS, expect, state_path, device)
+            log_ways(tag, stats, chunk, ticks, expect, numbers, card,
+                     f"; phase 4's default path {obs_per_s[hidden]:.1f} "
+                     "obs/s")
     log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def engine_chunks(torch, train, zero_counts, counts, card, runs, device=None):
+    """Phase 10: the jnp, full and fused engines' chunks (one CUDA graph
+    replay a tick) against their eager ticks (:func:`graphed_vs_eager`)
+    for each case of ENGINE_CASES, with the CLI's net and schedule: B3 and
+    B4 counted once a tick either way, nothing launched by the jnp
+    engine. Then the host's walk of a CLI chunk (``--max_scan_steps``'
+    default of 100,000 ticks) on the jnp engine, and the CLI at its
+    defaults (the jnp engine at one env), which must run its chunk as
+    graphs. Returns each case's stats."""
+    from dronerl_tpu_torch import replay, rng
+    from dronerl_tpu_torch.agents.dqn import DQN
+    from dronerl_tpu_torch.ops import fused_tick
+
+    t_phase = time.perf_counter()
+    state_path = os.path.join(runs, "chunk10.safetensors")
+    os.makedirs(runs, exist_ok=True)
+    device = device or torch.device("cuda", 0)
+    results = {}
+    for engine, num_envs, memory, flags in ENGINE_CASES:
+        t_case = time.perf_counter()
+        args = train.parse_args(["--num_envs", str(num_envs),
+                                 "--memory_size", str(memory), *flags])
+        params = train.env_params_from_args(args)
+        agent = DQN(train.agent_config_from_args(args), params,
+                    device=device)
+        push = num_envs
+        capacity = max(-(-memory // push) * push, 2 * push)
+        if engine == "jnp":
+            buf = replay.ReplayBuffer(-(-memory // push) * push, BATCH,
+                                      uniform_pushes=True)
+            tick = train.build_train_step(agent, buf, params, num_envs,
+                                          RESET_10)
+            init = train.init_jnp_carry
+        else:
+            buf = replay.StreamReplay(capacity, BATCH, stride=push)
+            build = {"full": train.build_train_step_full,
+                     "fused": train.build_train_step_fused}[engine]
+            tick = build(agent, buf, params, num_envs, RESET_10)
+            init = train.init_stream_carry
+            fused_tick.prepare_kernel(
+                params, None if engine == "fused" else
+                fused_tick.flatten_net_params(
+                    agent.init_state(rng.PRNGKey(0)).params, agent.net_spec),
+                env_tick=engine == "fused")
+        if train.choose_engine(args, params) != engine:
+            fail(f"10 {engine}: the CLI would choose "
+                 f"{train.choose_engine(args, params)} at {flags}")
+
+        def fresh(seed):
+            return init(agent, params, num_envs, buf, rng.PRNGKey(seed))
+
+        tag = (f"10 {engine} engine {num_envs} envs memory {memory} "
+               f"({args.network_type} net)")
+        chunk = train.Chunk(tick)
+        ticks = CHUNKS * CHUNK_10_TICKS
+        expect = {k: 0 for k in counts()}
+        kernel = {"jnp": None, "full": "full_tick", "fused": "tick"}[engine]
+        if kernel:
+            expect[kernel] = ticks
+        stats, numbers = graphed_vs_eager(
+            torch, train, zero_counts, counts, tag, chunk, fresh,
+            CHUNK_10_TICKS, expect, state_path, device)
+        log_ways(tag, stats, chunk, ticks, expect, numbers, card,
+                 f"; replay of {buf.capacity} slots, wrapped "
+                 f"{ticks * push // buf.capacity} times; the case took "
+                 f"{time.perf_counter() - t_case:.1f} s")
+        results[(engine, num_envs)] = dict(
+            stats, graphs=chunk.graphs, capture_s=chunk.capture_s,
+            launches=expect)
+        del chunk, tick, buf
+        torch.cuda.empty_cache()
+
+    # The host's walk of one CLI chunk at --max_scan_steps' default.
+    args = train.parse_args([])
+    agent = DQN(train.agent_config_from_args(args),
+                train.env_params_from_args(args), device=device)
+    buf = replay.ReplayBuffer(args.memory_size, BATCH, uniform_pushes=True)
+    chunk = train.Chunk(train.build_train_step(
+        agent, buf, agent.env_params, 1, args.reset_env_every))
+    carry = train.init_jnp_carry(agent, agent.env_params, 1, buf,
+                                 rng.PRNGKey(0))
+    t0 = time.perf_counter()
+    rows, sigs, _ = chunk.table(carry, args.max_scan_steps)
+    walk_s = time.perf_counter() - t0
+    log(f"10 the host's walk of a {args.max_scan_steps}-tick jnp chunk: "
+        f"{walk_s:.3f} s ({1e6 * walk_s / args.max_scan_steps:.2f} us a "
+        f"tick), {len(set(sigs))} signatures, a table of {rows.nbytes} "
+        f"bytes; on {card}")
+    del rows, sigs, chunk, carry, buf
+
+    # The CLI at its defaults: the jnp engine at one env, graphed.
+    metrics = train.main(["--skip_final_eval", "--run_dir",
+                          os.path.join(runs, "cli10")])
+    if metrics["engine"] != "jnp" or not metrics.get("graphs"):
+        fail(f"10 the CLI at its defaults: engine {metrics['engine']}, "
+             f"graphs {metrics.get('graphs')}")
+    steps = train.parse_args([]).num_steps
+    log(f"10 the CLI at its defaults ({steps} steps, 1 env, memory "
+        "100000): the jnp engine as a graphed chunk, "
+        f"{metrics['graphs']} graphs captured in {metrics['capture_s']:.3f} "
+        f"s; {1e3 * metrics['time_taken'] / steps:.4f} ms a tick with the "
+        f"walk and the captures, "
+        f"{1e3 * (metrics['time_taken'] - metrics['capture_s']) / steps:.4f}"
+        f" ms without the captures; loss {metrics['td_loss_mean']:.5f}, eps "
+        f"{metrics['epsilon']:.4f}; on {card}")
+    results["walk_s"] = walk_s
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return results
 
 
 def lifecycle(torch, train, zero_counts, counts, card, obs_per_s, runs):

@@ -146,7 +146,7 @@ def metric_name(net: str, num_envs: int, in_kernel_td: bool) -> str:
 
 
 class Program(NamedTuple):
-    """A ring-engine program: its chunk (``train.RingChunk``), its eager
+    """A ring-engine program: its chunk (``train.Chunk``), its eager
     tick (``chunk.tick``), ``run`` (``steps`` ticks, one chunk: the
     counterpart of ``jax.lax.scan`` over the tick) and ``make_carry``."""
 
@@ -485,7 +485,7 @@ def check_lockstep(prog: Program, ticks: Optional[int] = None) -> dict:
     tallies and ``problems``."""
     nb = prog.capacity // prog.num_envs
     ticks = ticks or max(CHECK_TICKS, 2 * nb)
-    chunk = train.RingChunk(prog.tick)
+    chunk = train.Chunk(prog.tick)
     carry = prog.make_carry()
     eager = copy.deepcopy(carry)
     carry, outs = chunk(carry, ticks)

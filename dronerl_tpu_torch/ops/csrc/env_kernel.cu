@@ -80,9 +80,8 @@ struct EnvArgs {
   float* rewards;
   int8_t* dones;
   float* obs_out;
+  const uint32_t* key;  // the step key's two words, in device memory
   int num_envs;
-  uint32_t key0;
-  uint32_t key1;
   float pickup_reward;
   float delivery_reward;
   float crash_reward;
@@ -172,9 +171,12 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) env_kernel(const EnvArgs a)
   stage<FM>(s_act, a.actions, N, E, e0, ne);
 
   // --- keys: row e of split(step_key, E), one thread an env ----------------
+  // The key is read by pointer, so that a CUDA graph's launch reads each
+  // replay's key (a block passed by value would freeze the capture's).
   if ((int)threadIdx.x < ne) {
     const int el = threadIdx.x;
-    const Key env_key = split_row(Key{a.key0, a.key1}, (uint32_t)(e0 + el));
+    const Key step_key{__ldg(a.key), __ldg(a.key + 1)};
+    const Key env_key = split_row(step_key, (uint32_t)(e0 + el));
     // core.step: key, respawn_key = split(key); then split(key) again.
     const Key nk = split_row(env_key, 0u);
     const Key ground_key = split_row(env_key, 1u);

@@ -517,10 +517,8 @@ class EnvArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         *_STATE_FIELDS, "actions", *_OUT_FIELDS, "rewards", "dones",
-        "obs_out")] + [
+        "obs_out", "key")] + [
         ("num_envs", ctypes.c_int),
-        ("key0", ctypes.c_uint32),
-        ("key1", ctypes.c_uint32),
     ] + _REWARD_FIELDS
 
 
@@ -747,14 +745,16 @@ def _full_args(step_key, tstate: TState, obs_t, chain: Sequence[torch.Tensor],
 
 def _env_tick_args(step_key, tstate: TState, actions_t, params: EnvParams,
                    collect: int = 1, rng_rounds: int = 20):
-    """The env tick launch's (B4) argument block. Returns ``(args,
-    (tstate', rewards, dones, obs_t' (collect · obs_dim, E)))``."""
+    """The env tick launch's (B4) argument block, the key read by pointer
+    (:func:`key_words`). Returns ``(args, (tstate', rewards, dones, obs_t'
+    (collect · obs_dim, E)))``."""
     device, num_envs = _check_state(tstate, params, None, collect,
                                     rng_rounds)
     check_tensor(actions_t, "actions_t", torch.int32,
                  (params.n_drones, num_envs), device)
     a = EnvArgs()
-    a.key0, a.key1 = _host_key_words(step_key)
+    a.key_words = key_words(step_key, device)  # kept alive with the block
+    a.key = a.key_words.data_ptr()
     out, rewards, dones = _fill_env(a, tstate, params)
     obs_next = torch.empty((collect * obs_rows(params), num_envs),
                            dtype=torch.float32, device=device)
@@ -815,7 +815,7 @@ def full_tick_fused_ring(
     launches``); CPU tensors run the plain versions. There is no
     fallback between the two. A call made while a CUDA graph captures
     records its launches into the graph; whoever replays the graph adds
-    them to the counts (``train.build_chunk_ring``).
+    them to the counts (``train.Chunk``).
     """
     td = td_hparams is not None
     if td and (td_batch is None or td_aux is None):
@@ -869,7 +869,8 @@ def full_tick_fused(step_key: torch.Tensor, tstate: TState,
     obs_dim, E) f32)``.
 
     CUDA tensors launch the kernel (counted in ``full_tick_fused.
-    launches``); CPU tensors run :func:`full_tick_plain`.
+    launches``, and a captured launch once a replay by the graph's owner);
+    CPU tensors run :func:`full_tick_plain`.
     """
     rng_collect = dict(collect=collect, rng_rounds=rng_rounds,
                        actor_rng_rounds=actor_rng_rounds)
@@ -891,13 +892,16 @@ def tick_fused(step_key: torch.Tensor, tstate: TState,
                actions_t: torch.Tensor, params: EnvParams,
                collect: int = 1, rng_rounds: int = 20):
     """Step and observe every env with the caller's actions (B4):
-    ``actions_t`` (N, E) int32, ``step_key`` a host key (2,); the first
+    ``actions_t`` (N, E) int32, ``step_key`` a key (2,) on the host or on
+    the state's device (:func:`key_words`: the kernel reads its words by
+    pointer); the first
     ``collect`` drones' observations, every hash at ``rng_rounds``.
     Returns ``(tstate', rewards (N, E) f32, dones (N, E) bool, obs_t'
     (collect · obs_dim, E) f32)``.
 
-    CUDA tensors launch the kernel (counted in ``tick_fused.launches``);
-    CPU tensors run :func:`tick_plain`.
+    CUDA tensors launch the kernel (counted in ``tick_fused.launches``,
+    and a captured launch once a replay by the graph's owner); CPU
+    tensors run :func:`tick_plain`.
     """
     if not tstate.ground.is_cuda:
         return tick_plain(step_key, tstate, actions_t, params, collect,

@@ -476,7 +476,7 @@ def td_adam(batch, params: DenseQNet, target: DenseQNet, mu, nu, count,
 
 # Launches of the learner kernel: one a call on CUDA tensors, and one a
 # replay of each launch that a captured CUDA graph holds (added by the
-# graph's owner, ``train.build_chunk_ring``).
+# graph's owner, ``train.Chunk``).
 td_adam.launches = 0
 
 

@@ -25,7 +25,7 @@ from dronerl_tpu_torch import rng
 from dronerl_tpu_torch.env import core
 from dronerl_tpu_torch.env.types import EnvParams, EnvState
 from dronerl_tpu_torch.ops import _build
-from dronerl_tpu_torch.ops.fused_tick import EnvArgs
+from dronerl_tpu_torch.ops.fused_tick import EnvArgs, key_words
 from dronerl_tpu_torch.ops.learner_kernel import check_tensor
 
 # The JAX kernel's limits (dronerl_tpu/ops/step_kernel.py), which
@@ -103,7 +103,8 @@ def _kernel_args(step_key, states: EnvState, actions, params: EnvParams
                                outs.carrying_package, outs.charge))
     a.rewards, a.dones = rewards.data_ptr(), dones.data_ptr()
     a.num_envs = num_envs
-    a.key0, a.key1 = (int(v) for v in step_key.tolist())
+    a.key_words = key_words(step_key, device)  # kept alive with the block
+    a.key = a.key_words.data_ptr()
     a.pickup_reward = params.pickup_reward
     a.delivery_reward = params.delivery_reward
     a.crash_reward = params.crash_reward

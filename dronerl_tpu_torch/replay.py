@@ -16,13 +16,20 @@ Two differences of form, none of result:
 * ``cursor`` and ``size`` are host ``int``s, as the ring engine keeps its
   step on the host: the trainer's control flow (whether a push wraps,
   whether the buffer can be sampled) then needs no read from the device.
+  They are exact on the host because every push of a trainer has one
+  size, so they are also a chunk's per-tick words (:class:`PushWords`:
+  the push's start slot, the sample's bound and base), which the device
+  path of a push or a sample reads as 0-d tensors instead
+  (``start=``, ``bound=``, ``base=``): a CUDA graph's tick reads them from
+  device memory, and its host ints stay as the capture left them until
+  the chunk (``train.Chunk``) sets ``cursor`` and ``size`` at its exit.
 * The JAX package is functional; here a push writes the storage tensors in
   place and returns a ``ReplayState`` holding the same tensors.
 """
 
 import collections
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -38,6 +45,59 @@ class ReplayState:
     #                                     or (*field_shape, capacity)
     cursor: int  # next write position
     size: int    # number of valid slots (<= capacity)
+
+
+class PushWords(NamedTuple):
+    """A push's words, worked out on the host from the cursor and size
+    before it: the slot the push starts at, the sample's upper bound and
+    its first slot after it (0 where the replay samples from slot 0), and
+    the cursor and size after it."""
+
+    start: int
+    bound: int
+    base: int
+    cursor: int
+    size: int
+
+
+def push_start(cursor: int, n: int, capacity: int,
+               aligned: bool = False) -> int:
+    """The first slot a push of ``n`` writes: the cursor, or with
+    ``aligned`` pushes that divide the capacity ``min(cursor, capacity -
+    n)``, the clamp of the JAX package's ``dynamic_update_slice``."""
+    if aligned and capacity % n == 0:
+        return min(cursor, capacity - n)
+    return cursor
+
+
+def _device_slots(start: torch.Tensor, n: int, capacity: int,
+                  device) -> torch.Tensor:
+    """The slots ``(start + arange(n)) % capacity`` on ``device`` for a
+    0-d start word there."""
+    return (start.to(torch.int64) + torch.arange(n, device=device)) % capacity
+
+
+def _write(storage: Dict[str, torch.Tensor], batch: Dict[str, Any],
+           start, n: int, capacity: int, dim: int) -> None:
+    """Write ``batch`` into ``storage`` at the slots ``start .. start + n
+    - 1`` modulo ``capacity`` on axis ``dim`` (0 or -1), in place, each
+    item cast to its storage's dtype: a slice where an int start does not
+    wrap, else the slots as one index tensor (worked out on the device
+    for a 0-d tensor start)."""
+    if isinstance(start, torch.Tensor):
+        slots = _device_slots(start, n, capacity, start.device)
+    elif start + n <= capacity:
+        for name, buf in storage.items():
+            if dim == 0:
+                buf[start:start + n] = batch[name]
+            else:
+                buf[..., start:start + n] = batch[name]
+        return
+    else:
+        device = next(iter(storage.values())).device
+        slots = ((start + torch.arange(n)) % capacity).to(device)
+    for name, buf in storage.items():
+        buf.index_copy_(dim % buf.dim(), slots, batch[name].to(buf.dtype))
 
 
 # --- row-major: slots on the leading axis ------------------------------------
@@ -64,37 +124,35 @@ def push(state: ReplayState, experience: Dict[str, Any],
 
 
 def push_many(state: ReplayState, batch: Dict[str, Any], capacity: int,
-              aligned: bool = False) -> ReplayState:
+              aligned: bool = False, start=None) -> ReplayState:
     """Write a leading-axis batch of experiences at the cursor, wrapping
     around the ring (in place; each item cast to its storage's dtype).
 
     ``aligned`` is the caller's promise that every push has this size and
     that it divides the capacity, so that no write wraps; the JAX package
     then writes with ``dynamic_update_slice``, which would clamp a start
-    past ``capacity - n``, and so does this function."""
+    past ``capacity - n``, and so does this function (:func:`push_start`).
+    ``start``: that first slot given, an int (a row's word on the host) or
+    a 0-d integer tensor on the storage's device (a row's word there,
+    written at ``(start + arange(n)) % capacity`` without reading the host
+    cursor)."""
     n = next(iter(batch.values())).shape[0]
-    cursor = state.cursor
-    if aligned and capacity % n == 0:
-        start = min(cursor, capacity - n)
-        for name, buf in state.storage.items():
-            buf[start:start + n] = batch[name]
-    elif cursor + n <= capacity:
-        for name, buf in state.storage.items():
-            buf[cursor:cursor + n] = batch[name]
-    else:
-        slots = (cursor + torch.arange(n)) % capacity
-        for name, buf in state.storage.items():
-            buf[slots.to(buf.device)] = batch[name].to(buf.dtype)
-    return ReplayState(storage=state.storage, cursor=(cursor + n) % capacity,
+    if start is None:
+        start = push_start(state.cursor, n, capacity, aligned)
+    _write(state.storage, batch, start, n, capacity, 0)
+    return ReplayState(storage=state.storage,
+                       cursor=(state.cursor + n) % capacity,
                        size=min(state.size + n, capacity))
 
 
-def sample(key: torch.Tensor, state: ReplayState,
-           batch_size: int) -> Dict[str, torch.Tensor]:
+def sample(key: torch.Tensor, state: ReplayState, batch_size: int,
+           bound=None) -> Dict[str, torch.Tensor]:
     """Uniform sample with replacement over the valid prefix: the slots of
-    ``jax.random.randint(key, (batch_size,), 0, size)``, drawn on the
-    host."""
-    idx = rng.randint(key, (batch_size,), 0, state.size).to(torch.int64)
+    ``jax.random.randint(key, (batch_size,), 0, size)``, drawn where the
+    key lies (a host key on the host). ``bound``: ``size`` as an int or a
+    0-d integer tensor on the key's device (a row's word)."""
+    idx = rng.randint(key, (batch_size,), 0,
+                      state.size if bound is None else bound).to(torch.int64)
     return {name: buf[idx.to(buf.device, non_blocking=True)]
             for name, buf in state.storage.items()}
 
@@ -121,17 +179,26 @@ class ReplayBuffer:
              experience: Dict[str, Any]) -> ReplayState:
         return push(state, experience, self.capacity)
 
-    def push_many(self, state: ReplayState,
-                  batch: Dict[str, Any]) -> ReplayState:
+    def push_many(self, state: ReplayState, batch: Dict[str, Any],
+                  start=None) -> ReplayState:
         return push_many(state, batch, self.capacity,
-                         aligned=self.uniform_pushes)
+                         aligned=self.uniform_pushes, start=start)
 
-    def sample(self, key: torch.Tensor,
-               state: ReplayState) -> Dict[str, torch.Tensor]:
-        return sample(key, state, self.batch_size)
+    def sample(self, key: torch.Tensor, state: ReplayState,
+               bound=None) -> Dict[str, torch.Tensor]:
+        return sample(key, state, self.batch_size, bound)
 
     def can_sample(self, state: ReplayState) -> bool:
         return can_sample(state, self.batch_size)
+
+    def push_words(self, cursor: int, size: int, n: int) -> PushWords:
+        """The words of a push of ``n`` from ``cursor`` and ``size``: its
+        start slot (:func:`push_start`), the sample's bound ``size`` after
+        it, base 0."""
+        size = min(size + n, self.capacity)
+        return PushWords(
+            push_start(cursor, n, self.capacity, self.uniform_pushes), size,
+            0, (cursor + n) % self.capacity, size)
 
 
 # --- feature-major: slots on the last axis -----------------------------------
@@ -148,33 +215,28 @@ def init_t(template: Dict[str, torch.Tensor], capacity: int,
 
 
 def push_many_t(state: ReplayState, batch: Dict[str, Any],
-                capacity: int, aligned: bool = False) -> ReplayState:
+                capacity: int, aligned: bool = False,
+                start=None) -> ReplayState:
     """Write a last-axis batch of slots at the cursor, wrapping around the
-    ring (in place; each item cast to its storage's dtype). ``aligned`` as
-    :func:`push_many`'s: the start clamps to ``capacity - n``."""
+    ring (in place; each item cast to its storage's dtype). ``aligned`` and
+    ``start`` as :func:`push_many`'s: the start clamps to ``capacity -
+    n``, and a given start writes at its slots."""
     n = next(iter(batch.values())).shape[-1]
-    cursor = state.cursor
-    if aligned and capacity % n == 0:
-        start = min(cursor, capacity - n)
-        for name, buf in state.storage.items():
-            buf[..., start:start + n] = batch[name]
-    elif cursor + n <= capacity:
-        for name, buf in state.storage.items():
-            buf[..., cursor:cursor + n] = batch[name]
-    else:
-        slots = (cursor + torch.arange(n)) % capacity
-        for name, buf in state.storage.items():
-            buf[..., slots.to(buf.device)] = batch[name].to(buf.dtype)
-    return ReplayState(storage=state.storage, cursor=(cursor + n) % capacity,
+    if start is None:
+        start = push_start(state.cursor, n, capacity, aligned)
+    _write(state.storage, batch, start, n, capacity, -1)
+    return ReplayState(storage=state.storage,
+                       cursor=(state.cursor + n) % capacity,
                        size=min(state.size + n, capacity))
 
 
-def sample_t(key: torch.Tensor, state: ReplayState,
-             batch_size: int) -> Dict[str, torch.Tensor]:
+def sample_t(key: torch.Tensor, state: ReplayState, batch_size: int,
+             bound=None) -> Dict[str, torch.Tensor]:
     """Uniform with-replacement sample of slot columns (feature-major): the
-    slots of ``jax.random.randint(key, (batch_size,), 0, size)``, drawn on
-    the host."""
-    idx = rng.randint(key, (batch_size,), 0, state.size).to(torch.int64)
+    slots of ``jax.random.randint(key, (batch_size,), 0, size)``, drawn
+    where the key lies; ``bound`` as :func:`sample`'s."""
+    idx = rng.randint(key, (batch_size,), 0,
+                      state.size if bound is None else bound).to(torch.int64)
     return {name: buf[..., idx.to(buf.device, non_blocking=True)]
             for name, buf in state.storage.items()}
 
@@ -194,14 +256,14 @@ class FeatureMajorReplay:
              device=None) -> ReplayState:
         return init_t(template, self.capacity, device)
 
-    def push_many(self, state: ReplayState,
-                  batch: Dict[str, Any]) -> ReplayState:
+    def push_many(self, state: ReplayState, batch: Dict[str, Any],
+                  start=None) -> ReplayState:
         return push_many_t(state, batch, self.capacity,
-                           aligned=self.uniform_pushes)
+                           aligned=self.uniform_pushes, start=start)
 
-    def sample(self, key: torch.Tensor,
-               state: ReplayState) -> Dict[str, torch.Tensor]:
-        return sample_t(key, state, self.batch_size)
+    def sample(self, key: torch.Tensor, state: ReplayState,
+               bound=None) -> Dict[str, torch.Tensor]:
+        return sample_t(key, state, self.batch_size, bound)
 
     def can_sample(self, state: ReplayState) -> bool:
         return can_sample(state, self.batch_size)
@@ -241,26 +303,33 @@ class StreamReplay:
         dones); no 'next_obs' entry."""
         return init_t(template, self.capacity, device)
 
-    def push_many(self, state: ReplayState,
-                  batch: Dict[str, Any]) -> ReplayState:
+    def push_many(self, state: ReplayState, batch: Dict[str, Any],
+                  start=None) -> ReplayState:
+        """A stride-sized push at the cursor (``start``: as
+        :func:`push_many_t`'s)."""
         n = next(iter(batch.values())).shape[-1]
         if n != self.stride:
             raise ValueError(
                 f"StreamReplay pushes must be stride-sized ({self.stride}); "
                 f"got {n}: the successor-offset arithmetic depends on it")
-        return push_many_t(state, batch, self.capacity)
+        return push_many_t(state, batch, self.capacity, start=start)
 
-    def sample(self, key: torch.Tensor,
-               state: ReplayState) -> Dict[str, torch.Tensor]:
+    def sample(self, key: torch.Tensor, state: ReplayState, bound=None,
+               base=None) -> Dict[str, torch.Tensor]:
         """Uniform with-replacement over slots with a stored successor,
-        drawn on the host from ``key`` (``jax.random.randint``). Safe on a
-        cold buffer (clamped index range); callers gate its use on
+        drawn from ``key`` where it lies (``jax.random.randint``). Safe on
+        a cold buffer (clamped index range); callers gate its use on
         :meth:`can_sample`. obs and next_obs are column slices of one
-        gathered (D, 2B) tensor."""
-        valid = max(state.size - self.stride, 1)
-        raw = rng.randint(key, (self.batch_size,), 0, valid)
-        # When full, the oldest slot sits at the cursor; otherwise slot 0.
-        base = state.cursor if state.size == self.capacity else 0
+        gathered (D, 2B) tensor. ``bound`` and ``base``: the draw's upper
+        bound and the first slot (:meth:`push_words`), ints or 0-d integer
+        tensors on the key's device (a row's words), in place of the ones
+        worked out from the host ints."""
+        if bound is None:
+            bound = max(state.size - self.stride, 1)
+        raw = rng.randint(key, (self.batch_size,), 0, bound)
+        if base is None:
+            # When full, the oldest slot sits at the cursor; otherwise 0.
+            base = state.cursor if state.size == self.capacity else 0
         phys = (base + raw.to(torch.int64)) % self.capacity
         nxt = (phys + self.stride) % self.capacity
         obs = state.storage["obs"]
@@ -275,6 +344,19 @@ class StreamReplay:
 
     def can_sample(self, state: ReplayState) -> bool:
         return state.size - self.stride >= self.batch_size
+
+    def push_words(self, cursor: int, size: int, n: int) -> PushWords:
+        """The words of a push of ``n`` (the stride) from ``cursor`` and
+        ``size``: it starts at the cursor; after it the sample draws below
+        ``max(size - stride, 1)`` from the cursor when full, else from
+        slot 0."""
+        if n != self.stride:
+            raise ValueError(f"StreamReplay pushes must be stride-sized "
+                             f"({self.stride}); got {n}")
+        after = (cursor + self.stride) % self.capacity
+        size = min(size + self.stride, self.capacity)
+        return PushWords(cursor, max(size - self.stride, 1),
+                         after if size == self.capacity else 0, after, size)
 
 
 # --- diagnostics ----------------------------------------------------------------

@@ -80,6 +80,13 @@ def threefry2x32(k1, k2, x0, x1, rounds: int = 20):
     return _threefry(k1, word(k2), word(x0), word(x1), rounds)
 
 
+def threefry_words(k1, k2, x0, x1):
+    """Threefry-2x32 at 20 rounds on the host's words: Python ints, or
+    numpy uint64 arrays holding uint32 values (many keys' hashes at once,
+    as a trainer's chunk makes its ticks' keys)."""
+    return _threefry(k1, k2, x0, x1)
+
+
 def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for a 32-bit seed: words (0, seed)."""
     seed = int(seed)
@@ -135,22 +142,32 @@ def uniform(key: torch.Tensor, shape, rounds: int = 20) -> torch.Tensor:
     return bits_to_unit_float(random_bits(key, shape, rounds))
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+def randint(key: torch.Tensor, shape, minval: int, maxval) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` for int32 output.
 
     Follows jax's ``_randint``: two 32-bit draws from ``split(key)`` are
     combined as ``(hi % span) * (2**32 % span) + lo % span``, all in
-    wrapping uint32 arithmetic. ``minval``/``maxval`` are Python ints in
-    the int32 range.
+    wrapping uint32 arithmetic. ``minval`` is a Python int in the int32
+    range; ``maxval`` one too, or a 0-d integer tensor on the key's device
+    holding one (a bound that a CUDA graph reads from device memory: the
+    span and multiplier are then device values, the same arithmetic).
     """
-    minval, maxval = int(minval), int(maxval)
-    for v in (minval, maxval):
+    minval = int(minval)
+    bounds = [minval]
+    if isinstance(maxval, torch.Tensor):
+        if maxval.dim() != 0 or maxval.dtype.is_floating_point:
+            raise ValueError("a tensor bound must be a 0-d integer tensor")
+        bound = maxval.to(torch.int64)
+        span = torch.where(bound > minval, (bound - minval) & MASK32, 1)
+    else:
+        bounds.append(int(maxval))
+        span = 1 if bounds[1] <= minval else (bounds[1] - minval) & MASK32
+    for v in bounds:
         if not -(1 << 31) <= v < (1 << 31):
             raise ValueError(f"bound {v} is outside the int32 range")
     # Both halves' words in one hash over the two keys of split(key, 2).
     bits = random_bits(split(key, 2), shape)
     higher, lower = (bits.select(key.dim() - 1, i) for i in (0, 1))
-    span = 1 if maxval <= minval else (maxval - minval) & MASK32
     multiplier = (1 << 16) % span
     multiplier = (multiplier * multiplier & MASK32) % span
     offset = ((higher % span) * multiplier & MASK32) + (lower % span)

@@ -1,8 +1,8 @@
 """DQN training (counterpart of ``dronerl_tpu/train.py``): the ring engine,
 the two StreamReplay engines and the jnp engine.
 
-Ring engine (:func:`build_train_step_ring`, and its chunk
-:class:`RingChunk`). One tick: split the host key three ways; one launch of the fused tick kernel (the whole env side:
+Ring engine (:func:`build_train_step_ring`). One tick: split the host
+key three ways; one launch of the fused tick kernel (the whole env side:
 actor, physics, respawns, observation, the periodic reset, the write of
 the next observation into the replay ring); the scalar-ring writes; a
 uniform replay sample off the ring; the TD(0) Adam step; the target and
@@ -71,13 +71,15 @@ gradient all-reduce a trained tick).
 The step counter, the ring slot arithmetic, the reset flag, the count of
 valid columns, the replay's cursor and size and the rng chain stay on the
 host: they are a few scalar hashes a tick, and reading them back from the
-device every tick would serialise the loop. The ring engine's chunk
-(:class:`RingChunk`, the CLI's on one card) walks them for the whole chunk
-at its entry: the key words, the Adam count and the learner's bias
-corrections go to the device as one table, and on the card each tick is
-one replay of the CUDA graph of its static signature (the slot, the
-reset, the schedules, whether it trains), which reads its words from
-device memory. The other engines' ticks run eagerly.
+device every tick would serialise the loop. Each engine's chunk
+(:class:`Chunk`, the CLI's on one card) walks them for the whole chunk at
+its entry: the key words, the Adam count, the learner's bias corrections
+and the replay's words (the push's start slot, the sample's bound and
+base) go to the device as one table, and on the card each tick is one
+replay of the CUDA graph of its static signature (the ring's slot and
+valid columns, the reset, the schedules, whether it trains; never the
+replay's cursor or size), which reads its words from device memory. The
+sharded trainers' ticks run eagerly.
 
 Run:  python -m dronerl_tpu_torch.train --num_envs 65536 --num_steps 300
 """
@@ -96,7 +98,7 @@ import statistics
 import sys
 import time
 from datetime import datetime
-from typing import NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -133,7 +135,192 @@ def host_keys(num: int):
         split = rng_mod.split(rng, num + 1)
         return split[0], split[1:]
 
+    def table(rng, length: int):
+        """``length`` ticks' keys at once: ``(rng', (length, num, 2)
+        uint32)``, the chain's key (counter 0) hashed tick by tick on
+        Python ints, the ticks' keys (counters 1..num) for every tick at
+        once on numpy words."""
+        k1, k2 = (int(v) & rng_mod.MASK32 for v in rng.tolist())
+        chain = np.empty((length, 2), dtype=np.uint64)
+        for t in range(length):
+            chain[t] = k1, k2
+            k1, k2 = rng_mod.threefry_words(k1, k2, 0, 0)
+        out = np.empty((length, num, 2), dtype=np.uint32)
+        for i in range(num):
+            out[:, i, 0], out[:, i, 1] = rng_mod.threefry_words(
+                chain[:, 0], chain[:, 1], 0, i + 1)
+        return torch.tensor([k1, k2], dtype=torch.int64), out
+
+    keys.table = table
     return keys
+
+
+class HostChain(NamedTuple):
+    """The host values that a tick walks and its carry keeps: the rng key,
+    the step, the Adam count and, over a replay, its cursor and size."""
+
+    rng: torch.Tensor
+    step: int
+    count: int
+    cursor: Optional[int] = None
+    size: Optional[int] = None
+
+
+def _host_chain(carry) -> HostChain:
+    """The carry's host values (its replay's where ``carry[4]`` is one)."""
+    bstate = carry[4]
+    ints = ((bstate.cursor, bstate.size)
+            if isinstance(bstate, replay.ReplayState) else ())
+    return HostChain(carry[0], carry[-1], carry[3].opt_state.count, *ints)
+
+
+def _settle(carry, chain: HostChain):
+    """``carry`` with its host values set from ``chain``: rng, step, the
+    Adam count and the replay's cursor and size."""
+    carry[3].opt_state.count = chain.count
+    aux = carry[4]
+    if chain.cursor is not None:
+        aux = replay.ReplayState(aux.storage, chain.cursor, chain.size)
+    return (chain.rng, *carry[1:4], aux, chain.step)
+
+
+class RowLayout:
+    """A tick's per-tick words, int32 columns of one row: each of its
+    ``num_keys`` keys' two uint32 words, the Adam count before the step,
+    the bias corrections of the autograd learner's step (f32 bits), the
+    tick's index in its chunk and, over a replay (``push``), the push's
+    start slot, the sample's upper bound and its base slot
+    (``replay.PushWords``)."""
+
+    def __init__(self, num_keys: int, push: bool = False):
+        n = 2 * num_keys
+        self.num_keys = num_keys
+        self.count, self.corrections, self.tick = n, slice(n + 1, n + 3), n + 3
+        self.start, self.bound, self.base = n + 4, n + 5, n + 6
+        self.words = n + (7 if push else 4)
+
+    def make(self, keys, count: int, tick: int, push=None) -> np.ndarray:
+        """One tick's row from its host keys ((num_keys, 2) words, a host
+        tensor or an array), the Adam count before it and its push's
+        words."""
+        row = np.zeros(self.words, dtype=np.uint32)
+        row[:2 * self.num_keys] = np.asarray(keys).reshape(-1).astype(
+            np.int64) & rng_mod.MASK32
+        row[self.count] = learner_kernel.check_count(count)
+        row[self.corrections] = np.array(adam_bias_corrections(count + 1),
+                                         dtype=np.float32).view(np.uint32)
+        row[self.tick] = tick
+        if push is not None:
+            row[self.start], row[self.bound], row[self.base] = push[:3]
+        return row.view(np.int32)
+
+    def keys(self, row: torch.Tensor):
+        """The row's keys as int64 (2,) tensors on the row's device."""
+        words = row[:2 * self.num_keys].to(torch.int64) & rng_mod.MASK32
+        return words.view(self.num_keys, 2).unbind(0)
+
+    def bias_corrections(self, row: torch.Tensor) -> torch.Tensor:
+        """The autograd learner's bias corrections, (2,) f32 on the row's
+        device (``DQN.train_step_t``'s ``corrections``)."""
+        return row[self.corrections].view(torch.float32)
+
+    def host_key(self, host: np.ndarray, index: int) -> torch.Tensor:
+        """Key ``index`` of ``host``, a row on the host, as an int64 (2,)
+        host tensor."""
+        words = host[2 * index:2 * index + 2].view(np.uint32)
+        return torch.from_numpy(words.astype(np.int64))
+
+    def replay_words(self, row: torch.Tensor, key: torch.Tensor,
+                     host: Optional[np.ndarray], index: int):
+        """The push's start slot and the replay sample's key, upper bound
+        and base slot: the row's words as 0-d tensors and ``key`` (the
+        row's key ``index``), on the row's device; or, given ``host`` (the
+        row on the host), its words as ints and its key ``index``, which
+        push with slices and draw on the host in far fewer launches (an
+        eager tick's)."""
+        if host is None:
+            return row[self.start], key, row[self.bound], row[self.base]
+        return (int(host[self.start]), self.host_key(host, index),
+                int(host[self.bound]), int(host[self.base]))
+
+
+@dataclasses.dataclass
+class Tick:
+    """An engine's tick: ``tick(carry) -> (carry, (rewards (E,), epsilon,
+    loss))`` runs it eagerly, and :class:`Chunk` runs chunks of it.
+
+    ``body(carry, row, sig, host=None)`` is the tick on the words of one
+    row of ``layout`` (an int32 tensor on ``device``) under its static
+    signature ``sig``: it reads no host value that varies within a
+    signature, copies nothing from the host and leaves the carry's
+    ``rng``, ``step``, Adam count and replay cursor and size to its
+    caller. ``host``, the same row on the host, has the body take from
+    it the push's start slot, the replay sample's key, bound and base and
+    the ε draw's key, which then push with slices and split and draw on
+    the host: the eager tick passes it, for far fewer launches (a graph
+    cannot). ``walk(chain, t,
+    tick_keys) -> (row, sig, chain')`` makes tick ``t``'s row and
+    signature from the host chain before it and the tick's keys, and
+    returns the chain after it but its rng. ``keys`` and ``group`` as
+    :func:`host_keys`'s; ``signature``, the ring's ``signature(step)``."""
+
+    body: Callable
+    walk: Callable
+    keys: Callable
+    layout: RowLayout
+    device: torch.device
+    group: Any = None
+    signature: Optional[Callable] = None
+
+    @property
+    def single_card(self) -> bool:
+        """Whether a :class:`Chunk` can run the tick: its keys are
+        :func:`host_keys`' (whose ``table`` walks a chunk's chain at once)
+        and it averages over no process group."""
+        return self.group is None and hasattr(self.keys, "table")
+
+    def __call__(self, carry):
+        """Walk the carry's chain one tick, copy the row over, run the body
+        (its replay sample drawn on the host) and set the carry's host
+        values from the chain."""
+        chain = _host_chain(carry)
+        rng, tick_keys = self.keys(chain.rng, chain.step)
+        row, sig, chain = self.walk(chain, 0, tick_keys)
+        carry, outs = self.body(carry, upload(row, torch.int32, self.device),
+                                sig, row)
+        return _settle(carry, chain._replace(rng=rng)), outs
+
+
+class Signature(NamedTuple):
+    """The host values that fix a replay engine's tick (jnp, full, fused):
+    whether it trains (``can_sample`` after the push, worked out on the
+    host), the reset, the target sync and the ε decay (None where it
+    follows the episode's done). Nothing of the replay's cursor or size,
+    so at most 2 · 2 · 2 · 3 graphs whatever the replay's capacity."""
+
+    trains: bool
+    reset: bool
+    sync: bool
+    decay: Optional[bool]
+
+
+def _replay_walk(agent: DQN, buffer, layout: RowLayout,
+                 reset_env_every: int, push_size: int):
+    """A replay engine's ``walk``: the push's words from the replay's
+    cursor and size (``buffer.push_words``, a push of ``push_size``
+    transitions), the signature, the Adam count advanced where the tick
+    trains."""
+    def walk(chain: HostChain, t: int, tick_keys):
+        push = buffer.push_words(chain.cursor, chain.size, push_size)
+        trains = buffer.can_sample(replay.ReplayState({}, 0, push.size))
+        sig = Signature(trains, chain.step % reset_env_every == 0,
+                        *agent.schedule_flags(chain.step))
+        row = layout.make(tick_keys, chain.count, t, push)
+        return row, sig, HostChain(chain.rng, chain.step + 1,
+                                   chain.count + trains, push.cursor,
+                                   push.size)
+
+    return walk
 
 
 class RingSignature(NamedTuple):
@@ -150,28 +337,6 @@ class RingSignature(NamedTuple):
     sync: bool
     decay: Optional[bool]
     trains: bool
-
-
-# A ring tick's per-tick words, int32 columns of one row: the step key's two
-# uint32 words, the sample key's, the Adam count before the step, the bias
-# corrections of the autograd learner's step (f32 bits) and the tick's index
-# in its chunk.
-ROW_STEP_KEY, ROW_SAMPLE_KEY, ROW_COUNT = slice(0, 2), slice(2, 4), 4
-ROW_CORRECTIONS, ROW_TICK, ROW_WORDS = slice(5, 7), 7, 8
-
-
-def _row_words(step_key, sample_key, count: int, tick: int) -> np.ndarray:
-    """One tick's row (:data:`ROW_WORDS` int32) from its host keys and the
-    Adam count before it."""
-    row = np.zeros(ROW_WORDS, dtype=np.uint32)
-    row[ROW_STEP_KEY] = [int(v) & rng_mod.MASK32 for v in step_key.tolist()]
-    row[ROW_SAMPLE_KEY] = [int(v) & rng_mod.MASK32
-                           for v in sample_key.tolist()]
-    row[ROW_COUNT] = learner_kernel.check_count(count)
-    row[ROW_CORRECTIONS] = np.array(adam_bias_corrections(count + 1),
-                                    dtype=np.float32).view(np.uint32)
-    row[ROW_TICK] = tick
-    return row.view(np.int32)
 
 
 def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
@@ -196,17 +361,9 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
     the batch gathered after tick t, carried in ``aux``; tick 0 never
     trains.
 
-    The tick is ``tick.body(carry, row, sig)`` on the words of one row
-    (:data:`ROW_WORDS`, an int32 tensor on the carry's device: the keys,
-    the Adam count, the bias corrections) under the static signature
-    ``sig = tick.signature(step)``: the body reads no host value that
-    varies within a signature, copies nothing from the host and leaves
-    the carry's ``rng``, ``step`` and Adam count to its caller. ``tick``
-    makes the row from ``keys(rng, step)`` and copies it over, and hands
-    the body the host sample key too, which the replay sample draws from
-    on the host (``fused_tick.ring_gather_batch``);
-    :func:`build_chunk_ring` makes a chunk's rows at once and draws on
-    the device.
+    The tick is a :class:`Tick` on rows of ``RowLayout(2)`` (the step
+    and sample keys, the Adam count, the bias corrections) under the
+    static signature ``tick.signature(step)`` (:class:`RingSignature`).
     """
     k = collect_drones
     if capacity % num_envs != 0 or capacity < 2 * num_envs:
@@ -222,7 +379,7 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
     device = agent.device
     rng_collect = dict(collect=k, rng_rounds=rng_rounds,
                        actor_rng_rounds=actor_rng_rounds)
-    keys = keys or host_keys(2)
+    layout = RowLayout(2)
     td_hparams = None
     if in_kernel_td:
         if group is not None:
@@ -243,12 +400,17 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
                              step % reset_env_every == 0, sync, decay,
                              cols * num_envs >= batch_size // k)
 
-    def body(carry, row, sig: RingSignature, sample_key=None):
+    def walk(chain: HostChain, t: int, tick_keys):
+        sig = signature(chain.step)
+        row = layout.make(tick_keys, chain.count, t)
+        return row, sig, chain._replace(step=chain.step + 1,
+                                        count=chain.count + sig.trains)
+
+    def body(carry, row, sig: RingSignature, host=None):
         _, (tstate, ring), (a_ring, r_ring, d_ring), ag_state, aux, _ = carry
-        key_values = row[:4].to(torch.int64) & rng_mod.MASK32
-        step_key = key_values[:2]
-        if sample_key is None:
-            sample_key = key_values[2:]
+        step_key, sample_key = layout.keys(row)
+        if host is not None:
+            sample_key = layout.host_key(host, 1)
         read_slot = sig.slot * num_envs
         write_slot = ((sig.slot + 1) % nb) * num_envs
         chain = fused_tick.flatten_net_params(ag_state.params,
@@ -261,7 +423,7 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
                 fused_tick.full_tick_fused_ring(
                     *args, td_hparams=td_hparams, td_batch=aux,
                     td_aux=(ag_state.params, ag_state.target_params,
-                            adam.mu, adam.nu, sig.trains, row[ROW_COUNT]),
+                            adam.mu, adam.nu, sig.trains, row[layout.count]),
                     **rng_collect))
             if sig.trains:
                 adam.count += 1
@@ -288,7 +450,7 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
         elif sig.trains:
             ag_state, loss = agent.train_step_t(
                 ag_state, batch, group,
-                corrections=row[ROW_CORRECTIONS].view(torch.float32))
+                corrections=layout.bias_corrections(row))
         else:
             loss = torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
                               device=device)
@@ -299,54 +461,54 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
                  ag_state, aux, carry[-1])
         return carry, (rewards_t[0], ag_state.epsilon, loss)
 
-    def tick(carry):
-        rng, step, count = carry[0], carry[-1], carry[3].opt_state.count
-        rng, (step_key, sample_key) = keys(rng, step)
-        row = upload(_row_words(step_key, sample_key, count, 0),
-                     torch.int32, device)
-        # The replay sample draws from the host key (fewer launches).
-        carry, outs = body(carry, row, signature(step), sample_key)
-        return (rng, *carry[1:-1], step + 1), outs
-
-    tick.body, tick.signature = body, signature
-    return tick
+    return Tick(body, walk, keys or host_keys(layout.num_keys), layout,
+                device, group, signature)
 
 
-class RingChunk:
-    """The ring engine's chunk, the counterpart of the JAX trainer's
+class Chunk:
+    """A single-card engine's chunk, the counterpart of the JAX trainer's
     ``run_chunk`` (``jax.jit(lax.scan(tick))``): ``chunk(carry, length) ->
     (carry, (rewards (length, E), epsilon (length,), loss (length,)))``,
-    ``length`` ticks of :func:`build_train_step_ring`'s tick ``tick`` (one
-    card, no process group: its keys are ``host_keys(2)``).
+    ``length`` ticks of ``tick`` (the :class:`Tick` of
+    :func:`build_train_step_ring`, :func:`build_train_step_full`,
+    :func:`build_train_step_fused` or :func:`build_train_step` built for
+    one card: ``Tick.single_card``; the sharded trainers' ticks, with
+    their shards' keys and a process group, run eagerly).
 
-    At entry the host walks the chain that the eager tick walks (the keys
-    from the carry's ``rng`` and ``step``, the Adam count from its count)
-    into a (length, :data:`ROW_WORDS`) table of rows and copies it to the
-    device: the chunk's one host-to-device copy. On a card each tick is
-    then one device-to-device copy of its row into a static row and one
-    replay of the CUDA graph of its signature (``tick.signature``),
-    captured on first use (``utils.graphs.GraphSet``; a capture that
-    fails raises). The graphs share one static carry, the first carry
-    passed in (a later carry is copied into it, and the carry returned is
-    it), and write each tick's outputs into preallocated (length, ...)
-    tensors; nothing is read back to the host inside a chunk. At exit the
-    carry's ``rng``, ``step`` and Adam count are set from the chain. On
-    the CPU the same rows run the ticks eagerly.
+    At entry the host walks the chain that the eager tick walks
+    (``tick.walk``: the keys from the carry's ``rng`` and ``step``, the
+    Adam count, over a replay its cursor and size) into a (length,
+    ``tick.layout.words``) table of rows and copies it to the device: the
+    chunk's one host-to-device copy. On a card each tick is then one
+    device-to-device copy of its row into a static row and one replay of
+    the CUDA graph of its signature, captured on first use
+    (``utils.graphs.GraphSet``; a capture that fails raises). The graphs
+    share one static carry, the first carry passed in (a later carry is
+    copied into it, and the carry returned is it), and write each tick's
+    outputs into preallocated (length, ...) tensors; nothing is read back
+    to the host inside a chunk. At exit the carry's ``rng``, ``step``,
+    Adam count and replay cursor and size are set from the chain. On the
+    CPU the same rows run the ticks eagerly.
 
-    A replay adds the launches its capture recorded to
-    ``fused_tick.full_tick_fused_ring.launches`` and
-    ``learner_kernel.td_adam.launches``; a capture's warm-up (on a copy of
-    the carry) and the capture leave the counts as they were.
+    A replay adds the launches its capture recorded to the counters of
+    :data:`COUNTERS`; a capture's warm-up (on a copy of the carry) and the
+    capture leave the counts as they were.
     """
 
     COUNTERS = ((fused_tick, "full_tick_fused_ring"),
-                (learner_kernel, "td_adam"))
+                (learner_kernel, "td_adam"),
+                (fused_tick, "full_tick_fused"),
+                (fused_tick, "tick_fused"))
 
     def __init__(self, tick):
+        if not tick.single_card:
+            raise ValueError(
+                "a chunk runs one card's tick (keys host_keys, no process "
+                "group); the sharded trainers' ticks run eagerly")
         self.tick = tick
-        self._keys = host_keys(2)
         self._static = None   # the static carry, its device tensors, row
         self._graphs = None   # GraphSet, outputs and launches a signature
+        self._length = 0      # the ticks the output buffers hold
         self._capture_s = 0.0
 
     @property
@@ -362,24 +524,22 @@ class RingChunk:
 
     def table(self, carry, length: int):
         """The chunk's rows and signatures and the chain's end: ``(rows
-        (length, ROW_WORDS) int32, signatures, rng, count)``."""
-        rng, step, count = carry[0], carry[-1], carry[3].opt_state.count
-        rows = np.empty((length, ROW_WORDS), dtype=np.int32)
+        (length, words) int32, signatures, chain)``."""
+        chain = _host_chain(carry)
+        rng, tick_keys = self.tick.keys.table(chain.rng, length)
+        rows = np.empty((length, self.tick.layout.words), dtype=np.int32)
         sigs = []
         for t in range(length):
-            rng, (step_key, sample_key) = self._keys(rng, step + t)
-            rows[t] = _row_words(step_key, sample_key, count, t)
-            sigs.append(self.tick.signature(step + t))
-            count += sigs[-1].trains
-        return rows, sigs, rng, count
+            rows[t], sig, chain = self.tick.walk(chain, t, tick_keys[t])
+            sigs.append(sig)
+        return rows, sigs, chain._replace(rng=rng)
 
     def __call__(self, carry, length: int):
-        rows, sigs, rng, count = self.table(carry, length)
-        step = carry[-1]
-        device = carry[1][1].device
+        rows, sigs, chain = self.table(carry, length)
+        device = self.tick.device
         # The chunk's one host-to-device copy: every tick's words.
         table = upload(rows.reshape(-1), torch.int32, device).view(
-            length, ROW_WORDS)
+            length, rows.shape[1])
         if device.type != "cuda":
             outs = ([], [], [])
             for t in range(length):
@@ -389,7 +549,7 @@ class RingChunk:
             outs = tuple(torch.stack(o) for o in outs)
         else:
             carry = self._adopt(carry, length)
-            graphs, buffers, recorded = self._graphs
+            graphs, _, recorded = self._graphs
             row = self._static[2]
             for t, sig in enumerate(sigs):
                 row.copy_(table[t])
@@ -397,9 +557,8 @@ class RingChunk:
                     self._capture(sig)
                 graphs.replay(sig)
                 self._add_launches(recorded[sig])
-            outs = tuple(b[:length].clone() for b in buffers)
-        carry[3].opt_state.count = count
-        return (rng, *carry[1:-1], step + length), outs
+            outs = tuple(b[:length].clone() for b in self._graphs[1])
+        return _settle(carry, chain), outs
 
     # --- the graphs ----------------------------------------------------------
 
@@ -413,15 +572,15 @@ class RingChunk:
 
     def _adopt(self, carry, length: int):
         """The static carry with ``carry``'s tensors copied into it (the
-        first carry passed in becomes it), and output buffers of at least
-        ``length`` ticks."""
+        first carry passed in becomes it); new graphs where the output
+        buffers hold fewer than ``length`` ticks."""
         tensors = train_state_io.leaves(carry)[0]
         if self._static is None:
-            device = carry[1][1].device
             self._static = (carry, {p: t for p, t in tensors.items()
                                     if t.is_cuda},
-                            torch.zeros(ROW_WORDS, dtype=torch.int32,
-                                        device=device))
+                            torch.zeros(self.tick.layout.words,
+                                        dtype=torch.int32,
+                                        device=self.tick.device))
         static, static_tensors, row = self._static
         for path, t in static_tensors.items():
             given = tensors[path]
@@ -432,24 +591,22 @@ class RingChunk:
                         f"the chunk's {t.dtype} {tuple(t.shape)}")
                 with torch.no_grad():
                     t.copy_(given)
-        if self._graphs is None or self._graphs[1][1].shape[0] < length:
-            # The graphs write into these buffers: new buffers, new graphs.
+        if self._graphs is None or self._length < length:
+            # The graphs write into the output buffers (made at the first
+            # capture): new buffers, new graphs.
             if self._graphs is not None:
                 self._capture_s += self._graphs[0].capture_s
-            num_envs = carry[1][0].ground.shape[1]
-            buffers = tuple(torch.empty(shape, dtype=torch.float32,
-                                        device=row.device)
-                            for shape in ((length, num_envs), (length,),
-                                          (length,)))
-            self._graphs = (GraphSet(row.device), buffers, {})
+            self._graphs = (GraphSet(row.device), None, {})
+            self._length = length
         return static
 
-    def _capture(self, sig: RingSignature) -> None:
+    def _capture(self, sig) -> None:
         """Capture the step of ``sig``: the tick's body on the static carry
         and row, its new tensors copied into the static carry and its
-        outputs into row ``ROW_TICK`` of the output buffers."""
+        outputs into row ``layout.tick`` of the output buffers."""
         static, static_tensors, row = self._static
-        graphs, buffers, recorded = self._graphs
+        graphs, _, recorded = self._graphs
+        at_word = self.tick.layout.tick
 
         def shell():
             # The learner state's objects copied, so that the step rebinds
@@ -466,16 +623,21 @@ class RingChunk:
                 for path, t in static_tensors.items():
                     if new[path] is not t:
                         t.copy_(new[path])
-            at = row[ROW_TICK:ROW_TICK + 1].to(torch.int64)
-            for buffer, value in zip(buffers, values):
+            at = row[at_word:at_word + 1].to(torch.int64)
+            for buffer, value in zip(self._graphs[1], values):
                 buffer.index_copy_(0, at, value.reshape(1,
                                                         *buffer.shape[1:]))
 
         marks = []
 
         def warm_up():
-            self.tick.body(copy.deepcopy(static), row, sig)
+            _, values = self.tick.body(copy.deepcopy(static), row, sig)
             marks.append(self._launches())
+            if self._graphs[1] is None:
+                self._graphs = (graphs, tuple(
+                    torch.empty((self._length, *v.shape), dtype=v.dtype,
+                                device=row.device) for v in values),
+                    recorded)
 
         before = self._launches()
         graphs.capture(sig, step, warm_up)
@@ -489,10 +651,10 @@ def build_chunk_ring(agent: DQN, env_params: EnvParams, num_envs: int,
                      collect_drones: int = 1,
                      in_kernel_td: Optional[bool] = None,
                      rng_rounds: int = 20,
-                     actor_rng_rounds: Optional[int] = None) -> RingChunk:
-    """:class:`RingChunk` over :func:`build_train_step_ring`'s tick with
-    these arguments."""
-    return RingChunk(build_train_step_ring(
+                     actor_rng_rounds: Optional[int] = None) -> Chunk:
+    """:class:`Chunk` over :func:`build_train_step_ring`'s tick with these
+    arguments."""
+    return Chunk(build_train_step_ring(
         agent, env_params, num_envs, capacity, batch_size, reset_env_every,
         collect_drones, in_kernel_td=in_kernel_td, rng_rounds=rng_rounds,
         actor_rng_rounds=actor_rng_rounds))
@@ -566,13 +728,16 @@ def _require_kernel_actor(agent: DQN, engine: str) -> None:
 # --- the StreamReplay engines -----------------------------------------------
 
 def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
-                    ag_state, sample_key, obs_t, actions_t, rewards_t,
-                    dones_t, k: int, group=None):
+                    ag_state, words, corrections, trains: bool, obs_t,
+                    actions_t, rewards_t, dones_t, k: int, group=None):
     """Push the tick's input observations of the first k drones (the
     drones' row groups side by side, drone-major: (obs_dim, k · E)) with
-    their actions, rewards and dones; sample and take the TD step (over
-    ``group``) once the replay can be sampled (else loss
-    ``NO_TRAIN_LOSS``). Returns ``(bstate, ag_state, loss)``."""
+    their actions, rewards and dones at the start slot of ``words``
+    (``RowLayout.replay_words``); where the tick ``trains`` sample (its
+    key, bound and base) and take the TD step (over ``group``, with the
+    bias ``corrections``), else loss ``NO_TRAIN_LOSS``. Returns
+    ``(bstate, ag_state, loss)``."""
+    start, sample_key, bound, base = words
     obs_dim = agent.obs_dim
     num_envs = obs_t.shape[-1]
     obs = obs_t if k == 1 else obs_t.reshape(k, obs_dim, num_envs).permute(
@@ -580,13 +745,15 @@ def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
     bstate = buffer.push_many(bstate, {
         "obs": obs, "actions": actions_t[:k].reshape(-1),
         "rewards": rewards_t[:k].reshape(-1),
-        "dones": dones_t[:k].reshape(-1)})
-    if buffer.can_sample(bstate):
-        batch = buffer.sample(sample_key, bstate)
+        "dones": dones_t[:k].reshape(-1)}, start=start)
+    if trains:
+        batch = buffer.sample(sample_key, bstate, bound=bound, base=base)
         batch["dones"] = batch["dones"].to(torch.float32)
-        ag_state, loss = agent.train_step_t(ag_state, batch, group)
+        ag_state, loss = agent.train_step_t(ag_state, batch, group,
+                                            corrections=corrections)
     else:
-        loss = torch.tensor(NO_TRAIN_LOSS, device=agent.device)
+        loss = torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
+                          device=agent.device)
     return bstate, ag_state, loss
 
 
@@ -602,29 +769,38 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
     (:func:`init_stream_carry`). The replay's stride is E ·
     ``collect_drones``. ``loss`` is ``NO_TRAIN_LOSS`` on ticks where the
     replay holds fewer than a batch of transitions. ``keys`` and
-    ``group`` as :func:`host_keys` (a step key and a sample key)."""
+    ``group`` as :func:`host_keys` (a step key and a sample key).
+
+    The tick is a :class:`Tick` on rows of ``RowLayout(2, push=True)``
+    (the keys, the Adam count and bias corrections, the push's start
+    slot, the sample's bound and base) under ``Signature(trains, reset,
+    sync, decay)``."""
     k = collect_drones
     _require_kernel_actor(agent, "full")
-    keys = keys or host_keys(2)
+    layout = RowLayout(2, push=True)
+    walk = _replay_walk(agent, buffer, layout, reset_env_every, num_envs * k)
 
-    def tick(carry):
-        rng, tstate, obs_t, ag_state, bstate, step = carry
-        rng, (step_key, sample_key) = keys(rng, step)
+    def body(carry, row, sig: Signature, host=None):
+        _, tstate, obs_t, ag_state, bstate, _ = carry
+        step_key, sample_key = layout.keys(row)
         chain = fused_tick.flatten_net_params(ag_state.params,
                                               agent.net_spec)
         tstate, rewards_t, dones_t, actions_t, next_obs_t = (
             fused_tick.full_tick_fused(
                 step_key, tstate, obs_t, chain, ag_state.epsilon,
-                step % reset_env_every == 0, env_params, k, rng_rounds,
-                actor_rng_rounds))
+                sig.reset, env_params, k, rng_rounds, actor_rng_rounds))
         bstate, ag_state, loss = _push_and_learn(
-            agent, buffer, bstate, ag_state, sample_key, obs_t, actions_t,
+            agent, buffer, bstate, ag_state,
+            layout.replay_words(row, sample_key, host, 1),
+            layout.bias_corrections(row), sig.trains, obs_t, actions_t,
             rewards_t, dones_t, k, group)
-        ag_state = agent.apply_schedules(ag_state, step, dones_t[0, 0])
-        carry = (rng, tstate, next_obs_t, ag_state, bstate, step + 1)
+        ag_state = agent.apply_schedules(ag_state, None, dones_t[0, 0],
+                                         flags=(sig.sync, sig.decay))
+        carry = (carry[0], tstate, next_obs_t, ag_state, bstate, carry[-1])
         return carry, (rewards_t[0], ag_state.epsilon, loss)
 
-    return tick
+    return Tick(body, walk, keys or host_keys(layout.num_keys), layout,
+                agent.device, group)
 
 
 def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
@@ -638,36 +814,41 @@ def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
     at 20 rounds, as in the JAX trainer; ``rng_rounds`` reaches the
     kernel. Carry and outputs as :func:`build_train_step_full`; ``keys``
     and ``group`` as :func:`host_keys` (the opponents', the actor's, the
-    step's, the sample's and the reset's keys)."""
+    step's, the sample's and the reset's keys). A :class:`Tick` as the
+    full tick, on rows of ``RowLayout(5, push=True)``."""
     k = collect_drones
     obs_dim = agent.obs_dim
-    device = agent.device
-    keys = keys or host_keys(5)
+    layout = RowLayout(5, push=True)
+    walk = _replay_walk(agent, buffer, layout, reset_env_every, num_envs * k)
 
-    def tick(carry):
-        rng, tstate, obs_t, ag_state, bstate, step = carry
-        rng, (rand_key, act_key, step_key, sample_key, reset_key) = keys(
-            rng, step)
+    def body(carry, row, sig: Signature, host=None):
+        _, tstate, obs_t, ag_state, bstate, _ = carry
+        rand_key, act_key, step_key, sample_key, reset_key = layout.keys(row)
         # N x E and E counters: hashed on the device, not the host.
-        actions_t = rng_mod.randint(rand_key.to(device),
+        actions_t = rng_mod.randint(rand_key,
                                     (env_params.n_drones, num_envs), 0,
                                     NUM_ACTIONS)
+        if host is not None:  # the ε draw's split on the host
+            act_key = layout.host_key(host, 1)
         actions_t[0] = agent.act_t(act_key, obs_t[:obs_dim], ag_state)
         tstate, rewards_t, dones_t, next_obs_t = fused_tick.tick_fused(
             step_key, tstate, actions_t, env_params, k, rng_rounds)
         bstate, ag_state, loss = _push_and_learn(
-            agent, buffer, bstate, ag_state, sample_key, obs_t, actions_t,
+            agent, buffer, bstate, ag_state,
+            layout.replay_words(row, sample_key, host, 3),
+            layout.bias_corrections(row), sig.trains, obs_t, actions_t,
             rewards_t, dones_t, k, group)
-        ag_state = agent.apply_schedules(ag_state, step, dones_t[0, 0])
-        if step % reset_env_every == 0:
-            states = env_core.reset_batch(reset_key.to(device), env_params,
-                                          num_envs)
+        ag_state = agent.apply_schedules(ag_state, None, dones_t[0, 0],
+                                         flags=(sig.sync, sig.decay))
+        if sig.reset:
+            states = env_core.reset_batch(reset_key, env_params, num_envs)
             tstate = fused_tick.to_tstate(states)
             next_obs_t = _stacked_obs(states, env_params, k)
-        carry = (rng, tstate, next_obs_t, ag_state, bstate, step + 1)
+        carry = (carry[0], tstate, next_obs_t, ag_state, bstate, carry[-1])
         return carry, (rewards_t[0], ag_state.epsilon, loss)
 
-    return tick
+    return Tick(body, walk, keys or host_keys(layout.num_keys), layout,
+                agent.device, group)
 
 
 def init_stream_carry(agent: DQN, env_params: EnvParams, num_envs: int,
@@ -704,50 +885,59 @@ def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
     of every env feed the replay. ``loss`` is ``NO_TRAIN_LOSS`` until the
     buffer holds a batch. ``keys`` and ``group`` as :func:`host_keys`
     (the opponents', the actor's, the step's, the sample's and the
-    reset's keys)."""
+    reset's keys). A :class:`Tick` as the full tick, on rows of
+    ``RowLayout(5, push=True)`` (the push's start slot clamped as
+    ``replay.push_start``'s, the sample's bound the replay's size)."""
     obs_dim = agent.obs_dim
-    device = agent.device
     k = collect_drones
-    keys = keys or host_keys(5)
+    layout = RowLayout(5, push=True)
+    walk = _replay_walk(agent, buffer, layout, reset_env_every, num_envs * k)
 
     def learner_obs(states):
         return env_core.observe_batch(states, env_params, k).reshape(
             num_envs, k, obs_dim)
 
-    def tick(carry):
-        rng, env_states, obs, ag_state, bstate, step = carry
-        rng, (rand_key, act_key, step_key, sample_key, reset_key) = keys(
-            rng, step)
-        actions = rng_mod.randint(rand_key.to(device),
-                                  (num_envs, env_params.n_drones), 0,
-                                  NUM_ACTIONS)
+    def body(carry, row, sig: Signature, host=None):
+        _, env_states, obs, ag_state, bstate, _ = carry
+        rand_key, act_key, step_key, sample_key, reset_key = layout.keys(row)
+        actions = rng_mod.randint(rand_key, (num_envs, env_params.n_drones),
+                                  0, NUM_ACTIONS)
+        if host is not None:  # the ε draw's split on the host
+            act_key = layout.host_key(host, 1)
         actions[:, 0] = agent.act(act_key, obs[:, 0], ag_state)
-        step_keys = rng_mod.split(step_key.to(device), num_envs)
+        step_keys = rng_mod.split(step_key, num_envs)
         env_states, rewards, dones = env_core.step_batch(
             step_keys, env_states, actions, env_params)
         next_obs = learner_obs(env_states)
+        start, sample_key, bound, _ = layout.replay_words(
+            row, sample_key, host, 3)
         bstate = buffer.push_many(bstate, {
             "obs": obs.reshape(num_envs * k, obs_dim),
             "actions": actions[:, :k].reshape(-1),
             "rewards": rewards[:, :k].reshape(-1),
             "next_obs": next_obs.reshape(num_envs * k, obs_dim),
             "dones": dones[:, :k].reshape(-1),
-        })
-        if buffer.can_sample(bstate):
-            batch = buffer.sample(sample_key, bstate)
+        }, start=start)
+        if sig.trains:
+            batch = buffer.sample(sample_key, bstate, bound=bound)
             batch["dones"] = batch["dones"].to(torch.float32)
-            ag_state, loss = agent.train_step(ag_state, batch, group)
+            ag_state, loss = agent.train_step(
+                ag_state, batch, group,
+                corrections=layout.bias_corrections(row))
         else:
-            loss = torch.tensor(NO_TRAIN_LOSS, device=device)
-        ag_state = agent.apply_schedules(ag_state, step, dones[0, 0])
-        if step % reset_env_every == 0:
-            env_states = env_core.reset_batch(reset_key.to(device),
-                                              env_params, num_envs)
+            loss = torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
+                              device=agent.device)
+        ag_state = agent.apply_schedules(ag_state, None, dones[0, 0],
+                                         flags=(sig.sync, sig.decay))
+        if sig.reset:
+            env_states = env_core.reset_batch(reset_key, env_params,
+                                              num_envs)
             next_obs = learner_obs(env_states)
-        carry = (rng, env_states, next_obs, ag_state, bstate, step + 1)
+        carry = (carry[0], env_states, next_obs, ag_state, bstate, carry[-1])
         return carry, (rewards[:, 0], ag_state.epsilon, loss)
 
-    return tick
+    return Tick(body, walk, keys or host_keys(layout.num_keys), layout,
+                agent.device, group)
 
 
 def init_jnp_carry(agent: DQN, env_params: EnvParams, num_envs: int,
@@ -1239,9 +1429,9 @@ def _warm_start(args, agent_config: DQNConfig):
 
 def _build_engine(args, agent: DQN, env_params: EnvParams, engine: str,
                   rng_rounds: int, actor_rng_rounds: Optional[int]):
-    """The engine's tick and its initial carry from ``--seed``; the ring
-    engine's is its chunk (:class:`RingChunk`: CUDA graphs on the card,
-    eager ticks on the CPU), as the JAX CLI runs ``run_chunk``."""
+    """The engine's chunk (:class:`Chunk`: CUDA graphs on the card, eager
+    ticks on the CPU), as the JAX CLI runs ``run_chunk``, and its initial
+    carry from ``--seed``."""
     num_envs, k = args.num_envs, args.collect_drones
     device = agent.device
     # The replay rounded up to whole pushes of E · k transitions.
@@ -1260,8 +1450,8 @@ def _build_engine(args, agent: DQN, env_params: EnvParams, engine: str,
                                      uniform_pushes=True)
         tick = build_train_step(agent, buffer, env_params, num_envs,
                                 args.reset_env_every, k)
-        return tick, init_jnp_carry(agent, env_params, num_envs, buffer, rng,
-                                    k)
+        return Chunk(tick), init_jnp_carry(agent, env_params, num_envs,
+                                           buffer, rng, k)
     if engine == "ring":
         ring_columns = ring_capacity // k  # k transitions a column
         logger.info("env %s | agent %s | %d envs, ring %d columns (%s)%s on "
@@ -1290,8 +1480,8 @@ def _build_engine(args, agent: DQN, env_params: EnvParams, engine: str,
         tick = build_train_step_fused(
             agent, buffer, env_params, num_envs, args.reset_env_every, k,
             rng_rounds)
-    return tick, init_stream_carry(agent, env_params, num_envs, buffer, rng,
-                                   k)
+    return Chunk(tick), init_stream_carry(agent, env_params, num_envs,
+                                          buffer, rng, k)
 
 
 def sharded_engine(args, env_params: EnvParams, world_size: int,
@@ -1495,10 +1685,12 @@ def train(args, metrics_logger=None) -> dict:
     num_chunks = math.ceil(args.num_steps / scan_steps)
 
     def run_chunk(carry):
-        if isinstance(tick, RingChunk):
+        if isinstance(tick, Chunk):
             carry, (rewards, epsilon, losses) = tick(carry, scan_steps)
             return carry, (list(rewards) if log_metrics else [rewards[-1]],
                            epsilon[-1], list(losses))
+        # The sharded trainers' ticks: eager (a process group's
+        # collectives are not captured).
         rewards, losses = [], []
         for _ in range(scan_steps):
             carry, (reward, epsilon, loss) = tick(carry)
@@ -1618,6 +1810,8 @@ def train(args, metrics_logger=None) -> dict:
            "last_reward_mean": mean_reward, "epsilon": float(epsilon),
            "td_loss_mean": float(trained.mean()) if len(trained) else None,
            "trained_ticks": len(trained),
+           "graphs": tick.graphs if isinstance(tick, Chunk) else 0,
+           "capture_s": tick.capture_s if isinstance(tick, Chunk) else 0.0,
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu")}
     if mesh is not None:

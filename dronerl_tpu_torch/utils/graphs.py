@@ -15,8 +15,8 @@ does, and the error is not caught).
 
 :class:`GraphSet` holds several graphs of one step function, one a static
 signature (the host values that fix the step's launches), over one set of
-static tensors that all of them read and write: the ring engine's chunk
-(``train.build_chunk_ring``) replays one of them a tick.
+static tensors that all of them read and write: an engine's chunk
+(``train.Chunk``) replays one of them a tick.
 """
 
 import time

@@ -21,6 +21,10 @@ coalesced stores). Each variant is launched twice and the outputs of
 the four launches compared bitwise first. B4 writes every drone
 straight out in both (the patch touches B1/B3 only).
 
+An older tree's env kernel that takes B4's key by value (``key0``,
+``key1``) gets its block in that layout (``env_block_for``), the same
+pointers and key words.
+
 Run on a machine with a CUDA card, from the repository root:
 
     mkdir -p .archive/parent && git archive HEAD~1 dronerl_tpu_torch/ops/csrc \\
@@ -77,6 +81,37 @@ def load(lib_path, entries):
         getattr(lib, entry).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         getattr(lib, entry).restype = ctypes.c_int
     return lib
+
+
+class ValueKeyEnvArgs(ctypes.Structure):
+    """``EnvArgs`` of an env kernel that takes the step key by value
+    (``key0``, ``key1``), as the env kernel did before it read its key
+    through a pointer: the block an older tree's B4 launch takes."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        *fused_tick._STATE_FIELDS, "actions", *fused_tick._OUT_FIELDS,
+        "rewards", "dones", "obs_out")] + [
+        ("num_envs", ctypes.c_int),
+        ("key0", ctypes.c_uint32),
+        ("key1", ctypes.c_uint32),
+    ] + fused_tick._REWARD_FIELDS
+
+
+def env_block_for(src_dir, block):
+    """B4's ``block`` (this tree's ``EnvArgs``) in the layout that
+    ``src_dir``'s env kernel takes: itself, or for a kernel that takes the
+    key by value a :class:`ValueKeyEnvArgs` with the same pointers and
+    scalars and the key's two words."""
+    with open(os.path.join(src_dir, _build.ENV_SOURCE)) as f:
+        if "uint32_t key0;" not in f.read():
+            return block
+    legacy = ValueKeyEnvArgs()
+    for name, _ in ValueKeyEnvArgs._fields_:
+        if name not in ("key0", "key1"):
+            setattr(legacy, name, getattr(block, name))
+    legacy.key0, legacy.key1 = (
+        block.key_words.cpu().long() & rng.MASK32).tolist()
+    return legacy
 
 
 def tensors(tree):
@@ -201,7 +236,8 @@ def main() -> None:
                     if (tree, kk, net) not in libs:
                         continue
                     launch = getattr(libs[(tree, kk, net)], entry)
-                    ms = time_launches(launch, block)
+                    ms = time_launches(launch, env_block_for(
+                        trees[tree], block) if kind == "B4" else block)
                     rows.append({"kind": kind, "net": net, "k": kk,
                                  "tree": tree if kk == 1 else (
                                      "direct" if tree == "this" else "tile"),

@@ -19,6 +19,9 @@ from dronerl_tpu_torch.env.types import EnvParams
 from dronerl_tpu_torch.ops import fused_tick
 
 TP = EnvParams(grid_size=9, n_drones=4)
+# The ring tick's row: the step and sample keys, the Adam count, the bias
+# corrections and the tick's index.
+RING_ROW = train.RowLayout(2)
 
 
 @pytest.mark.parametrize("shape,span", [((8,), 128), ((8,), 65536),
@@ -67,7 +70,7 @@ def test_ring_gather_draws_the_host_indices(collect):
                                   (c + num_envs) % capacity]
                              for d, c in zip(drone, phys)], dim=1).float()
     pick = (phys,) if collect == 1 else (drone, phys)
-    words = torch.tensor(train._row_words(key, key, 0, 0))
+    words = torch.tensor(RING_ROW.make(torch.stack([key, key]), 0, 0))
     row_key = (words[:2].to(torch.int64) & rng.MASK32)
     assert torch.equal(row_key, key)
     for k, host_counts in ((key, rng._HOST_COUNTS), (row_key, 0)):
@@ -83,9 +86,10 @@ def test_ring_gather_draws_the_host_indices(collect):
 
 
 def test_foreach_div_by_a_tensor_equals_the_float():
-    """Adam's divisions by the bias corrections: a 0-d f32 tensor gives
-    the bits the Python float gives, for the corrections of counts 1 to
-    200."""
+    """Adam's divisions by the bias corrections on the CPU: a 0-d f32
+    tensor gives the bits the Python float gives, for the corrections of
+    counts 1 to 200. (On a card they differ for some counts:
+    ``scripts/torch_tick_parting.py --foreach_check``.)"""
     g = torch.Generator().manual_seed(1)
     xs = [torch.randn((294, 16), generator=g),
           torch.rand((16,), generator=g) * 1e-6,
@@ -116,11 +120,11 @@ def test_td_step_with_tensor_corrections_equals_the_floats():
                                           dtype=torch.int32),
                  "rewards": torch.randn((8,), generator=g),
                  "dones": (torch.rand((8,), generator=g) < 0.2).float()}
-        words = torch.tensor(train._row_words(rng.PRNGKey(0), rng.PRNGKey(1),
-                                              st.opt_state.count, step))
+        words = torch.tensor(RING_ROW.make(
+            torch.stack([rng.PRNGKey(0), rng.PRNGKey(1)]),
+            st.opt_state.count, step))
         st, loss = agent.train_step_t(
-            st, batch, corrections=words[train.ROW_CORRECTIONS].view(
-                torch.float32))
+            st, batch, corrections=RING_ROW.bias_corrections(words))
         ref_loss = _float_adam_step(agent, ref, batch)
         assert torch.equal(loss, ref_loss), step
         for a, b in zip(st.params.flat() + st.opt_state.mu + st.opt_state.nu,
@@ -206,16 +210,22 @@ def test_row_words():
     kernel's int32 cannot hold is refused."""
     step_key = torch.tensor([0xFFFFFFFF, 7], dtype=torch.int64)
     sample_key = torch.tensor([1 << 31, 0], dtype=torch.int64)
-    row = train._row_words(step_key, sample_key, 41, 3)
-    assert row.dtype == np.int32 and row.shape == (train.ROW_WORDS,)
+    keys = torch.stack([step_key, sample_key])
+    row = RING_ROW.make(keys, 41, 3)
+    assert row.dtype == np.int32 and row.shape == (RING_ROW.words,) == (8,)
     words = row.view(np.uint32)
-    assert list(words[train.ROW_STEP_KEY]) == [0xFFFFFFFF, 7]
-    assert list(words[train.ROW_SAMPLE_KEY]) == [1 << 31, 0]
-    assert row[train.ROW_COUNT] == 41 and row[train.ROW_TICK] == 3
-    assert tuple(row[train.ROW_CORRECTIONS].view(np.float32)) == (
+    assert list(words[0:2]) == [0xFFFFFFFF, 7]
+    assert list(words[2:4]) == [1 << 31, 0]
+    assert (RING_ROW.count, RING_ROW.corrections, RING_ROW.tick) == (
+        4, slice(5, 7), 7)
+    assert row[RING_ROW.count] == 41 and row[RING_ROW.tick] == 3
+    assert tuple(row[RING_ROW.corrections].view(np.float32)) == (
         adam_bias_corrections(42))
+    assert torch.equal(RING_ROW.host_key(row, 1), sample_key)
+    for got, want in zip(RING_ROW.keys(torch.from_numpy(row)), keys):
+        assert torch.equal(got, want)
     with pytest.raises(ValueError, match="out of int32"):
-        train._row_words(step_key, sample_key, 2**31 - 1, 0)
+        RING_ROW.make(keys, 2**31 - 1, 0)
 
 
 def test_chunk_on_the_cpu_outputs_and_numbers():

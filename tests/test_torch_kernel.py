@@ -407,7 +407,11 @@ def test_env_tick_args_block():
     assert block.obs_out == obs_next.data_ptr()
     assert block.ground_in == ts.ground.data_ptr()
     assert block.charge_out == out.charge.data_ptr()
-    assert (block.num_envs, [block.key0, block.key1]) == (E, key.tolist())
+    assert block.num_envs == E
+    # The key's two words, read by the kernel through a pointer.
+    assert block.key == block.key_words.data_ptr()
+    assert block.key_words.dtype == torch.int32
+    assert (block.key_words.long() & rng.MASK32).tolist() == key.tolist()
     assert tuple(obs_next.shape) == (294, E) and dones.dtype == torch.bool
     with pytest.raises(ValueError):
         fused_tick._env_tick_args(key, ts, actions.long(), tp)
@@ -830,6 +834,65 @@ def test_graphed_chunk_equals_eager_ticks_on_card(case, tmp_path):
     ref = []
     for _ in range(14):
         eager, out = chunk.tick(eager)
+        ref.append(out)
+    torch.cuda.synchronize()
+    got, want = (train_state_io.leaves(c) for c in (carry, eager))
+    assert got[1] == want[1] and set(got[0]) == set(want[0])
+    for path, t in got[0].items():
+        assert torch.equal(t, want[0][path]), path
+    for i in range(3):
+        assert torch.equal(torch.cat([o[i] for o in outs]),
+                           torch.stack([o[i] for o in ref])), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["jnp", "full", "fused", "fused_conv"])
+def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
+    """The jnp, full and fused engines' chunks on the card (one CUDA graph
+    replay a tick, the replay's words read from device memory) against
+    their eager ticks from one carry: two chunks of 7 ticks with a train
+    state saved and restored between them, the replay wrapping, every
+    carry tensor, its numbers and every output bitwise; B3 or B4 counted
+    once a replayed tick. Also the fused engine with a conv net's own
+    forward (cuDNN) in the graph."""
+    dev = _card()
+    tp = EnvParams(**KW)
+    conv = dict(network_type="conv") if engine == "fused_conv" else {}
+    cfg = DQNConfig(hidden_layers=(16, 16), epsilon_decay_every=2,
+                    target_update_interval=2, gamma=0.9, **conv)
+    agent = DQN(cfg, tp, device=dev)
+    if engine == "jnp":
+        buf = replay.ReplayBuffer(64, 8, uniform_pushes=True)
+        tick = train.build_train_step(agent, buf, tp, 4, 5)
+        init, num_envs, counter = train.init_jnp_carry, 4, None
+    else:
+        buf = replay.StreamReplay(3 * E, 8, stride=E)
+        full = engine == "full"
+        tick = (train.build_train_step_full if full else
+                train.build_train_step_fused)(agent, buf, tp, E, 3)
+        init, num_envs = train.init_stream_carry, E
+        counter = fused_tick.full_tick_fused if full else fused_tick.tick_fused
+
+    def fresh(seed):
+        return init(agent, tp, num_envs, buf, rng.PRNGKey(seed))
+
+    chunk = train.Chunk(tick)
+    carry = fresh(0)
+    eager = copy.deepcopy(carry)
+    launches = counter.launches if counter else 0
+    outs = []
+    for _ in range(2):
+        carry, out = chunk(carry, 7)
+        outs.append(out)
+        path = str(tmp_path / "state.safetensors")
+        train_state_io.save(path, carry)
+        carry = train_state_io.restore(path, fresh(1))
+    if counter:
+        assert counter.launches == launches + 14
+    assert 0 < chunk.graphs <= 14 and chunk.capture_s > 0
+    ref = []
+    for _ in range(14):
+        eager, out = tick(eager)
         ref.append(out)
     torch.cuda.synchronize()
     got, want = (train_state_io.leaves(c) for c in (carry, eager))
