@@ -152,12 +152,24 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    package's CPU lock and each episode's first parting step;
 6. multi-GPU training (``parallel/``) and the periphery:
 6a. the CLI with ``--use_sharding`` at world size 1 over NCCL at the bench
-   configuration, 150 ticks each: the sharded ring engine (memory 100,000)
+   configuration, 150 ticks each, as the CLI runs them (the trainer's
+   ``train.Chunk``: one CUDA graph replay a tick, the gradient all-reduce
+   captured inside): the sharded ring engine (memory 100,000)
    and the sharded fused engine over B3 (memory 1,000,000) for both nets,
    and over B4 with a conv net: the engine's kernel launches once a tick
    and nothing else launches, one gradient all-reduce for each trained
    tick, finite losses, ε decays; obs/s beside phase 4's, and the
    all-reduce's time a trained tick for both nets;
+6e. (on 6a's mesh) a world-1 NCCL ``DistributedTrainer``'s chunk
+   (``build_chunk(...).chunk``) against its eager ticks for each local
+   engine (MG_CHUNK_CASES: ring and full at 65,536 envs with both nets,
+   fused with the conv actor (B4) at 65,536, jnp at 64), 2 chunks of 50
+   ticks with a train state saved and restored between, graphed and
+   eager from the same carry: every carry tensor, its numbers and every
+   output bitwise, B1/B3/B4 launched once a tick either way (the jnp
+   engine none) and one all-reduce a trained tick either way; logs the
+   graphs, the capture mode and seconds and both ways' ms a tick (no
+   profiler: the phase stays short);
 6b. two ranks on the one card over gloo (``parallel.launch.spawn``): the
    sharded ring, fused-dense (B3) and fused-conv (B4) engines at 2 x 256
    envs for 12 ticks (a reset every 5) in lockstep with the same ranks'
@@ -169,7 +181,9 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    32,768 envs for 150 ticks: obs/s, launches, and the all-reduce on CUDA
    and on CPU tensors (gloo's staging through the host);
 6c. each rank saves its train state after 6 ticks; 6 more equal a restore
-   and 6 more, bitwise, on both ranks;
+   and 6 more, bitwise, on both ranks; then the trainer's chunk over gloo
+   runs eager rows (no graph): 2 chunks of 6 ticks equal 12 eager ticks
+   bitwise;
 6d. ``benchmark.py``'s phase split (Default, 4 drones, 256 envs, 100
    steps) and ``DeliveryDronesEnv`` for 100 steps on the card against the
    CPU, beside the card's name and power limit; then what NCCL says to
@@ -234,7 +248,8 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 then print the kernel table line (phase 6a's launches of B1, B3 and B4 as
 ``*_sharded`` entries, each kernel compared with its plain version and
 timed in place on a world-1 sharded trainer's carry at 6a's shapes, with
-6b's launches of the same builds per rank; B1's entries also carry
+6b's launches of the same builds per rank and 6e's graphed ones,
+``launches_6e_chunk``; B1's entries also carry
 phase 7's launches, ``launches_7a_numerics_lock`` and
 ``launches_7d_cli_tensorboard``, and with B2's phase 8's,
 ``launches_8_bench``),
@@ -399,7 +414,10 @@ JAX_CPU_LOCK = (-56.02, -72.12, -58.05, -52.30, -46.46)
 # the one card over gloo, MG_SMALL envs a rank for MG_COMPARE_TICKS ticks
 # in lockstep with the plain versions (MG_CASES: name, engine, net, the
 # kernel), then the ring engine at MG_BIG envs a rank for MG_BIG_TICKS
-# ticks; 6c saves a rank's train state after MG_RESUME_AT ticks.
+# ticks; 6c saves a rank's train state after MG_RESUME_AT ticks. 6e: a
+# world-1 NCCL trainer's chunk against its eager ticks, CHUNKS x
+# CHUNK_10_TICKS ticks with a reset every RESET_10, for each local engine:
+# (engine, envs, --memory_size a shard, net; None the CLI's conv net).
 MG_TICKS = 150
 MG_CLI_RUNS = (("ring", "100000", [], "full_tick_ring", NETS),
                ("fused", "1000000", [], "full_tick", NETS),
@@ -425,6 +443,12 @@ MG_CASES = (
         conv_layers=({"out_channels": 8, "kernel_size": 3, "stride": 1,
                       "padding": 1},)), "tick"),
 )
+MG_CHUNK_CASES = (("ring", NUM_ENVS, 100_000, (16, 16)),
+                  ("ring", NUM_ENVS, 100_000, (128, 64)),
+                  ("fused", NUM_ENVS, 5 * NUM_ENVS, (16, 16)),
+                  ("fused", NUM_ENVS, 5 * NUM_ENVS, (128, 64)),
+                  ("fused", NUM_ENVS, 5 * NUM_ENVS, None),
+                  ("jnp", 64, 1_000, (16, 16)))
 MG_REDUCES = 200           # all-reduce calls timed
 MG_BENCH_STEPS = 100       # 6d: benchmark.py's steps
 MG_GYM_STEPS = 100         # 6d: DeliveryDronesEnv steps, card vs CPU
@@ -1886,15 +1910,16 @@ def main() -> None:
 
 
 def graphed_vs_eager(torch, train, zero_counts, counts, tag, chunk, fresh,
-                     length, expect, state_path, device):
+                     length, expect, state_path, device, trace=True):
     """``chunk`` (one CUDA graph replay a tick) against its eager tick
     (``chunk.tick``) from the carry ``fresh(0)``: CHUNKS chunks of
     ``length`` ticks each way, a train state saved after each chunk but
     the last and restored into ``fresh(1)``, every launch count zeroed
     just before each way and equal to ``expect`` just after; every carry
     tensor, the carry's numbers and the outputs (rewards, ε, loss)
-    bitwise; finite losses, some trained, ε decayed. Then TRACE ticks of
-    each way under ``torch.profiler`` for the device's busy share.
+    bitwise; finite losses, some trained, ε decayed. Then, with
+    ``trace``, TRACE ticks of each way under ``torch.profiler`` for the
+    device's busy share.
     Returns each way's stats (obs/s, host and wall ms a tick, device ms a
     tick, busy share) and the carry's numbers."""
     from dronerl_tpu_torch.interop import train_state_io
@@ -1950,6 +1975,8 @@ def graphed_vs_eager(torch, train, zero_counts, counts, tag, chunk, fresh,
         fail(f"{tag}: a loss is not finite, no tick trained or epsilon did "
              "not decay")
     for way, run, c in (("graphed", chunk, cg), ("eager", eager_chunk, ce)):
+        if not trace:
+            break
         c, prof = profiling.profiled_ticks(lambda x: run(x, TRACE), c, 1,
                                            device)
         kernels = profiling.device_kernels(prof, TRACE)
@@ -1960,17 +1987,18 @@ def graphed_vs_eager(torch, train, zero_counts, counts, tag, chunk, fresh,
 
 
 def log_ways(tag, stats, chunk, ticks, expect, numbers, card, beside=""):
-    g, e = stats["graphed"], stats["eager"]
+    def way(w):
+        traced = (f", device {w['device_ms']:.4f} ms, busy {w['busy']:.4f}"
+                  if "busy" in w else ", not traced")
+        return (f"{w['obs_per_s']:.1f} obs/s, host {w['host_ms']:.4f} ms a "
+                f"tick, tick {w['tick_ms']:.4f} ms{traced}")
+
     log(f"{tag}: {CHUNKS} x {ticks // CHUNKS} ticks with a train state saved "
         f"and restored between, graphed == eager bitwise (the carry's "
         f"tensors and numbers {numbers}; rewards, epsilon, loss); launches "
         f"{expect} each way; {chunk.graphs} graphs captured in "
-        f"{chunk.capture_s:.3f} s; graphed {g['obs_per_s']:.1f} obs/s, host "
-        f"{g['host_ms']:.4f} ms a tick, tick {g['tick_ms']:.4f} ms, device "
-        f"{g['device_ms']:.4f} ms, busy {g['busy']:.4f}; eager "
-        f"{e['obs_per_s']:.1f} obs/s, host {e['host_ms']:.4f} ms, tick "
-        f"{e['tick_ms']:.4f} ms, device {e['device_ms']:.4f} ms, busy "
-        f"{e['busy']:.4f}{beside}; on {card}")
+        f"{chunk.capture_s:.3f} s; graphed {way(stats['graphed'])}; eager "
+        f"{way(stats['eager'])}{beside}; on {card}")
 
 
 def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
@@ -2356,6 +2384,13 @@ def multi_gpu(torch, train, zero_counts, counts, card, obs_per_s, runs,
             f"{backend} at world 1: {dev_ms:.5f} ms a trained tick (CUDA "
             f"events over {MG_REDUCES} calls), host "
             f"{host_ms(torch, reduce, MG_REDUCES):.5f} ms; on {card}")
+    # --- 6e ---------------------------------------------------------------
+    chunk_launches = sharded_chunks(torch, train, zero_counts, counts, card,
+                                    runs, mesh)
+    for entry in entries:  # 6e's graphed launches of the same builds
+        entry["launches_6e_chunk"] = sum(
+            n for name, n in chunk_launches.items()
+            if timed[name]["name"] + "_sharded" == entry["name"])
     torch.distributed.destroy_process_group()
 
     # --- 6b, 6c -----------------------------------------------------------
@@ -2405,7 +2440,10 @@ def multi_gpu(torch, train, zero_counts, counts, card, obs_per_s, runs,
                        else 0) for r in ranks]
     log(f"6c per-rank train states: 6 ticks, save, 6 more equals a restore "
         f"of the save and 6 more, bitwise, on both ranks "
-        f"({ranks[0]['resume_tensors']} tensors each); 6b+6c took "
+        f"({ranks[0]['resume_tensors']} tensors each); the trainer's chunk "
+        f"over gloo on the card: eager rows, graphs "
+        f"{[r['gloo_chunk_graphs'] for r in ranks]}, 2 x {MG_RESUME_AT} "
+        f"ticks equal to {2 * MG_RESUME_AT} eager ticks bitwise; 6b+6c took "
         f"{spawn_s:.1f} s, the ranks' start included")
 
     # --- 6d ---------------------------------------------------------------
@@ -2718,6 +2756,85 @@ def bench_program(here, runs, device_kind, card, obs_per_s, entries):
     log(f"phase 8 took {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+def sharded_chunks(torch, train, zero_counts, counts, card, runs, mesh):
+    """Phase 6e: each case of MG_CHUNK_CASES on a world-1
+    ``DistributedTrainer`` over ``mesh`` (NCCL): its chunk (one CUDA graph
+    replay a tick, the all-reduce captured inside) against its eager
+    ticks (:func:`graphed_vs_eager`), the all-reduces counted beside the
+    kernels' launches. Returns the graphed launches by the kernel line's
+    name of each build."""
+    from dronerl_tpu_torch import rng
+    from dronerl_tpu_torch.agents import dqn as dqn_mod
+    from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
+    from dronerl_tpu_torch.env.types import EnvParams
+    from dronerl_tpu_torch.ops import fused_tick
+    from dronerl_tpu_torch.parallel.distributed import DistributedTrainer
+
+    t_phase = time.perf_counter()
+    params = EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
+    state_path = os.path.join(runs, "chunk6e.safetensors")
+    os.makedirs(runs, exist_ok=True)
+    ticks = CHUNKS * CHUNK_10_TICKS
+
+    def zero():
+        zero_counts()
+        dqn_mod.all_reduce_mean.calls = 0
+
+    def count():
+        return dict(counts(), all_reduce=dqn_mod.all_reduce_mean.calls)
+
+    launches = {}
+    for engine, num_envs, memory, hidden in MG_CHUNK_CASES:
+        t_case = time.perf_counter()
+        net = (dict(hidden_layers=hidden) if hidden
+               else dict(network_type="conv"))
+        agent = DQN(DQNConfig(epsilon_decay_every=5, target_update_interval=10,
+                              gamma=0.9, **net), params, device=mesh.device)
+        trainer = DistributedTrainer(
+            agent, params, mesh, num_envs=num_envs,
+            buffer_capacity_per_shard=memory, batch_size_per_shard=BATCH,
+            reset_env_every=RESET_10, engine=engine)
+        local = trainer.local_engine
+        if local != "jnp":
+            fused_tick.prepare_kernel(
+                params, None if local == "fused" else
+                fused_tick.flatten_net_params(
+                    agent.init_state(rng.PRNGKey(0)).params, agent.net_spec),
+                env_tick=local == "fused")
+        chunk = trainer.build_chunk(CHUNK_10_TICKS).chunk
+        tag = (f"6e sharded {engine} ({local}) {num_envs} envs memory "
+               f"{memory} net {hidden or 'conv'}")
+        backend = torch.distributed.get_backend(mesh.group)
+        if not chunk.graphed:
+            fail(f"{tag}: a chunk over {backend} would not capture graphs")
+
+        def fresh(seed):
+            return trainer.init_carry(rng.PRNGKey(seed))
+
+        kernel = {"ring": "full_tick_ring", "full": "full_tick",
+                  "fused": "tick", "jnp": None}[local]
+        expect = {k: 0 for k in count()}
+        if kernel:
+            expect[kernel] = ticks
+        expect["all_reduce"] = sum(
+            sig.trains for sig in chunk.table(fresh(0), ticks)[1])
+        stats, numbers = graphed_vs_eager(
+            torch, train, zero, count, tag, chunk, fresh, CHUNK_10_TICKS,
+            expect, state_path, mesh.device, trace=False)
+        log_ways(tag, stats, chunk, ticks, expect, numbers, card,
+                 f"; {backend} world {mesh.world_size}, capture mode "
+                 f"{chunk.capture_mode}; the "
+                 f"case took {time.perf_counter() - t_case:.1f} s")
+        if kernel:
+            name = kernel + ("_" + "x".join(map(str, hidden))
+                             if kernel != "tick" else "")
+            launches[name] = launches.get(name, 0) + ticks
+        del chunk, trainer, agent
+        torch.cuda.empty_cache()
+    log(f"phase 6e took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return launches
+
+
 def sharded_in_place(torch, mesh, engine, kernel, hidden, memory, tag,
                      card):
     """Phase 6a's kernel in place: a world-1 ``DistributedTrainer`` on
@@ -2963,6 +3080,22 @@ def rank_6b(state_dir, device="cuda"):
             whole, again)) or _numbers(carry) != _numbers(resumed):
         raise AssertionError("6c: the resumed carry differs")
     out["resume_tensors"] = len(whole)
+
+    # 6c: the trainer's chunk over gloo: eager rows, equal to eager ticks
+    chunk = trainer.build_chunk(MG_RESUME_AT)
+    if chunk.chunk.graphed:
+        raise AssertionError("6c: a chunk over gloo would capture graphs")
+    rows, ticks = (trainer.init_carry(rng.PRNGKey(3)) for _ in range(2))
+    for _ in range(2):
+        rows, _ = chunk(rows)
+    for _ in range(2 * MG_RESUME_AT):
+        ticks, _ = tick(ticks)
+    if any(not torch.equal(a, b) for a, b in zip(
+            _tensors(rows), _tensors(ticks))) or _numbers(rows) != _numbers(
+            ticks) or not torch.equal(rows[0], ticks[0]):
+        raise AssertionError("6c: the gloo chunk's rows differ from the "
+                             "eager ticks")
+    out["gloo_chunk_graphs"] = chunk.chunk.graphs
     return out
 
 

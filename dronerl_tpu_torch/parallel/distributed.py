@@ -13,7 +13,9 @@ Layout, as the JAX trainer places it over its ``dp`` axis:
   group)``), so every rank applies the same update.
 
 Each rank's tick is the single-card engine's (``train.build_train_step*``)
-with the JAX trainer's per-shard key chain (:func:`shard_keys`): the ring
+with the JAX trainer's per-shard key chain (:func:`shard_keys`), and its
+chunk a ``train.Chunk`` of that tick, as JAX's is a ``lax.scan`` of it
+under ``shard_map``: the ring
 engine over B1 (``full_tick_fused_ring``), the fused engine over B3
 (``full_tick_fused``) for dense nets and conv nets with ``conv_matmul``,
 else over B4 (``tick_fused``) with the conv actor outside the kernel, and
@@ -27,6 +29,7 @@ point for the all-reduce: it is refused, as the JAX trainer has none.
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dronerl_tpu_torch import replay, rng as rng_mod, train
@@ -59,13 +62,31 @@ def local_engine(engine: str, agent: DQN) -> str:
 def shard_keys(rank: int, width: int, order):
     """The JAX sharded trainers' key chain, as a tick builder's ``keys``:
     ``local = fold_in(fold_in(rng, rank), step)``, the keys
-    ``split(local, width)[order]``, then ``rng' = fold_in(rng, 1)``."""
+    ``split(local, width)[order]``, then ``rng' = fold_in(rng, 1)``. Its
+    ``table`` walks a chunk's ticks at once, as ``train.host_keys``'
+    does."""
     order = list(order)
 
     def keys(rng, step):
         local = rng_mod.fold_in(rng_mod.fold_in(rng, rank), step)
         return rng_mod.fold_in(rng, 1), rng_mod.split(local, width)[order]
 
+    def table(rng, length: int, step: int = 0):
+        """``length`` ticks' keys from the tick of step ``step``: ``(rng',
+        (length, len(order), 2) uint32)``, the chain's key (``fold_in(rng,
+        1)`` a tick) hashed tick by tick on Python ints, each tick's fold
+        of the rank and its step and its split for every tick at once on
+        numpy words."""
+        end, chain = rng_mod.chain_words(rng, length, 1)
+        steps = (step + np.arange(length, dtype=np.uint64)) & rng_mod.MASK32
+        local = rng_mod.threefry_words(chain[:, 0], chain[:, 1], 0, rank)
+        local = rng_mod.threefry_words(*local, 0, steps)
+        out = np.empty((length, width, 2), dtype=np.uint32)
+        for i in range(width):
+            out[:, i, 0], out[:, i, 1] = rng_mod.threefry_words(*local, 0, i)
+        return end, out[:, order]
+
+    keys.table = table
     return keys
 
 
@@ -180,15 +201,15 @@ class DistributedTrainer:
     def build_chunk(self, scan_steps: int):
         """``chunk(carry) -> (carry, (rewards (scan_steps, eps), losses
         (scan_steps,)))``: ``scan_steps`` ticks, the JAX trainer's chunk
-        outputs for this rank's shard."""
-        tick = self.build_tick()
+        outputs for this rank's shard, run by ``chunk.chunk``, a
+        ``train.Chunk`` over :meth:`build_tick` (on a card over NCCL one
+        CUDA graph replay a tick, the all-reduce inside; over gloo or on
+        the CPU eager rows)."""
+        runner = train.Chunk(self.build_tick())
 
         def chunk(carry):
-            rewards, losses = [], []
-            for _ in range(scan_steps):
-                carry, (reward, _, loss) = tick(carry)
-                rewards.append(reward)
-                losses.append(loss)
-            return carry, (torch.stack(rewards), torch.stack(losses))
+            carry, (rewards, _, losses) = runner(carry, scan_steps)
+            return carry, (rewards, losses)
 
+        chunk.chunk = runner
         return chunk

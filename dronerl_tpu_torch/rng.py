@@ -15,6 +15,8 @@ returns the two output words per counter, and random bits are
 import hashlib
 import math
 
+import numpy as np
+
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -85,6 +87,20 @@ def threefry_words(k1, k2, x0, x1):
     numpy uint64 arrays holding uint32 values (many keys' hashes at once,
     as a trainer's chunk makes its ticks' keys)."""
     return _threefry(k1, k2, x0, x1)
+
+
+def chain_words(key: torch.Tensor, length: int, counter: int):
+    """A trainer's key chain ``key' = threefry(key, (0, counter))`` (the
+    first key of a split for counter 0, ``fold_in(key, counter)`` for
+    another) walked ``length`` times on Python ints: ``(the key after
+    them as an int64 (2,) tensor, (length, 2) uint64 words of the key
+    before each)``."""
+    k1, k2 = (int(v) & MASK32 for v in key.tolist())
+    chain = np.empty((length, 2), dtype=np.uint64)
+    for t in range(length):
+        chain[t] = k1, k2
+        k1, k2 = _threefry(k1, k2, 0, counter)
+    return torch.tensor([k1, k2], dtype=torch.int64), chain
 
 
 def PRNGKey(seed: int, device="cpu") -> torch.Tensor:

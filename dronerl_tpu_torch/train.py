@@ -66,20 +66,21 @@ CLI but ``--jax_cache_dir`` (``REFUSED_FLAGS``). With ``--use_sharding``
 each process is one rank of a process group and runs its shard of the
 sharded engine (:func:`sharded_engine`, ``parallel.DistributedTrainer``:
 the single-card tick with the JAX sharded trainers' key chain and one
-gradient all-reduce a trained tick).
+gradient all-reduce a trained tick) as a :class:`Chunk` too.
 
 The step counter, the ring slot arithmetic, the reset flag, the count of
 valid columns, the replay's cursor and size and the rng chain stay on the
 host: they are a few scalar hashes a tick, and reading them back from the
 device every tick would serialise the loop. Each engine's chunk
-(:class:`Chunk`, the CLI's on one card) walks them for the whole chunk at
+(:class:`Chunk`, the CLI's) walks them for the whole chunk at
 its entry: the key words, the Adam count, the learner's bias corrections
 and the replay's words (the push's start slot, the sample's bound and
 base) go to the device as one table, and on the card each tick is one
 replay of the CUDA graph of its static signature (the ring's slot and
 valid columns, the reset, the schedules, whether it trains; never the
-replay's cursor or size), which reads its words from device memory. The
-sharded trainers' ticks run eagerly.
+replay's cursor or size), which reads its words from device memory. A
+sharded rank's graphs hold its gradient all-reduce over NCCL; over gloo
+(and on the CPU) the rows run eagerly.
 
 Run:  python -m dronerl_tpu_torch.train --num_envs 65536 --num_steps 300
 """
@@ -104,6 +105,7 @@ import numpy as np
 import torch
 
 from dronerl_tpu_torch import replay, resolve_device, rng as rng_mod
+from dronerl_tpu_torch.agents import dqn as dqn_module
 from dronerl_tpu_torch.agents.dqn import (
     ADAM_B1, ADAM_B2, ADAM_EPS, DQN, DQNConfig, adam_bias_corrections)
 from dronerl_tpu_torch.constants import NO_TRAIN_LOSS, NUM_ACTIONS
@@ -135,21 +137,18 @@ def host_keys(num: int):
         split = rng_mod.split(rng, num + 1)
         return split[0], split[1:]
 
-    def table(rng, length: int):
+    def table(rng, length: int, step: int = 0):
         """``length`` ticks' keys at once: ``(rng', (length, num, 2)
         uint32)``, the chain's key (counter 0) hashed tick by tick on
         Python ints, the ticks' keys (counters 1..num) for every tick at
-        once on numpy words."""
-        k1, k2 = (int(v) & rng_mod.MASK32 for v in rng.tolist())
-        chain = np.empty((length, 2), dtype=np.uint64)
-        for t in range(length):
-            chain[t] = k1, k2
-            k1, k2 = rng_mod.threefry_words(k1, k2, 0, 0)
+        once on numpy words. ``step``, the first tick's, is not hashed
+        here (the sharded chain's ``table`` folds it in)."""
+        end, chain = rng_mod.chain_words(rng, length, 0)
         out = np.empty((length, num, 2), dtype=np.uint32)
         for i in range(num):
             out[:, i, 0], out[:, i, 1] = rng_mod.threefry_words(
                 chain[:, 0], chain[:, 1], 0, i + 1)
-        return torch.tensor([k1, k2], dtype=torch.int64), out
+        return end, out
 
     keys.table = table
     return keys
@@ -262,7 +261,8 @@ class Tick:
     tick_keys) -> (row, sig, chain')`` makes tick ``t``'s row and
     signature from the host chain before it and the tick's keys, and
     returns the chain after it but its rng. ``keys`` and ``group`` as
-    :func:`host_keys`'s; ``signature``, the ring's ``signature(step)``."""
+    :func:`host_keys`'s (a chunk needs ``keys.table``); ``signature``,
+    the ring's ``signature(step)``."""
 
     body: Callable
     walk: Callable
@@ -273,11 +273,16 @@ class Tick:
     signature: Optional[Callable] = None
 
     @property
-    def single_card(self) -> bool:
-        """Whether a :class:`Chunk` can run the tick: its keys are
-        :func:`host_keys`' (whose ``table`` walks a chunk's chain at once)
-        and it averages over no process group."""
-        return self.group is None and hasattr(self.keys, "table")
+    def graphed(self) -> bool:
+        """How a :class:`Chunk` runs the tick: as CUDA graphs on a card
+        where it averages over no process group or over an NCCL one (a
+        graph captures NCCL's all-reduce); else as eager rows, on the CPU
+        and over a gloo group on a card (gloo stages a CUDA tensor through
+        the host, which no graph holds)."""
+        if self.device.type != "cuda":
+            return False
+        return (self.group is None
+                or torch.distributed.get_backend(self.group) == "nccl")
 
     def __call__(self, carry):
         """Walk the carry's chain one tick, copy the row over, run the body
@@ -466,46 +471,63 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
 
 
 class Chunk:
-    """A single-card engine's chunk, the counterpart of the JAX trainer's
-    ``run_chunk`` (``jax.jit(lax.scan(tick))``): ``chunk(carry, length) ->
-    (carry, (rewards (length, E), epsilon (length,), loss (length,)))``,
-    ``length`` ticks of ``tick`` (the :class:`Tick` of
-    :func:`build_train_step_ring`, :func:`build_train_step_full`,
-    :func:`build_train_step_fused` or :func:`build_train_step` built for
-    one card: ``Tick.single_card``; the sharded trainers' ticks, with
-    their shards' keys and a process group, run eagerly).
+    """An engine's chunk, the counterpart of the JAX trainers' ``run_chunk``
+    and sharded ``build_chunk`` (``jax.jit(lax.scan(tick))``, per shard
+    under ``shard_map``): ``chunk(carry, length) -> (carry, (rewards
+    (length, E), epsilon (length,), loss (length,)))``, ``length`` ticks
+    of ``tick`` (the :class:`Tick` of :func:`build_train_step_ring`,
+    :func:`build_train_step_full`, :func:`build_train_step_fused` or
+    :func:`build_train_step`, with one card's keys or, from
+    ``parallel.DistributedTrainer``, a shard's keys and a process group).
 
     At entry the host walks the chain that the eager tick walks
     (``tick.walk``: the keys from the carry's ``rng`` and ``step``, the
     Adam count, over a replay its cursor and size) into a (length,
     ``tick.layout.words``) table of rows and copies it to the device: the
-    chunk's one host-to-device copy. On a card each tick is then one
-    device-to-device copy of its row into a static row and one replay of
-    the CUDA graph of its signature, captured on first use
-    (``utils.graphs.GraphSet``; a capture that fails raises). The graphs
-    share one static carry, the first carry passed in (a later carry is
-    copied into it, and the carry returned is it), and write each tick's
-    outputs into preallocated (length, ...) tensors; nothing is read back
-    to the host inside a chunk. At exit the carry's ``rng``, ``step``,
-    Adam count and replay cursor and size are set from the chain. On the
-    CPU the same rows run the ticks eagerly.
+    chunk's one host-to-device copy. Where ``tick.graphed`` (decided here,
+    before any capture) each tick is then one device-to-device copy of its
+    row into a static row and one replay of the CUDA graph of its
+    signature, captured on first use (``utils.graphs.GraphSet``; a capture
+    that fails raises), the gradient all-reduce of a grouped tick inside
+    the graph. The graphs share one static carry, the first carry passed
+    in (a later carry is copied into it, and the carry returned is it),
+    and write each tick's outputs into preallocated (length, ...)
+    tensors; nothing is read back to the host inside a chunk. At exit the
+    carry's ``rng``, ``step``, Adam count and replay cursor and size are
+    set from the chain. Elsewhere (the CPU, a gloo group) the same rows
+    run the tick's body eagerly.
+
+    The ranks of a group meet every signature at the same tick (the
+    signatures follow the step, the replay's cursor and size and the
+    schedules, which advance alike on every rank), so they capture in
+    lockstep: a capture's warm-up runs the all-reduce eagerly. A grouped
+    tick is captured in ``"thread_local"`` mode, so that another thread's
+    CUDA call (the group's watchdog queries the events of earlier
+    collectives) cannot invalidate the capture, as it may in the global
+    mode.
 
     A replay adds the launches its capture recorded to the counters of
-    :data:`COUNTERS`; a capture's warm-up (on a copy of the carry) and the
-    capture leave the counts as they were.
+    :data:`COUNTERS` (the kernels' launches and the all-reduces); a
+    capture's warm-up (on a copy of the carry) and the capture leave the
+    counts as they were.
     """
 
-    COUNTERS = ((fused_tick, "full_tick_fused_ring"),
-                (learner_kernel, "td_adam"),
-                (fused_tick, "full_tick_fused"),
-                (fused_tick, "tick_fused"))
+    COUNTERS = ((fused_tick, "full_tick_fused_ring", "launches"),
+                (learner_kernel, "td_adam", "launches"),
+                (fused_tick, "full_tick_fused", "launches"),
+                (fused_tick, "tick_fused", "launches"),
+                (dqn_module, "all_reduce_mean", "calls"))
 
     def __init__(self, tick):
-        if not tick.single_card:
+        if not hasattr(tick.keys, "table"):
             raise ValueError(
-                "a chunk runs one card's tick (keys host_keys, no process "
-                "group); the sharded trainers' ticks run eagerly")
+                "a chunk walks its ticks' keys as a table: the tick's keys "
+                "need a table (train.host_keys, parallel.distributed."
+                "shard_keys)")
         self.tick = tick
+        self.graphed = tick.graphed
+        self.capture_mode = ("global" if tick.group is None
+                             else "thread_local")
         self._static = None   # the static carry, its device tensors, row
         self._graphs = None   # GraphSet, outputs and launches a signature
         self._length = 0      # the ticks the output buffers hold
@@ -526,7 +548,7 @@ class Chunk:
         """The chunk's rows and signatures and the chain's end: ``(rows
         (length, words) int32, signatures, chain)``."""
         chain = _host_chain(carry)
-        rng, tick_keys = self.tick.keys.table(chain.rng, length)
+        rng, tick_keys = self.tick.keys.table(chain.rng, length, chain.step)
         rows = np.empty((length, self.tick.layout.words), dtype=np.int32)
         sigs = []
         for t in range(length):
@@ -540,7 +562,7 @@ class Chunk:
         # The chunk's one host-to-device copy: every tick's words.
         table = upload(rows.reshape(-1), torch.int32, device).view(
             length, rows.shape[1])
-        if device.type != "cuda":
+        if not self.graphed:
             outs = ([], [], [])
             for t in range(length):
                 carry, values = self.tick.body(carry, table[t], sigs[t])
@@ -563,12 +585,13 @@ class Chunk:
     # --- the graphs ----------------------------------------------------------
 
     def _launches(self):
-        return [getattr(owner, name).launches
-                for owner, name in self.COUNTERS]
+        return [getattr(getattr(owner, name), count)
+                for owner, name, count in self.COUNTERS]
 
     def _add_launches(self, added):
-        for (owner, name), n in zip(self.COUNTERS, added):
-            getattr(owner, name).launches += n
+        for (owner, name, count), n in zip(self.COUNTERS, added):
+            fn = getattr(owner, name)
+            setattr(fn, count, getattr(fn, count) + n)
 
     def _adopt(self, carry, length: int):
         """The static carry with ``carry``'s tensors copied into it (the
@@ -640,7 +663,7 @@ class Chunk:
                     recorded)
 
         before = self._launches()
-        graphs.capture(sig, step, warm_up)
+        graphs.capture(sig, step, warm_up, self.capture_mode)
         after = self._launches()
         recorded[sig] = [a - m for a, m in zip(after, marks[0])]
         self._add_launches([b - a for a, b in zip(after, before)])
@@ -1540,11 +1563,12 @@ def _join_mesh(args, device: torch.device):
     return mesh
 
 
-def _build_sharded(args, agent: DQN, env_params: EnvParams, mesh):
+def _build_sharded(args, agent: DQN, env_params: EnvParams, mesh,
+                   scan_steps: int):
     """This rank's sharded trainer (``parallel.DistributedTrainer``, the
     shard's replay and batch the CLI's divided by the world size), its
-    tick and its initial carry from ``--seed``, and the tick kernels'
-    round counts."""
+    chunk of ``scan_steps`` ticks (its :class:`Chunk`) and its initial
+    carry from ``--seed``, and the tick kernels' round counts."""
     from dronerl_tpu_torch.parallel.distributed import (
         DistributedTrainer, local_engine)
 
@@ -1569,7 +1593,7 @@ def _build_sharded(args, agent: DQN, env_params: EnvParams, mesh):
                     "still log per chunk")
     carry = trainer.init_carry(rng_mod.PRNGKey(args.seed),
                                obs_dtype=getattr(torch, args.ring_obs_dtype))
-    return trainer, trainer.build_tick(), carry, rounds
+    return trainer, trainer.build_chunk(scan_steps).chunk, carry, rounds
 
 
 def train_state_path(run_dir: str, mesh=None) -> str:
@@ -1650,6 +1674,8 @@ def train(args, metrics_logger=None) -> dict:
     logger.info("Run dir: %s", run_dir)
 
     agent = DQN(agent_config, env_params, device=device)
+    scan_steps = min(args.num_steps, args.max_scan_steps)
+    num_chunks = math.ceil(args.num_steps / scan_steps)
     if mesh is None:
         engine = choose_engine(args, env_params, agent_config)
         rng_rounds, actor_rng_rounds = engine_rng_rounds(args, engine)
@@ -1658,7 +1684,7 @@ def train(args, metrics_logger=None) -> dict:
         engine_name = engine
     else:
         trainer, tick, carry, (rng_rounds, actor_rng_rounds) = (
-            _build_sharded(args, agent, env_params, mesh))
+            _build_sharded(args, agent, env_params, mesh, scan_steps))
         engine, engine_name = trainer.local_engine, f"sharded-{trainer.engine}"
     if warm_params is not None:
         agent.state_with_params(carry[3], qnet_from_flax(
@@ -1681,25 +1707,10 @@ def train(args, metrics_logger=None) -> dict:
         logger.info("kernel ready in %.1fs", time.perf_counter() - t0)
         torch.cuda.synchronize(device)
 
-    scan_steps = min(args.num_steps, args.max_scan_steps)
-    num_chunks = math.ceil(args.num_steps / scan_steps)
-
     def run_chunk(carry):
-        if isinstance(tick, Chunk):
-            carry, (rewards, epsilon, losses) = tick(carry, scan_steps)
-            return carry, (list(rewards) if log_metrics else [rewards[-1]],
-                           epsilon[-1], list(losses))
-        # The sharded trainers' ticks: eager (a process group's
-        # collectives are not captured).
-        rewards, losses = [], []
-        for _ in range(scan_steps):
-            carry, (reward, epsilon, loss) = tick(carry)
-            losses.append(loss)
-            if log_metrics or not rewards:
-                rewards.append(reward)
-            else:
-                rewards[0] = reward
-        return carry, (rewards, epsilon, losses)
+        carry, (rewards, epsilon, losses) = tick(carry, scan_steps)
+        return carry, (list(rewards) if log_metrics else [rewards[-1]],
+                       epsilon[-1], list(losses))
 
     profile_dir = os.path.join(run_dir, "profile")
     profile = args.profile and rank0
@@ -1810,8 +1821,7 @@ def train(args, metrics_logger=None) -> dict:
            "last_reward_mean": mean_reward, "epsilon": float(epsilon),
            "td_loss_mean": float(trained.mean()) if len(trained) else None,
            "trained_ticks": len(trained),
-           "graphs": tick.graphs if isinstance(tick, Chunk) else 0,
-           "capture_s": tick.capture_s if isinstance(tick, Chunk) else 0.0,
+           "graphs": tick.graphs, "capture_s": tick.capture_s,
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu")}
     if mesh is not None:

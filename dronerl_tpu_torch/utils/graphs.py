@@ -115,8 +115,9 @@ class GraphSet:
     :meth:`capture` first runs the step once eagerly on a side stream
     (``warm_up``: on a copy of the state, so that lazy set-up such as a
     kernel's shared-memory opt-in happens outside the capture), then
-    records ``step``. A capture that fails raises; nothing falls back to
-    the eager step.
+    records ``step`` in ``mode`` (``torch.cuda.graph``'s
+    ``capture_error_mode``). A capture that fails raises; nothing falls
+    back to the eager step.
     """
 
     def __init__(self, device):
@@ -132,7 +133,7 @@ class GraphSet:
         return len(self.graphs)
 
     def capture(self, key: Hashable, step: Callable[[], None],
-                warm_up: Callable[[], None]) -> None:
+                warm_up: Callable[[], None], mode: str = "global") -> None:
         t0 = time.perf_counter()
         side = side_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -140,7 +141,8 @@ class GraphSet:
             warm_up()
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        with torch.cuda.graph(graph, pool=self.pool,
+                              capture_error_mode=mode):
             step()
         self.graphs[key] = graph
         torch.cuda.synchronize(self.device)

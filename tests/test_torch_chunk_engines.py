@@ -240,20 +240,26 @@ def test_signatures_do_not_grow_with_the_memory(engine):
 
 
 def test_chunk_refuses_a_sharded_tick():
-    """A tick built with the sharded trainers' keys or a process group
-    runs eagerly: a chunk over it raises. A tick given ``host_keys``
-    explicitly is one card's, as the default."""
+    """A chunk walks its ticks' keys as a table: a tick whose keys have
+    none is refused. The sharded trainers' keys (``shard_keys``) have one,
+    so a chunk takes a tick built with them or with a process group; on
+    the CPU it runs them as eager rows, decided from the device alone
+    (the group is not asked for its backend)."""
     agent = DQN(DQNConfig(hidden_layers=(8,)), TP, device="cpu")
     buf = replay.ReplayBuffer(64, 8)
-    with pytest.raises(ValueError, match="sharded"):
+    bare = train.host_keys(5)
+    with pytest.raises(ValueError, match="table"):
         train.Chunk(train.build_train_step(
-            agent, buf, TP, 4, 5, keys=distributed.shard_keys(0, 5, range(5))))
-    with pytest.raises(ValueError, match="sharded"):
-        train.Chunk(train.build_train_step_ring(agent, TP, 128, 256, 8, 3,
-                                                group=object()))
+            agent, buf, TP, 4, 5, keys=lambda key, step: bare(key, step)))
+    sharded = train.Chunk(train.build_train_step(
+        agent, buf, TP, 4, 5, keys=distributed.shard_keys(0, 5, range(5))))
+    grouped = train.Chunk(train.build_train_step_ring(agent, TP, 128, 256, 8,
+                                                      3, group=object()))
     chunk = train.Chunk(train.build_train_step(agent, buf, TP, 4, 5,
                                                keys=train.host_keys(5)))
-    assert chunk.tick.single_card
+    assert not (sharded.graphed or grouped.graphed or chunk.graphed)
+    assert (grouped.capture_mode, chunk.capture_mode) == ("thread_local",
+                                                          "global")
 
 
 def test_host_key_table_equals_the_tick_keys():

@@ -902,3 +902,66 @@ def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
     for i in range(3):
         assert torch.equal(torch.cat([o[i] for o in outs]),
                            torch.stack([o[i] for o in ref])), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("local", ["ring", "full", "fused", "jnp"])
+def test_sharded_chunk_equals_eager_ticks_on_card(local):
+    """A world-1 NCCL ``DistributedTrainer``'s chunk on the card (one CUDA
+    graph replay a tick, its gradient all-reduce captured inside) against
+    the trainer's eager ticks from one carry: two chunks of 7 ticks, every
+    carry tensor, its numbers and every output bitwise; B1, B3 or B4
+    counted once a replayed tick; one all-reduce a trained tick."""
+    from dronerl_tpu_torch.agents import dqn as dqn_mod
+    from dronerl_tpu_torch.parallel import mesh as mesh_mod
+    from dronerl_tpu_torch.parallel.distributed import DistributedTrainer
+
+    _card()
+    tp = EnvParams(**KW)
+    conv = dict(network_type="conv") if local == "fused" else {}
+    cfg = DQNConfig(hidden_layers=(16, 16), epsilon_decay_every=2,
+                    target_update_interval=2, gamma=0.9, **conv)
+    engine = {"ring": "ring", "jnp": "jnp"}.get(local, "fused")
+    num_envs = 4 if local == "jnp" else E
+    counter = {"ring": fused_tick.full_tick_fused_ring,
+               "full": fused_tick.full_tick_fused,
+               "fused": fused_tick.tick_fused}.get(local)
+    mesh = mesh_mod.make_env_mesh(device="cuda")
+    try:
+        agent = DQN(cfg, tp, device=mesh.device)
+        trainer = DistributedTrainer(
+            agent, tp, mesh, num_envs=num_envs,
+            buffer_capacity_per_shard=3 * num_envs, batch_size_per_shard=8,
+            reset_env_every=3, engine=engine)
+        assert trainer.local_engine == local
+        chunk = trainer.build_chunk(7)
+        assert chunk.chunk.graphed
+        carry = trainer.init_carry(rng.PRNGKey(0))
+        eager = copy.deepcopy(carry)
+        launches = counter.launches if counter else 0
+        calls = dqn_mod.all_reduce_mean.calls
+        outs = []
+        for _ in range(2):
+            carry, out = chunk(carry)
+            outs.append(out)
+        torch.cuda.synchronize()
+        calls = dqn_mod.all_reduce_mean.calls - calls
+        if counter:
+            assert counter.launches == launches + 14
+        assert 0 < chunk.chunk.graphs <= 14
+        tick, ref = trainer.build_tick(), []
+        for _ in range(14):
+            eager, out = tick(eager)
+            ref.append(out)
+        torch.cuda.synchronize()
+    finally:
+        torch.distributed.destroy_process_group()
+    losses = torch.cat([o[1] for o in outs])
+    assert calls == int((losses >= 0).sum()) > 0
+    got, want = (train_state_io.leaves(c) for c in (carry, eager))
+    assert got[1] == want[1] and set(got[0]) == set(want[0])
+    for path, t in got[0].items():
+        assert torch.equal(t, want[0][path]), path
+    assert torch.equal(torch.cat([o[0] for o in outs]),
+                       torch.stack([o[0] for o in ref]))
+    assert torch.equal(losses, torch.stack([o[2] for o in ref]))
