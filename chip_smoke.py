@@ -19,6 +19,20 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    B5 blocks per SM, and for each learner case the cluster size, the
    shared memory a CTA, the batch tile, what is staged and the clusters
    the card holds at once (held against ``learner_kernel.batch_plan``);
+2b. hold the draw kernel (ops/csrc/draws.cu, ``draws.draw``: ``rng.split``,
+   ``random_bits``, ``uniform`` and ``randint`` of a CUDA key) against the
+   plain versions (``rng.split_plain``, ...) in every mode at every round
+   count on the main path's shapes (one key into 65,538, 65,536 keys
+   split in two, a strided view of split children, uniform fields of 4 x
+   65,536 and 65,536 x 81, randint at batch 8 with a host and a device
+   bound and its edge bounds), and the ring sample kernel
+   (``draws.ring_sample`` via ``fused_tick.ring_gather_batch``) against
+   ``ring_gather_batch_plain`` at the bench's ring for one drone and four,
+   bf16 and f32, keyed and from host offsets: all bitwise, one launch a
+   call; then time each over DRAW_LAUNCHES launches of a prebuilt block
+   (DRAW_TIMED; the ring sample at 294 x 16) beside its plain version, its
+   bound and an empty launch. The phases after it rely on these draws
+   (the plain versions' key splits on the card among them);
 3. hold the tick kernel against its plain PyTorch version on the card, at
    the bench width (65,536 envs, grid 9, 4 drones, window radius 3), for
    the (16,16) and (128,64) nets and f32 and bf16 rings, over 8 ticks with
@@ -245,14 +259,23 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    capture seconds, both ways' obs/s, ms a tick and busy share; then the
    host's walk of a 100,000-tick jnp chunk (the CLI's ``--max_scan_steps``)
    and the CLI at its defaults, which must run the jnp engine as graphs;
-then print the kernel table line (phase 6a's launches of B1, B3 and B4 as
+Phase 4 fails unless the ring sample launches once a tick on the ring
+engine, 4c/4d unless the draw kernel launches on the full and fused
+engines (and the ring sample does not); phases 9, 10 and 6e log the draw
+and ring sample launches a tick of both ways beside B1-B4's, phase 9
+fails unless the ring sample launches once a tick either way and phase
+10 unless each graphed engine launches the draw kernel.
+Then print the kernel table line (phase 6a's launches of B1, B3 and B4 as
 ``*_sharded`` entries, each kernel compared with its plain version and
 timed in place on a world-1 sharded trainer's carry at 6a's shapes, with
 6b's launches of the same builds per rank and 6e's graphed ones,
 ``launches_6e_chunk``; B1's entries also carry
 phase 7's launches, ``launches_7a_numerics_lock`` and
 ``launches_7d_cli_tensorboard``, and with B2's phase 8's,
-``launches_8_bench``),
+``launches_8_bench``; the ``draw`` entry's launches are phases 4c and
+4d's, the ``ring_sample`` entry's phase 4's, each with
+``launches_9_chunk``, ``launches_10_chunk`` and ``launches_6e_chunk``,
+the graphed chunks' launches of those phases),
 the card line, and the result line last. CLI runs write their run dirs
 under ``output/chip_smoke/`` (removed at the end).
 
@@ -492,6 +515,19 @@ PEAK_BF16 = 989e12
 FIRST_LAYER_PRODUCTS = {"bf16": 3, "f32": 6}
 HIDDEN_PRODUCTS = 6
 OPS_PER_HASH = 79          # threefry2x32-20: 20 rounds x 3 + 5 x 3 + 4
+# Phase 2b: the draw kernel timed over DRAW_LAUNCHES launches of a
+# prebuilt block at the main path's shapes (mode, keys, counters): the
+# replay sample's randint at batch 8 with its bound read by pointer, the
+# plain tick's split of one key into E + 2 keys, a uniform field of 4 x E
+# from one key and the env core's split of E keys in two; the ring
+# sample at the bench's ring (294 rows, 2 x 8 columns gathered).
+DRAW_LAUNCHES = 200
+DRAW_TIMED = (("randint", 1, BATCH), ("split", 1, NUM_ENVS + 2),
+              ("uniform", 1, 4 * NUM_ENVS), ("split", NUM_ENVS, 2))
+# The phases whose graphed chunks' draw and ring sample launches the
+# kernel line reports: {phase: [draw, ring sample]}, filled by
+# graphed_vs_eager.
+GRAPHED_DRAWS = {}
 ADAM_OPS = 13              # per parameter: m 3, v 4, the update 6
 SYNC_OPS = 3               # per parameter: tau p + (1 - tau) t
 
@@ -530,7 +566,7 @@ def main() -> None:
     from dronerl_tpu_torch.env import core
     from dronerl_tpu_torch.env.types import EnvParams
     from dronerl_tpu_torch.ops import (
-        _build, fused_tick, learner_kernel, step_kernel)
+        _build, draws, fused_tick, learner_kernel, step_kernel)
     from dronerl_tpu_torch.train import build_train_step_ring, init_ring_carry
 
     counters = {"full_tick_ring": fused_tick.full_tick_fused_ring,
@@ -538,13 +574,19 @@ def main() -> None:
                 "full_tick": fused_tick.full_tick_fused,
                 "tick": fused_tick.tick_fused,
                 "step": step_kernel.step_batch_fused}
+    # The draws' counts are read apart (draw_counts): every phase's check
+    # that no other kernel launches is about B1-B5.
+    draw_counters = {"draw": draws.draw, "ring_sample": draws.ring_sample}
 
     def zero_counts():
-        for fn in counters.values():
+        for fn in (*counters.values(), *draw_counters.values()):
             fn.launches = 0
 
     def counts():
         return {k: fn.launches for k, fn in counters.items()}
+
+    def draw_counts():
+        return {k: fn.launches for k, fn in draw_counters.items()}
 
     runs = os.path.join(here, "output", "chip_smoke")
     shutil.rmtree(runs, ignore_errors=True)
@@ -591,7 +633,8 @@ def main() -> None:
                   for cp, agent, st in chain_cases.values()]
                + [_build.env_config(cp) for cp, _, _ in chain_cases.values()
                   if cp.wrapper == "global"]
-               + [fused_tick.kernel_config(params, cli_chain)])
+               + [fused_tick.kernel_config(params, cli_chain)]
+               + [_build.draw_config()])
     # Phases 3i and 4i: every (view, k, mode, net) build, the env builds,
     # the k = 1 builds of the fast-RNG drives and of the global board.
     collect_params = {view: EnvParams(grid_size=GRID, n_drones=DRONES,
@@ -683,6 +726,9 @@ def main() -> None:
                 f"{shape['tick_blocks_per_sm']} (-1: beyond the tick's "
                 f"limits), B5 {shape['step_blocks_per_sm']}")
 
+    # --- 2b. the draw and ring sample kernels against their plain versions -
+    draw_entries = draw_phase(torch, card)
+
     def make_agent(hidden, seed, env=params):
         cfg = DQNConfig(hidden_layers=hidden, epsilon_decay_every=5,
                         target_update_interval=10, gamma=0.9)
@@ -703,7 +749,8 @@ def main() -> None:
         """The kernel's actions against the plain actor's (its keys and
         uniforms at ``rounds``) outside near ties of the plain Q-values;
         returns the near-tie count."""
-        keys = rng.split(step_key.to(device), NUM_ENVS + 2, rounds[0])
+        keys = rng.split_plain(step_key.to(device), NUM_ENVS + 2,
+                               rounds[0])
         act_p, q = fused_tick.plain_actions(
             keys[NUM_ENVS], obs_in, read, chain, eps, cp, NUM_ENVS,
             fused_tick.actor_rounds(*rounds))
@@ -1374,15 +1421,21 @@ def main() -> None:
         tag = f"net {hidden}" + (" in_kernel_td" if in_kernel_td else "")
         carry, losses, tick_s, seconds, ticks, n, rewards, eps = run_ticks(
             tag, None, carry, chunk)
+        drawn = draw_counts()
         launches = (n["full_tick_ring"], n["td_adam"])
         if launches[0] != ticks:
             fail(f"{tag}: {launches[0]} tick kernel launches in {ticks} "
                  "ticks")
+        if drawn["ring_sample"] != ticks:
+            fail(f"{tag}: {drawn['ring_sample']} ring sample launches in "
+                 f"{ticks} ticks")
+        path_draws[tag] = drawn
         if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
             fail(f"{tag}: the params did not move")
         log(f"main path {tag}: {ticks} ticks as chunks ({chunk.graphs} "
             f"graphs captured in {chunk.capture_s:.2f} s), launches "
-            f"{launches}, loss {float(losses[-1]):.5f}, eps {float(eps):.4f}, "
+            f"{launches}, draws {drawn}, loss {float(losses[-1]):.5f}, eps "
+            f"{float(eps):.4f}, "
             f"obs/s {NUM_ENVS / tick_s:.1f} (median of {REPEATS} x "
             f"{TICKS_PER_REPEAT} ticks; tick {1e3 * tick_s:.4f} ms; "
             f"repeats {[round(s, 4) for s in seconds]} s) on {card}")
@@ -1412,6 +1465,9 @@ def main() -> None:
         kernel = {"full": "full_tick", "fused": "tick"}[engine]
         if n[kernel] != ticks or sum(n.values()) != ticks:
             fail(f"{tag}: launches {n} in {ticks} ticks")
+        drawn = path_draws[tag] = draw_counts()
+        if drawn["draw"] == 0 or drawn["ring_sample"] != 0:
+            fail(f"{tag}: draws {drawn} in {ticks} ticks")
         if float(losses[0]) != -1.0 or bool((losses[1:] < 0).any()):
             fail(f"{tag}: tick 0 trained or a later tick did not")
         if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
@@ -1422,7 +1478,8 @@ def main() -> None:
             fail(f"{tag}: replay size {bstate.size}, cursor "
                  f"{bstate.cursor} after {ticks} pushes")
         log(f"{tag}: {ticks} ticks as chunks ({chunk.graphs} graphs "
-            f"captured in {chunk.capture_s:.2f} s), launches {n}, loss "
+            f"captured in {chunk.capture_s:.2f} s), launches {n}, draws "
+            f"{drawn}, loss "
             f"{float(losses[-1]):.5f}, eps {float(eps):.4f}, obs/s "
             f"{NUM_ENVS / tick_s:.1f} (median of {REPEATS} x "
             f"{TICKS_PER_REPEAT} ticks; tick {1e3 * tick_s:.4f} ms; repeats "
@@ -1430,7 +1487,7 @@ def main() -> None:
             f"{STREAM_CAPACITY} slots) on {card}")
         return agent, carry, tick_s, n[kernel]
 
-    kernels, learners, obs_per_s = [], [], {}
+    kernels, learners, obs_per_s, path_draws = [], [], {}, {}
     for hidden in NETS:
         agent, carry, losses, tick_s, ticks, launches = drive(hidden, False)
         obs_per_s[hidden] = NUM_ENVS / tick_s
@@ -1901,12 +1958,239 @@ def main() -> None:
     engine_chunks(torch, train, zero_counts, counts, card, runs)
     shutil.rmtree(runs, ignore_errors=True)
 
-    print(json.dumps({"kernels": kernels + learners + stream + sharded}),
-          flush=True)
+    # The draws' main paths: the replay engines' chunks (4c, 4d) for the
+    # draw kernel, the ring engine's (phase 4) for the ring sample.
+    for entry, column in zip(draw_entries, ("draw", "ring_sample")):
+        entry["launches"] = sum(
+            d[column] for tag, d in path_draws.items()
+            if tag.startswith(("full", "fused")) == (column == "draw"))
+        entry.update({f"launches_{phase}_chunk": seen[column == "ring_sample"]
+                      for phase, seen in GRAPHED_DRAWS.items()})
+        if entry["launches"] == 0:
+            fail(f"{entry['name']}: launched no time on its main path")
+    print(json.dumps({"kernels": kernels + learners + stream + sharded
+                      + draw_entries}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def draw_phase(torch, card):
+    """Phase 2b: the draw kernel (``draws.draw``) and the ring sample
+    kernel (``draws.ring_sample``) against their plain versions on the
+    card, bitwise: every mode at every round count on the main path's
+    shapes (a lone key, E keys, a strided view of split children; randint
+    with host bounds, a bound below minval and a device bound), and the
+    ring sample at the bench's ring for one drone and four, bf16 and f32,
+    keyed and from host offsets, the base slot wrapping. Then each timed
+    over DRAW_LAUNCHES launches of a prebuilt block (DRAW_TIMED, the
+    ring sample at 294 x 16), beside its plain version, its bound and an
+    empty launch. Returns the kernel line's two entries but their
+    launches."""
+    from dronerl_tpu_torch import rng
+    from dronerl_tpu_torch.ops import _build, draws, fused_tick
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", 0)
+    err = {"draw": 0.0, "ring_sample": 0.0}
+
+    def hold(name, tag, got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"2b {tag}: {got.dtype} {tuple(got.shape)} against the "
+                 f"plain {want.dtype} {tuple(want.shape)}")
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            fail(f"2b {tag}: the kernel differs from its plain version")
+        err[name] = max(err[name], float(
+            (got.double() - want.double()).abs().max()))
+
+    key = rng.PRNGKey(7).to(device)
+    keys = rng.split_plain(key, NUM_ENVS)
+    children = rng.split_plain(keys[:6].reshape(2, 3, 2), 2)[..., 1, :]
+    bound = torch.tensor(CAPACITY, dtype=torch.int32, device=device)
+    cases = [("split", key, (NUM_ENVS + 2,)), ("split", keys, (2,)),
+             ("split", children, (3,)), ("bits", key, (4096,)),
+             ("uniform", key, (4, NUM_ENVS)), ("uniform", keys, (81,)),
+             ("randint", key, (BATCH,), 0, CAPACITY),
+             ("randint", key, (BATCH,), 0, bound),
+             ("randint", key, (DRONES, NUM_ENVS), 0, 5),
+             ("randint", keys[:9], (2, 3), 5, -4),
+             ("randint", children, (7,), -(2 ** 31) + 1, 2 ** 31 - 1)]
+    plain = {"split": lambda k, shape, r: rng.split_plain(k, shape[0], r),
+             "bits": rng.random_bits_plain, "uniform": rng.uniform_plain}
+    public = {"split": lambda k, shape, r: rng.split(k, shape[0], r),
+              "bits": rng.random_bits, "uniform": rng.uniform}
+    compared = 0
+    for rounds in rng.ROUNDS:
+        for mode, k, shape, *lohi in cases:
+            tag = f"{mode} keys {tuple(k.shape)} shape {shape}{lohi or ''} " \
+                  f"rounds {rounds}"
+            before = draws.draw.launches
+            if mode == "randint":
+                got = rng.randint(k, shape, *lohi, rounds)
+                want = rng.randint_plain(k, shape, *lohi, rounds)
+            else:
+                got = public[mode](k, shape, rounds)
+                want = plain[mode](k, shape, rounds)
+            if draws.draw.launches != before + 1:
+                fail(f"2b {tag}: {draws.draw.launches - before} launches")
+            hold("draw", tag, got, want)
+            compared += 1
+    torch.cuda.synchronize()
+    log(f"2b draw kernel == plain, bitwise: {compared} draws ({len(cases)} "
+        f"shapes x rounds {rng.ROUNDS}), one launch each; on {card}")
+
+    capacity, nb = CAPACITY, CAPACITY // NUM_ENVS
+    gen = torch.Generator().manual_seed(0)
+    for k in (1, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            rows = k * fused_tick.obs_rows(bench_params())
+            ring = torch.randn((rows, capacity), generator=gen).to(device,
+                                                                   dtype)
+            shape = (capacity,) if k == 1 else (k, capacity)
+            scalars = (torch.randint(0, 5, shape, generator=gen,
+                                     dtype=torch.int32).to(device),
+                       torch.randn(shape, generator=gen).to(device),
+                       torch.randint(0, 2, shape, generator=gen,
+                                     dtype=torch.int8).to(device))
+            common = dict(num_envs=NUM_ENVS, capacity=capacity,
+                          batch_size=BATCH * k, collect=k,
+                          obs_dim=rows // k)
+            for seed, valid, base in ((1, (nb - 1) * NUM_ENVS, 1),
+                                      (2, 1, 0), (3, 0, 1)):
+                want = fused_tick.ring_gather_batch_plain(
+                    rng.PRNGKey(seed), ring, *scalars, valid, base, **common)
+                before = draws.ring_sample.launches
+                for where in ("device", "host"):
+                    sample_key = rng.PRNGKey(seed)
+                    if where == "device":
+                        sample_key = sample_key.to(device)
+                    got = fused_tick.ring_gather_batch(
+                        sample_key, ring, *scalars, valid, base, **common)
+                    for name in want:
+                        hold("ring_sample", f"ring sample k {k} {dtype} "
+                             f"seed {seed} {where} key {name}", got[name],
+                             want[name])
+                if draws.ring_sample.launches != before + 2:
+                    fail("2b ring sample: not one launch a sample")
+            del ring, scalars
+    torch.cuda.synchronize()
+    log(f"2b ring sample kernel == ring_gather_batch_plain, bitwise: k 1 and "
+        f"4, bf16 and f32 rings of {capacity} columns, keyed and from host "
+        f"offsets, 3 samples each (the base slot wrapping); on {card}")
+
+    # Timings over prebuilt blocks, beside the plain versions, the bounds
+    # and an empty launch of the draw kernel's block.
+    lib = _build.load(_build.draw_config())
+    stream = torch.cuda.current_stream().cuda_stream
+    lib.draws_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.draws_empty_launch.restype = ctypes.c_int
+    empty_ms = cuda_ms(torch, lambda: lib.draws_empty_launch(stream),
+                       DRAW_LAUNCHES)
+    timed = {}
+    for mode, num_keys, count in DRAW_TIMED:
+        k = key if num_keys == 1 else keys
+        extra = dict(span=1, bound=bound) if mode == "randint" else {}
+        block, _out, _operands = draws._draw_args(k, count, mode, **extra)
+        ms = time_block(torch, lib, "draw_launch", block, DRAW_LAUNCHES)
+        if mode == "randint":
+            def plain_fn():
+                return rng.randint_plain(key, (count,), 0, bound)
+        else:
+            def plain_fn(mode=mode, k=k, count=count):
+                return plain[mode](k, (count,), 20)
+        plain_ms = cuda_ms(torch, plain_fn, PLAIN_LAUNCHES)
+        # A hash an output; randint two, plus the two split children that
+        # every output of a key shares.
+        outputs = num_keys * count
+        hashes = (2 * num_keys + 2 * outputs if mode == "randint"
+                  else outputs)
+        out_bytes = outputs * {"split": 16, "bits": 8, "uniform": 4,
+                               "randint": 4}[mode]
+        bound_ms, bound_by = roofline(out_bytes + 16 * num_keys,
+                                      hashes * hash_ops(20))
+        tag = f"{mode} {num_keys} x {count}"
+        timed[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        log(f"2b draw {tag}: {ms:.5f} ms/launch ({DRAW_LAUNCHES} launches "
+            f"of one block), plain {plain_ms:.4f} ms; bound {bound_ms:.6f} "
+            f"ms ({bound_by}: {out_bytes + 16 * num_keys} B, "
+            f"{hashes * hash_ops(20)} operations); an empty launch "
+            f"{empty_ms:.5f} ms; on {card}")
+
+    obs_dim = fused_tick.obs_rows(bench_params())
+    ring = torch.randn((obs_dim, capacity), generator=gen).to(
+        device, torch.bfloat16)
+    scalars = (torch.zeros(capacity, dtype=torch.int32, device=device),
+               torch.zeros(capacity, device=device),
+               torch.zeros(capacity, dtype=torch.int8, device=device))
+    sample_key = rng.PRNGKey(5).to(device)
+    block, _batch, _operands = draws._ring_sample_args(
+        sample_key, ring, *scalars, (nb - 1) * NUM_ENVS, NUM_ENVS,
+        num_envs=NUM_ENVS, capacity=capacity, batch_size=BATCH,
+        obs_dim=obs_dim)
+    sample_ms = time_block(torch, lib, "ring_sample_launch", block,
+                           DRAW_LAUNCHES)
+    sample_plain_ms = cuda_ms(torch, lambda: fused_tick.ring_gather_batch_plain(
+        sample_key, ring, *scalars, (nb - 1) * NUM_ENVS, 1,
+        num_envs=NUM_ENVS, capacity=capacity, batch_size=BATCH,
+        obs_dim=obs_dim), PLAIN_LAUNCHES)
+    values = 2 * obs_dim * BATCH
+    sample_bytes = values * (2 + 4) + BATCH * (9 + 12) + 16
+    sample_ops = (2 + 2 * BATCH) * hash_ops(20)    # randint's, one key
+    sample_bound, sample_by = roofline(sample_bytes, sample_ops)
+    log(f"2b ring sample {obs_dim} x {2 * BATCH} (bf16 ring, keyed): "
+        f"{sample_ms:.5f} ms/launch ({DRAW_LAUNCHES} launches of one block), "
+        f"plain {sample_plain_ms:.4f} ms; bound {sample_bound:.6f} ms "
+        f"({sample_by}: {sample_bytes} B, {sample_ops} operations); an empty "
+        f"launch {empty_ms:.5f} ms; on {card}")
+    log(f"phase 2b took {time.perf_counter() - t_phase:.1f} s on {card}")
+    head = timed[f"randint 1 x {BATCH}"]
+    return [{
+        "name": "draw",
+        "route": "cuda",
+        "source": "dronerl_tpu_torch/ops/csrc/draws.cu",
+        "replaces": ("no Pallas kernel: jax.random's threefry outside the "
+                     "kernels, e.g. dronerl_tpu/ops/fused_tick.py:1485 "
+                     "(jax.random.randint)"),
+        "launches": 0,
+        "max_abs_err": err["draw"],
+        **head,
+        "library_ms": None,
+        "empty_ms": empty_ms,
+        "cases": timed,
+    }, {
+        "name": "ring_sample",
+        "route": "cuda",
+        "source": "dronerl_tpu_torch/ops/csrc/draws.cu",
+        "replaces": ("no Pallas kernel: ring_gather_batch's randint and "
+                     "gathers, dronerl_tpu/ops/fused_tick.py:1470"),
+        "launches": 0,
+        "max_abs_err": err["ring_sample"],
+        "ms": sample_ms,
+        "plain_ms": sample_plain_ms,
+        "bound_ms": sample_bound,
+        "bound_by": sample_by,
+        "library_ms": None,
+        "empty_ms": empty_ms,
+    }]
+
+
+def bench_params():
+    """The bench's env (grid 9, 4 drones, window radius 3)."""
+    from dronerl_tpu_torch.env.types import EnvParams
+    return EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
+
+
+def roofline(total_bytes, ops):
+    """The least time in ms of moving ``total_bytes`` and doing ``ops``
+    integer operations (at PEAK_F32, as every hash of the kernel line is
+    priced), and which of the two bounds it."""
+    t_bytes = total_bytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def graphed_vs_eager(torch, train, zero_counts, counts, tag, chunk, fresh,
@@ -1923,6 +2207,7 @@ def graphed_vs_eager(torch, train, zero_counts, counts, tag, chunk, fresh,
     Returns each way's stats (obs/s, host and wall ms a tick, device ms a
     tick, busy share) and the carry's numbers."""
     from dronerl_tpu_torch.interop import train_state_io
+    from dronerl_tpu_torch.ops import draws
     from dronerl_tpu_torch.utils import profiling
 
     def eager_chunk(carry, n):
@@ -1959,7 +2244,12 @@ def graphed_vs_eager(torch, train, zero_counts, counts, tag, chunk, fresh,
         num_envs = outs[0][0].shape[1]
         stats[way] = {"obs_per_s": num_envs * ticks / wall_s,
                       "host_ms": 1e3 * host_s / ticks,
-                      "tick_ms": 1e3 * wall_s / ticks}
+                      "tick_ms": 1e3 * wall_s / ticks,
+                      "draws": (draws.draw.launches,
+                                draws.ring_sample.launches)}
+    seen = GRAPHED_DRAWS.setdefault(tag.split()[0], [0, 0])
+    for i, n in enumerate(stats["graphed"]["draws"]):
+        seen[i] += n
     (cg, og), (ce, oe) = runs_out["graphed"], runs_out["eager"]
     got, want = (train_state_io.leaves(x) for x in (cg, ce))
     if got[1] != want[1] or set(got[0]) != set(want[0]):
@@ -1990,8 +2280,11 @@ def log_ways(tag, stats, chunk, ticks, expect, numbers, card, beside=""):
     def way(w):
         traced = (f", device {w['device_ms']:.4f} ms, busy {w['busy']:.4f}"
                   if "busy" in w else ", not traced")
+        drawn = ", ".join(f"{name} {n / ticks:.2f}" for name, n in zip(
+            ("draw", "ring sample"), w["draws"]))
         return (f"{w['obs_per_s']:.1f} obs/s, host {w['host_ms']:.4f} ms a "
-                f"tick, tick {w['tick_ms']:.4f} ms{traced}")
+                f"tick, tick {w['tick_ms']:.4f} ms{traced}, launches a tick "
+                f"{drawn}")
 
     log(f"{tag}: {CHUNKS} x {ticks // CHUNKS} ticks with a train state saved "
         f"and restored between, graphed == eager bitwise (the carry's "
@@ -2041,6 +2334,10 @@ def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
             stats, numbers = graphed_vs_eager(
                 torch, train, zero_counts, counts, tag, chunk, fresh,
                 CHUNK_9_TICKS, expect, state_path, device)
+            if any(stats[w]["draws"][1] != ticks for w in stats):
+                fail(f"{tag}: ring sample launches "
+                     f"{[stats[w]['draws'] for w in stats]} in {ticks} "
+                     "ticks each way")
             log_ways(tag, stats, chunk, ticks, expect, numbers, card,
                      f"; phase 4's default path {obs_per_s[hidden]:.1f} "
                      "obs/s")
@@ -2109,6 +2406,8 @@ def engine_chunks(torch, train, zero_counts, counts, card, runs, device=None):
         stats, numbers = graphed_vs_eager(
             torch, train, zero_counts, counts, tag, chunk, fresh,
             CHUNK_10_TICKS, expect, state_path, device)
+        if stats["graphed"]["draws"][0] == 0:
+            fail(f"{tag}: the graphed chunk launched no draw")
         log_ways(tag, stats, chunk, ticks, expect, numbers, card,
                  f"; replay of {buf.capacity} slots, wrapped "
                  f"{ticks * push // buf.capacity} times; the case took "
@@ -2911,7 +3210,7 @@ def sharded_in_place(torch, mesh, engine, kernel, hidden, memory, tag,
         fail(f"{tag}: charge channel off by {err}")
     ties = 0
     if kernel != "tick":
-        keys = rng.split(key.to(mesh.device), NUM_ENVS + 2)
+        keys = rng.split_plain(key.to(mesh.device), NUM_ENVS + 2)
         act_p, q = fused_tick.plain_actions(
             keys[NUM_ENVS], obs_in, 0, chain, eps, params, NUM_ENVS,
             fused_tick.actor_rounds(20, None))

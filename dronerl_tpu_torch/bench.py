@@ -366,7 +366,7 @@ def _action_problems(tag, actions, step_key, ring, read_slot, chain, epsilon,
                      params, num_envs, rounds, actor_rounds):
     """The kernel's actions against the plain actor's outside near ties
     of the plain Q-values; returns (problems, near-tie envs)."""
-    keys = rng.split(step_key.to(ring.device), num_envs + 2, rounds)
+    keys = rng.split_plain(step_key.to(ring.device), num_envs + 2, rounds)
     act_p, q = fused_tick.plain_actions(keys[num_envs], ring, read_slot,
                                         chain, epsilon, params, num_envs,
                                         actor_rounds)

@@ -9,7 +9,10 @@ and the Q-net widths, the env-only kernel (``env_kernel.cu``, the
 feature-major tick and the row-major step, on the same warp-per-env body
 ``env_warp.cuh`` and block copies ``env_tile.cuh``) on the env alone, the
 learner kernel (``td_adam.cu``) on the widths alone (``-D`` constants, as
-the TPU kernels are specialised on their static arguments). Each config
+the TPU kernels are specialised on their static arguments); the draws
+(``draws.cu``: ``rng``'s draws of a CUDA key and the ring's replay
+sample) take no ``-D`` and choose their round count at run time, one
+library for every engine (:func:`draw_config`). Each config
 is cached under ``ops/_build/`` by a hash of the sources, the source name
 and the ``-D`` set; one process builds at a time (a lock file there), so
 ranks that start together build each library once. ``--use_fast_math``
@@ -37,8 +40,9 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 TICK_SOURCE = "full_tick.cu"
 ENV_SOURCE = "env_kernel.cu"
 LEARNER_SOURCE = "td_adam.cu"
+DRAW_SOURCE = "draws.cu"
 SOURCES = (TICK_SOURCE, ENV_SOURCE, "env_step.cuh", "env_tile.cuh",
-           "env_warp.cuh", "threefry.cuh", LEARNER_SOURCE)
+           "env_warp.cuh", "threefry.cuh", LEARNER_SOURCE, DRAW_SOURCE)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 MAX_LAYERS = 8  # as csrc/full_tick.cu
 
@@ -48,6 +52,8 @@ ENTRY_POINTS = {
                   "full_tick_error_string"),
     ENV_SOURCE: (("tick_launch", "step_launch"), "env_error_string"),
     LEARNER_SOURCE: (("td_adam_launch",), "td_adam_error_string"),
+    DRAW_SOURCE: (("draw_launch", "ring_sample_launch"),
+                  "draws_error_string"),
 }
 
 Defines = Tuple[Tuple[str, str], ...]
@@ -118,6 +124,12 @@ def env_config(params, collect: int = 1, rng_rounds: int = 20) -> Config:
 def learner_config(widths: Sequence[int]) -> Config:
     """The learner kernel's library for Q-net widths (no env defines)."""
     return (LEARNER_SOURCE, net_defines(widths))
+
+
+def draw_config() -> Config:
+    """The draw kernel's library (``draw_launch``, ``ring_sample_launch``):
+    no ``-D``, every round count instantiated."""
+    return (DRAW_SOURCE, ())
 
 
 def nvcc_path() -> str:

@@ -58,7 +58,7 @@ from dronerl_tpu_torch.agents.dqn import DenseQNet, QNet, chain_forward_t
 from dronerl_tpu_torch.constants import NUM_ACTIONS, NUM_OBS_CHANNELS
 from dronerl_tpu_torch.env import core
 from dronerl_tpu_torch.env.types import EnvParams, EnvState
-from dronerl_tpu_torch.ops import _build, conv2mat, learner_kernel
+from dronerl_tpu_torch.ops import _build, conv2mat, draws, learner_kernel
 from dronerl_tpu_torch.ops.learner_kernel import check_tensor
 from dronerl_tpu_torch.utils.graphs import upload
 
@@ -254,6 +254,7 @@ def flatten_net_params(net: QNet, net_spec=None) -> List[torch.Tensor]:
 
 # --- plain version ---------------------------------------------------------
 
+@rng.plain_draws()
 def actor_uniforms(actor_key: torch.Tensor, n: int, num_envs: int,
                    rounds: int = 20):
     """(N+1, E) uniforms from the actor key (Threefry-2x32-``rounds``):
@@ -264,6 +265,7 @@ def actor_uniforms(actor_key: torch.Tensor, n: int, num_envs: int,
     return u_act, rand.clamp(0, NUM_ACTIONS - 1)
 
 
+@rng.plain_draws()
 def plain_actions(actor_key: torch.Tensor, obs_ring: torch.Tensor,
                   read_slot: int, chain: Sequence[torch.Tensor],
                   epsilon: torch.Tensor, params: EnvParams, num_envs: int,
@@ -400,6 +402,7 @@ def _plain_tick_actions(keys, obs, read_slot, chain, epsilon, params,
                          epsilon, params, num_envs, rounds)[0]
 
 
+@rng.plain_draws()
 def full_tick_ring_plain(
     step_key: torch.Tensor,
     tstate: TState,
@@ -438,6 +441,7 @@ def full_tick_ring_plain(
     return tstate, rewards, dones, actions.contiguous(), obs_ring
 
 
+@rng.plain_draws()
 def full_tick_plain(
     step_key: torch.Tensor,
     tstate: TState,
@@ -468,6 +472,7 @@ def full_tick_plain(
     return tstate, rewards, dones, actions.contiguous(), obs.contiguous()
 
 
+@rng.plain_draws()
 def tick_plain(step_key: torch.Tensor, tstate: TState,
                actions_t: torch.Tensor, params: EnvParams, collect: int = 1,
                rng_rounds: int = 20):
@@ -933,28 +938,69 @@ def ring_scalar_writes(a_ring, r_ring, d_ring, actions_t, rewards_t, dones_t,
     return a_ring, r_ring, d_ring
 
 
+def _ring_sample_shape(valid: int, base_step: int, num_envs: int,
+                       capacity: int):
+    """The sample's span ``max(valid, 1)`` and base slot (``base_step``'s
+    slot of the ring)."""
+    nb = capacity // num_envs
+    return max(valid, 1), (base_step % nb) * num_envs
+
+
 def ring_gather_batch(sample_key, ring, a_ring, r_ring, d_ring, valid: int,
                       base_step: int, *, num_envs: int, capacity: int,
                       batch_size: int, collect: int = 1,
                       obs_dim: Optional[int] = None
                       ) -> Dict[str, torch.Tensor]:
     """Uniform replay sample over ``valid`` columns from ``base_step``'s
-    slot; next_obs is the column one env-batch later. The indices are
-    drawn from ``sample_key`` (2,) (``jax.random.randint``) where the key
-    lies: a key on the ring's device draws there, so nothing crosses from
-    the host (the ring chunk's graphs); a host key (the eager tick's)
-    draws on the host and its indices are copied over, the draw's tensor
-    ops costing an eager tick more than the copy. A (batch_size,) draw
-    for ``collect`` = 1; for k > 1 a (k, batch_size // k) draw, row j's
-    columns gathered from drone j's row group (``obs_dim`` rows) and
-    scalar ring, the drones concatenated in order."""
-    nb = capacity // num_envs
-    base_slot = (base_step % nb) * num_envs
+    slot; next_obs is the column one env-batch later
+    (:func:`ring_gather_batch_plain`'s function). On a CUDA ring one
+    launch of the ring sample kernel (``draws.ring_sample``, counted in
+    ``draws.ring_sample.launches``): it draws the indices from a
+    ``sample_key`` (2,) on the ring's device (the ring chunk's graphs);
+    a host key (the eager tick's) draws on the host, for far fewer
+    launches than a device draw, and the kernel reads the offsets in
+    place of the key. On a CPU ring the plain version."""
+    if not ring.is_cuda:
+        return ring_gather_batch_plain(
+            sample_key, ring, a_ring, r_ring, d_ring, valid, base_step,
+            num_envs=num_envs, capacity=capacity, batch_size=batch_size,
+            collect=collect, obs_dim=obs_dim)
+    span, base_slot = _ring_sample_shape(valid, base_step, num_envs,
+                                         capacity)
+    offsets = None
+    if sample_key.device != ring.device:
+        offsets = rng.randint(sample_key, (batch_size,), 0, span).to(
+            ring.device, non_blocking=True)
+    return draws.ring_sample(
+        sample_key, ring, a_ring, r_ring, d_ring, span, base_slot,
+        num_envs=num_envs, capacity=capacity, batch_size=batch_size,
+        collect=collect, obs_dim=obs_dim, offsets=offsets)
+
+
+def ring_gather_batch_plain(sample_key, ring, a_ring, r_ring, d_ring,
+                            valid: int, base_step: int, *, num_envs: int,
+                            capacity: int, batch_size: int, collect: int = 1,
+                            obs_dim: Optional[int] = None,
+                            offsets: Optional[torch.Tensor] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """The ring sample in plain PyTorch, on any device: ``batch_size``
+    offsets in ``[0, max(valid, 1))`` drawn from ``sample_key`` (2,)
+    (``jax.random.randint``) where the key lies and copied to the ring's
+    device, or ``offsets`` given in their place (the same draw made by
+    the caller); column ``(base_slot + offset) % capacity`` from
+    ``base_step``'s slot, next_obs ``num_envs`` columns on. A
+    (batch_size,) draw for ``collect`` = 1; for k > 1 a (k, batch_size //
+    k) draw, row j's columns gathered from drone j's row group
+    (``obs_dim`` rows) and scalar ring, the drones concatenated in
+    order."""
+    span, base_slot = _ring_sample_shape(valid, base_step, num_envs,
+                                         capacity)
     k = collect
     device = ring.device
     shape = (batch_size,) if k == 1 else (k, batch_size // k)
-    raw = rng.randint(sample_key, shape, 0, max(valid, 1)).to(
-        device, non_blocking=True)
+    if offsets is None:
+        offsets = rng.randint_plain(sample_key, shape, 0, span)
+    raw = offsets.reshape(shape).to(device, non_blocking=True)
     phys = (base_slot + raw.to(torch.int64)) % capacity
     idx = torch.stack([phys, (phys + num_envs) % capacity])
     if k == 1:

@@ -55,6 +55,7 @@ def supports(params: EnvParams, num_envs: int) -> bool:
     return not kernel_problems(params, num_envs)
 
 
+@rng.plain_draws()
 def step_batch_plain(step_key: torch.Tensor, states: EnvState,
                      actions: torch.Tensor, params: EnvParams):
     """The kernel's function in plain PyTorch, on any device."""

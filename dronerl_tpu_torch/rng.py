@@ -10,14 +10,24 @@ the default since jax 0.5): a counter array over the flattened output
 index i is hashed as the word pair (hi32(i), lo32(i)) = (0, i), ``split``
 returns the two output words per counter, and random bits are
 ``b1 ^ b2``.
+
+``split``, ``random_bits``, ``uniform`` and ``randint`` of a CUDA key are
+one launch each of the draw kernel (``ops/draws.py``, ``csrc/draws.cu``);
+of a CPU key, or inside :func:`plain_draws`, they run their plain
+versions (``split_plain``, ...), the same words as tensor ops (on Python
+ints for few counters), which run on any device.
 """
 
+import contextlib
 import hashlib
 import math
+import threading
 
 import numpy as np
 
 import torch
+
+from dronerl_tpu_torch.ops import draws
 
 MASK32 = 0xFFFFFFFF
 _ROT0 = (13, 15, 26, 6)
@@ -132,18 +142,58 @@ def _hash_counts(key: torch.Tensor, n: int, rounds: int = 20):
     return threefry2x32(key[..., 0:1], key[..., 1:2], 0, counts, rounds)
 
 
+_PLAIN = threading.local()
+
+
+@contextlib.contextmanager
+def plain_draws():
+    """Within it (a ``with`` block or a decorated function), this thread's
+    ``split``, ``random_bits``, ``uniform`` and ``randint`` run their plain
+    versions whatever the key's device: the kernels' plain versions draw
+    so, and share no code with the draw kernel they are held against."""
+    before = getattr(_PLAIN, "on", False)
+    _PLAIN.on = True
+    try:
+        yield
+    finally:
+        _PLAIN.on = before
+
+
+def _on_card(key: torch.Tensor) -> bool:
+    return key.is_cuda and not getattr(_PLAIN, "on", False)
+
+
+def split_plain(key: torch.Tensor, num: int = 2,
+                rounds: int = 20) -> torch.Tensor:
+    """:func:`split` as tensor ops, on any device."""
+    b1, b2 = _hash_counts(key, num, rounds)
+    return torch.stack([b1, b2], dim=-1)
+
+
 def split(key: torch.Tensor, num: int = 2, rounds: int = 20) -> torch.Tensor:
     """``jax.random.split``: key (..., 2) -> (..., num, 2); with ``rounds``
     < 20 the same split hashed by Threefry-2x32-``rounds``."""
-    b1, b2 = _hash_counts(key, num, rounds)
-    return torch.stack([b1, b2], dim=-1)
+    if _on_card(key):
+        return draws.draw(key, num, "split", check_rounds(rounds))
+    return split_plain(key, num, rounds)
+
+
+def random_bits_plain(key: torch.Tensor, shape,
+                      rounds: int = 20) -> torch.Tensor:
+    """:func:`random_bits` as tensor ops, on any device."""
+    shape = tuple(shape)
+    b1, b2 = _hash_counts(key, math.prod(shape), rounds)
+    return (b1 ^ b2).reshape((*key.shape[:-1], *shape))
 
 
 def random_bits(key: torch.Tensor, shape, rounds: int = 20) -> torch.Tensor:
     """32-bit random words for key (..., 2) -> (..., *shape) int64."""
     shape = tuple(shape)
-    b1, b2 = _hash_counts(key, math.prod(shape), rounds)
-    return (b1 ^ b2).reshape((*key.shape[:-1], *shape))
+    if _on_card(key):
+        return draws.draw(key, math.prod(shape), "bits",
+                          check_rounds(rounds)).reshape(
+                              (*key.shape[:-1], *shape))
+    return random_bits_plain(key, shape, rounds)
 
 
 def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
@@ -152,37 +202,50 @@ def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
     return fbits.view(torch.float32) - 1.0
 
 
+def uniform_plain(key: torch.Tensor, shape, rounds: int = 20) -> torch.Tensor:
+    """:func:`uniform` as tensor ops, on any device."""
+    return bits_to_unit_float(random_bits_plain(key, shape, rounds))
+
+
 def uniform(key: torch.Tensor, shape, rounds: int = 20) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` (float32 in [0, 1)); with
     ``rounds`` < 20 its bits from Threefry-2x32-``rounds``."""
-    return bits_to_unit_float(random_bits(key, shape, rounds))
+    shape = tuple(shape)
+    if _on_card(key):
+        return draws.draw(key, math.prod(shape), "uniform",
+                          check_rounds(rounds)).reshape(
+                              (*key.shape[:-1], *shape))
+    return uniform_plain(key, shape, rounds)
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval) -> torch.Tensor:
-    """``jax.random.randint(key, shape, minval, maxval)`` for int32 output.
-
-    Follows jax's ``_randint``: two 32-bit draws from ``split(key)`` are
-    combined as ``(hi % span) * (2**32 % span) + lo % span``, all in
-    wrapping uint32 arithmetic. ``minval`` is a Python int in the int32
-    range; ``maxval`` one too, or a 0-d integer tensor on the key's device
-    holding one (a bound that a CUDA graph reads from device memory: the
-    span and multiplier are then device values, the same arithmetic).
-    """
+def _randint_span(minval, maxval):
+    """``(minval, span)``: ``span`` the host int ``maxval - minval`` in
+    uint32 (1 where ``maxval <= minval``), or a tensor bound itself; the
+    host bounds checked against the int32 range."""
     minval = int(minval)
     bounds = [minval]
     if isinstance(maxval, torch.Tensor):
         if maxval.dim() != 0 or maxval.dtype.is_floating_point:
             raise ValueError("a tensor bound must be a 0-d integer tensor")
-        bound = maxval.to(torch.int64)
-        span = torch.where(bound > minval, (bound - minval) & MASK32, 1)
+        span = maxval
     else:
         bounds.append(int(maxval))
         span = 1 if bounds[1] <= minval else (bounds[1] - minval) & MASK32
     for v in bounds:
         if not -(1 << 31) <= v < (1 << 31):
             raise ValueError(f"bound {v} is outside the int32 range")
+    return minval, span
+
+
+def randint_plain(key: torch.Tensor, shape, minval: int, maxval,
+                  rounds: int = 20) -> torch.Tensor:
+    """:func:`randint` as tensor ops, on any device."""
+    minval, span = _randint_span(minval, maxval)
+    if isinstance(span, torch.Tensor):
+        bound = span.to(torch.int64)
+        span = torch.where(bound > minval, (bound - minval) & MASK32, 1)
     # Both halves' words in one hash over the two keys of split(key, 2).
-    bits = random_bits(split(key, 2), shape)
+    bits = random_bits_plain(split_plain(key, 2, rounds), shape, rounds)
     higher, lower = (bits.select(key.dim() - 1, i) for i in (0, 1))
     multiplier = (1 << 16) % span
     multiplier = (multiplier * multiplier & MASK32) % span
@@ -191,6 +254,31 @@ def randint(key: torch.Tensor, shape, minval: int, maxval) -> torch.Tensor:
     out = (minval + offset) & MASK32
     # uint32 -> int32 two's complement
     return torch.where(out >= (1 << 31), out - (1 << 32), out).to(torch.int32)
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval,
+            rounds: int = 20) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 output.
+
+    Follows jax's ``_randint``: two 32-bit draws from ``split(key)`` are
+    combined as ``(hi % span) * (2**32 % span) + lo % span``, all in
+    wrapping uint32 arithmetic. ``minval`` is a Python int in the int32
+    range; ``maxval`` one too, or a 0-d integer tensor on the key's device
+    holding one (a bound that a CUDA graph reads from device memory: the
+    span and multiplier are then device values, the same arithmetic).
+    ``rounds`` < 20 hashes the split and the words by
+    Threefry-2x32-``rounds``.
+    """
+    if not _on_card(key):
+        return randint_plain(key, shape, minval, maxval, rounds)
+    shape = tuple(shape)
+    minval, span = _randint_span(minval, maxval)
+    bound = None
+    if isinstance(span, torch.Tensor):
+        bound, span = span, 1
+    return draws.draw(key, math.prod(shape), "randint", check_rounds(rounds),
+                      minval=minval, span=span, bound=bound).reshape(
+                          (*key.shape[:-1], *shape))
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:

@@ -114,7 +114,7 @@ from dronerl_tpu_torch.env.types import EnvParams, EnvState, env_fields
 from dronerl_tpu_torch.evaluator.evaluator import seed_keys
 from dronerl_tpu_torch.interop import safetensors_io, train_state_io
 from dronerl_tpu_torch.interop.from_jax import qnet_from_flax
-from dronerl_tpu_torch.ops import fused_tick, learner_kernel
+from dronerl_tpu_torch.ops import draws, fused_tick, learner_kernel
 from dronerl_tpu_torch.utils import profiling
 from dronerl_tpu_torch.utils.graphs import GraphSet, scan, upload
 from dronerl_tpu_torch.utils.metrics import NoLogger, build_logger
@@ -507,7 +507,8 @@ class Chunk:
     mode.
 
     A replay adds the launches its capture recorded to the counters of
-    :data:`COUNTERS` (the kernels' launches and the all-reduces); a
+    :data:`COUNTERS` (the kernels' launches, the draws' and the ring
+    sample's among them, and the all-reduces); a
     capture's warm-up (on a copy of the carry) and the capture leave the
     counts as they were.
     """
@@ -516,6 +517,8 @@ class Chunk:
                 (learner_kernel, "td_adam", "launches"),
                 (fused_tick, "full_tick_fused", "launches"),
                 (fused_tick, "tick_fused", "launches"),
+                (draws, "draw", "launches"),
+                (draws, "ring_sample", "launches"),
                 (dqn_module, "all_reduce_mean", "calls"))
 
     def __init__(self, tick):

@@ -1,6 +1,6 @@
 """The CUDA kernels' wrappers, builds and launches: the full tick kernel
-(ring and obs launches), the env tick kernel, the row-major step kernel
-and the learner kernel.
+(ring and obs launches), the env tick kernel, the row-major step kernel,
+the learner kernel, and the draw and ring sample kernels.
 
 No JAX here: the ``gpu`` tests run on a machine with a card, where the
 JAX package is not installed, by
@@ -26,7 +26,7 @@ from dronerl_tpu_torch.env import core
 from dronerl_tpu_torch.env.types import EnvParams
 from dronerl_tpu_torch.interop import train_state_io
 from dronerl_tpu_torch.ops import (
-    _build, fused_tick, learner_kernel, step_kernel)
+    _build, draws, fused_tick, learner_kernel, step_kernel)
 
 E = 128
 CHARGE_ATOL = 1.3e-7
@@ -181,7 +181,7 @@ def test_kernel_ragged_envs_on_card(dtype):
         assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0
         assert float(diff[:, 4].max()) <= CHARGE_ATOL
         act_p, q = fused_tick.plain_actions(
-            rng.split(step_key.to(dev), num_envs + 2)[num_envs], ring_p,
+            rng.split_plain(step_key.to(dev), num_envs + 2)[num_envs], ring_p,
             read, net, eps, tp, num_envs)
         differ = (out_k[3] != act_p).any(dim=0)
         assert not bool((differ & ~_near_tie(q)).any()), t
@@ -497,7 +497,8 @@ def test_full_tick_kernel_matches_plain_on_card():
         assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0
         assert float(diff[:, 4].max()) <= CHARGE_ATOL
         act_p, q = fused_tick.plain_actions(
-            rng.split(step_key.to(dev), E + 2)[E], obs_t, 0, net, eps, tp, E)
+            rng.split_plain(step_key.to(dev), E + 2)[E], obs_t, 0, net, eps,
+            tp, E)
         differ = (out_k[3] != act_p).any(dim=0)
         assert not bool((differ & ~_near_tie(q)).any()), t
         assert torch.equal(obs_t, before)
@@ -751,8 +752,8 @@ def test_chain_kernels_match_plain_on_card(case, num_envs):
             assert float(diff[:, [0, 1, 2, 3, 5]].max()) == 0.0, (dtype, t)
             assert float(diff[:, 4].max()) <= CHARGE_ATOL, (dtype, t)
             act_p, q = fused_tick.plain_actions(
-                rng.split(step_key.to(dev), num_envs + 2)[num_envs], obs_in,
-                read, chain, eps, tp, num_envs)
+                rng.split_plain(step_key.to(dev), num_envs + 2)[num_envs],
+                obs_in, read, chain, eps, tp, num_envs)
             differ = (out_k[3] != act_p).any(dim=0)
             assert not bool((differ & ~_near_tie(q)).any()), (dtype, t)
             ts = out_k[0]
@@ -965,3 +966,155 @@ def test_sharded_chunk_equals_eager_ticks_on_card(local):
     assert torch.equal(torch.cat([o[0] for o in outs]),
                        torch.stack([o[0] for o in ref]))
     assert torch.equal(losses, torch.stack([o[2] for o in ref]))
+
+
+# --- the draw kernel and the ring sample kernel (csrc/draws.cu) --------------
+
+def _draw_keys(dev):
+    """A lone key, a stack of keys and a strided view of split children
+    (the env core's ``ks[..., 0, :]``), on the card."""
+    keys = rng.split_plain(rng.PRNGKey(17).to(dev), 6)
+    return (rng.PRNGKey(5).to(dev), keys,
+            rng.split_plain(keys.reshape(2, 3, 2), 2)[..., 1, :])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds", rng.ROUNDS)
+@pytest.mark.parametrize("mode", ["split", "bits", "uniform", "randint"])
+def test_draw_kernel_matches_plain_on_card(mode, rounds):
+    """Each draw of a CUDA key, one launch, bitwise to its plain version
+    on the same key, at every round count: lone, stacked and strided
+    keys, 1 to 65,537 counters; randint with a host bound, a bound below
+    minval and a device bound."""
+    dev = _card()
+    for key in _draw_keys(dev):
+        for n in (1, 100, 65537):
+            before = draws.draw.launches
+            if mode == "split":
+                got = rng.split(key, n, rounds)
+                want = rng.split_plain(key, n, rounds)
+            elif mode == "bits":
+                got = rng.random_bits(key, (n,), rounds)
+                want = rng.random_bits_plain(key, (n,), rounds)
+            elif mode == "uniform":
+                got = rng.uniform(key, (n,), rounds).view(torch.int32)
+                want = rng.uniform_plain(key, (n,), rounds).view(torch.int32)
+            else:
+                for lo, hi in ((0, 7), (-5, 2 ** 31 - 1), (3, 1),
+                               (0, torch.tensor(65536, device=dev))):
+                    got = rng.randint(key, (n,), lo, hi, rounds)
+                    want = rng.randint_plain(key, (n,), lo, hi, rounds)
+                    assert got.dtype == want.dtype and torch.equal(
+                        got, want), (lo, hi, n)
+                assert draws.draw.launches == before + 4
+                continue
+            assert draws.draw.launches == before + 1
+            assert got.dtype == want.dtype and torch.equal(got, want), n
+
+
+@pytest.mark.gpu
+def test_randint_device_bound_in_graph_on_card():
+    """randint with its key and bound read by pointer inside a captured
+    CUDA graph: a replay after the key's row and the bound change draws
+    the new words, bitwise to the plain version."""
+    dev = _card()
+    row = torch.tensor([0, 7, 1000], dtype=torch.int32, device=dev)
+
+    def step():
+        key = row[:2].to(torch.int64) & rng.MASK32
+        return rng.randint(key, (8,), 0, row[2])
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    for words in ([0, 7, 1000], [123, 456, 3], [2 ** 31 - 1, 9, 65537]):
+        row.copy_(torch.tensor(words, dtype=torch.int32))
+        graph.replay()
+        want = rng.randint_plain(rng.PRNGKey(0).new_tensor(words[:2]).to(dev),
+                                 (8,), 0, words[2])
+        assert torch.equal(out, want), words
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [1, 4])
+def test_ring_sample_kernel_matches_plain_on_card(k, dtype):
+    """The ring sample kernel, keyed (the graphed tick) and from host
+    offsets (the eager tick), bitwise to ring_gather_batch_plain at the
+    bench's ring (294 rows, 65,536 envs, 131,072 columns, batch 8) for one
+    drone and four, the base slot wrapping."""
+    dev = _card()
+    num_envs, capacity, obs_dim = 65536, 131072, 294
+    gen = torch.Generator().manual_seed(k)
+    ring = torch.randn((k * obs_dim, capacity), generator=gen).to(dev, dtype)
+    shape = (capacity,) if k == 1 else (k, capacity)
+    a_ring = torch.randint(0, 5, shape, generator=gen,
+                           dtype=torch.int32).to(dev)
+    r_ring = torch.randn(shape, generator=gen).to(dev)
+    d_ring = torch.randint(0, 2, shape, generator=gen,
+                           dtype=torch.int8).to(dev)
+    common = dict(num_envs=num_envs, capacity=capacity, batch_size=8 * k,
+                  collect=k, obs_dim=obs_dim)
+    for seed, valid, base in ((1, num_envs, 1), (2, 1, 0), (3, 0, 0)):
+        key = rng.PRNGKey(seed)
+        want = fused_tick.ring_gather_batch_plain(
+            key, ring, a_ring, r_ring, d_ring, valid, base, **common)
+        before = draws.ring_sample.launches
+        keyed = fused_tick.ring_gather_batch(
+            key.to(dev), ring, a_ring, r_ring, d_ring, valid, base, **common)
+        hosted = fused_tick.ring_gather_batch(
+            key, ring, a_ring, r_ring, d_ring, valid, base, **common)
+        assert draws.ring_sample.launches == before + 2
+        for name in want:
+            assert torch.equal(keyed[name], want[name]), (seed, name)
+            assert torch.equal(hosted[name], want[name]), (seed, name)
+
+
+@pytest.mark.gpu
+def test_draw_library_failure_raises_on_card(monkeypatch):
+    """A CUDA key whose draw library does not load raises; nothing falls
+    back to the plain version, and no launch is counted."""
+    dev = _card()
+
+    def refuse(config):
+        raise OSError(f"cannot load {config}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    before = draws.draw.launches
+    for call in (lambda k: rng.split(k, 3), lambda k: rng.uniform(k, (4,)),
+                 lambda k: rng.randint(k, (4,), 0, 5)):
+        with pytest.raises(OSError):
+            call(rng.PRNGKey(1).to(dev))
+    assert draws.draw.launches == before
+
+
+@pytest.mark.gpu
+def test_plain_draws_launch_nothing_on_card(monkeypatch):
+    """Inside ``plain_draws`` (the kernels' plain versions) a CUDA key's
+    draws run as tensor ops with the draw library refused: no launch,
+    the plain versions' words."""
+    dev = _card()
+
+    def refuse(config):
+        raise OSError(f"cannot load {config}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    key = rng.PRNGKey(1).to(dev)
+    before = draws.draw.launches
+    with rng.plain_draws():
+        got = (rng.split(key, 3), rng.uniform(key, (4,)).view(torch.int32),
+               rng.randint(key, (4,), 0, 5))
+    u, _ = fused_tick.actor_uniforms(key, 4, 16)
+    assert draws.draw.launches == before
+    want = (rng.split_plain(key, 3),
+            rng.uniform_plain(key, (4,)).view(torch.int32),
+            rng.randint_plain(key, (4,), 0, 5))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(u.view(torch.int32),
+                       rng.uniform_plain(key, (5, 16)).view(torch.int32))
