@@ -87,20 +87,22 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 4c. drive the full engine (``build_train_step_full`` over a StreamReplay of
    1,048,576 slots, ``--memory_size 1000000`` rounded up to 16 env-batches)
    the same way for both nets, as the CLI runs it (``train.Chunk``: one
-   CUDA graph replay a tick): B3's launch count equals the ticks (and no
-   other kernel launches), losses finite once trained, params move, ε
-   decays, the replay full; report its obs/s beside phase 4's;
+   CUDA graph replay a tick): B3's launch count equals the ticks and the
+   learner kernel's the trained ticks (no other kernel launches), losses
+   finite once trained, params move, ε decays, the replay full; report
+   its obs/s beside phase 4's;
 4d. drive the fused engine (``build_train_step_fused``, dense) on the same
-   configuration, as a chunk: B4's launches equal the ticks; report its
-   obs/s;
+   configuration, as a chunk: B4's launches equal the ticks, the learner
+   kernel's the trained ticks; report its obs/s;
 4e. run the CLI (``dronerl_tpu_torch.train.main``) at ``--num_envs 16384``
    with the default memory size (114,688 slots > 4 x 16,384): it must
-   choose the full engine, and B3's launches equal its steps;
+   choose the full engine, and B3's launches equal its steps, the learner
+   kernel's its trained steps;
 4f. run the CLI at ``--num_envs 64 --num_steps 30``: it must choose the jnp
-   engine (plain PyTorch over a row-major ReplayBuffer, no kernel
-   launched), give finite losses once trained and decay ε; report its
-   obs/s; then drive the same engine's tick for 30 ticks: the params
-   move;
+   engine (plain PyTorch over a row-major ReplayBuffer, no tick kernel
+   launched; the learner kernel once a trained tick), give finite losses
+   once trained and decay ε; report its obs/s; then drive the same
+   engine's tick for 30 ticks: the params move;
    then time B1, B3, B4 and B5 per launch (CUDA events over launches of a
    prebuilt argument block; B1 also by wrapper calls; B4 on every board
    of TICK_BOARDS, B5 on every board of STEP_BOARDS), their plain
@@ -151,7 +153,8 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    --seed, and the warm start with ``--in_kernel_td``):
 5a. 300 ticks in 2 chunks of 150 with an eval of 5 seeds x 1,000 steps
    before the second and at the end, both checkpoints and the train
-   state: B1 (and B2) launch once a tick and nothing else does; then 150
+   state: B1 launches once a tick, B2 once a trained tick (once a tick
+   with ``--in_kernel_td``) and nothing else does; then 150
    ticks, a train state, a resume and 150 more: the final carry equals the
    whole run's tensor for tensor, bitwise; prints obs/s beside phase 4's,
    the eval times and means;
@@ -181,7 +184,9 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    ticks with a train state saved and restored between, graphed and
    eager from the same carry: every carry tensor, its numbers and every
    output bitwise, B1/B3/B4 launched once a tick either way (the jnp
-   engine none) and one all-reduce a trained tick either way; logs the
+   engine none), the learner kernel never (a grouped tick's learner is
+   autograd, its all-reduce between the backward pass and Adam) and one
+   all-reduce a trained tick either way; logs the
    graphs, the capture mode and seconds and both ways' ms a tick (no
    profiler: the phase stays short);
 6b. two ranks on the one card over gloo (``parallel.launch.spawn``): the
@@ -204,13 +209,14 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    two ranks on one card (information);
 7. the repo's last entry points and locks:
 7a. ``scripts/torch_numerics_lock.py``'s scenario (256 envs, 64 ticks,
-   bf16 ring, ε pinned at 1.0) through B1: launches 64 in 64, Tier A
+   bf16 ring, ε pinned at 1.0) through B1 and the default learner on B2:
+   launches 64 and 64 in 64, Tier A
    (the env state's and the reward trace's SHA-256 digests, the ring's
    summary) equal to the JAX package's TPU record
    (``scripts/tpu_numerics_lock.json``) and to the plain path's on the
    CPU, Tier B inside the card's own record
    (``scripts/torch_numerics_lock.json``); prints the largest Tier B
-   difference from the CPU's plain run;
+   difference from the CPU's plain run (the autograd learner);
 7b. ``scripts/torch_evaluate_agent.py`` on dqn-agent-3 on the card (the
    arena's plain env core: no kernel launches); six finite scores; where
    PIL is missing the episode video is skipped (the evaluator, like the
@@ -221,7 +227,7 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 7d. the CLI with ``--tensorboard_dir`` at the bench configuration
    without tensorboard (blocked if it is installed): it warns
    "tensorboard unavailable; skipping TB logging", writes no TB files and
-   completes, B1 launching once a tick;
+   completes, B1 launching once a tick, B2 once a trained tick;
    then the learner kernel's bound at batch 256 (B6) for both nets, and
    the phase's seconds;
 8. the bench program and its companions, each a subprocess of the
@@ -229,9 +235,9 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    of the (16,16) metrics, 2 of the (128,64) ones, 1 call of 200 ticks a
    repeat, each a graphed chunk): exit 0, ``correct: true`` (its lockstep
    check of the graphed chunk against the eager tick included), the card
-   as its device, the graphs it captured, B1's
-   launches equal to each metric's timed ticks and B2's to the
-   ``in_kernel_td`` ones' (0 elsewhere), each obs/s logged beside phase
+   as its device, the graphs it captured, B1's and B2's
+   launches equal to each metric's timed ticks (every timed tick trains,
+   on the default path too), each obs/s logged beside phase
    4's with its quartiles and the traced run's device busy share; then
    one row each of ``scripts/torch_ring_bench.py`` (65,536 envs),
    ``torch_config5_bench.py`` (grid 16, 8 drones, 32,768 envs, one
@@ -243,7 +249,8 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    (a reset at tick 100, 30 syncs, 60 decays, every slot) with a train
    state saved and restored between them, through ``build_chunk_ring``
    (one CUDA graph replay a tick) and through its eager tick from the same
-   carry: every carry tensor and output bitwise, B1 (and B2) launched
+   carry: every carry tensor and output bitwise, B1 and B2 (the default
+   learner's trained ticks, all of them here, or in_kernel_td's) launched
    once a tick either way; logs both ways' obs/s, host ms a tick and the
    device's busy share (20 profiled ticks each);
 10. the jnp, full and fused engines' chunks (``train.Chunk``, the CLI's on
@@ -255,7 +262,10 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    train state saved and restored between, graphed and eager from the
    same carry: every carry tensor, the replay's cursor and size and every
    output bitwise, B3 and B4
-   launched once a tick either way (the jnp engine none); logs the graphs,
+   launched once a tick either way (the jnp engine none), the learner
+   kernel once a trained tick of the dense net's jnp and full engines
+   (none for the fused engine's conv net, which stays on autograd); logs
+   the graphs,
    capture seconds, both ways' obs/s, ms a tick and busy share; then the
    host's walk of a 100,000-tick jnp chunk (the CLI's ``--max_scan_steps``)
    and the CLI at its defaults, which must run the jnp engine as graphs;
@@ -272,7 +282,12 @@ timed in place on a world-1 sharded trainer's carry at 6a's shapes, with
 ``launches_6e_chunk``; B1's entries also carry
 phase 7's launches, ``launches_7a_numerics_lock`` and
 ``launches_7d_cli_tensorboard``, and with B2's phase 8's,
-``launches_8_bench``; the ``draw`` entry's launches are phases 4c and
+``launches_8_bench``; B2's ``launches`` are phase 4's default path's and
+4b's ``in_kernel_td`` ones (``launches_4_default``,
+``launches_4b_in_kernel_td``), beside 4c's and 4d's
+(``launches_4c_full_engine``, ``launches_4d_fused_engine``) and the
+graphed chunks' of phases 9 and 10 (``launches_9_chunk``,
+``launches_10_chunk``); the ``draw`` entry's launches are phases 4c and
 4d's, the ``ring_sample`` entry's phase 4's, each with
 ``launches_9_chunk``, ``launches_10_chunk`` and ``launches_6e_chunk``,
 the graphed chunks' launches of those phases),
@@ -535,6 +550,20 @@ SYNC_OPS = 3               # per parameter: tau p + (1 - tau) t
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def want_launches(train, n, kernel, ticks, learner, trained):
+    """The launches (the keys of the counts ``n``) that a run of ``ticks``
+    ticks must make: ``kernel`` (None: no tick kernel) once a tick, the
+    learner kernel by the run's route (``Tick.learner``, a CLI run's
+    ``learner``): once a tick on ``in_kernel_td``, once a ``trained`` tick
+    on the kernel, never on autograd; nothing else."""
+    want = dict.fromkeys(n, 0)
+    if kernel:
+        want[kernel] = ticks
+    want["td_adam"] = {train.KERNEL: trained,
+                       train.IN_KERNEL_TD: ticks}.get(learner, 0)
+    return want
 
 
 def log(msg: str) -> None:
@@ -1423,9 +1452,13 @@ def main() -> None:
             tag, None, carry, chunk)
         drawn = draw_counts()
         launches = (n["full_tick_ring"], n["td_adam"])
-        if launches[0] != ticks:
-            fail(f"{tag}: {launches[0]} tick kernel launches in {ticks} "
-                 "ticks")
+        trained = int((losses >= 0).sum())
+        want = want_launches(train, n, "full_tick_ring", ticks,
+                             chunk.tick.learner, trained)
+        if (chunk.tick.learner not in (train.KERNEL, train.IN_KERNEL_TD)
+                or n != want):
+            fail(f"{tag}: learner {chunk.tick.learner}, launches {n} in "
+                 f"{ticks} ticks, {trained} trained (want {want})")
         if drawn["ring_sample"] != ticks:
             fail(f"{tag}: {drawn['ring_sample']} ring sample launches in "
                  f"{ticks} ticks")
@@ -1433,8 +1466,10 @@ def main() -> None:
         if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
             fail(f"{tag}: the params did not move")
         log(f"main path {tag}: {ticks} ticks as chunks ({chunk.graphs} "
-            f"graphs captured in {chunk.capture_s:.2f} s), launches "
-            f"{launches}, draws {drawn}, loss {float(losses[-1]):.5f}, eps "
+            f"graphs captured in {chunk.capture_s:.2f} s), learner "
+            f"{chunk.tick.learner}, launches (B1, B2) {launches} "
+            f"({trained} trained ticks), draws {drawn}, loss "
+            f"{float(losses[-1]):.5f}, eps "
             f"{float(eps):.4f}, "
             f"obs/s {NUM_ENVS / tick_s:.1f} (median of {REPEATS} x "
             f"{TICKS_PER_REPEAT} ticks; tick {1e3 * tick_s:.4f} ms; "
@@ -1463,8 +1498,12 @@ def main() -> None:
         carry, losses, tick_s, seconds, ticks, n, rewards, eps = run_ticks(
             tag, None, carry, chunk)
         kernel = {"full": "full_tick", "fused": "tick"}[engine]
-        if n[kernel] != ticks or sum(n.values()) != ticks:
-            fail(f"{tag}: launches {n} in {ticks} ticks")
+        if chunk.tick.learner != train.KERNEL or n != want_launches(
+                train, n, kernel, ticks, chunk.tick.learner,
+                int((losses >= 0).sum())):
+            fail(f"{tag}: learner {chunk.tick.learner}, launches {n} in "
+                 f"{ticks} ticks")
+        learned[(hidden, engine)] = n["td_adam"]
         drawn = path_draws[tag] = draw_counts()
         if drawn["draw"] == 0 or drawn["ring_sample"] != 0:
             fail(f"{tag}: draws {drawn} in {ticks} ticks")
@@ -1478,8 +1517,8 @@ def main() -> None:
             fail(f"{tag}: replay size {bstate.size}, cursor "
                  f"{bstate.cursor} after {ticks} pushes")
         log(f"{tag}: {ticks} ticks as chunks ({chunk.graphs} graphs "
-            f"captured in {chunk.capture_s:.2f} s), launches {n}, draws "
-            f"{drawn}, loss "
+            f"captured in {chunk.capture_s:.2f} s), learner "
+            f"{chunk.tick.learner}, launches {n}, draws {drawn}, loss "
             f"{float(losses[-1]):.5f}, eps {float(eps):.4f}, obs/s "
             f"{NUM_ENVS / tick_s:.1f} (median of {REPEATS} x "
             f"{TICKS_PER_REPEAT} ticks; tick {1e3 * tick_s:.4f} ms; repeats "
@@ -1488,9 +1527,11 @@ def main() -> None:
         return agent, carry, tick_s, n[kernel]
 
     kernels, learners, obs_per_s, path_draws = [], [], {}, {}
+    learned = {}  # (net, path) -> the learner kernel's launches
     for hidden in NETS:
         agent, carry, losses, tick_s, ticks, launches = drive(hidden, False)
         obs_per_s[hidden] = NUM_ENVS / tick_s
+        learned[(hidden, "default")] = launches[1]
         if bool((losses < 0).any()):
             fail(f"net {hidden}: a tick did not train")
         ms, plain_ms, bound_ms, bound_by = time_kernel(
@@ -1529,8 +1570,11 @@ def main() -> None:
             "source": "dronerl_tpu_torch/ops/csrc/td_adam.cu",
             "replaces": ("dronerl_tpu/ops/fused_tick.py:893 (_full_kernel "
                          "TD branch); dronerl_tpu/ops/learner_kernel.py:44 "
-                         "(_learner_kernel)"),
-            "launches": launches[1],
+                         "(_learner_kernel); on the default path the "
+                         "learner XLA fuses, dronerl_tpu/train.py:533-541"),
+            "launches": learned[(hidden, "default")] + launches[1],
+            "launches_4_default": learned[(hidden, "default")],
+            "launches_4b_in_kernel_td": launches[1],
             "max_abs_err": learner_err[hidden],
             **timing,
             "library_ms": None,
@@ -1569,6 +1613,9 @@ def main() -> None:
         time_env_tick(torch, _build, fused_tick, rng, fused_tick.to_tstate(
             core.reset_batch(rng.PRNGKey(10).to(device), bp, NUM_ENVS)), bp,
             card)
+    for entry, hidden in zip(learners, NETS):
+        entry.update(launches_4c_full_engine=learned[(hidden, "full")],
+                     launches_4d_fused_engine=learned[(hidden, "fused")])
     stream.append({
         "name": "tick",
         "route": "cuda",
@@ -1603,14 +1650,18 @@ def main() -> None:
     n = counts()
     if metrics["engine"] != "full":
         fail(f"CLI at {CLI_ENVS} envs chose the {metrics['engine']} engine")
-    if n["full_tick"] != CLI_STEPS or sum(n.values()) != CLI_STEPS:
-        fail(f"CLI: launches {n} in {CLI_STEPS} steps")
+    if metrics["learner"] != train.KERNEL or n != want_launches(
+            train, n, "full_tick", CLI_STEPS, metrics["learner"],
+            metrics["trained_ticks"]):
+        fail(f"CLI: learner {metrics['learner']}, launches {n} in "
+             f"{CLI_STEPS} steps, {metrics['trained_ticks']} trained")
     if metrics["td_loss_mean"] is None or not math.isfinite(
             metrics["td_loss_mean"]):
         fail(f"CLI: td loss {metrics['td_loss_mean']}")
     slots = math.ceil(100_000 / CLI_ENVS) * CLI_ENVS
     log(f"CLI --num_envs {CLI_ENVS} (memory 100000 -> {slots} slots): "
-        f"engine {metrics['engine']}, launches {n}, obs/s "
+        f"engine {metrics['engine']}, learner {metrics['learner']}, "
+        f"launches {n}, obs/s "
         f"{metrics['obs_per_sec']:.1f} over {CLI_STEPS} steps (with "
         f"warm-up), on {metrics['device']}")
 
@@ -1621,8 +1672,11 @@ def main() -> None:
     n = counts()
     if metrics["engine"] != "jnp":
         fail(f"CLI at {JNP_ENVS} envs chose the {metrics['engine']} engine")
-    if sum(n.values()) != 0:
-        fail(f"jnp engine: kernel launches {n}")
+    if metrics["learner"] != train.KERNEL or n != want_launches(
+            train, n, None, JNP_STEPS, metrics["learner"],
+            metrics["trained_ticks"]):
+        fail(f"jnp engine: learner {metrics['learner']}, kernel launches "
+             f"{n}, {metrics['trained_ticks']} trained ticks")
     if metrics["td_loss_mean"] is None or not math.isfinite(
             metrics["td_loss_mean"]):
         fail(f"jnp engine: td loss {metrics['td_loss_mean']}")
@@ -1644,8 +1698,10 @@ def main() -> None:
         fail(f"jnp engine tick: losses {losses.tolist()}")
     if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
         fail("jnp engine tick: the params did not move")
-    log(f"CLI --num_envs {JNP_ENVS}: engine {metrics['engine']}, kernel "
-        f"launches {n}, loss {metrics['td_loss_mean']:.5f}, eps "
+    log(f"CLI --num_envs {JNP_ENVS}: engine {metrics['engine']}, learner "
+        f"{metrics['learner']}, kernel launches {n} "
+        f"({metrics['trained_ticks']} trained ticks), loss "
+        f"{metrics['td_loss_mean']:.5f}, eps "
         f"{metrics['epsilon']:.4f}, obs/s {metrics['obs_per_sec']:.1f} over "
         f"{JNP_STEPS} steps (with warm-up), on {metrics['device']}; its tick "
         f"driven {JNP_STEPS} times: params moved, losses finite")
@@ -1690,9 +1746,11 @@ def main() -> None:
         n = counts()
         kernel = {"ring": "full_tick_ring", "full": "full_tick",
                   "fused": "tick"}[engine]
-        if n[kernel] != CHAIN_DRIVE or sum(n.values()) != CHAIN_DRIVE:
-            fail(f"{tag}: launches {n} in {CHAIN_DRIVE} ticks")
         losses = torch.stack(losses)
+        if n != want_launches(train, n, kernel, CHAIN_DRIVE, tick.learner,
+                              int((losses >= 0).sum())):
+            fail(f"{tag}: learner {tick.learner}, launches {n} in "
+                 f"{CHAIN_DRIVE} ticks")
         if not bool(torch.isfinite(losses).all()) or not bool(
                 (losses >= 0).any()):
             fail(f"{tag}: losses {losses.tolist()}")
@@ -1700,7 +1758,8 @@ def main() -> None:
             fail(f"{tag}: rewards not finite or epsilon did not decay")
         if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
             fail(f"{tag}: the params did not move")
-        log(f"{tag}: {CHAIN_DRIVE} ticks (a reset at tick 0), launches {n}, "
+        log(f"{tag}: {CHAIN_DRIVE} ticks (a reset at tick 0), learner "
+            f"{tick.learner}, launches {n}, "
             f"loss {float(losses[-1]):.5f}, eps {float(eps):.4f}, "
             f"{1e3 * tick_s:.3f} ms a tick with warm-up, on {card}")
         chain = None if engine == "fused" else fused_tick.flatten_net_params(
@@ -1753,13 +1812,16 @@ def main() -> None:
     n = counts()
     if metrics["engine"] != "full":
         fail(f"CLI conv at {CLI_ENVS} envs chose {metrics['engine']}")
-    if n["full_tick"] != CLI_CONV_STEPS or sum(n.values()) != CLI_CONV_STEPS:
-        fail(f"CLI conv: launches {n} in {CLI_CONV_STEPS} steps")
+    if n != want_launches(train, n, "full_tick", CLI_CONV_STEPS,
+                          metrics["learner"], metrics["trained_ticks"]):
+        fail(f"CLI conv: learner {metrics['learner']}, launches {n} in "
+             f"{CLI_CONV_STEPS} steps")
     if metrics["td_loss_mean"] is None or not math.isfinite(
             metrics["td_loss_mean"]):
         fail(f"CLI conv: td loss {metrics['td_loss_mean']}")
     log(f"CLI --network_type conv --conv_matmul --num_envs {CLI_ENVS}: "
-        f"engine {metrics['engine']}, launches {n}, loss "
+        f"engine {metrics['engine']}, learner {metrics['learner']}, "
+        f"launches {n}, loss "
         f"{metrics['td_loss_mean']:.5f}, obs/s {metrics['obs_per_sec']:.1f} "
         f"over {CLI_CONV_STEPS} steps (with warm-up), on {metrics['device']}")
     zero_counts()
@@ -1767,14 +1829,18 @@ def main() -> None:
                           str(CLI_CONV_STEPS), "--network_type", "conv",
                           "--wrapper", "global"])
     n = counts()
-    if metrics["engine"] != "jnp" or sum(n.values()) != 0:
+    if metrics["engine"] != "jnp" or n != want_launches(
+            train, n, None, CLI_CONV_STEPS, metrics["learner"],
+            metrics["trained_ticks"]):
         fail(f"CLI conv global at {JNP_ENVS} envs: engine "
-             f"{metrics['engine']}, launches {n}")
+             f"{metrics['engine']}, learner {metrics['learner']}, launches "
+             f"{n}")
     if metrics["td_loss_mean"] is None or not math.isfinite(
             metrics["td_loss_mean"]):
         fail(f"CLI conv global: td loss {metrics['td_loss_mean']}")
     log(f"CLI --network_type conv --wrapper global --num_envs {JNP_ENVS}: "
-        f"engine {metrics['engine']}, kernel launches {n}, loss "
+        f"engine {metrics['engine']}, learner {metrics['learner']}, kernel "
+        f"launches {n}, loss "
         f"{metrics['td_loss_mean']:.5f}, obs/s {metrics['obs_per_sec']:.1f} "
         f"over {CLI_CONV_STEPS} steps, on {metrics['device']}")
 
@@ -1838,9 +1904,10 @@ def main() -> None:
                 fail(f"{tag}: losses {losses.tolist()}, eps {float(eps)}")
         kernel = {"ring": "full_tick_ring", "full": "full_tick",
                   "fused": "tick"}[engine]
-        expected = {kernel: ticks, "td_adam": ticks if in_kernel_td else 0}
-        if any(v != expected.get(key, 0) for key, v in n.items()):
-            fail(f"{tag}: launches {n} in {ticks} ticks")
+        if n != want_launches(train, n, kernel, ticks, tick.learner,
+                              int((losses >= 0).sum())):
+            fail(f"{tag}: learner {tick.learner}, launches {n} in {ticks} "
+                 "ticks")
         if not bool((losses >= 0).any()):
             fail(f"{tag}: no tick trained")
         if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
@@ -1891,9 +1958,11 @@ def main() -> None:
         if metrics["engine"] != engine:
             fail(f"CLI --collect_drones {COLLECT} {argv}: engine "
                  f"{metrics['engine']}")
-        expected = CLI_STEPS if engine == "full" else 0
-        if n["full_tick"] != expected or sum(n.values()) != expected:
-            fail(f"CLI --collect_drones {COLLECT} {argv}: launches {n}")
+        if n != want_launches(train, n, "full_tick" if engine == "full"
+                              else None, CLI_STEPS, metrics["learner"],
+                              metrics["trained_ticks"]):
+            fail(f"CLI --collect_drones {COLLECT} {argv}: learner "
+                 f"{metrics['learner']}, launches {n}")
         if metrics["td_loss_mean"] is None or not math.isfinite(
                 metrics["td_loss_mean"]):
             fail(f"CLI --collect_drones {COLLECT}: td loss "
@@ -1952,11 +2021,18 @@ def main() -> None:
                   kernels + learners)
 
     # --- 9. the graphed ring chunk against the eager tick --------------------
-    graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs)
+    learned_9 = graphed_chunk(torch, train, zero_counts, counts, card,
+                              obs_per_s, runs)
 
     # --- 10. the jnp, full and fused engines' chunks against their ticks ----
-    engine_chunks(torch, train, zero_counts, counts, card, runs)
+    chunks_10 = engine_chunks(torch, train, zero_counts, counts, card, runs)
     shutil.rmtree(runs, ignore_errors=True)
+    for entry, hidden in zip(learners, NETS):  # the graphed chunks' B2
+        entry["launches_9_chunk"] = learned_9[hidden]
+        # Phase 10 runs the CLI's net, (16,16).
+        entry["launches_10_chunk"] = sum(
+            r["launches"]["td_adam"] for key, r in chunks_10.items()
+            if key != "walk_s" and hidden == NETS[0])
 
     # The draws' main paths: the replay engines' chunks (4c, 4d) for the
     # draw kernel, the ring engine's (phase 4) for the ring sample.
@@ -2203,9 +2279,10 @@ def graphed_vs_eager(torch, train, zero_counts, counts, tag, chunk, fresh,
     tensor, the carry's numbers and the outputs (rewards, ε, loss)
     bitwise; finite losses, some trained, ε decayed. Then, with
     ``trace``, TRACE ticks of each way under ``torch.profiler`` for the
-    device's busy share.
+    device's busy share, launches a tick and longest kernels.
     Returns each way's stats (obs/s, host and wall ms a tick, device ms a
-    tick, busy share) and the carry's numbers."""
+    tick, busy share, launches a tick, the four longest kernels) and the
+    carry's numbers."""
     from dronerl_tpu_torch.interop import train_state_io
     from dronerl_tpu_torch.ops import draws
     from dronerl_tpu_torch.utils import profiling
@@ -2272,13 +2349,18 @@ def graphed_vs_eager(torch, train, zero_counts, counts, tag, chunk, fresh,
         kernels = profiling.device_kernels(prof, TRACE)
         device_ms = sum(k[1] for k in kernels)
         stats[way].update(device_ms=device_ms,
-                          busy=device_ms / stats[way]["tick_ms"])
+                          busy=device_ms / stats[way]["tick_ms"],
+                          launches=sum(k[2] for k in kernels),
+                          top=[(name[:40], round(ms, 4), calls)
+                               for name, ms, calls in kernels[:4]])
     return stats, want[1]
 
 
 def log_ways(tag, stats, chunk, ticks, expect, numbers, card, beside=""):
     def way(w):
-        traced = (f", device {w['device_ms']:.4f} ms, busy {w['busy']:.4f}"
+        traced = (f", device {w['device_ms']:.4f} ms, busy {w['busy']:.4f}, "
+                  f"{w['launches']:.1f} launches a tick, the longest "
+                  f"(name, ms, calls a tick) {w['top']}"
                   if "busy" in w else ", not traced")
         drawn = ", ".join(f"{name} {n / ticks:.2f}" for name, n in zip(
             ("draw", "ring sample"), w["draws"]))
@@ -2300,8 +2382,10 @@ def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
     a tick) against the eager tick, for both nets on the default path and
     on ``in_kernel_td`` at the bench configuration: CHUNKS chunks of
     CHUNK_9_TICKS ticks, graphed and eager from the same carry
-    (:func:`graphed_vs_eager`); B1 (and B2) counted once a graphed
-    tick."""
+    (:func:`graphed_vs_eager`); B1 counted once a graphed tick, B2 once
+    a trained one on the default path (the learner kernel on the same
+    tick's batch) and once a tick on ``in_kernel_td``. Returns B2's
+    launches a way by net."""
     from dronerl_tpu_torch import rng
     from dronerl_tpu_torch.agents.dqn import DQN, DQNConfig
     from dronerl_tpu_torch.env.types import EnvParams
@@ -2312,6 +2396,7 @@ def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
     os.makedirs(runs, exist_ok=True)
     device = device or torch.device("cuda", 0)
     ticks = CHUNKS * CHUNK_9_TICKS
+    learned = dict.fromkeys(NETS, 0)  # B2's launches a way
     for hidden in NETS:
         for td in (False, True):
             tag = f"9 net {hidden}" + (" in_kernel_td" if td else "")
@@ -2329,8 +2414,14 @@ def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
             chunk = train.build_chunk_ring(agent, params, NUM_ENVS,
                                            CAPACITY, BATCH, RESET_EVERY,
                                            in_kernel_td=td)
-            expect = {k: 0 for k in counts()}
-            expect.update(full_tick_ring=ticks, td_adam=ticks if td else 0)
+            if chunk.tick.learner != (train.IN_KERNEL_TD if td
+                                      else train.KERNEL):
+                fail(f"{tag}: learner {chunk.tick.learner}")
+            trained = sum(chunk.tick.signature(step).trains
+                          for step in range(ticks))
+            expect = want_launches(train, counts(), "full_tick_ring", ticks,
+                                   chunk.tick.learner, trained)
+            learned[hidden] += expect["td_adam"]
             stats, numbers = graphed_vs_eager(
                 torch, train, zero_counts, counts, tag, chunk, fresh,
                 CHUNK_9_TICKS, expect, state_path, device)
@@ -2342,15 +2433,18 @@ def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
                      f"; phase 4's default path {obs_per_s[hidden]:.1f} "
                      "obs/s")
     log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return learned
 
 
 def engine_chunks(torch, train, zero_counts, counts, card, runs, device=None):
     """Phase 10: the jnp, full and fused engines' chunks (one CUDA graph
     replay a tick) against their eager ticks (:func:`graphed_vs_eager`)
     for each case of ENGINE_CASES, with the CLI's net and schedule: B3 and
-    B4 counted once a tick either way, nothing launched by the jnp
-    engine. Then the host's walk of a CLI chunk (``--max_scan_steps``'
-    default of 100,000 ticks) on the jnp engine, and the CLI at its
+    B4 counted once a tick either way, no tick kernel launched by the jnp
+    engine; B2, the default learner of the dense net (jnp and full), once
+    a trained tick either way, the conv net's (fused) none. Then the
+    host's walk of a CLI chunk (``--max_scan_steps``' default of 100,000
+    ticks) on the jnp engine, and the CLI at its
     defaults (the jnp engine at one env), which must run its chunk as
     graphs. Returns each case's stats."""
     from dronerl_tpu_torch import replay, rng
@@ -2399,17 +2493,20 @@ def engine_chunks(torch, train, zero_counts, counts, card, runs, device=None):
                f"({args.network_type} net)")
         chunk = train.Chunk(tick)
         ticks = CHUNKS * CHUNK_10_TICKS
-        expect = {k: 0 for k in counts()}
         kernel = {"jnp": None, "full": "full_tick", "fused": "tick"}[engine]
-        if kernel:
-            expect[kernel] = ticks
+        if (tick.learner == train.KERNEL) != (args.network_type == "dense"):
+            fail(f"{tag}: learner {tick.learner}")
+        expect = want_launches(
+            train, counts(), kernel, ticks, tick.learner,
+            sum(sig.trains for sig in chunk.table(fresh(0), ticks)[1]))
         stats, numbers = graphed_vs_eager(
             torch, train, zero_counts, counts, tag, chunk, fresh,
             CHUNK_10_TICKS, expect, state_path, device)
         if stats["graphed"]["draws"][0] == 0:
             fail(f"{tag}: the graphed chunk launched no draw")
         log_ways(tag, stats, chunk, ticks, expect, numbers, card,
-                 f"; replay of {buf.capacity} slots, wrapped "
+                 f"; learner {tick.learner}; replay of {buf.capacity} "
+                 f"slots, wrapped "
                  f"{ticks * push // buf.capacity} times; the case took "
                  f"{time.perf_counter() - t_case:.1f} s")
         results[(engine, num_envs)] = dict(
@@ -2439,14 +2536,16 @@ def engine_chunks(torch, train, zero_counts, counts, card, runs, device=None):
     # The CLI at its defaults: the jnp engine at one env, graphed.
     metrics = train.main(["--skip_final_eval", "--run_dir",
                           os.path.join(runs, "cli10")])
-    if metrics["engine"] != "jnp" or not metrics.get("graphs"):
+    if (metrics["engine"] != "jnp" or not metrics.get("graphs")
+            or metrics["learner"] != train.KERNEL):
         fail(f"10 the CLI at its defaults: engine {metrics['engine']}, "
-             f"graphs {metrics.get('graphs')}")
+             f"graphs {metrics.get('graphs')}, learner {metrics['learner']}")
     steps = train.parse_args([]).num_steps
     log(f"10 the CLI at its defaults ({steps} steps, 1 env, memory "
         "100000): the jnp engine as a graphed chunk, "
         f"{metrics['graphs']} graphs captured in {metrics['capture_s']:.3f} "
-        f"s; {1e3 * metrics['time_taken'] / steps:.4f} ms a tick with the "
+        f"s, the learner kernel on {metrics['trained_ticks']} trained "
+        f"ticks; {1e3 * metrics['time_taken'] / steps:.4f} ms a tick with the "
         f"walk and the captures, "
         f"{1e3 * (metrics['time_taken'] - metrics['capture_s']) / steps:.4f}"
         f" ms without the captures; loss {metrics['td_loss_mean']:.5f}, eps "
@@ -2481,8 +2580,9 @@ def lifecycle(torch, train, zero_counts, counts, card, obs_per_s, runs):
 
     def run(name, argv, ticks, td):
         """One CLI run, every count zeroed just before: returns its
-        metrics, wall seconds and run dir; fails unless B1 (and with
-        in-kernel TD B2) launched once a tick and nothing else did."""
+        metrics, wall seconds and run dir; fails unless B1 launched once a
+        tick, B2 once a trained tick (the learner kernel's route; with
+        in-kernel TD once a tick) and nothing else did."""
         run_dir = os.path.join(runs, name)
         zero_counts()
         t0 = time.perf_counter()
@@ -2490,11 +2590,13 @@ def lifecycle(torch, train, zero_counts, counts, card, obs_per_s, runs):
             LIFE_BASE + argv + ["--run_dir", run_dir]))
         seconds = time.perf_counter() - t0
         n = counts()
-        want = {k: 0 for k in n}
-        want.update(full_tick_ring=ticks, td_adam=ticks if td else 0)
-        if metrics["engine"] != "ring" or n != want:
-            fail(f"5a {name}: engine {metrics['engine']}, launches {n}, "
-                 f"want {want}")
+        want = want_launches(train, n, "full_tick_ring", ticks,
+                             metrics["learner"], metrics["trained_ticks"])
+        route = train.IN_KERNEL_TD if td else train.KERNEL
+        if (metrics["engine"] != "ring" or metrics["learner"] != route
+                or n != want):
+            fail(f"5a {name}: engine {metrics['engine']}, learner "
+                 f"{metrics['learner']}, launches {n}, want {want}")
         return metrics, seconds, run_dir, n
 
     state_file = train.TRAIN_STATE_FILE
@@ -2830,8 +2932,11 @@ def entry_points(torch, train, zero_counts, counts, card, runs, here,
     from dronerl_tpu_torch.evaluator import evaluator
     from dronerl_tpu_torch.ops import fused_tick
 
-    def only(n, kernel, want, tag):
+    def only(n, kernel, want, tag, learner=0):
+        """Fail unless ``kernel`` launched ``want`` times, the learner
+        kernel ``learner`` times and nothing else launched."""
         expected = {key: want if key == kernel else 0 for key in n}
+        expected["td_adam"] = learner
         if n != expected:
             fail(f"{tag}: launches {n}, want {expected}")
 
@@ -2847,7 +2952,9 @@ def entry_points(torch, train, zero_counts, counts, card, runs, here,
     zero_counts()
     now = lock.run_scenario(device)
     n = counts()
-    only(n, "full_tick_ring", lock.STEPS, "7a numerics lock")
+    # The scenario's ring holds a batch from its first tick: every tick
+    # trains, with the learner kernel.
+    only(n, "full_tick_ring", lock.STEPS, "7a numerics lock", lock.STEPS)
     errs = lock.check(now)
     if errs:
         fail("7a numerics lock: " + "; ".join(errs))
@@ -2861,8 +2968,9 @@ def entry_points(torch, train, zero_counts, counts, card, runs, here,
         meta = json.load(f)["meta"]
     seconds["7a"] = time.perf_counter() - t0
     log(f"7a numerics lock ({lock.NUM_ENVS} envs, {lock.STEPS} ticks, bf16 "
-        f"ring, eps 1.0): B1 launches {n['full_tick_ring']} in "
-        f"{lock.STEPS}; Tier A (digests {sorted(now['int_digests'])}, "
+        f"ring, eps 1.0): B1 launches {n['full_tick_ring']}, B2 "
+        f"{n['td_adam']} in {lock.STEPS}; Tier A (digests "
+        f"{sorted(now['int_digests'])}, "
         f"ring sum {now['env_floats']['ring_sum']}, non-zero "
         f"{now['env_floats']['ring_nonzero']}) equals the TPU record's, and "
         f"the plain path's on the CPU; Tier B inside the card's record "
@@ -2903,10 +3011,24 @@ def entry_points(torch, train, zero_counts, counts, card, runs, here,
     t0 = time.perf_counter()
     creator = load_script(here, "torch_create_baselines")
     out = os.path.join(runs, "baselines")
+    trained = []  # each run's learner kernel steps
+    run_train = train.train
+
+    def recorded(args):
+        metrics = run_train(args)
+        trained.append(metrics["trained_ticks"]
+                       if metrics["learner"] == train.KERNEL else 0)
+        return metrics
+
+    train.train = recorded
     zero_counts()
-    written = creator.main(["--num_steps", str(EP_BASELINE_STEPS),
-                            "--out_dir", out, *flags])
-    only(counts(), None, 0, "7c baseline creator (the jnp engine)")
+    try:
+        written = creator.main(["--num_steps", str(EP_BASELINE_STEPS),
+                                "--out_dir", out, *flags])
+    finally:
+        train.train = run_train
+    only(counts(), None, 0, "7c baseline creator (the jnp engine)",
+         sum(trained))
     judge = evaluator.DroneRacerEvaluator(answer_folder_path=out,
                                           device=device.type)
     scores = evaluator.evaluate_checkpoints(
@@ -2918,7 +3040,8 @@ def entry_points(torch, train, zero_counts, counts, card, runs, here,
         fail(f"7c baseline creator: {written}, {scores['episode_scores']}")
     seconds["7c"] = time.perf_counter() - t0
     log(f"7c torch_create_baselines.py --num_steps {EP_BASELINE_STEPS}: "
-        f"{len(written)} checkpoints under {os.path.relpath(out, here)}, "
+        f"{len(written)} checkpoints under {os.path.relpath(out, here)} "
+        f"(learner kernel steps a run {trained}), "
         f"loaded by the evaluator, scores over {len(EP_SCORE_SEEDS)} x "
         f"{EP_SCORE_STEPS} steps {[round(float(v), 3) for v in scores['mean']]}"
         f"; {seconds['7c']:.1f} s on {card}")
@@ -2947,7 +3070,10 @@ def entry_points(torch, train, zero_counts, counts, card, runs, here,
         metrics_logger.removeHandler(handler)
         del sys.modules["tensorboard"]
         sys.modules.update(saved)
-    only(n, "full_tick_ring", EP_CLI_STEPS, "7d CLI --tensorboard_dir")
+    if metrics["learner"] != train.KERNEL:
+        fail(f"7d CLI --tensorboard_dir: learner {metrics['learner']}")
+    only(n, "full_tick_ring", EP_CLI_STEPS, "7d CLI --tensorboard_dir",
+         metrics["trained_ticks"])
     if warnings != ["tensorboard unavailable; skipping TB logging"]:
         fail(f"7d CLI --tensorboard_dir: warnings {warnings}")
     if os.path.exists(tb_dir) or metrics["td_loss_mean"] is None or not (
@@ -2959,7 +3085,8 @@ def entry_points(torch, train, zero_counts, counts, card, runs, here,
     log(f"7d CLI --tensorboard_dir with tensorboard "
         f"{'blocked' if installed else 'not installed'}: warned "
         f"{warnings!r} and completed {EP_CLI_STEPS} steps (engine "
-        f"{metrics['engine']}, B1 launches {n['full_tick_ring']}, loss "
+        f"{metrics['engine']}, B1 launches {n['full_tick_ring']}, B2 "
+        f"{n['td_adam']}, loss "
         f"{metrics['td_loss_mean']:.5f}); {seconds['7d']:.1f} s on {card}")
 
     params = EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS)
@@ -3008,8 +3135,9 @@ def bench_program(here, runs, device_kind, card, obs_per_s, entries):
             if m is None:
                 fail(f"8: no {bench.metric_name(net, NUM_ENVS, td)} in the "
                      "bench's line")
+            # Every timed tick trains, on the default path too.
             ticks = m["repeats"] * m["steps_per_repeat"]
-            want = {"full_tick_ring": ticks, "td_adam": ticks if td else 0}
+            want = {"full_tick_ring": ticks, "td_adam": ticks}
             if m["launches"] != want:
                 fail(f"8: {m['metric']}: launches {m['launches']}, want "
                      f"{want}")
@@ -3106,6 +3234,8 @@ def sharded_chunks(torch, train, zero_counts, counts, card, runs, mesh):
         backend = torch.distributed.get_backend(mesh.group)
         if not chunk.graphed:
             fail(f"{tag}: a chunk over {backend} would not capture graphs")
+        if not chunk.tick.learner.startswith(train.AUTOGRAD):
+            fail(f"{tag}: learner {chunk.tick.learner} on a grouped tick")
 
         def fresh(seed):
             return trainer.init_carry(rng.PRNGKey(seed))
@@ -3122,7 +3252,7 @@ def sharded_chunks(torch, train, zero_counts, counts, card, runs, mesh):
             expect, state_path, mesh.device, trace=False)
         log_ways(tag, stats, chunk, ticks, expect, numbers, card,
                  f"; {backend} world {mesh.world_size}, capture mode "
-                 f"{chunk.capture_mode}; the "
+                 f"{chunk.capture_mode}, learner autograd (a group); the "
                  f"case took {time.perf_counter() - t_case:.1f} s")
         if kernel:
             name = kernel + ("_" + "x".join(map(str, hidden))

@@ -8,9 +8,11 @@ target sync every 10, γ 0.9, 65,536 envs, replay batch 8, a reset every
 Each metric times the ring engine's chunk (``train.build_chunk_ring`` /
 ``init_ring_carry``), the program ``bench.py`` times (``jax.jit(lax.scan(
 tick))``): on the card one CUDA graph replay a tick, which runs the tick
-kernel (B1) and, on the ``_in_kernel_td`` metrics, the learner kernel
-(B2) after it. obs/s = num_envs × ticks / wall time, the metric of
-``bench.py``.
+kernel (B1) and the learner kernel (B2) after it: on the default metrics
+on the batch gathered in the same tick (``train.kernel_train_step``, the
+learner XLA fuses around ``bench.py``'s kernels), on the
+``_in_kernel_td`` ones on the batch of the tick before. obs/s = num_envs
+× ticks / wall time, the metric of ``bench.py``.
 
 The protocol is ``scripts/_timing.py``'s: the kernels are built in one
 nvcc wave and loaded before any timing (``build_s``, where ``bench.py``
@@ -27,18 +29,20 @@ launch of B1
 against its plain version on the same inputs (``full_tick_ring_plain``):
 env state, rewards, dones and the ring bitwise but the charge channel
 (within ``CHARGE_ATOL``), actions equal outside near ties of the plain
-Q-values; on ``in_kernel_td`` the learner's loss and params against the
-autograd learner (``DQN.train_step_t``) on the same batch and state,
-within rtol 1e-5, atol 1e-6 outside cancellations. (a') From one carry,
+Q-values; every step of the learner kernel (on the default path and on
+``in_kernel_td``), its loss and params against the autograd learner
+(``DQN.train_step_t``) on the same batch and state, within rtol 1e-5,
+atol 1e-6 outside cancellations. (a') From one carry,
 ``max(CHECK_TICKS, 2 nb)`` ticks of the chunk (graphed on the card)
 against as many eager ticks: every carry tensor and every output
 bitwise, the learner included, as both run the same kernels in the same
 order. (b) After timing: the
-step counter equals the ticks run, B1 launched once a timed tick (and
-B2 on ``in_kernel_td``; no launch on the CPU, where the wrappers run the
-plain versions), every loss finite and >= 0 on the ticks that train, ε
-decayed and the params moved. A failed check prints the line with
-``correct: false`` and exits 1.
+step counter equals the ticks run, B1 launched once a timed tick and B2
+once a trained one (every tick on ``in_kernel_td``; no launch on the
+CPU, where the wrappers run the plain versions and the default learner
+is autograd), the Adam count the trained ticks, every loss finite and >=
+0 on the ticks that train, ε decayed and the params moved. A failed
+check prints the line with ``correct: false`` and exits 1.
 
 ``per_layer`` comes from a separate chunk of ``TRACE_TICKS`` ticks a
 metric: the host ms a tick (the table at the chunk's entry, then a copy
@@ -192,6 +196,12 @@ def ring_program(agent: DQN, env_params: EnvParams, num_envs: int, *,
                    chunk.tick, run, make_carry)
 
 
+def kernel_learner(prog: Program) -> bool:
+    """Whether ``prog``'s tick trains with the learner kernel (its default
+    route on a card, or ``in_kernel_td``)."""
+    return prog.tick.learner in (train.KERNEL, train.IN_KERNEL_TD)
+
+
 def build(net: str, num_envs: int, *, in_kernel_td: bool = False,
           device="cuda", seed: int = 0, steps: int = TIMED_STEPS) -> Program:
     """``bench.py``'s program for ``net`` (``:98-126``), on ``device``."""
@@ -301,9 +311,10 @@ def clocks(device: torch.device) -> Optional[dict]:
 
 def build_kernels(programs: List[Program], device: torch.device):
     """Build every program's kernel libraries in one nvcc wave (B1 a net,
-    B2 on ``in_kernel_td``); returns ``({program index: seconds of its
-    libraries' builds, the longest}, the wave's wall seconds)`` (None on
-    the CPU: nothing to build). Libraries already built cost 0."""
+    B2 where its tick trains with the learner kernel); returns
+    ``({program index: seconds of its libraries' builds, the longest},
+    the wave's wall seconds)`` (None on the CPU: nothing to build).
+    Libraries already built cost 0."""
     if device.type != "cuda":
         return {i: None for i in range(len(programs))}, None
     configs = []
@@ -313,7 +324,7 @@ def build_kernels(programs: List[Program], device: torch.device):
         configs.append([_build.tick_config(prog.env_params, widths,
                                            prog.collect_drones)]
                        + ([_build.learner_config(widths)]
-                          if prog.in_kernel_td else []))
+                          if kernel_learner(prog) else []))
     t0 = time.perf_counter()
     built = _build.build([c for cs in configs for c in cs])
     wall = time.perf_counter() - t0
@@ -411,9 +422,10 @@ def _learner_problems(tag, agent, ref: DQNState, batch, params, loss,
 def check_against_plain(prog: Program, ticks: int = CHECK_TICKS) -> dict:
     """Correctness (a): ``ticks`` ticks of ``prog`` from a fresh carry,
     every launch of the tick kernel held against its plain version on the
-    same inputs (and on ``in_kernel_td`` every trained learner step
-    against the autograd learner). Returns the tallies and ``problems``
-    (empty when everything held)."""
+    same inputs and every step of the learner kernel against the autograd
+    learner (``in_kernel_td``'s inside the tick kernel's wrapper, the
+    default path's ``train.kernel_train_step``). Returns the tallies and
+    ``problems`` (empty when everything held)."""
     agent, kernel = prog.agent, fused_tick.full_tick_fused_ring
     stats = {"ticks": 0, "reset_ticks": 0, "trained_ticks": 0,
              "charge_max_err": 0.0, "near_tie_envs": 0, "loss_max_err": 0.0,
@@ -461,14 +473,37 @@ def check_against_plain(prog: Program, ticks: int = CHECK_TICKS) -> dict:
         stats["reset_ticks"] += bool(do_reset)
         return out
 
+    kernel_step = train.kernel_train_step
+
+    def checked_step(agent_, state, batch, count):
+        ref = DQNState(copy.deepcopy(state.params),
+                       copy.deepcopy(state.target_params),
+                       AdamState(int(count),
+                                 [m.clone() for m in state.opt_state.mu],
+                                 [v.clone() for v in state.opt_state.nu]),
+                       state.epsilon.clone())
+        before = {k: v.clone() for k, v in batch.items()}
+        state, loss = kernel_step(agent_, state, batch, count)
+        stats["problems"] += _learner_problems(
+            f"check tick {stats['ticks'] - 1} learner", agent, ref, before,
+            state.params, loss, stats)
+        stats["trained_ticks"] += 1
+        return state, loss
+
     carry = prog.make_carry()
     losses = []
-    with profiling.replaced(fused_tick, "full_tick_fused_ring", checked):
+    with profiling.replaced(fused_tick, "full_tick_fused_ring", checked), \
+            profiling.replaced(train, "kernel_train_step", checked_step):
         for _ in range(ticks):
             carry, (_, _, loss) = prog.tick(carry)
             losses.append(float(loss))
-    if not prog.in_kernel_td:
-        stats["trained_ticks"] = sum(loss >= 0 for loss in losses)
+    trained = sum(loss >= 0 for loss in losses)
+    if not kernel_learner(prog):
+        stats["trained_ticks"] = trained
+    elif not prog.in_kernel_td and stats["trained_ticks"] != trained:
+        stats["problems"].append(
+            f"{stats['trained_ticks']} learner kernel steps checked in "
+            f"{trained} trained ticks")
     if stats["reset_ticks"] < 1 or stats["trained_ticks"] < 1:
         stats["problems"].append(
             f"the check ran {stats['reset_ticks']} reset ticks and "
@@ -510,7 +545,8 @@ def check_lockstep(prog: Program, ticks: Optional[int] = None) -> dict:
 
 def trains(prog: Program, step: int) -> bool:
     """Whether the tick at ``step`` takes a learner step (its signature's;
-    on ``in_kernel_td`` on the batch of the tick before)."""
+    on ``in_kernel_td`` on the batch of the tick before, in a launch of
+    every tick)."""
     return prog.tick.signature(step).trains
 
 
@@ -522,8 +558,9 @@ def check_timed(prog: Program, carry, first_step: int, ticks: int, aux,
     losses = torch.cat([loss for _, loss in aux]).cpu()
     steps = range(first_step, first_step + ticks)
     trained = torch.tensor([trains(prog, s) for s in steps])
+    learner = ticks if prog.in_kernel_td else int(trained.sum())
     expect = {"full_tick_ring": ticks if on_card else 0,
-              "td_adam": ticks if on_card and prog.in_kernel_td else 0}
+              "td_adam": learner if on_card and kernel_learner(prog) else 0}
     problems = []
     if carry[-1] != first_step + ticks:
         problems.append(f"step counter {carry[-1]} != "
@@ -543,11 +580,10 @@ def check_timed(prog: Program, carry, first_step: int, ticks: int, aux,
     if all(torch.equal(a, b) for a, b in zip(params0,
                                              carry[3].params.flat())):
         problems.append("the params did not move")
-    if prog.in_kernel_td:
-        count = sum(trains(prog, s) for s in range(first_step + ticks))
-        if carry[3].opt_state.count != count:
-            problems.append(f"Adam count {carry[3].opt_state.count} != "
-                            f"{count} trained ticks")
+    count = sum(trains(prog, s) for s in range(first_step + ticks))
+    if carry[3].opt_state.count != count:
+        problems.append(f"Adam count {carry[3].opt_state.count} != "
+                        f"{count} trained ticks")
     return {"ticks": ticks, "trained_ticks": int(trained.sum()),
             "epsilon": [epsilon0, epsilon],
             "loss_last": float(losses[-1]), "problems": problems}
@@ -613,7 +649,7 @@ def measure(name: str, prog: Program, settings: Settings, repeats: int,
     carry = prog.make_carry()
     if on_card:
         fused_tick.prepare_kernel(prog.env_params, carry[3].params.flat(),
-                                  in_kernel_td=prog.in_kernel_td)
+                                  in_kernel_td=kernel_learner(prog))
     params0 = [p.detach().clone() for p in carry[3].params.flat()]
     epsilon0 = float(carry[3].epsilon)
     _stage(f"[{name}] warming up ({WARMUP_CALLS} x {prog.steps} ticks)")

@@ -7,7 +7,10 @@
 //    and is gated by can_train;
 //  * dronerl_tpu/ops/learner_kernel.py::_learner_kernel (:44-150), which
 //    adds a hard or EMA target sync and the epsilon decay, each under a flag.
-// One kernel with three flags (learn, sync, decay) serves both.
+// One kernel with three flags (learn, sync, decay) serves both. On the
+// trainers' default path (learn alone, on the batch gathered in the same
+// tick) it also stands for the learner that XLA fuses outside the Pallas
+// kernels (dronerl_tpu/train.py:533-541, agents/dqn.py:295 train_step_t).
 //
 // What it computes, on a feature-major batch (x, xn: (D, B)):
 //   the online forward with every activation kept, the target forward on xn,

@@ -11,6 +11,10 @@ target sync and the ε decay, each under a flag. Here one hand-written
 CUDA kernel (``csrc/td_adam.cu``) with three flags serves both:
 :func:`learn_tick_fused` is B6, and ``fused_tick.full_tick_fused_ring``
 with ``td_hparams`` launches the same kernel after the tick kernel for B2.
+On the trainers' default path (``train.kernel_train_step``: learn alone,
+on the batch gathered in the same tick) the kernel also stands for the
+learner that XLA fuses outside the Pallas kernels
+(``dronerl_tpu/train.py:533-541``, ``agents/dqn.py:295``).
 The kernel is one thread-block cluster of :data:`CLUSTER` CTAs; each CTA
 owns a slice of every layer's output units (:func:`cluster_split`) and
 stages its slices and the batch in shared memory (:func:`smem_bytes`); a

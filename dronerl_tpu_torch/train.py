@@ -12,8 +12,23 @@ in place.
 With ``in_kernel_td`` the TD(0) + Adam step is one launch of the learner
 kernel right after the tick kernel's, on the batch gathered after the
 tick before (carried in the carry's ``aux`` slot), as the JAX trainer's
-in-kernel TD path pipelines it; the default is the PyTorch learner
-(``DQN.train_step_t``), as in the JAX trainer.
+in-kernel TD path pipelines it; by default the step trains on the batch
+gathered in the same tick, as in the JAX trainer.
+
+The default TD step (every engine's, on the tick's own batch) is chosen
+once, when the tick is built (:func:`learner_route`, recorded in
+``Tick.learner``): on a CUDA card one launch of the learner kernel
+(:func:`kernel_train_step`, ``learner_kernel.td_adam`` with learn on and
+no sync or decay), the counterpart of the learner that XLA fuses around
+the JAX trainer's Pallas calls. It stays on the autograd learner
+(``DQN.train_step_t``, the jnp engine's ``train_step``: optax's formulas,
+and the plain version the kernel is held to) on the CPU; on a tick that
+averages its gradients over a process group (the sharded trainers), whose
+all-reduce sits between the backward pass and Adam; for conv nets and
+``conv_matmul`` chains; and where ``learner_kernel.kernel_problems``
+refuses the net or the batch (a batch above 256, widths whose slices do
+not fit a CTA's shared memory). A kernel that fails to build or launch
+raises: nothing gives way to autograd at run time.
 
 Full engine (:func:`build_train_step_full`). One tick: split the host
 key three ways; one launch of the full tick kernel (B3: the actor on the
@@ -41,9 +56,10 @@ the host key six ways; random opponents and drone 0's ε-greedy action
 (``DQN.act``); ``core.step_batch`` and ``observe_batch``; push the whole
 transitions (``next_obs`` included) into a row-major
 ``replay.ReplayBuffer``; sample and take the TD(0) Adam step once the
-buffer holds a batch; the schedules; the periodic reset. It launches no
-kernel of the port: the JAX CLI runs it where its fused kernels do not
-apply (fewer than 128 envs, among others), and so does this one.
+buffer holds a batch (the learner kernel takes the batch's observations
+copied feature-major); the schedules; the periodic reset. It launches no
+tick kernel of the port: the JAX CLI runs it where its fused kernels do
+not apply (fewer than 128 envs, among others), and so does this one.
 
 With ``collect_drones`` = k the first k drones of every env feed the
 replay, as in the JAX trainers: the ring engine's columns hold k row
@@ -114,7 +130,7 @@ from dronerl_tpu_torch.env.types import EnvParams, EnvState, env_fields
 from dronerl_tpu_torch.evaluator.evaluator import seed_keys
 from dronerl_tpu_torch.interop import safetensors_io, train_state_io
 from dronerl_tpu_torch.interop.from_jax import qnet_from_flax
-from dronerl_tpu_torch.ops import draws, fused_tick, learner_kernel
+from dronerl_tpu_torch.ops import _build, draws, fused_tick, learner_kernel
 from dronerl_tpu_torch.utils import profiling
 from dronerl_tpu_torch.utils.graphs import GraphSet, scan, upload
 from dronerl_tpu_torch.utils.metrics import NoLogger, build_logger
@@ -243,6 +259,81 @@ class RowLayout:
                 int(host[self.bound]), int(host[self.base]))
 
 
+KERNEL, IN_KERNEL_TD, AUTOGRAD = "kernel", "in_kernel_td", "autograd"
+
+
+def learner_problems(agent: DQN, batch_size: int, group=None,
+                     device=None) -> list:
+    """Why the learner kernel does not take a tick's default TD step on
+    ``device`` (the agent's by default): empty where it does. It takes a
+    dense net with no ``net_spec`` (the JAX trainer's ``td_ok``) on a
+    CUDA card, with no process ``group`` (the gradient all-reduce sits
+    between the backward pass and Adam), at a batch and widths that
+    ``learner_kernel.kernel_problems`` accepts."""
+    device = agent.device if device is None else torch.device(device)
+    problems = []
+    if device.type != "cuda":
+        problems.append(f"a {device.type} device (the kernel runs on a "
+                        "CUDA card)")
+    if group is not None:
+        problems.append("a process group (the gradient all-reduce sits "
+                        "between the backward pass and Adam)")
+    cfg = agent.config
+    if cfg.network_type != "dense" or agent.net_spec is not None:
+        problems.append(f"a {cfg.network_type} network (the kernel takes "
+                        "dense nets)")
+    else:
+        problems += learner_kernel.kernel_problems(
+            (agent.obs_dim, *cfg.hidden_layers, NUM_ACTIONS), batch_size)
+    return problems
+
+
+def learner_route(agent: DQN, batch_size: int, group=None) -> str:
+    """The default TD step's route, chosen once when a tick is built:
+    ``KERNEL``, or ``AUTOGRAD`` followed by :func:`learner_problems`'
+    reasons."""
+    problems = learner_problems(agent, batch_size, group)
+    return KERNEL if not problems else (
+        f"{AUTOGRAD} ({'; '.join(problems)})")
+
+
+def kernel_train_step(agent: DQN, state, batch, count):
+    """The default TD(0) + Adam step as one launch of the learner kernel
+    (``learner_kernel.td_adam``: learn on, no target sync, no ε decay, the
+    config's γ and learning rate) on a feature-major batch, in place;
+    ``count``, the Adam count before the step, a host int or a row's int32
+    word (a CUDA graph's launch reads it by pointer). Increments the host
+    count and returns ``(state, loss)`` as ``DQN.train_step_t``, the loss
+    a device tensor the kernel writes."""
+    adam = state.opt_state
+    loss = learner_kernel.td_adam(
+        batch, state.params, state.target_params, adam.mu, adam.nu, count,
+        learn=True, sync_target=False, decay_eps=False, epsilon=None,
+        gamma=float(agent.config.gamma),
+        lr=float(agent.config.learning_rate))
+    adam.count += 1
+    return state, loss
+
+
+def learner_step(agent: DQN, route: str, ag_state, batch,
+                 row: torch.Tensor, layout: RowLayout, group=None,
+                 row_major: bool = False):
+    """A tick's default TD step on its own batch, by ``route``: the
+    learner kernel (:func:`kernel_train_step`, the count from the row; a
+    row-major batch's observations copied feature-major first, one copy
+    each), else the autograd learner (``train_step`` on a row-major batch,
+    ``train_step_t`` on a feature-major one) over ``group`` with the row's
+    bias corrections. Returns ``(ag_state, loss)``."""
+    if route == KERNEL:
+        if row_major:
+            batch = dict(batch, obs=batch["obs"].t().contiguous(),
+                         next_obs=batch["next_obs"].t().contiguous())
+        return kernel_train_step(agent, ag_state, batch, row[layout.count])
+    step = agent.train_step if row_major else agent.train_step_t
+    return step(ag_state, batch, group,
+                corrections=layout.bias_corrections(row))
+
+
 @dataclasses.dataclass
 class Tick:
     """An engine's tick: ``tick(carry) -> (carry, (rewards (E,), epsilon,
@@ -262,7 +353,8 @@ class Tick:
     signature from the host chain before it and the tick's keys, and
     returns the chain after it but its rng. ``keys`` and ``group`` as
     :func:`host_keys`'s (a chunk needs ``keys.table``); ``signature``,
-    the ring's ``signature(step)``."""
+    the ring's ``signature(step)``; ``learner``, the route of its TD step
+    (:func:`learner_route`, or ``IN_KERNEL_TD``)."""
 
     body: Callable
     walk: Callable
@@ -271,6 +363,7 @@ class Tick:
     device: torch.device
     group: Any = None
     signature: Optional[Callable] = None
+    learner: str = AUTOGRAD
 
     @property
     def graphed(self) -> bool:
@@ -386,6 +479,8 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
                        actor_rng_rounds=actor_rng_rounds)
     layout = RowLayout(2)
     td_hparams = None
+    route = (IN_KERNEL_TD if in_kernel_td
+             else learner_route(agent, batch_size, group))
     if in_kernel_td:
         if group is not None:
             raise ValueError(
@@ -453,9 +548,8 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
         if td_hparams is not None:
             aux = batch  # trained on inside the next tick
         elif sig.trains:
-            ag_state, loss = agent.train_step_t(
-                ag_state, batch, group,
-                corrections=layout.bias_corrections(row))
+            ag_state, loss = learner_step(agent, route, ag_state, batch,
+                                          row, layout, group)
         else:
             loss = torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
                               device=device)
@@ -467,7 +561,7 @@ def build_train_step_ring(agent: DQN, env_params: EnvParams, num_envs: int,
         return carry, (rewards_t[0], ag_state.epsilon, loss)
 
     return Tick(body, walk, keys or host_keys(layout.num_keys), layout,
-                device, group, signature)
+                device, group, signature, route)
 
 
 class Chunk:
@@ -754,15 +848,15 @@ def _require_kernel_actor(agent: DQN, engine: str) -> None:
 # --- the StreamReplay engines -----------------------------------------------
 
 def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
-                    ag_state, words, corrections, trains: bool, obs_t,
-                    actions_t, rewards_t, dones_t, k: int, group=None):
+                    ag_state, words, trains: bool, obs_t, actions_t,
+                    rewards_t, dones_t, k: int, learn):
     """Push the tick's input observations of the first k drones (the
     drones' row groups side by side, drone-major: (obs_dim, k · E)) with
     their actions, rewards and dones at the start slot of ``words``
     (``RowLayout.replay_words``); where the tick ``trains`` sample (its
-    key, bound and base) and take the TD step (over ``group``, with the
-    bias ``corrections``), else loss ``NO_TRAIN_LOSS``. Returns
-    ``(bstate, ag_state, loss)``."""
+    key, bound and base) and take the TD step (``learn(ag_state, batch)
+    -> (ag_state, loss)``, the tick's :func:`learner_step`), else loss
+    ``NO_TRAIN_LOSS``. Returns ``(bstate, ag_state, loss)``."""
     start, sample_key, bound, base = words
     obs_dim = agent.obs_dim
     num_envs = obs_t.shape[-1]
@@ -775,8 +869,7 @@ def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
     if trains:
         batch = buffer.sample(sample_key, bstate, bound=bound, base=base)
         batch["dones"] = batch["dones"].to(torch.float32)
-        ag_state, loss = agent.train_step_t(ag_state, batch, group,
-                                            corrections=corrections)
+        ag_state, loss = learn(ag_state, batch)
     else:
         loss = torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
                           device=agent.device)
@@ -805,6 +898,7 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
     _require_kernel_actor(agent, "full")
     layout = RowLayout(2, push=True)
     walk = _replay_walk(agent, buffer, layout, reset_env_every, num_envs * k)
+    route = learner_route(agent, buffer.batch_size, group)
 
     def body(carry, row, sig: Signature, host=None):
         _, tstate, obs_t, ag_state, bstate, _ = carry
@@ -817,16 +911,17 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
                 sig.reset, env_params, k, rng_rounds, actor_rng_rounds))
         bstate, ag_state, loss = _push_and_learn(
             agent, buffer, bstate, ag_state,
-            layout.replay_words(row, sample_key, host, 1),
-            layout.bias_corrections(row), sig.trains, obs_t, actions_t,
-            rewards_t, dones_t, k, group)
+            layout.replay_words(row, sample_key, host, 1), sig.trains,
+            obs_t, actions_t, rewards_t, dones_t, k,
+            functools.partial(learner_step, agent, route, row=row,
+                              layout=layout, group=group))
         ag_state = agent.apply_schedules(ag_state, None, dones_t[0, 0],
                                          flags=(sig.sync, sig.decay))
         carry = (carry[0], tstate, next_obs_t, ag_state, bstate, carry[-1])
         return carry, (rewards_t[0], ag_state.epsilon, loss)
 
     return Tick(body, walk, keys or host_keys(layout.num_keys), layout,
-                agent.device, group)
+                agent.device, group, learner=route)
 
 
 def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
@@ -846,6 +941,7 @@ def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
     obs_dim = agent.obs_dim
     layout = RowLayout(5, push=True)
     walk = _replay_walk(agent, buffer, layout, reset_env_every, num_envs * k)
+    route = learner_route(agent, buffer.batch_size, group)
 
     def body(carry, row, sig: Signature, host=None):
         _, tstate, obs_t, ag_state, bstate, _ = carry
@@ -861,9 +957,10 @@ def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
             step_key, tstate, actions_t, env_params, k, rng_rounds)
         bstate, ag_state, loss = _push_and_learn(
             agent, buffer, bstate, ag_state,
-            layout.replay_words(row, sample_key, host, 3),
-            layout.bias_corrections(row), sig.trains, obs_t, actions_t,
-            rewards_t, dones_t, k, group)
+            layout.replay_words(row, sample_key, host, 3), sig.trains,
+            obs_t, actions_t, rewards_t, dones_t, k,
+            functools.partial(learner_step, agent, route, row=row,
+                              layout=layout, group=group))
         ag_state = agent.apply_schedules(ag_state, None, dones_t[0, 0],
                                          flags=(sig.sync, sig.decay))
         if sig.reset:
@@ -874,7 +971,7 @@ def build_train_step_fused(agent: DQN, buffer: replay.StreamReplay,
         return carry, (rewards_t[0], ag_state.epsilon, loss)
 
     return Tick(body, walk, keys or host_keys(layout.num_keys), layout,
-                agent.device, group)
+                agent.device, group, learner=route)
 
 
 def init_stream_carry(agent: DQN, env_params: EnvParams, num_envs: int,
@@ -918,6 +1015,7 @@ def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
     k = collect_drones
     layout = RowLayout(5, push=True)
     walk = _replay_walk(agent, buffer, layout, reset_env_every, num_envs * k)
+    route = learner_route(agent, buffer.batch_size, group)
 
     def learner_obs(states):
         return env_core.observe_batch(states, env_params, k).reshape(
@@ -947,9 +1045,8 @@ def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
         if sig.trains:
             batch = buffer.sample(sample_key, bstate, bound=bound)
             batch["dones"] = batch["dones"].to(torch.float32)
-            ag_state, loss = agent.train_step(
-                ag_state, batch, group,
-                corrections=layout.bias_corrections(row))
+            ag_state, loss = learner_step(agent, route, ag_state, batch,
+                                          row, layout, group, row_major=True)
         else:
             loss = torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
                               device=agent.device)
@@ -963,7 +1060,7 @@ def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
         return carry, (rewards[:, 0], ag_state.epsilon, loss)
 
     return Tick(body, walk, keys or host_keys(layout.num_keys), layout,
-                agent.device, group)
+                agent.device, group, learner=route)
 
 
 def init_jnp_carry(agent: DQN, env_params: EnvParams, num_envs: int,
@@ -1689,6 +1786,7 @@ def train(args, metrics_logger=None) -> dict:
         trainer, tick, carry, (rng_rounds, actor_rng_rounds) = (
             _build_sharded(args, agent, env_params, mesh, scan_steps))
         engine, engine_name = trainer.local_engine, f"sharded-{trainer.engine}"
+    logger.info("Learner: %s", tick.tick.learner)
     if warm_params is not None:
         agent.state_with_params(carry[3], qnet_from_flax(
             warm_params, device, env_params.obs_shape,
@@ -1709,6 +1807,10 @@ def train(args, metrics_logger=None) -> dict:
             actor_rng_rounds=None if engine == "fused" else actor_rng_rounds)
         logger.info("kernel ready in %.1fs", time.perf_counter() - t0)
         torch.cuda.synchronize(device)
+    if tick.tick.learner == KERNEL:
+        t0 = time.perf_counter()
+        _build.load(learner_kernel.kernel_config(carry[3].params))
+        logger.info("learner kernel ready in %.1fs", time.perf_counter() - t0)
 
     def run_chunk(carry):
         carry, (rewards, epsilon, losses) = tick(carry, scan_steps)
@@ -1820,7 +1922,7 @@ def train(args, metrics_logger=None) -> dict:
     metrics_logger.close()
     if run:
         run.finish()
-    out = {**metrics, "engine": engine_name,
+    out = {**metrics, "engine": engine_name, "learner": tick.tick.learner,
            "last_reward_mean": mean_reward, "epsilon": float(epsilon),
            "td_loss_mean": float(trained.mean()) if len(trained) else None,
            "trained_ticks": len(trained),

@@ -128,8 +128,10 @@ def tick_phases(engine: str) -> Dict[str, Tuple[object, str]]:
     "fused"): ``{phase: (owner, attribute)}`` of the function each phase
     is, as :func:`phase_timers` wraps them. A phase's function called
     inside another phase counts to the outer one (the split inside the
-    gather's randint counts to the gather)."""
-    from dronerl_tpu_torch import replay, rng
+    gather's randint counts to the gather). The learner is the default
+    TD step on either route (``train.learner_step``); on ``in_kernel_td``
+    it runs inside the kernel's wrapper."""
+    from dronerl_tpu_torch import replay, rng, train
     from dronerl_tpu_torch.agents import dqn
     from dronerl_tpu_torch.env import core
     from dronerl_tpu_torch.ops import fused_tick
@@ -155,7 +157,7 @@ def tick_phases(engine: str) -> Dict[str, Tuple[object, str]]:
         },
     }
     return {**by_engine[engine],
-            "learner": (dqn.DQN, "train_step_t"),
+            "learner": (train, "learner_step"),
             "schedules": (dqn.DQN, "apply_schedules"),
             "rng_split": (rng, "split")}
 

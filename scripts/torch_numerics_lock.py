@@ -6,9 +6,10 @@ observations, batch 8, an env reset every 100 ticks, a dense (16,16)
 net, ε pinned at 1.0 (every action is a threefry draw, so no Q-value
 can steer the trajectory) and the key ``PRNGKey(1234)`` as its two
 uint32 words. It runs through ``train.build_train_step_ring`` and
-``init_ring_carry`` with the default learner (autograd and Adam after
-the tick): on the card the tick kernel B1 runs the env side, on the CPU
-its plain version.
+``init_ring_carry`` with the default learner, TD(0) and Adam after the
+tick: on the card the tick kernel B1 runs the env side and the learner
+kernel B2 the learner, on the CPU B1's plain version and the autograd
+learner.
 
 Two tiers, as in the JAX script:
 

@@ -190,11 +190,12 @@ def test_kernel_ragged_envs_on_card(dtype):
 
 @pytest.mark.gpu
 def test_trainer_on_card_matches_cpu():
-    """Four ticks of the ring trainer through the kernel on the card and
-    through the plain version on the CPU, from one carry. ε stays 1 (every
+    """Four ticks of the ring trainer through the kernels on the card (the
+    default learner on the learner kernel) and through the plain version
+    and the autograd learner on the CPU, from one carry. ε stays 1 (every
     action random), so no near tie of the Q forward can split the two:
     rng chain, env state, ring and scalar rings bitwise (charge within
-    1.3e-7); the learner's params within 1e-5 (cuBLAS and CPU sums)."""
+    1.3e-7); the learner's params within 1e-5."""
     dev = _card()
     tp = EnvParams(**KW)
     cfg = DQNConfig(hidden_layers=(16, 16), epsilon_start=1.0,
@@ -209,7 +210,9 @@ def test_trainer_on_card_matches_cpu():
         assert torch.equal(a, b.cpu())
     t_cpu = train.build_train_step_ring(cpu_agent, tp, E, cap, 8, 3)
     t_card = train.build_train_step_ring(card_agent, tp, E, cap, 8, 3)
-    launches = fused_tick.full_tick_fused_ring.launches
+    assert t_card.learner == train.KERNEL
+    launches = (fused_tick.full_tick_fused_ring.launches,
+                learner_kernel.td_adam.launches)
     for t in range(4):
         c_cpu, (r_cpu, _, l_cpu) = t_cpu(c_cpu)
         c_card, (r_card, _, l_card) = t_card(c_card)
@@ -226,7 +229,9 @@ def test_trainer_on_card_matches_cpu():
     for a, b in zip(c_cpu[3].params.flat(), c_card[3].params.flat()):
         np.testing.assert_allclose(b.detach().cpu().numpy(),
                                    a.detach().numpy(), rtol=0, atol=1e-5)
-    assert fused_tick.full_tick_fused_ring.launches == launches + 4
+    assert (fused_tick.full_tick_fused_ring.launches,
+            learner_kernel.td_adam.launches) == (launches[0] + 4,
+                                                 launches[1] + 4)
 
 
 
@@ -335,6 +340,42 @@ def test_learner_kernel_matches_plain_on_card(hidden, bsz):
             bad = (k - p).abs() > 1e-6 + 1e-5 * p.abs()
             assert not bool((bad & ~cancelled[i % n]).any()), (t, i)
     assert learner_kernel.td_adam.launches == launches + 6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hidden", [(16, 16), (128, 64)])
+def test_default_kernel_step_matches_autograd_on_card(hidden):
+    """The default path's step on the learner kernel
+    (``train.kernel_train_step``, the Adam count read from an int32 word
+    on the card as a chunk's row holds it) against the autograd learner
+    (``DQN.train_step_t``) from the same state on the same batch, 4
+    successive steps, at the bench's tolerances (``bench.
+    _learner_problems``: loss within rtol 1e-5, params within rtol 1e-5,
+    atol 1e-6 outside cancellations); the target and ε untouched, the Adam
+    count advanced, one launch a step."""
+    from dronerl_tpu_torch import bench
+
+    dev = _card()
+    agent, st = _learner_state(dev, hidden)
+    assert train.learner_problems(agent, 8) == []
+    stats = {"loss_max_err": 0.0, "params_max_err": 0.0,
+             "cancellations_beyond_tolerance": 0}
+    launches = learner_kernel.td_adam.launches
+    for t in range(4):
+        batch = _card_batch(agent.obs_dim, 40 + t, dev)
+        before = copy.deepcopy(st)
+        count = torch.tensor([st.opt_state.count], dtype=torch.int32,
+                             device=dev)[0]
+        st, loss = train.kernel_train_step(agent, st, batch, count)
+        torch.cuda.synchronize()
+        assert bench._learner_problems(f"step {t}", agent, before, batch,
+                                       st.params, loss, stats) == []
+        assert st.opt_state.count == t + 1
+        assert torch.equal(st.epsilon, before.epsilon)
+        for a, b in zip(st.target_params.flat(),
+                        before.target_params.flat()):
+            assert torch.equal(a, b), t
+    assert learner_kernel.td_adam.launches == launches + 4
 
 
 @pytest.mark.gpu
@@ -795,9 +836,11 @@ def test_graphed_chunk_equals_eager_ticks_on_card(case, tmp_path):
     """The ring engine's chunk on the card (one CUDA graph replay a tick)
     against the eager tick from one carry: two chunks of 7 ticks with a
     train state saved and restored between them, every carry tensor and
-    output bitwise; B1 (and B2) counted once a replayed tick. Also with a
-    conv net's im2col chain rebuilt inside the graph, and with 2 drones
-    collected at 8 threefry rounds."""
+    output bitwise; B1 and B2 (the default learner of a dense net on the
+    same tick's batch, or in_kernel_td's) counted once a replayed tick.
+    Also with a conv net's im2col chain rebuilt inside the graph (the
+    autograd learner, no B2), and with 2 drones collected at 8 threefry
+    rounds."""
     dev = _card()
     tp = EnvParams(**KW)
     in_kernel_td = case == "in_kernel_td"
@@ -817,6 +860,10 @@ def test_graphed_chunk_equals_eager_ticks_on_card(case, tmp_path):
     chunk = train.build_chunk_ring(agent, tp, E, cap, 8, 3, k,
                                    in_kernel_td=in_kernel_td,
                                    rng_rounds=8 if k > 1 else 20)
+    learner = case != "conv_matmul"
+    assert chunk.tick.learner.startswith(
+        train.IN_KERNEL_TD if in_kernel_td else train.KERNEL if learner
+        else train.AUTOGRAD)
     carry = fresh(0)
     eager = copy.deepcopy(carry)
     launches = (fused_tick.full_tick_fused_ring.launches,
@@ -828,9 +875,10 @@ def test_graphed_chunk_equals_eager_ticks_on_card(case, tmp_path):
         path = str(tmp_path / "state.safetensors")
         train_state_io.save(path, carry)
         carry = train_state_io.restore(path, fresh(1))
+    # Every tick of the default path trains here (two ring slots).
     assert (fused_tick.full_tick_fused_ring.launches,
             learner_kernel.td_adam.launches) == (
-        launches[0] + 14, launches[1] + 14 * in_kernel_td)
+        launches[0] + 14, launches[1] + 14 * learner)
     assert 0 < chunk.graphs <= 14 and chunk.capture_s > 0
     ref = []
     for _ in range(14):
@@ -854,8 +902,9 @@ def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
     their eager ticks from one carry: two chunks of 7 ticks with a train
     state saved and restored between them, the replay wrapping, every
     carry tensor, its numbers and every output bitwise; B3 or B4 counted
-    once a replayed tick. Also the fused engine with a conv net's own
-    forward (cuDNN) in the graph."""
+    once a replayed tick, and B2, the default learner of a dense net,
+    once a trained one. Also the fused engine with a conv net's own
+    forward (cuDNN) and the autograd learner in the graph."""
     dev = _card()
     tp = EnvParams(**KW)
     conv = dict(network_type="conv") if engine == "fused_conv" else {}
@@ -878,9 +927,12 @@ def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
         return init(agent, tp, num_envs, buf, rng.PRNGKey(seed))
 
     chunk = train.Chunk(tick)
+    dense = engine != "fused_conv"
+    assert (tick.learner == train.KERNEL) == dense
     carry = fresh(0)
     eager = copy.deepcopy(carry)
     launches = counter.launches if counter else 0
+    steps = learner_kernel.td_adam.launches
     outs = []
     for _ in range(2):
         carry, out = chunk(carry, 7)
@@ -890,6 +942,9 @@ def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
         carry = train_state_io.restore(path, fresh(1))
     if counter:
         assert counter.launches == launches + 14
+    trained = int((torch.cat([o[2] for o in outs]) >= 0).sum())
+    assert trained > 0
+    assert learner_kernel.td_adam.launches == steps + trained * dense
     assert 0 < chunk.graphs <= 14 and chunk.capture_s > 0
     ref = []
     for _ in range(14):
