@@ -12,8 +12,10 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    and the obs launch B3), the learner kernel (ops/csrc/td_adam.cu, a
    library for each net of LEARNER_CASES) and the env kernel
    (ops/csrc/env_kernel.cu: the feature-major tick B4 and the row-major
-   step B5, one library for each board of STEP_BOARDS and TICK_BOARDS)
-   from the sources, every library in one ``nvcc`` wave, and print their
+   step B5, one library for each board of STEP_BOARDS and TICK_BOARDS, and
+   for the jnp engine's observation on the bench board, window and global
+   at k = 1 and 4) from the sources, every library in one ``nvcc`` wave,
+   and print their
    ptxas lines (registers, spill bytes, stack), the tick kernel's shared
    memory and blocks per SM, the env kernel's block shape and its B4 and
    B5 blocks per SM, and for each learner case the cluster size, the
@@ -28,9 +30,15 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    bound and its edge bounds), and the ring sample kernel
    (``draws.ring_sample`` via ``fused_tick.ring_gather_batch``) against
    ``ring_gather_batch_plain`` at the bench's ring for one drone and four,
-   bf16 and f32, keyed and from host offsets: all bitwise, one launch a
+   bf16 and f32, keyed and from host offsets; and the replays' modes of
+   the ring sample kernel (``draws.stream_sample`` via ``StreamReplay.
+   sample_batch`` on phase 10's StreamReplay of 5 x 65,536 slots,
+   ``draws.buffer_sample`` via ``ReplayBuffer.sample_batch`` on the jnp
+   CLI's 100,000 transitions, feature- and row-major) against
+   ``sample_batch_plain``, cold, filling and wrapped, keyed with device
+   words, host words and from host offsets: all bitwise, one launch a
    call; then time each over DRAW_LAUNCHES launches of a prebuilt block
-   (DRAW_TIMED; the ring sample at 294 x 16) beside its plain version, its
+   (DRAW_TIMED; the samples at 294 x 16) beside its plain version, its
    bound and an empty launch. The phases after it rely on these draws
    (the plain versions' key splits on the card among them);
 3. hold the tick kernel against its plain PyTorch version on the card, at
@@ -67,6 +75,14 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    drones on a nearly full board (grid 22): all bitwise (the charge and
    reward error is measured); then drive the entry point for 100 steps on
    grid 9 (launches = steps);
+3j. hold B5 with the jnp engine's observation (``step_batch_fused`` with
+   ``collect`` = k) against its plain version (``core.step_batch`` +
+   ``observe_batch``) at 1, 7, 64 and 100 envs, window and global, k = 1
+   and 4, 4 ticks each with episode ends, the key as a chunk row's words
+   and as a host key: state, rewards and dones bitwise, the observation
+   bitwise but the charge channel (within 1.3e-7), one launch a call;
+   then time the window build at 1, 64 and 65,536 envs beside its plain
+   version and bound;
 3f. ``DQN.init_state(key)`` on the card equals the CPU draw bitwise (the
    JAX package's initial nets, drawn on the CPU and copied);
 4. drive the trainer's main path (``dronerl_tpu_torch.train``'s ring
@@ -99,10 +115,11 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    choose the full engine, and B3's launches equal its steps, the learner
    kernel's its trained steps;
 4f. run the CLI at ``--num_envs 64 --num_steps 30``: it must choose the jnp
-   engine (plain PyTorch over a row-major ReplayBuffer, no tick kernel
-   launched; the learner kernel once a trained tick), give finite losses
-   once trained and decay ε; report its obs/s; then drive the same
-   engine's tick for 30 ticks: the params move;
+   engine over a row-major ReplayBuffer (its env step route B5 with the
+   observation, once a tick; its sample kernel and the learner kernel
+   once a trained tick), give finite losses once trained and decay ε;
+   report its obs/s; then drive the same engine's tick for 30 ticks: the
+   same launches, the params move;
    then time B1, B3, B4 and B5 per launch (CUDA events over launches of a
    prebuilt argument block; B1 also by wrapper calls; B4 on every board
    of TICK_BOARDS, B5 on every board of STEP_BOARDS), their plain
@@ -125,7 +142,8 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    each B1/B3 chain launch and B4 beside its plain version and bound;
 4h. run the CLI with ``--network_type conv --conv_matmul`` at 16,384 envs
    (the full engine: B3's launches equal its steps) and with
-   ``--network_type conv --wrapper global`` at 64 (the jnp engine);
+   ``--network_type conv --wrapper global`` at 64 (the jnp engine: B5 once
+   a tick, its sample once a trained tick);
 3i. ``collect_drones > 1`` and ``--fast_rng``'s round counts (CASES_3I: the
    window with 4 drones collected and the global board with 2, each at
    --fast_rng off (20, None), actor (20, 8) and full (8, None), and one
@@ -184,7 +202,7 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    ticks with a train state saved and restored between, graphed and
    eager from the same carry: every carry tensor, its numbers and every
    output bitwise, B1/B3/B4 launched once a tick either way (the jnp
-   engine none), the learner kernel never (a grouped tick's learner is
+   engine B5), the learner kernel never (a grouped tick's learner is
    autograd, its all-reduce between the backward pass and Adam) and one
    all-reduce a trained tick either way; logs the
    graphs, the capture mode and seconds and both ways' ms a tick (no
@@ -261,20 +279,24 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    StreamReplay of 5 env-batches that wraps; 2 chunks of 50 ticks with a
    train state saved and restored between, graphed and eager from the
    same carry: every carry tensor, the replay's cursor and size and every
-   output bitwise, B3 and B4
-   launched once a tick either way (the jnp engine none), the learner
-   kernel once a trained tick of the dense net's jnp and full engines
-   (none for the fused engine's conv net, which stays on autograd); logs
-   the graphs,
-   capture seconds, both ways' obs/s, ms a tick and busy share; then the
+   output bitwise, B3, B4 and (the jnp engine) B5 launched once a tick
+   either way, the replay's sample kernel once a trained tick either way,
+   the learner kernel once a trained tick of the dense net's jnp and
+   full engines (none for the fused engine's conv net, which stays on
+   autograd); logs the graphs, capture seconds, both ways' obs/s, ms a
+   tick, device ms, launches a tick and busy share; then the
    host's walk of a 100,000-tick jnp chunk (the CLI's ``--max_scan_steps``)
    and the CLI at its defaults, which must run the jnp engine as graphs;
 Phase 4 fails unless the ring sample launches once a tick on the ring
-engine, 4c/4d unless the draw kernel launches on the full and fused
-engines (and the ring sample does not); phases 9, 10 and 6e log the draw
-and ring sample launches a tick of both ways beside B1-B4's, phase 9
+engine, 4c/4d unless their StreamReplay sample launches once a trained
+tick, the draw kernel on the fused engine (its opponents and actor; the
+full engine's sample draws in the sample kernel) and the ring sample on
+neither; phases 9, 10 and 6e log the draw kernel's
+four counters (draws, the ring's, the StreamReplay's and the
+ReplayBuffer's samples) a tick of both ways beside B1-B5's, phase 9
 fails unless the ring sample launches once a tick either way and phase
-10 unless each graphed engine launches the draw kernel.
+10 unless the jnp and fused engines launch the draw kernel and each
+engine's replay sample launches once a trained tick either way.
 Then print the kernel table line (phase 6a's launches of B1, B3 and B4 as
 ``*_sharded`` entries, each kernel compared with its plain version and
 timed in place on a world-1 sharded trainer's carry at 6a's shapes, with
@@ -290,7 +312,11 @@ graphed chunks' of phases 9 and 10 (``launches_9_chunk``,
 ``launches_10_chunk``); the ``draw`` entry's launches are phases 4c and
 4d's, the ``ring_sample`` entry's phase 4's, each with
 ``launches_9_chunk``, ``launches_10_chunk`` and ``launches_6e_chunk``,
-the graphed chunks' launches of those phases),
+the graphed chunks' launches of those phases; the ``stream_sample``
+entry's 4c and 4d's, the ``buffer_sample`` entry's 4f's CLI run's, each
+with the same chunk keys; ``step_observe``, B5 with the jnp engine's
+observation, 4f's CLI run's, with ``launches_10_chunk`` and
+``launches_6e_chunk``),
 the card line, and the result line last. CLI runs write their run dirs
 under ``output/chip_smoke/`` (removed at the end).
 
@@ -327,6 +353,14 @@ STEP_BOARDS = ((GRID, DRONES), (5, 2), (20, DRONES), (20, 20), (22, 48))
 TICK_BOARDS = ((GRID, DRONES), (5, 2), (16, 25))
 STEP_COMPARE = 3
 STEP_DRIVE = 100
+# Phase 3j: B5 with the jnp engine's observation at STEP_OBS_ENVS envs (the
+# CLI's default of 1, 7 below the JAX gate's 8, phase 10's 64 and 100, a
+# partial last tile), window and global, STEP_OBS_K drones collected,
+# STEP_OBS_TICKS ticks each; then timed at STEP_OBS_TIMED envs.
+STEP_OBS_ENVS = (1, 7, 64, 100)
+STEP_OBS_K = (1, 4)
+STEP_OBS_TICKS = 4
+STEP_OBS_TIMED = (1, 64, NUM_ENVS)
 BLOCK_LAUNCHES = 50
 COMPARE_TICKS = 8
 COMPARE_RESET_TICK = 4
@@ -537,11 +571,18 @@ OPS_PER_HASH = 79          # threefry2x32-20: 20 rounds x 3 + 5 x 3 + 4
 # from one key and the env core's split of E keys in two; the ring
 # sample at the bench's ring (294 rows, 2 x 8 columns gathered).
 DRAW_LAUNCHES = 200
+# Phase 2b's replays: the StreamReplay of phase 10's full engine
+# (SAMPLE_STREAM_BATCHES env-batches) and the ReplayBuffer of the jnp CLI's
+# default --memory_size (SAMPLE_ROWS transitions).
+SAMPLE_STREAM_BATCHES = 5
+SAMPLE_ROWS = 100_000
 DRAW_TIMED = (("randint", 1, BATCH), ("split", 1, NUM_ENVS + 2),
               ("uniform", 1, 4 * NUM_ENVS), ("split", NUM_ENVS, 2))
-# The phases whose graphed chunks' draw and ring sample launches the
-# kernel line reports: {phase: [draw, ring sample]}, filled by
-# graphed_vs_eager.
+# The draw kernel's launch counters (ops/draws.py): the draws, the ring's
+# sample and the StreamReplay's and ReplayBuffer's samples.
+DRAW_NAMES = ("draw", "ring_sample", "stream_sample", "buffer_sample")
+# The phases whose graphed chunks' launches of those the kernel line
+# reports: {phase: {name: launches}}, filled by graphed_vs_eager.
 GRAPHED_DRAWS = {}
 ADAM_OPS = 13              # per parameter: m 3, v 4, the update 6
 SYNC_OPS = 3               # per parameter: tau p + (1 - tau) t
@@ -605,7 +646,7 @@ def main() -> None:
                 "step": step_kernel.step_batch_fused}
     # The draws' counts are read apart (draw_counts): every phase's check
     # that no other kernel launches is about B1-B5.
-    draw_counters = {"draw": draws.draw, "ring_sample": draws.ring_sample}
+    draw_counters = {name: getattr(draws, name) for name in DRAW_NAMES}
 
     def zero_counts():
         for fn in (*counters.values(), *draw_counters.values()):
@@ -657,6 +698,8 @@ def main() -> None:
     configs = ([_build.tick_config(params, widths[h]) for h in NETS]
                + learner_configs
                + [_build.env_config(p) for p in boards.values()]
+               + [_build.env_config(step_obs_params(w), k)
+                  for w in ("window", "global") for k in STEP_OBS_K]
                + [fused_tick.kernel_config(cp, fused_tick.flatten_net_params(
                    st.params, agent.net_spec))
                   for cp, agent, st in chain_cases.values()]
@@ -1144,6 +1187,9 @@ def main() -> None:
         f"env steps/s {NUM_ENVS / step_s:.1f} (with the randint of the "
         f"actions on the card; {1e3 * step_s:.4f} ms a step) on {card}")
 
+    # --- 3j. B5 with the jnp engine's observation against its plain version
+    step_observe = step_observation(torch, card)
+
     # --- 3f. the initial nets: the card's init equals the CPU draw ----------
     for hidden in NETS:
         cfg = DQNConfig(hidden_layers=hidden)
@@ -1505,7 +1551,11 @@ def main() -> None:
                  f"{ticks} ticks")
         learned[(hidden, engine)] = n["td_adam"]
         drawn = path_draws[tag] = draw_counts()
-        if drawn["draw"] == 0 or drawn["ring_sample"] != 0:
+        # The fused engine draws its opponents and its ε-greedy actions
+        # every tick (the full engine's sample draws in its own kernel).
+        if ((engine == "fused" and drawn["draw"] == 0)
+                or drawn["ring_sample"] != 0
+                or drawn["stream_sample"] != int((losses >= 0).sum())):
             fail(f"{tag}: draws {drawn} in {ticks} ticks")
         if float(losses[0]) != -1.0 or bool((losses[1:] < 0).any()):
             fail(f"{tag}: tick 0 trained or a later tick did not")
@@ -1669,14 +1719,20 @@ def main() -> None:
     zero_counts()
     metrics = cli(["--num_envs", str(JNP_ENVS), "--num_steps",
                           str(JNP_STEPS)])
-    n = counts()
+    n, jnp_draws = counts(), draw_counts()
     if metrics["engine"] != "jnp":
         fail(f"CLI at {JNP_ENVS} envs chose the {metrics['engine']} engine")
-    if metrics["learner"] != train.KERNEL or n != want_launches(
-            train, n, None, JNP_STEPS, metrics["learner"],
-            metrics["trained_ticks"]):
-        fail(f"jnp engine: learner {metrics['learner']}, kernel launches "
-             f"{n}, {metrics['trained_ticks']} trained ticks")
+    if (metrics["learner"] != train.KERNEL
+            or metrics["env_step"] != train.KERNEL
+            or n != want_launches(train, n, "step", JNP_STEPS,
+                                  metrics["learner"],
+                                  metrics["trained_ticks"])
+            or jnp_draws["buffer_sample"] != metrics["trained_ticks"]):
+        fail(f"jnp engine: learner {metrics['learner']}, env step "
+             f"{metrics['env_step']}, kernel launches {n}, draws "
+             f"{jnp_draws}, {metrics['trained_ticks']} trained ticks")
+    step_observe["launches"] = n["step"]
+    jnp_sampled = jnp_draws["buffer_sample"]
     if metrics["td_loss_mean"] is None or not math.isfinite(
             metrics["td_loss_mean"]):
         fail(f"jnp engine: td loss {metrics['td_loss_mean']}")
@@ -1690,16 +1746,22 @@ def main() -> None:
                                  rng.PRNGKey(0))
     p0 = [p.detach().clone() for p in carry[3].params.flat()]
     losses = []
+    zero_counts()
     for _ in range(JNP_STEPS):
         carry, (_, _, loss) = tick(carry)
         losses.append(loss)
     losses = torch.stack(losses)
+    if counts()["step"] != JNP_STEPS or draw_counts()["buffer_sample"] != int(
+            (losses >= 0).sum()):
+        fail(f"jnp engine tick: launches {counts()}, draws {draw_counts()} "
+             f"in {JNP_STEPS} ticks")
     if not bool(torch.isfinite(losses).all()) or bool((losses[1:] < 0).any()):
         fail(f"jnp engine tick: losses {losses.tolist()}")
     if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
         fail("jnp engine tick: the params did not move")
     log(f"CLI --num_envs {JNP_ENVS}: engine {metrics['engine']}, learner "
-        f"{metrics['learner']}, kernel launches {n} "
+        f"{metrics['learner']}, env step {metrics['env_step']}, kernel "
+        f"launches {n}, buffer samples {jnp_sampled} "
         f"({metrics['trained_ticks']} trained ticks), loss "
         f"{metrics['td_loss_mean']:.5f}, eps "
         f"{metrics['epsilon']:.4f}, obs/s {metrics['obs_per_sec']:.1f} over "
@@ -1830,11 +1892,12 @@ def main() -> None:
                           "--wrapper", "global"])
     n = counts()
     if metrics["engine"] != "jnp" or n != want_launches(
-            train, n, None, CLI_CONV_STEPS, metrics["learner"],
-            metrics["trained_ticks"]):
+            train, n, "step", CLI_CONV_STEPS, metrics["learner"],
+            metrics["trained_ticks"]) or draw_counts()["buffer_sample"] != \
+            metrics["trained_ticks"]:
         fail(f"CLI conv global at {JNP_ENVS} envs: engine "
              f"{metrics['engine']}, learner {metrics['learner']}, launches "
-             f"{n}")
+             f"{n}, draws {draw_counts()}")
     if metrics["td_loss_mean"] is None or not math.isfinite(
             metrics["td_loss_mean"]):
         fail(f"CLI conv global: td loss {metrics['td_loss_mean']}")
@@ -1959,7 +2022,7 @@ def main() -> None:
             fail(f"CLI --collect_drones {COLLECT} {argv}: engine "
                  f"{metrics['engine']}")
         if n != want_launches(train, n, "full_tick" if engine == "full"
-                              else None, CLI_STEPS, metrics["learner"],
+                              else "step", CLI_STEPS, metrics["learner"],
                               metrics["trained_ticks"]):
             fail(f"CLI --collect_drones {COLLECT} {argv}: learner "
                  f"{metrics['learner']}, launches {n}")
@@ -2010,7 +2073,8 @@ def main() -> None:
 
     # --- 6. multi-GPU training: the sharded engines, then the periphery -----
     sharded = multi_gpu(torch, train, zero_counts, counts, card, obs_per_s,
-                        runs, {e["name"]: e for e in kernels + stream})
+                        runs, {e["name"]: e
+                               for e in kernels + stream + [step_observe]})
 
     # --- 7. the last entry points and locks ---------------------------------
     entry_points(torch, train, zero_counts, counts, card, runs, here,
@@ -2034,18 +2098,34 @@ def main() -> None:
             r["launches"]["td_adam"] for key, r in chunks_10.items()
             if key != "walk_s" and hidden == NETS[0])
 
-    # The draws' main paths: the replay engines' chunks (4c, 4d) for the
-    # draw kernel, the ring engine's (phase 4) for the ring sample.
-    for entry, column in zip(draw_entries, ("draw", "ring_sample")):
-        entry["launches"] = sum(
-            d[column] for tag, d in path_draws.items()
-            if tag.startswith(("full", "fused")) == (column == "draw"))
-        entry.update({f"launches_{phase}_chunk": seen[column == "ring_sample"]
+    # B5 with the observation: the jnp engine's CLI run (4f) is its main
+    # path's, beside phase 10's graphed jnp chunks.
+    step_observe["launches_10_chunk"] = sum(
+        r["launches"]["step"] for key, r in chunks_10.items()
+        if key != "walk_s")
+    if step_observe["launches"] == 0:
+        fail("step_observe: launched no time on its main path")
+    # The draws' main paths: the StreamReplay engines' chunks (4c, 4d) for
+    # the draw kernel and their sample, the ring engine's (phase 4) for the
+    # ring sample, the jnp engine's CLI run (4f) for the ReplayBuffer's.
+    stream_tags = [tag for tag in path_draws
+                   if tag.startswith(("full", "fused"))]
+    main_path = {
+        "draw": sum(path_draws[tag]["draw"] for tag in stream_tags),
+        "ring_sample": sum(d["ring_sample"] for tag, d in path_draws.items()
+                           if tag not in stream_tags),
+        "stream_sample": sum(path_draws[tag]["stream_sample"]
+                             for tag in stream_tags),
+        "buffer_sample": jnp_sampled}
+    for entry in draw_entries:
+        entry["launches"] = main_path[entry["name"]]
+        entry.update({f"launches_{phase}_chunk": seen[entry["name"]]
                       for phase, seen in GRAPHED_DRAWS.items()})
         if entry["launches"] == 0:
             fail(f"{entry['name']}: launched no time on its main path")
-    print(json.dumps({"kernels": kernels + learners + stream + sharded
-                      + draw_entries}), flush=True)
+    print(json.dumps({"kernels": kernels + learners + stream
+                      + [step_observe] + sharded + draw_entries}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_kind,
@@ -2064,12 +2144,12 @@ def draw_phase(torch, card):
     ring sample at 294 x 16), beside its plain version, its bound and an
     empty launch. Returns the kernel line's two entries but their
     launches."""
-    from dronerl_tpu_torch import rng
+    from dronerl_tpu_torch import replay, rng
     from dronerl_tpu_torch.ops import _build, draws, fused_tick
 
     t_phase = time.perf_counter()
     device = torch.device("cuda", 0)
-    err = {"draw": 0.0, "ring_sample": 0.0}
+    err = dict.fromkeys(DRAW_NAMES, 0.0)
 
     def hold(name, tag, got, want):
         if got.dtype != want.dtype or got.shape != want.shape:
@@ -2157,6 +2237,72 @@ def draw_phase(torch, card):
         f"4, bf16 and f32 rings of {capacity} columns, keyed and from host "
         f"offsets, 3 samples each (the base slot wrapping); on {card}")
 
+    # The replays' modes: the StreamReplay of phase 10's full engine (5
+    # env-batches of the bench's 294 rows) and the jnp engine's ReplayBuffer
+    # at the CLI's 100,000 transitions, each cold, filling and wrapped.
+    obs_dim = fused_tick.obs_rows(bench_params())
+    stream_buf = replay.StreamReplay(SAMPLE_STREAM_BATCHES * NUM_ENVS, BATCH,
+                                     NUM_ENVS)
+    rows_buf = replay.ReplayBuffer(SAMPLE_ROWS, BATCH, uniform_pushes=True)
+    stores = {"stream": replay_store(torch, gen, device, obs_dim,
+                                     stream_buf.capacity, False),
+              "rows": replay_store(torch, gen, device, obs_dim,
+                                   rows_buf.capacity, True)}
+    sampled = 0
+    for seed, (cursor, size) in enumerate((
+            (NUM_ENVS, NUM_ENVS), (3 * NUM_ENVS, 3 * NUM_ENVS),
+            (2 * NUM_ENVS, stream_buf.capacity))):
+        state = replay.ReplayState(stores["stream"], cursor, size)
+        words = (max(size - NUM_ENVS, 1),  # a chunk row's bound and base
+                 cursor if size == stream_buf.capacity else 0)
+        skey = rng.PRNGKey(40 + seed)
+        want = stream_buf.sample_batch_plain(skey, state)
+        before = draws.stream_sample.launches
+        for where, got in (
+                ("device words", stream_buf.sample_batch(
+                    skey.to(device), state, *(torch.tensor(
+                        w, dtype=torch.int32, device=device)
+                        for w in words))),
+                ("host words", stream_buf.sample_batch(skey.to(device),
+                                                       state)),
+                ("host offsets", stream_buf.sample_batch(skey, state))):
+            for name in want:
+                hold("stream_sample", f"stream sample size {size} {where} "
+                     f"{name}", got[name], want[name])
+        if draws.stream_sample.launches != before + 3:
+            fail("2b stream sample: not one launch a sample")
+        sampled += 3
+    for seed, size in enumerate((9, 3 * SAMPLE_ROWS // 5, SAMPLE_ROWS)):
+        state = replay.ReplayState(stores["rows"], size % SAMPLE_ROWS, size)
+        skey = rng.PRNGKey(50 + seed)
+        for feature_major in (True, False):
+            want = rows_buf.sample_batch_plain(skey, state,
+                                               feature_major=feature_major)
+            before = draws.buffer_sample.launches
+            for where, got in (
+                    ("device bound", rows_buf.sample_batch(
+                        skey.to(device), state, torch.tensor(
+                            size, dtype=torch.int32, device=device),
+                        feature_major)),
+                    ("host bound", rows_buf.sample_batch(
+                        skey.to(device), state, None, feature_major)),
+                    ("host offsets", rows_buf.sample_batch(
+                        skey, state, None, feature_major))):
+                for name in want:
+                    hold("buffer_sample", f"buffer sample size {size} "
+                         f"feature-major {feature_major} {where} {name}",
+                         got[name], want[name])
+            if draws.buffer_sample.launches != before + 3:
+                fail("2b buffer sample: not one launch a sample")
+            sampled += 3
+    torch.cuda.synchronize()
+    log(f"2b the replays' sample modes == sample_batch_plain, bitwise: "
+        f"{sampled} samples of the StreamReplay ({stream_buf.capacity} "
+        f"slots of {obs_dim} rows, stride {NUM_ENVS}) and the ReplayBuffer "
+        f"({SAMPLE_ROWS} transitions, feature- and row-major), cold, filling "
+        f"and wrapped, keyed with device words, host words and host "
+        f"offsets; one launch a sample; on {card}")
+
     # Timings over prebuilt blocks, beside the plain versions, the bounds
     # and an empty launch of the draw kernel's block.
     lib = _build.load(_build.draw_config())
@@ -2222,6 +2368,41 @@ def draw_phase(torch, card):
         f"plain {sample_plain_ms:.4f} ms; bound {sample_bound:.6f} ms "
         f"({sample_by}: {sample_bytes} B, {sample_ops} operations); an empty "
         f"launch {empty_ms:.5f} ms; on {card}")
+    # The replays' modes at the same shapes, keyed, their words on the card.
+    modes = {}
+    for name, buf, store, extra, layout in (
+            ("stream_sample", stream_buf, stores["stream"],
+             dict(stride=NUM_ENVS), ()),
+            ("buffer_sample", rows_buf, stores["rows"], dict(
+                next_rows=stores["rows"]["next_obs"], rows_out=False),
+             (True,))):  # feature-major, the learner kernel's batch
+        state = replay.ReplayState(store, 0, buf.capacity)
+        word = torch.tensor(buf.capacity - extra.get("stride", 0),
+                            dtype=torch.int32, device=device)
+        zero = torch.tensor(0, dtype=torch.int32, device=device)
+        block, _batch, _operands = draws._replay_sample_args(
+            sample_key, store["obs"], [store[n] for n in (
+                "actions", "rewards", "dones")], word, zero,
+            batch_size=BATCH, **extra)
+        ms = time_block(torch, lib, "ring_sample_launch", block,
+                        DRAW_LAUNCHES)
+        plain_ms = cuda_ms(torch, lambda buf=buf, state=state, word=word,
+                           layout=layout: buf.sample_batch_plain(
+                               sample_key, state, word, *layout),
+                           PLAIN_LAUNCHES)
+        # 2B rows of obs_dim f32 read and written, the scalars (9 B) read
+        # and written as f32 (12 B), the key and two words.
+        values = 2 * obs_dim * BATCH
+        mode_bytes = values * 8 + BATCH * (9 + 12) + 16 + 8
+        mode_bound, mode_by = roofline(mode_bytes, sample_ops)
+        modes[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": mode_bound,
+                       "bound_by": mode_by}
+        log(f"2b {name} {obs_dim} x {2 * BATCH} (f32, keyed, its words read "
+            f"by pointer): {ms:.5f} ms/launch ({DRAW_LAUNCHES} launches of "
+            f"one block), plain {plain_ms:.4f} ms; bound {mode_bound:.6f} ms "
+            f"({mode_by}: {mode_bytes} B, {sample_ops} operations); an empty "
+            f"launch {empty_ms:.5f} ms; on {card}")
+    del stores
     log(f"phase 2b took {time.perf_counter() - t_phase:.1f} s on {card}")
     head = timed[f"randint 1 x {BATCH}"]
     return [{
@@ -2251,7 +2432,45 @@ def draw_phase(torch, card):
         "bound_by": sample_by,
         "library_ms": None,
         "empty_ms": empty_ms,
+    }, {
+        "name": "stream_sample",
+        "route": "cuda",
+        "source": "dronerl_tpu_torch/ops/csrc/draws.cu",
+        "replaces": ("no Pallas kernel: StreamReplay.sample's randint and "
+                     "gathers, dronerl_tpu/replay.py:258"),
+        "launches": 0,
+        "max_abs_err": err["stream_sample"],
+        **modes["stream_sample"],
+        "library_ms": None,
+        "empty_ms": empty_ms,
+    }, {
+        "name": "buffer_sample",
+        "route": "cuda",
+        "source": "dronerl_tpu_torch/ops/csrc/draws.cu",
+        "replaces": ("no Pallas kernel: the ReplayBuffer's sample, randint "
+                     "and gathers, dronerl_tpu/replay.py:103 and :399"),
+        "launches": 0,
+        "max_abs_err": err["buffer_sample"],
+        **modes["buffer_sample"],
+        "library_ms": None,
+        "empty_ms": empty_ms,
     }]
+
+
+def replay_store(torch, gen, device, obs_dim, capacity, rows):
+    """Random transitions on the card: obs (and next_obs) (capacity,
+    obs_dim) rows or (obs_dim, capacity) columns, actions, rewards and
+    dones (capacity,)."""
+    shape = (capacity, obs_dim) if rows else (obs_dim, capacity)
+    store = {"obs": torch.randn(shape, generator=gen).to(device),
+             "actions": torch.randint(0, 5, (capacity,), generator=gen,
+                                      dtype=torch.int32).to(device),
+             "rewards": torch.randn((capacity,), generator=gen).to(device),
+             "dones": (torch.rand((capacity,), generator=gen)
+                       < 0.3).to(device)}
+    if rows:
+        store["next_obs"] = torch.randn(shape, generator=gen).to(device)
+    return store
 
 
 def bench_params():
@@ -2322,11 +2541,12 @@ def graphed_vs_eager(torch, train, zero_counts, counts, tag, chunk, fresh,
         stats[way] = {"obs_per_s": num_envs * ticks / wall_s,
                       "host_ms": 1e3 * host_s / ticks,
                       "tick_ms": 1e3 * wall_s / ticks,
-                      "draws": (draws.draw.launches,
-                                draws.ring_sample.launches)}
-    seen = GRAPHED_DRAWS.setdefault(tag.split()[0], [0, 0])
-    for i, n in enumerate(stats["graphed"]["draws"]):
-        seen[i] += n
+                      "draws": {name: getattr(draws, name).launches
+                                for name in DRAW_NAMES}}
+    seen = GRAPHED_DRAWS.setdefault(tag.split()[0],
+                                    dict.fromkeys(DRAW_NAMES, 0))
+    for name, n in stats["graphed"]["draws"].items():
+        seen[name] += n
     (cg, og), (ce, oe) = runs_out["graphed"], runs_out["eager"]
     got, want = (train_state_io.leaves(x) for x in (cg, ce))
     if got[1] != want[1] or set(got[0]) != set(want[0]):
@@ -2362,8 +2582,8 @@ def log_ways(tag, stats, chunk, ticks, expect, numbers, card, beside=""):
                   f"{w['launches']:.1f} launches a tick, the longest "
                   f"(name, ms, calls a tick) {w['top']}"
                   if "busy" in w else ", not traced")
-        drawn = ", ".join(f"{name} {n / ticks:.2f}" for name, n in zip(
-            ("draw", "ring sample"), w["draws"]))
+        drawn = ", ".join(f"{name} {n / ticks:.2f}"
+                          for name, n in w["draws"].items())
         return (f"{w['obs_per_s']:.1f} obs/s, host {w['host_ms']:.4f} ms a "
                 f"tick, tick {w['tick_ms']:.4f} ms{traced}, launches a tick "
                 f"{drawn}")
@@ -2425,7 +2645,7 @@ def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
             stats, numbers = graphed_vs_eager(
                 torch, train, zero_counts, counts, tag, chunk, fresh,
                 CHUNK_9_TICKS, expect, state_path, device)
-            if any(stats[w]["draws"][1] != ticks for w in stats):
+            if any(stats[w]["draws"]["ring_sample"] != ticks for w in stats):
                 fail(f"{tag}: ring sample launches "
                      f"{[stats[w]['draws'] for w in stats]} in {ticks} "
                      "ticks each way")
@@ -2439,10 +2659,12 @@ def graphed_chunk(torch, train, zero_counts, counts, card, obs_per_s, runs,
 def engine_chunks(torch, train, zero_counts, counts, card, runs, device=None):
     """Phase 10: the jnp, full and fused engines' chunks (one CUDA graph
     replay a tick) against their eager ticks (:func:`graphed_vs_eager`)
-    for each case of ENGINE_CASES, with the CLI's net and schedule: B3 and
-    B4 counted once a tick either way, no tick kernel launched by the jnp
-    engine; B2, the default learner of the dense net (jnp and full), once
-    a trained tick either way, the conv net's (fused) none. Then the
+    for each case of ENGINE_CASES, with the CLI's net and schedule: B3,
+    B4 and (the jnp engine's step route) B5 counted once a tick either
+    way; the replay's sample kernel (the ReplayBuffer's or the
+    StreamReplay's) once a trained tick either way; B2, the default
+    learner of the dense net (jnp and full), once a trained tick either
+    way, the conv net's (fused) none. Then the
     host's walk of a CLI chunk (``--max_scan_steps``' default of 100,000
     ticks) on the jnp engine, and the CLI at its
     defaults (the jnp engine at one env), which must run its chunk as
@@ -2493,17 +2715,25 @@ def engine_chunks(torch, train, zero_counts, counts, card, runs, device=None):
                f"({args.network_type} net)")
         chunk = train.Chunk(tick)
         ticks = CHUNKS * CHUNK_10_TICKS
-        kernel = {"jnp": None, "full": "full_tick", "fused": "tick"}[engine]
+        kernel = {"jnp": "step", "full": "full_tick", "fused": "tick"}[engine]
         if (tick.learner == train.KERNEL) != (args.network_type == "dense"):
             fail(f"{tag}: learner {tick.learner}")
-        expect = want_launches(
-            train, counts(), kernel, ticks, tick.learner,
-            sum(sig.trains for sig in chunk.table(fresh(0), ticks)[1]))
+        if engine == "jnp" and tick.env_step != train.KERNEL:
+            fail(f"{tag}: env step {tick.env_step}")
+        trained = sum(sig.trains for sig in chunk.table(fresh(0), ticks)[1])
+        expect = want_launches(train, counts(), kernel, ticks, tick.learner,
+                               trained)
         stats, numbers = graphed_vs_eager(
             torch, train, zero_counts, counts, tag, chunk, fresh,
             CHUNK_10_TICKS, expect, state_path, device)
-        if stats["graphed"]["draws"][0] == 0:
+        if engine != "full" and stats["graphed"]["draws"]["draw"] == 0:
             fail(f"{tag}: the graphed chunk launched no draw")
+        sampler = "buffer_sample" if engine == "jnp" else "stream_sample"
+        if any(stats[w]["draws"][sampler] != trained
+               or stats[w]["draws"]["ring_sample"] for w in stats):
+            fail(f"{tag}: sample launches "
+                 f"{[stats[w]['draws'] for w in stats]}, {trained} trained "
+                 f"ticks each way")
         log_ways(tag, stats, chunk, ticks, expect, numbers, card,
                  f"; learner {tick.learner}; replay of {buf.capacity} "
                  f"slots, wrapped "
@@ -2537,12 +2767,15 @@ def engine_chunks(torch, train, zero_counts, counts, card, runs, device=None):
     metrics = train.main(["--skip_final_eval", "--run_dir",
                           os.path.join(runs, "cli10")])
     if (metrics["engine"] != "jnp" or not metrics.get("graphs")
-            or metrics["learner"] != train.KERNEL):
+            or metrics["learner"] != train.KERNEL
+            or metrics["env_step"] != train.KERNEL):
         fail(f"10 the CLI at its defaults: engine {metrics['engine']}, "
-             f"graphs {metrics.get('graphs')}, learner {metrics['learner']}")
+             f"graphs {metrics.get('graphs')}, learner {metrics['learner']}, "
+             f"env step {metrics['env_step']}")
     steps = train.parse_args([]).num_steps
     log(f"10 the CLI at its defaults ({steps} steps, 1 env, memory "
-        "100000): the jnp engine as a graphed chunk, "
+        "100000): the jnp engine as a graphed chunk (its env step on "
+        "B5), "
         f"{metrics['graphs']} graphs captured in {metrics['capture_s']:.3f} "
         f"s, the learner kernel on {metrics['trained_ticks']} trained "
         f"ticks; {1e3 * metrics['time_taken'] / steps:.4f} ms a tick with the "
@@ -2792,6 +3025,9 @@ def multi_gpu(torch, train, zero_counts, counts, card, obs_per_s, runs,
         entry["launches_6e_chunk"] = sum(
             n for name, n in chunk_launches.items()
             if timed[name]["name"] + "_sharded" == entry["name"])
+    # The jnp engine's B5 has no sharded entry: its own gets 6e's launches.
+    timed["step_observe"]["launches_6e_chunk"] = chunk_launches.get(
+        "step_observe", 0)
     torch.distributed.destroy_process_group()
 
     # --- 6b, 6c -----------------------------------------------------------
@@ -3012,12 +3248,15 @@ def entry_points(torch, train, zero_counts, counts, card, runs, here,
     creator = load_script(here, "torch_create_baselines")
     out = os.path.join(runs, "baselines")
     trained = []  # each run's learner kernel steps
+    stepped = []  # each run's step kernel launches (the jnp engine's route)
     run_train = train.train
 
     def recorded(args):
         metrics = run_train(args)
         trained.append(metrics["trained_ticks"]
                        if metrics["learner"] == train.KERNEL else 0)
+        stepped.append(args.num_steps
+                       if metrics["env_step"] == train.KERNEL else 0)
         return metrics
 
     train.train = recorded
@@ -3027,8 +3266,8 @@ def entry_points(torch, train, zero_counts, counts, card, runs, here,
                                 "--out_dir", out, *flags])
     finally:
         train.train = run_train
-    only(counts(), None, 0, "7c baseline creator (the jnp engine)",
-         sum(trained))
+    only(counts(), "step", sum(stepped),
+         "7c baseline creator (the jnp engine)", sum(trained))
     judge = evaluator.DroneRacerEvaluator(answer_folder_path=out,
                                           device=device.type)
     scores = evaluator.evaluate_checkpoints(
@@ -3241,10 +3480,11 @@ def sharded_chunks(torch, train, zero_counts, counts, card, runs, mesh):
             return trainer.init_carry(rng.PRNGKey(seed))
 
         kernel = {"ring": "full_tick_ring", "full": "full_tick",
-                  "fused": "tick", "jnp": None}[local]
+                  "fused": "tick", "jnp": "step"}[local]
+        if local == "jnp" and chunk.tick.env_step != train.KERNEL:
+            fail(f"{tag}: env step {chunk.tick.env_step}")
         expect = {k: 0 for k in count()}
-        if kernel:
-            expect[kernel] = ticks
+        expect[kernel] = ticks
         expect["all_reduce"] = sum(
             sig.trains for sig in chunk.table(fresh(0), ticks)[1])
         stats, numbers = graphed_vs_eager(
@@ -3254,10 +3494,9 @@ def sharded_chunks(torch, train, zero_counts, counts, card, runs, mesh):
                  f"; {backend} world {mesh.world_size}, capture mode "
                  f"{chunk.capture_mode}, learner autograd (a group); the "
                  f"case took {time.perf_counter() - t_case:.1f} s")
-        if kernel:
-            name = kernel + ("_" + "x".join(map(str, hidden))
-                             if kernel != "tick" else "")
-            launches[name] = launches.get(name, 0) + ticks
+        name = {"tick": "tick", "step": "step_observe"}.get(
+            kernel, kernel + "_" + "x".join(map(str, hidden or ())))
+        launches[name] = launches.get(name, 0) + ticks
         del chunk, trainer, agent
         torch.cuda.empty_cache()
     log(f"phase 6e took {time.perf_counter() - t_phase:.1f} s on {card}")
@@ -3764,8 +4003,8 @@ def hash_ops(rounds: int) -> int:
 
 
 def env_bound(n, c, obs_bytes, extra_bytes=0, flops=0, hashes_per_env=0,
-              flop_seconds=None, hash_ops_per_env=None):
-    """The least time of one env kernel launch at NUM_ENVS envs: the state
+              flop_seconds=None, hash_ops_per_env=None, num_envs=NUM_ENVS):
+    """The least time of one env kernel launch at ``num_envs`` envs: the state
     read and written once (ground C bytes, per drone x, y, carry, charge),
     the actions read (4 B a drone) and rewards and dones written (5 B a
     drone), ``obs_bytes`` of observations read or written, plus
@@ -3773,12 +4012,12 @@ def env_bound(n, c, obs_bytes, extra_bytes=0, flops=0, hashes_per_env=0,
     ``flop_seconds``) and the threefry hashes at OPS_PER_HASH each (or
     ``hash_ops_per_env`` operations an env, for hashes of other round
     counts). Returns (ms, "bytes" or "operations", bytes, operations)."""
-    state_bytes = NUM_ENVS * (c + n * (4 + 4 + 1 + 4))
-    io_bytes = NUM_ENVS * n * (4 + 4 + 1)
+    state_bytes = num_envs * (c + n * (4 + 4 + 1 + 4))
+    io_bytes = num_envs * n * (4 + 4 + 1)
     total_bytes = 2 * state_bytes + io_bytes + obs_bytes + extra_bytes
     if hash_ops_per_env is None:
         hash_ops_per_env = OPS_PER_HASH * hashes_per_env
-    ops = flops + hash_ops_per_env * NUM_ENVS
+    ops = flops + hash_ops_per_env * num_envs
     t_bytes = total_bytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32 * 1e3
     if flop_seconds is not None:
@@ -3945,6 +4184,119 @@ def time_step(torch, _build, step_kernel, core, rng, params, card):
         step_kernel._kernel_args, step_kernel.step_batch_plain,
         (rng.PRNGKey(12), states, actions, params),
         env_bound(n, c, 0, hashes_per_env=4 + 2 * c), card)
+
+
+def step_obs_params(wrapper="window"):
+    """The bench's board (grid 9, 4 drones, radius 3) with ``wrapper``'s
+    observation."""
+    from dronerl_tpu_torch.env.types import EnvParams
+    return EnvParams(grid_size=GRID, n_drones=DRONES, window_radius=RADIUS,
+                     wrapper=wrapper)
+
+
+def step_observation(torch, card):
+    """Phase 3j: B5 with the jnp engine's observation
+    (``step_kernel.step_batch_fused`` with ``collect`` = k) against its
+    plain version (``step_batch_plain``: ``core.step_batch`` and
+    ``observe_batch``) at STEP_OBS_ENVS envs, window and global,
+    STEP_OBS_K drones collected, STEP_OBS_TICKS ticks of random actions
+    each (the step key as a chunk row's int32 words on the card and as a
+    host key, in turns): state, rewards and dones bitwise, the (E, k, OBS)
+    observation bitwise but the charge channel (within CHARGE_ATOL); one
+    launch a call; episodes end. Then the window build at k = 1 (the CLI's)
+    timed over BLOCK_LAUNCHES launches of a prebuilt block at
+    STEP_OBS_TIMED envs beside its plain version and bound. Returns the
+    kernel line's entry but its launches."""
+    from dronerl_tpu_torch import rng
+    from dronerl_tpu_torch.env import core
+    from dronerl_tpu_torch.ops import _build, fused_tick, step_kernel
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda", 0)
+    err, ends, cases = 0.0, 0, 0
+    for wrapper in ("window", "global"):
+        cp = step_obs_params(wrapper)
+        for num_envs in STEP_OBS_ENVS:
+            for k in STEP_OBS_K:
+                tag = f"3j B5 + obs {wrapper} {num_envs} envs k {k}"
+                states = core.reset_batch(rng.PRNGKey(num_envs + k).to(
+                    device), cp, num_envs)
+                key = rng.PRNGKey(30 + k)
+                for t in range(STEP_OBS_TICKS):
+                    key, act_key, step_key = rng.split(key, 3)
+                    words = ((step_key.to(device) & rng.MASK32).to(
+                        torch.int32) if t % 2 else step_key)
+                    actions = rng.randint(act_key.to(device),
+                                          (num_envs, DRONES), 0, 5)
+                    before = step_kernel.step_batch_fused.launches
+                    out_k = step_kernel.step_batch_fused(
+                        words, states, actions, cp, k)
+                    out_p = step_kernel.step_batch_plain(
+                        step_key, states, actions, cp, k)
+                    torch.cuda.synchronize()
+                    if step_kernel.step_batch_fused.launches != before + 1:
+                        fail(f"{tag} tick {t}: not one launch")
+                    for name in ("ground", "air_x", "air_y",
+                                 "carrying_package", "charge"):
+                        if not torch.equal(getattr(out_k[0], name),
+                                           getattr(out_p[0], name)):
+                            fail(f"{tag} tick {t}: state {name} differs")
+                    for name, i in (("rewards", 1), ("dones", 2)):
+                        if not torch.equal(out_k[i], out_p[i]):
+                            fail(f"{tag} tick {t}: {name} differ")
+                    obs_k, obs_p = (o.reshape(num_envs, k, -1, 6)
+                                    for o in (out_k[3], out_p[3]))
+                    if obs_k.shape != obs_p.shape:
+                        fail(f"{tag}: observation {tuple(out_k[3].shape)}")
+                    ch = torch.arange(6, device=device) != 4
+                    if not torch.equal(obs_k[..., ch], obs_p[..., ch]):
+                        fail(f"{tag} tick {t}: observation channels differ")
+                    err = max(err, float((obs_k[..., 4] - obs_p[..., 4])
+                                         .abs().max()))
+                    if err > CHARGE_ATOL:
+                        fail(f"{tag} tick {t}: charge channel off by {err}")
+                    ends += int(out_k[2].sum())
+                    states = out_k[0]
+                cases += 1
+    if ends == 0:
+        fail("3j: no episode ended")
+    log(f"3j B5 with the observation == core.step_batch + observe_batch: "
+        f"{cases} cases (envs {STEP_OBS_ENVS}, window and global, k "
+        f"{STEP_OBS_K}) x {STEP_OBS_TICKS} ticks, {ends} drone episode "
+        f"ends; all bitwise but the charge channel (max err {err:.3e}); one "
+        f"launch a call; on {card}")
+
+    cp = step_obs_params()
+    n, c = cp.n_drones, cp.num_cells
+    lib = _build.load(_build.env_config(cp, 1))
+    timed = {}
+    for num_envs in STEP_OBS_TIMED:
+        states = core.reset_batch(rng.PRNGKey(10).to(device), cp, num_envs)
+        actions = rng.randint(rng.PRNGKey(11).to(device), (num_envs, n), 0,
+                              5)
+        obs_bytes = num_envs * fused_tick.obs_rows(cp) * 4
+        timed[num_envs] = time_env_kernel(
+            torch, f"3j B5 + obs grid {GRID} drones {n} {num_envs} envs",
+            lib, "step_launch",
+            lambda *a: step_kernel._kernel_args(*a, 1),
+            lambda *a: step_kernel.step_batch_plain(*a, 1),
+            (rng.PRNGKey(12), states, actions, cp),
+            env_bound(n, c, obs_bytes, hashes_per_env=4 + 2 * c,
+                      num_envs=num_envs), card)
+    log(f"phase 3j took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {
+        "name": "step_observe",
+        "route": "cuda",
+        "source": "dronerl_tpu_torch/ops/csrc/env_kernel.cu",
+        "replaces": ("dronerl_tpu/ops/step_kernel.py:186 (_step_kernel via "
+                     "step_batch_fused), with the jnp engine's observation "
+                     "that XLA fuses after it (dronerl_tpu/train.py:158)"),
+        "launches": 0,
+        "max_abs_err": err,
+        **timed[1],
+        "library_ms": None,
+        "cases": {f"{e} envs": t for e, t in timed.items()},
+    }
 
 
 def learner_bound(widths, batch, sync):

@@ -116,8 +116,9 @@ def tick_config(params, widths: Sequence[int], collect: int = 1,
 def env_config(params, collect: int = 1, rng_rounds: int = 20) -> Config:
     """The env kernel's library for an env, the drones collected and the
     round count: the feature-major tick (B4, ``tick_launch``) and the
-    row-major step (B5, ``step_launch``, whose wrapper takes the default
-    library: one drone, 20 rounds)."""
+    row-major step (B5, ``step_launch``, whose wrapper takes the library
+    of the drones it observes, one where it observes none, at 20
+    rounds: the jnp engine's)."""
     return (ENV_SOURCE, env_defines(params, collect, rng_rounds))
 
 

@@ -31,7 +31,18 @@
 // the ring's obs_dim rows at both columns into one f32 (obs_dim, 2B) array
 // (obs, then next_obs) and the scalar rings (int8 dones as f32). With
 // collect = k, column c belongs to drone c / (B / k): its rows are that
-// drone's row group and its scalars that drone's ring.
+// drone's row group and its scalars that drone's ring. Two more modes of
+// the same launch serve the replay engines' buffers (ops/draws.py):
+//
+// * the StreamReplay's sample (replay.py): the ring is the f32 (obs_dim,
+//   capacity) store, num_envs its stride, and the draw's bound and the
+//   base slot may be device words read by pointer (a chunk's row), the
+//   span then max(bound, 1) as jax's randint makes it;
+// * the row-major ReplayBuffer's (replay.sample): whole transitions, obs
+//   and next_obs (capacity, obs_dim) f32 (rows_in), the next observation
+//   at the same slot of next_rows; the batch written feature-major
+//   (obs_dim, 2B) for the learner kernel, or row-major (rows_out: obs then
+//   next_obs, (2B, obs_dim)).
 //
 // What bounds them on the H100: a hash of R rounds is 3R + 3R/4 + 4
 // integer operations, a split or uniform output one hash, a randint
@@ -94,6 +105,11 @@ struct RingSampleArgs {
   int32_t collect;
   uint32_t span;
   int32_t ring_bf16;
+  const int32_t* bound;    // the draw's upper bound as a device word, or null (span)
+  const int32_t* base;     // the first slot as a device word, or null (base_slot)
+  const float* next_rows;  // rows_in: next_obs (capacity, obs_dim), row stride ring_ld
+  int32_t rows_in;         // the ring is (capacity, obs_dim) rows, not columns
+  int32_t rows_out;        // write (2B, obs_dim) rows, not (obs_dim, 2B)
 };
 
 constexpr int DRAW_THREADS = 256;
@@ -168,12 +184,17 @@ int launch_draw(const DrawArgs* a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// kRows: the row-major ReplayBuffer's mode (RingSampleArgs::rows_in).
+template <bool kRows>
 __global__ void __launch_bounds__(SAMPLE_THREADS) ring_sample_kernel(const RingSampleArgs a) {
   __shared__ int64_t s_phys[SAMPLE_COLS];
   __shared__ int64_t s_next[SAMPLE_COLS];
   __shared__ int32_t s_row0[SAMPLE_COLS];
   const int per_drone = a.batch / a.collect;
-  const uint32_t mult = randint_multiplier(a.span);
+  uint32_t span = a.span;
+  if (a.bound != nullptr) span = *a.bound > 0 ? static_cast<uint32_t>(*a.bound) : 1u;
+  const int64_t base_slot = a.base != nullptr ? static_cast<int64_t>(*a.base) : a.base_slot;
+  const uint32_t mult = randint_multiplier(span);
   Key key{0u, 0u};
   if (a.offsets == nullptr) key = load_key(a.key);
   for (int c0 = 0; c0 < a.batch; c0 += SAMPLE_COLS) {
@@ -183,12 +204,12 @@ __global__ void __launch_bounds__(SAMPLE_THREADS) ring_sample_kernel(const RingS
       const int64_t raw = a.offsets != nullptr
                               ? static_cast<int64_t>(a.offsets[c])
                               : static_cast<int64_t>(static_cast<int32_t>(
-                                    randint_offset<20>(key, static_cast<uint32_t>(c), a.span,
+                                    randint_offset<20>(key, static_cast<uint32_t>(c), span,
                                                        mult)));
-      const int64_t phys = (a.base_slot + raw) % a.capacity;
+      const int64_t phys = (base_slot + raw) % a.capacity;
       const int drone = c / per_drone;
       s_phys[j] = phys;
-      s_next[j] = (phys + a.num_envs) % a.capacity;
+      s_next[j] = kRows ? phys : (phys + a.num_envs) % a.capacity;
       s_row0[j] = drone * a.obs_dim;
       const int64_t at = drone * a.scalar_ld + phys;
       a.actions[c] = a.a_ring[at];
@@ -196,20 +217,30 @@ __global__ void __launch_bounds__(SAMPLE_THREADS) ring_sample_kernel(const RingS
       a.dones[c] = static_cast<float>(a.d_ring[at]);
     }
     __syncthreads();
-    // Row r's 2 cols values: obs at j < cols, next_obs beyond; the stores
-    // of neighbouring threads land on neighbouring columns.
+    // Value (row r, column j) of the 2 cols gathered: obs at j < cols,
+    // next_obs beyond. From a ring of columns the loads and stores of
+    // neighbouring threads land on neighbouring columns (r outer); from
+    // rows on neighbouring features of a slot (j outer).
     const int64_t values = static_cast<int64_t>(a.obs_dim) * 2 * cols;
     for (int64_t e = threadIdx.x; e < values; e += blockDim.x) {
-      const int r = static_cast<int>(e / (2 * cols));
-      const int j = static_cast<int>(e - static_cast<int64_t>(r) * 2 * cols);
+      const int r = static_cast<int>(kRows ? e % a.obs_dim : e / (2 * cols));
+      const int j = static_cast<int>(kRows ? e / a.obs_dim
+                                           : e - static_cast<int64_t>(r) * 2 * cols);
       const bool next = j >= cols;
       const int jc = next ? j - cols : j;
-      const int64_t src = static_cast<int64_t>(s_row0[jc] + r) * a.ring_ld +
-                          (next ? s_next[jc] : s_phys[jc]);
-      const float v = a.ring_bf16
-                          ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.ring)[src])
-                          : static_cast<const float*>(a.ring)[src];
-      a.both[static_cast<int64_t>(r) * 2 * a.batch + (next ? a.batch : 0) + c0 + jc] = v;
+      const int64_t col = (next ? a.batch : 0) + c0 + jc;
+      if constexpr (kRows) {
+        const float* rows = next ? a.next_rows : static_cast<const float*>(a.ring);
+        const float v = rows[(next ? s_next[jc] : s_phys[jc]) * a.ring_ld + r];
+        a.both[a.rows_out ? col * a.obs_dim + r : static_cast<int64_t>(r) * 2 * a.batch + col] = v;
+      } else {
+        const int64_t src = static_cast<int64_t>(s_row0[jc] + r) * a.ring_ld +
+                            (next ? s_next[jc] : s_phys[jc]);
+        const float v = a.ring_bf16
+                            ? __bfloat162float(static_cast<const __nv_bfloat16*>(a.ring)[src])
+                            : static_cast<const float*>(a.ring)[src];
+        a.both[static_cast<int64_t>(r) * 2 * a.batch + col] = v;
+      }
     }
     __syncthreads();
   }
@@ -238,10 +269,16 @@ extern "C" int ring_sample_launch(const dronerl::RingSampleArgs* args, void* str
   using namespace dronerl;
   if (args->batch <= 0 || args->collect <= 0 || args->batch % args->collect != 0 ||
       args->capacity <= 0 || args->span == 0 || args->obs_dim <= 0 ||
-      (args->key == nullptr && args->offsets == nullptr)) {
+      (args->key == nullptr && args->offsets == nullptr) ||
+      (args->rows_in && (args->next_rows == nullptr || args->collect != 1 || args->ring_bf16))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ring_sample_kernel<<<1, SAMPLE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (args->rows_in) {
+    ring_sample_kernel<true><<<1, SAMPLE_THREADS, 0, s>>>(*args);
+  } else {
+    ring_sample_kernel<false><<<1, SAMPLE_THREADS, 0, s>>>(*args);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

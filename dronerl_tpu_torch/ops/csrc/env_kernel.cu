@@ -14,8 +14,15 @@
 //   as the JAX trainer does in XLA.
 // * step_launch replaces dronerl_tpu/ops/step_kernel.py::_step_kernel
 //   (launched by step_batch_fused, B5): row-major EnvState, ground (E, C)
-//   int8 and drone fields and actions (E, N), no observation. Bit-equal to
-//   vmap(core.step) over split(step_key, E).
+//   int8 and drone fields and actions (E, N). Bit-equal to vmap(core.step)
+//   over split(step_key, E). Where obs_out is not null it also writes the
+//   first COLLECT drones' observations of the stepped state, the jnp
+//   engine's (E, COLLECT, OBS) f32 array, row-major: drone i of env e at
+//   obs_out[(e COLLECT + i) OBS + f]: core.observe_batch(state', params,
+//   COLLECT), bit for bit but the charge channel, which B4's pass computes
+//   alike (within 1.3e-7). That observation exists within the tick
+//   kernels' 256 cells and 32 drones (TICK); beyond them a launch with an
+//   obs_out is refused.
 //
 // Both run the full tick kernel's design (full_tick.cu) without its actor
 // and its reset:
@@ -38,7 +45,9 @@
 // (B5): a block's part of an (E, K) field is one contiguous span of EB K
 // elements at e0 K, moved flat; lane l of the warp of env el reads its
 // cells at s_board[el * C + l + 32 k], stride 1 and free of bank
-// conflicts.
+// conflicts; its observation is the same block-wide pass on env-major
+// tiles, each env's features written contiguously at env stride COLLECT
+// OBS (observe_tile's kEnvMajor).
 //
 // Limits: the row-major step takes JAX's step_kernel limits, up to 512
 // cells and 64 drones; the feature-major tick takes the tick kernels' 256
@@ -63,8 +72,9 @@ namespace dronerl {
 
 static_assert(C <= 512 && N <= 64, "the kernel takes <= 512 cells, <= 64 drones");
 
-// Mirrors EnvArgs in ops/fused_tick.py field by field. obs_out is unused
-// (null) in the row-major layout.
+// Mirrors EnvArgs in ops/fused_tick.py field by field. obs_out is
+// (COLLECT OBS, E) in the feature-major layout and (E, COLLECT, OBS) or
+// null (no observation) in the row-major one.
 struct EnvArgs {
   const int8_t* ground_in;
   const int32_t* ax_in;
@@ -94,6 +104,10 @@ struct EnvArgs {
 // The wide body, and boards of more than 4 cells a lane (whose per-drone
 // loops spill at 64 registers), run one block an SM: up to 128 registers.
 constexpr bool LARGE = warp::WIDE || warp::KC > 4;
+// The feature-major tick, and the row-major step's observation, exist
+// within the tick kernels' limits only; conditions that depend on a
+// template parameter keep them from being instantiated beyond them.
+constexpr bool TICK = C <= 256 && N <= 32;
 constexpr int EB = 64;                     // envs a block
 constexpr int BLOCK = 512;                 // threads a block
 constexpr int MIN_BLOCKS = LARGE ? 1 : 2;  // resident blocks an SM
@@ -245,13 +259,23 @@ __global__ void __launch_bounds__(BLOCK, MIN_BLOCKS) env_kernel(const EnvArgs a)
   }
   __syncthreads();
 
-  // --- the observation (feature-major), the state, rewards and dones -------
+  // --- the observation, the state, rewards and dones ----------------------
   if constexpr (FM) {
     // Drone i's observation into rows [i OBS, (i + 1) OBS).
 #pragma unroll 1
     for (int i = 0; i < COLLECT; ++i) {
       warp::observe_tile<EB, BLOCK>(i, a.obs_out + (long long)i * OBS * E + e0, (long long)E,
                                     s_board, s_x, s_y, s_carry, s_charge, ne);
+    }
+  } else if constexpr (FM || TICK) {
+    // Drone i of env e at ((e COLLECT + i) OBS, +OBS).
+    if (a.obs_out != nullptr) {
+#pragma unroll 1
+      for (int i = 0; i < COLLECT; ++i) {
+        warp::observe_tile<EB, BLOCK, true>(
+            i, a.obs_out + ((long long)e0 * COLLECT + i) * OBS, (long long)COLLECT * OBS, s_board,
+            s_x, s_y, s_carry, s_charge, ne);
+      }
     }
   }
   store<FM>(a.ground_out, s_board, C, E, e0, ne);
@@ -299,11 +323,6 @@ int blocks_per_sm() {
   return n;
 }
 
-// The feature-major tick exists within the tick kernels' limits only;
-// templates with a dependent condition keep it from being instantiated
-// beyond them.
-constexpr bool TICK = C <= 256 && N <= 32;
-
 template <bool kTick = TICK>
 int tick(const EnvArgs* args, void* stream) {
   if constexpr (kTick) {
@@ -330,6 +349,7 @@ extern "C" int tick_launch(const dronerl::EnvArgs* args, void* stream) {
 }
 
 extern "C" int step_launch(const dronerl::EnvArgs* args, void* stream) {
+  if (!dronerl::TICK && args->obs_out != nullptr) return (int)cudaErrorInvalidValue;
   return dronerl::launch<false>(args, stream);
 }
 

@@ -485,94 +485,125 @@ __device__ __forceinline__ void reset_env(const Key* placement, int* g, Drone* d
   erase_where(g, under, up);
 }
 
+// Where entry k (a cell or a drone) of env el lies in a block tile of EBT
+// envs of a K-entry field: feature-major (K, EBT), as B1, B3 and B4 stage
+// their envs, or env-major (EBT, K), as B5 stages its row-major spans.
+template <int EBT, bool kEnvMajor>
+__device__ __forceinline__ int tile_at(int k, int el, int K) {
+  return kEnvMajor ? el * K + k : k * EBT + el;
+}
+
+// The observation passes below take (item, env) pairs of a block tile and
+// write feature f of env el at obs + f * ld + el (feature-major: `ld` is the
+// feature stride, neighbouring threads take neighbouring envs, the stores
+// coalesce across envs) or, with kEnvMajor, at obs + el * ld + f (`ld` is
+// the env stride, the features of an env contiguous: neighbouring threads
+// take neighbouring items of one env, and only the tile's first `ne` envs
+// are visited).
+template <int EBT, bool kEnvMajor, int P>
+__device__ __forceinline__ int item_limit(int ne) {
+  return kEnvMajor ? P * ne : P * EBT;
+}
+
 // core.observe's window of drone `drone` of every env of a block tile,
-// flattened (position, channel), into the columns of `obs` (row stride `ld`):
-// thread t of THREADS takes the (position p, env el) items p * EBT + el =
-// t, t + THREADS, ..., so neighbouring threads touch neighbouring envs.
-// The board is the (C, EBT) tile, the drones the (N, EBT) tiles; envs
-// from `ne` on are not written.
-template <int EBT, int THREADS, typename T, typename Ld>
+// flattened (position, channel), into `obs` (see item_limit): with
+// feature-major tiles thread t of THREADS takes the (position p, env el)
+// items p * EBT + el = t, t + THREADS, ..., so neighbouring threads touch
+// neighbouring envs; with kEnvMajor the items el * W * W + p. The board is
+// the C-entry tile, the drones the N-entry tiles (tile_at); envs from
+// `ne` on are not written.
+template <int EBT, int THREADS, bool kEnvMajor = false, typename T, typename Ld>
 __device__ __forceinline__ void observe_window_tile(int drone, T* obs, Ld ld,
                                                     const int8_t* board, const int* xs,
                                                     const int* ys, const int8_t* carry,
                                                     const float* charge, int ne) {
+  constexpr int P = W * W;
 #pragma unroll 2
-  for (int it = threadIdx.x; it < W * W * EBT; it += THREADS) {
-    const int p = it / EBT, el = it % EBT;
-    if (el >= ne) continue;
-    const int wy = ys[drone * EBT + el] + p / W - R;
-    const int wx = xs[drone * EBT + el] + p % W - R;
+  for (int it = threadIdx.x; it < item_limit<EBT, kEnvMajor, P>(ne); it += THREADS) {
+    const int p = kEnvMajor ? it % P : it / EBT, el = kEnvMajor ? it / P : it % EBT;
+    if (!kEnvMajor && el >= ne) continue;
+    const int wy = ys[tile_at<EBT, kEnvMajor>(drone, el, N)] + p / W - R;
+    const int wx = xs[tile_at<EBT, kEnvMajor>(drone, el, N)] + p % W - R;
     const bool inside = wy >= 0 && wy < G && wx >= 0 && wx < G;
     int code = SKYSCRAPER;
     float chg = 0.0f;  // charge + 1 where a drone is, else 0
     if (inside) {
-      code = board[(wy * G + wx) * EBT + el];
+      code = board[tile_at<EBT, kEnvMajor>(wy * G + wx, el, C)];
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        if (ys[i * EBT + el] == wy && xs[i * EBT + el] == wx) chg = charge[i * EBT + el] + 1.0f;
+        const int j = tile_at<EBT, kEnvMajor>(i, el, N);
+        if (ys[j] == wy && xs[j] == wx) chg = charge[j] + 1.0f;
       }
     }
     bool is_packet = code == PACKET;
-    if (p == (W * W) / 2) is_packet = is_packet || carry[drone * EBT + el] != 0;
-    T* out = obs + p * NUM_CH * ld + el;
-    obs_store(out + 0 * ld, chg > 0.0f ? 1.0f : 0.0f);
-    obs_store(out + 1 * ld, is_packet ? 1.0f : 0.0f);
-    obs_store(out + 2 * ld, code == DROPZONE ? 1.0f : 0.0f);
-    obs_store(out + 3 * ld, code == STATION ? 1.0f : 0.0f);
-    obs_store(out + 4 * ld, fminf(fmaxf(chg - 1.0f, 0.0f), 100.0f) / 100.0f);
-    obs_store(out + 5 * ld, code == SKYSCRAPER ? 1.0f : 0.0f);
+    if (p == (W * W) / 2) {
+      is_packet = is_packet || carry[tile_at<EBT, kEnvMajor>(drone, el, N)] != 0;
+    }
+    T* out = kEnvMajor ? obs + el * ld + p * NUM_CH : obs + p * NUM_CH * ld + el;
+    const Ld fs = kEnvMajor ? Ld(1) : ld;  // the feature stride
+    obs_store(out + 0 * fs, chg > 0.0f ? 1.0f : 0.0f);
+    obs_store(out + 1 * fs, is_packet ? 1.0f : 0.0f);
+    obs_store(out + 2 * fs, code == DROPZONE ? 1.0f : 0.0f);
+    obs_store(out + 3 * fs, code == STATION ? 1.0f : 0.0f);
+    obs_store(out + 4 * fs, fminf(fmaxf(chg - 1.0f, 0.0f), 100.0f) / 100.0f);
+    obs_store(out + 5 * fs, code == SKYSCRAPER ? 1.0f : 0.0f);
   }
 }
 
 // core._observe_global of every env of a block tile: the whole board,
-// flattened (cell y G + x, channel), into the columns of `obs`, the same
+// flattened (cell y G + x, channel), into `obs` (see item_limit), the same
 // for every drone; thread t takes the (cell c, env el) items c * EBT + el
-// = t, t + THREADS, .... The drones are written in index order, as jnp's
-// scatters write them: the drone channel set, the carried packet added to
-// the packet channel (clamped to 1), the charge channel set to charge /
-// 100, the last drone on a cell winning.
-template <int EBT, int THREADS, typename T, typename Ld>
+// = t, t + THREADS, ... (with kEnvMajor el * C + c). The drones are
+// written in index order, as jnp's scatters write them: the drone channel
+// set, the carried packet added to the packet channel (clamped to 1), the
+// charge channel set to charge / 100, the last drone on a cell winning.
+template <int EBT, int THREADS, bool kEnvMajor = false, typename T, typename Ld>
 __device__ __forceinline__ void observe_global_tile(T* obs, Ld ld, const int8_t* board,
                                                     const int* xs, const int* ys,
                                                     const int8_t* carry, const float* charge,
                                                     int ne) {
 #pragma unroll 2
-  for (int it = threadIdx.x; it < C * EBT; it += THREADS) {
-    const int c = it / EBT, el = it % EBT;
-    if (el >= ne) continue;
+  for (int it = threadIdx.x; it < item_limit<EBT, kEnvMajor, C>(ne); it += THREADS) {
+    const int c = kEnvMajor ? it % C : it / EBT, el = kEnvMajor ? it / C : it % EBT;
+    if (!kEnvMajor && el >= ne) continue;
     const int y = c / G, x = c % G;
-    const int code = board[c * EBT + el];
+    const int code = board[tile_at<EBT, kEnvMajor>(c, el, C)];
     bool drone = false, carried = false;
     float chg = 0.0f;
 #pragma unroll
     for (int i = 0; i < N; ++i) {
-      if (ys[i * EBT + el] == y && xs[i * EBT + el] == x) {
+      const int j = tile_at<EBT, kEnvMajor>(i, el, N);
+      if (ys[j] == y && xs[j] == x) {
         drone = true;
-        carried = carried || carry[i * EBT + el] != 0;
-        chg = charge[i * EBT + el] / 100.0f;
+        carried = carried || carry[j] != 0;
+        chg = charge[j] / 100.0f;
       }
     }
-    T* out = obs + c * NUM_CH * ld + el;
-    obs_store(out + 0 * ld, drone ? 1.0f : 0.0f);
-    obs_store(out + 1 * ld, code == PACKET || carried ? 1.0f : 0.0f);
-    obs_store(out + 2 * ld, code == DROPZONE ? 1.0f : 0.0f);
-    obs_store(out + 3 * ld, code == STATION ? 1.0f : 0.0f);
-    obs_store(out + 4 * ld, chg);
-    obs_store(out + 5 * ld, code == SKYSCRAPER ? 1.0f : 0.0f);
+    T* out = kEnvMajor ? obs + el * ld + c * NUM_CH : obs + c * NUM_CH * ld + el;
+    const Ld fs = kEnvMajor ? Ld(1) : ld;  // the feature stride
+    obs_store(out + 0 * fs, drone ? 1.0f : 0.0f);
+    obs_store(out + 1 * fs, code == PACKET || carried ? 1.0f : 0.0f);
+    obs_store(out + 2 * fs, code == DROPZONE ? 1.0f : 0.0f);
+    obs_store(out + 3 * fs, code == STATION ? 1.0f : 0.0f);
+    obs_store(out + 4 * fs, chg);
+    obs_store(out + 5 * fs, code == SKYSCRAPER ? 1.0f : 0.0f);
   }
 }
 
 // Drone `drone`'s observation of every env of a block tile (env_step.cuh's
-// OBS rows): its window, or with DR_GLOBAL the whole board, which every
-// drone sees alike.
-template <int EBT, int THREADS, typename T, typename Ld>
+// OBS features): its window, or with DR_GLOBAL the whole board, which
+// every drone sees alike. Feature-major tiles and output by default (B1,
+// B3, B4: `ld` the feature stride); with kEnvMajor env-major tiles and
+// output (B5: `ld` the env stride).
+template <int EBT, int THREADS, bool kEnvMajor = false, typename T, typename Ld>
 __device__ __forceinline__ void observe_tile(int drone, T* obs, Ld ld, const int8_t* board,
                                              const int* xs, const int* ys, const int8_t* carry,
                                              const float* charge, int ne = EBT) {
   if constexpr (GLOBAL) {
-    observe_global_tile<EBT, THREADS>(obs, ld, board, xs, ys, carry, charge, ne);
+    observe_global_tile<EBT, THREADS, kEnvMajor>(obs, ld, board, xs, ys, carry, charge, ne);
   } else {
-    observe_window_tile<EBT, THREADS>(drone, obs, ld, board, xs, ys, carry, charge, ne);
+    observe_window_tile<EBT, THREADS, kEnvMajor>(drone, obs, ld, board, xs, ys, carry, charge,
+                                                 ne);
   }
 }
 

@@ -25,6 +25,15 @@ Two differences of form, none of result:
   the chunk (``train.Chunk``) sets ``cursor`` and ``size`` at its exit.
 * The JAX package is functional; here a push writes the storage tensors in
   place and returns a ``ReplayState`` holding the same tensors.
+
+The trainers sample through ``sample_batch`` (``ReplayBuffer``,
+``StreamReplay``): the sample with the dones as f32, as the trainers
+cast them. On CUDA storage that is one launch of the sample kernel
+(``ops/draws.py``: ``buffer_sample``, ``stream_sample``), which draws the
+slots from a key on the storage's device (a chunk's row) or reads the
+offsets a host key drew on the host (an eager tick's); on CPU storage its
+plain version (``sample_batch_plain``: ``sample`` and the cast, the tensor
+path that ``dronerl_tpu/replay.py``'s ``sample`` is held to).
 """
 
 import collections
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from dronerl_tpu_torch import rng
+from dronerl_tpu_torch.ops import draws
 
 
 @dataclass
@@ -161,6 +171,22 @@ def can_sample(state: ReplayState, batch_size: int) -> bool:
     return state.size >= batch_size
 
 
+def _host_offsets(key: torch.Tensor, batch_size: int, bound, device):
+    """The sample kernel's offsets where ``key`` is a host key (an eager
+    tick's): ``randint(key, (batch_size,), 0, bound)`` drawn on the host
+    and copied to ``device``; None for a key there, which the kernel
+    draws from."""
+    if key.device == device:
+        return None
+    return rng.randint(key, (batch_size,), 0, bound).to(
+        device, non_blocking=True)
+
+
+def _float_dones(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    batch["dones"] = batch["dones"].to(torch.float32)
+    return batch
+
+
 class ReplayBuffer:
     """Row-major replay: the static geometry bound to the functions above
     (``dronerl_tpu/replay.py::ReplayBuffer``)."""
@@ -190,6 +216,35 @@ class ReplayBuffer:
 
     def can_sample(self, state: ReplayState) -> bool:
         return can_sample(state, self.batch_size)
+
+    def sample_batch(self, key: torch.Tensor, state: ReplayState,
+                     bound=None, feature_major: bool = False
+                     ) -> Dict[str, torch.Tensor]:
+        """A trainer's batch of whole transitions (storage obs and
+        next_obs (capacity, D) f32, actions int32, rewards f32, dones
+        bool): :meth:`sample` with the dones as f32 and, with
+        ``feature_major``, obs and next_obs as (D, B), the learner
+        kernel's layout. On CUDA storage one launch of the sample kernel
+        (``draws.buffer_sample``), else :meth:`sample_batch_plain`."""
+        obs = state.storage["obs"]
+        if not obs.is_cuda:
+            return self.sample_batch_plain(key, state, bound, feature_major)
+        bound = state.size if bound is None else bound
+        return draws.buffer_sample(
+            key, state.storage, bound, batch_size=self.batch_size,
+            feature_major=feature_major,
+            offsets=_host_offsets(key, self.batch_size, bound, obs.device))
+
+    @rng.plain_draws()
+    def sample_batch_plain(self, key: torch.Tensor, state: ReplayState,
+                           bound=None, feature_major: bool = False
+                           ) -> Dict[str, torch.Tensor]:
+        """:meth:`sample_batch` in plain PyTorch, on any device."""
+        batch = _float_dones(self.sample(key, state, bound))
+        if feature_major:
+            for name in ("obs", "next_obs"):
+                batch[name] = batch[name].t().contiguous()
+        return batch
 
     def push_words(self, cursor: int, size: int, n: int) -> PushWords:
         """The words of a push of ``n`` from ``cursor`` and ``size``: its
@@ -341,6 +396,29 @@ class StreamReplay:
         batch["obs"] = both[..., :self.batch_size]
         batch["next_obs"] = both[..., self.batch_size:]
         return batch
+
+    def sample_batch(self, key: torch.Tensor, state: ReplayState,
+                     bound=None, base=None) -> Dict[str, torch.Tensor]:
+        """A trainer's batch: :meth:`sample` with the dones as f32. On
+        CUDA storage one launch of the sample kernel
+        (``draws.stream_sample``), else :meth:`sample_batch_plain`."""
+        obs = state.storage["obs"]
+        if not obs.is_cuda:
+            return self.sample_batch_plain(key, state, bound, base)
+        if bound is None:
+            bound = max(state.size - self.stride, 1)
+        if base is None:
+            base = state.cursor if state.size == self.capacity else 0
+        return draws.stream_sample(
+            key, state.storage, bound, base, stride=self.stride,
+            batch_size=self.batch_size,
+            offsets=_host_offsets(key, self.batch_size, bound, obs.device))
+
+    @rng.plain_draws()
+    def sample_batch_plain(self, key: torch.Tensor, state: ReplayState,
+                           bound=None, base=None) -> Dict[str, torch.Tensor]:
+        """:meth:`sample_batch` in plain PyTorch, on any device."""
+        return _float_dones(self.sample(key, state, bound, base))
 
     def can_sample(self, state: ReplayState) -> bool:
         return state.size - self.stride >= self.batch_size

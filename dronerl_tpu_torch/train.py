@@ -51,15 +51,23 @@ chain (``fused_tick.flatten_net_params``): a dense net's layers, or with
 ``conv_matmul`` a conv net's im2col lowering, rebuilt from the live
 weights every tick as the JAX trainers rebuild it.
 
-jnp engine (:func:`build_train_step`, plain PyTorch). One tick: split
-the host key six ways; random opponents and drone 0's ε-greedy action
-(``DQN.act``); ``core.step_batch`` and ``observe_batch``; push the whole
-transitions (``next_obs`` included) into a row-major
-``replay.ReplayBuffer``; sample and take the TD(0) Adam step once the
-buffer holds a batch (the learner kernel takes the batch's observations
-copied feature-major); the schedules; the periodic reset. It launches no
-tick kernel of the port: the JAX CLI runs it where its fused kernels do
-not apply (fewer than 128 envs, among others), and so does this one.
+jnp engine (:func:`build_train_step`). One tick: split the host key six
+ways; random opponents and drone 0's ε-greedy action (``DQN.act``); the
+env step and the learner drones' observation; push the whole transitions
+(``next_obs`` included) into a row-major ``replay.ReplayBuffer``; sample
+and take the TD(0) Adam step once the buffer holds a batch; the
+schedules; the periodic reset (``core.reset_batch`` and
+``observe_batch``: neither package has a reset kernel for this layout).
+The JAX CLI runs it where its fused kernels do not apply (fewer than 128
+envs, among others), and so does this one. The step and observation,
+which XLA fuses in the JAX package, are chosen once when the tick is
+built (:func:`step_route`, recorded in ``Tick.env_step``): on a CUDA card
+within the observation's limits one launch of the step kernel
+(``step_kernel.step_batch_fused`` with ``collect``, B5), else
+``core.step_batch`` and ``observe_batch`` in plain PyTorch. The replay
+sample is one launch of the sample kernel on a card
+(``ReplayBuffer.sample_batch``), which writes the batch feature-major for
+the learner kernel where that is the TD step's route.
 
 With ``collect_drones`` = k the first k drones of every env feed the
 replay, as in the JAX trainers: the ring engine's columns hold k row
@@ -130,7 +138,8 @@ from dronerl_tpu_torch.env.types import EnvParams, EnvState, env_fields
 from dronerl_tpu_torch.evaluator.evaluator import seed_keys
 from dronerl_tpu_torch.interop import safetensors_io, train_state_io
 from dronerl_tpu_torch.interop.from_jax import qnet_from_flax
-from dronerl_tpu_torch.ops import _build, draws, fused_tick, learner_kernel
+from dronerl_tpu_torch.ops import (
+    _build, draws, fused_tick, learner_kernel, step_kernel)
 from dronerl_tpu_torch.utils import profiling
 from dronerl_tpu_torch.utils.graphs import GraphSet, scan, upload
 from dronerl_tpu_torch.utils.metrics import NoLogger, build_logger
@@ -239,6 +248,12 @@ class RowLayout:
         device (``DQN.train_step_t``'s ``corrections``)."""
         return row[self.corrections].view(torch.float32)
 
+    def key_words(self, row: torch.Tensor, index: int) -> torch.Tensor:
+        """Key ``index``'s two words as the row's int32 (2,) view, which a
+        kernel reads by pointer (``fused_tick.key_words`` takes it as
+        it is)."""
+        return row[2 * index:2 * index + 2]
+
     def host_key(self, host: np.ndarray, index: int) -> torch.Tensor:
         """Key ``index`` of ``host``, a row on the host, as an int64 (2,)
         host tensor."""
@@ -259,7 +274,8 @@ class RowLayout:
                 int(host[self.bound]), int(host[self.base]))
 
 
-KERNEL, IN_KERNEL_TD, AUTOGRAD = "kernel", "in_kernel_td", "autograd"
+KERNEL, IN_KERNEL_TD, AUTOGRAD, PLAIN = (
+    "kernel", "in_kernel_td", "autograd", "plain")
 
 
 def learner_problems(agent: DQN, batch_size: int, group=None,
@@ -297,6 +313,36 @@ def learner_route(agent: DQN, batch_size: int, group=None) -> str:
         f"{AUTOGRAD} ({'; '.join(problems)})")
 
 
+def step_problems(env_params: EnvParams, num_envs: int,
+                  collect_drones: int = 1, device="cuda") -> list:
+    """Why the jnp engine's tick does not step its envs and observe its
+    learner drones with one launch of the step kernel (B5 with its
+    observation) on ``device``: empty where it does. It takes a CUDA card,
+    a board within the observation's limits (the tick kernels' 256 cells
+    and 32 drones, ``collect_drones`` in [1, n_drones]) and the step's
+    (``num_packets >= n_drones``), at any env count from 1 (the JAX
+    gate's 8 envs, ``step_kernel.MIN_ENVS``, is its Pallas kernel's)."""
+    device = torch.device(device)
+    problems = []
+    if device.type != "cuda":
+        problems.append(f"a {device.type} device (the kernel runs on a "
+                        "CUDA card)")
+    problems += step_kernel.board_problems(env_params)
+    problems += step_kernel.observation_problems(env_params, collect_drones)
+    if num_envs < 1:
+        problems.append(f"num_envs={num_envs} < 1")
+    return problems
+
+
+def step_route(env_params: EnvParams, num_envs: int,
+               collect_drones: int = 1, device="cuda") -> str:
+    """The jnp engine's env step and observation, chosen once when its
+    tick is built: ``KERNEL``, or ``PLAIN`` followed by
+    :func:`step_problems`' reasons."""
+    problems = step_problems(env_params, num_envs, collect_drones, device)
+    return KERNEL if not problems else f"{PLAIN} ({'; '.join(problems)})"
+
+
 def kernel_train_step(agent: DQN, state, batch, count):
     """The default TD(0) + Adam step as one launch of the learner kernel
     (``learner_kernel.td_adam``: learn on, no target sync, no ε decay, the
@@ -319,15 +365,12 @@ def learner_step(agent: DQN, route: str, ag_state, batch,
                  row: torch.Tensor, layout: RowLayout, group=None,
                  row_major: bool = False):
     """A tick's default TD step on its own batch, by ``route``: the
-    learner kernel (:func:`kernel_train_step`, the count from the row; a
-    row-major batch's observations copied feature-major first, one copy
-    each), else the autograd learner (``train_step`` on a row-major batch,
-    ``train_step_t`` on a feature-major one) over ``group`` with the row's
-    bias corrections. Returns ``(ag_state, loss)``."""
+    learner kernel (:func:`kernel_train_step` on a feature-major batch,
+    the count from the row), else the autograd learner (``train_step`` on
+    a ``row_major`` batch, ``train_step_t`` on a feature-major one) over
+    ``group`` with the row's bias corrections. Returns ``(ag_state,
+    loss)``."""
     if route == KERNEL:
-        if row_major:
-            batch = dict(batch, obs=batch["obs"].t().contiguous(),
-                         next_obs=batch["next_obs"].t().contiguous())
         return kernel_train_step(agent, ag_state, batch, row[layout.count])
     step = agent.train_step if row_major else agent.train_step_t
     return step(ag_state, batch, group,
@@ -354,7 +397,9 @@ class Tick:
     returns the chain after it but its rng. ``keys`` and ``group`` as
     :func:`host_keys`'s (a chunk needs ``keys.table``); ``signature``,
     the ring's ``signature(step)``; ``learner``, the route of its TD step
-    (:func:`learner_route`, or ``IN_KERNEL_TD``)."""
+    (:func:`learner_route`, or ``IN_KERNEL_TD``); ``env_step``, the jnp
+    engine's route of its env step and observation (:func:`step_route`),
+    None where a tick kernel steps the envs."""
 
     body: Callable
     walk: Callable
@@ -364,6 +409,7 @@ class Tick:
     group: Any = None
     signature: Optional[Callable] = None
     learner: str = AUTOGRAD
+    env_step: Optional[str] = None
 
     @property
     def graphed(self) -> bool:
@@ -611,8 +657,11 @@ class Chunk:
                 (learner_kernel, "td_adam", "launches"),
                 (fused_tick, "full_tick_fused", "launches"),
                 (fused_tick, "tick_fused", "launches"),
+                (step_kernel, "step_batch_fused", "launches"),
                 (draws, "draw", "launches"),
                 (draws, "ring_sample", "launches"),
+                (draws, "stream_sample", "launches"),
+                (draws, "buffer_sample", "launches"),
                 (dqn_module, "all_reduce_mean", "calls"))
 
     def __init__(self, tick):
@@ -867,8 +916,8 @@ def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
         "rewards": rewards_t[:k].reshape(-1),
         "dones": dones_t[:k].reshape(-1)}, start=start)
     if trains:
-        batch = buffer.sample(sample_key, bstate, bound=bound, base=base)
-        batch["dones"] = batch["dones"].to(torch.float32)
+        batch = buffer.sample_batch(sample_key, bstate, bound=bound,
+                                    base=base)
         ag_state, loss = learn(ag_state, batch)
     else:
         loss = torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
@@ -1010,12 +1059,14 @@ def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
     (the opponents', the actor's, the step's, the sample's and the
     reset's keys). A :class:`Tick` as the full tick, on rows of
     ``RowLayout(5, push=True)`` (the push's start slot clamped as
-    ``replay.push_start``'s, the sample's bound the replay's size)."""
+    ``replay.push_start``'s, the sample's bound the replay's size), its
+    ``env_step`` :func:`step_route`'s."""
     obs_dim = agent.obs_dim
     k = collect_drones
     layout = RowLayout(5, push=True)
     walk = _replay_walk(agent, buffer, layout, reset_env_every, num_envs * k)
     route = learner_route(agent, buffer.batch_size, group)
+    env_step = step_route(env_params, num_envs, k, agent.device)
 
     def learner_obs(states):
         return env_core.observe_batch(states, env_params, k).reshape(
@@ -1029,10 +1080,16 @@ def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
         if host is not None:  # the ε draw's split on the host
             act_key = layout.host_key(host, 1)
         actions[:, 0] = agent.act(act_key, obs[:, 0], ag_state)
-        step_keys = rng_mod.split(step_key, num_envs)
-        env_states, rewards, dones = env_core.step_batch(
-            step_keys, env_states, actions, env_params)
-        next_obs = learner_obs(env_states)
+        if env_step == KERNEL:  # the row's key words, read by pointer
+            env_states, rewards, dones, next_obs = (
+                step_kernel.step_batch_fused(
+                    layout.key_words(row, 2), env_states, actions,
+                    env_params, k))
+        else:
+            env_states, rewards, dones = env_core.step_batch(
+                rng_mod.split(step_key, num_envs), env_states, actions,
+                env_params)
+            next_obs = learner_obs(env_states)
         start, sample_key, bound, _ = layout.replay_words(
             row, sample_key, host, 3)
         bstate = buffer.push_many(bstate, {
@@ -1042,11 +1099,12 @@ def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
             "next_obs": next_obs.reshape(num_envs * k, obs_dim),
             "dones": dones[:, :k].reshape(-1),
         }, start=start)
-        if sig.trains:
-            batch = buffer.sample(sample_key, bstate, bound=bound)
-            batch["dones"] = batch["dones"].to(torch.float32)
+        if sig.trains:  # feature-major for the learner kernel
+            batch = buffer.sample_batch(sample_key, bstate, bound=bound,
+                                        feature_major=route == KERNEL)
             ag_state, loss = learner_step(agent, route, ag_state, batch,
-                                          row, layout, group, row_major=True)
+                                          row, layout, group,
+                                          row_major=route != KERNEL)
         else:
             loss = torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
                               device=agent.device)
@@ -1060,7 +1118,7 @@ def build_train_step(agent: DQN, buffer: replay.ReplayBuffer,
         return carry, (rewards[:, 0], ag_state.epsilon, loss)
 
     return Tick(body, walk, keys or host_keys(layout.num_keys), layout,
-                agent.device, group, learner=route)
+                agent.device, group, learner=route, env_step=env_step)
 
 
 def init_jnp_carry(agent: DQN, env_params: EnvParams, num_envs: int,
@@ -1787,6 +1845,8 @@ def train(args, metrics_logger=None) -> dict:
             _build_sharded(args, agent, env_params, mesh, scan_steps))
         engine, engine_name = trainer.local_engine, f"sharded-{trainer.engine}"
     logger.info("Learner: %s", tick.tick.learner)
+    if tick.tick.env_step is not None:
+        logger.info("Env step: %s", tick.tick.env_step)
     if warm_params is not None:
         agent.state_with_params(carry[3], qnet_from_flax(
             warm_params, device, env_params.obs_shape,
@@ -1811,6 +1871,10 @@ def train(args, metrics_logger=None) -> dict:
         t0 = time.perf_counter()
         _build.load(learner_kernel.kernel_config(carry[3].params))
         logger.info("learner kernel ready in %.1fs", time.perf_counter() - t0)
+    if tick.tick.env_step == KERNEL:
+        t0 = time.perf_counter()
+        _build.load(_build.env_config(env_params, args.collect_drones))
+        logger.info("step kernel ready in %.1fs", time.perf_counter() - t0)
 
     def run_chunk(carry):
         carry, (rewards, epsilon, losses) = tick(carry, scan_steps)
@@ -1923,6 +1987,7 @@ def train(args, metrics_logger=None) -> dict:
     if run:
         run.finish()
     out = {**metrics, "engine": engine_name, "learner": tick.tick.learner,
+           "env_step": tick.tick.env_step,
            "last_reward_mean": mean_reward, "epsilon": float(epsilon),
            "td_loss_mean": float(trained.mean()) if len(trained) else None,
            "trained_ticks": len(trained),

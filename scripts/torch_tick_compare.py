@@ -25,6 +25,10 @@ An older tree's env kernel that takes B4's key by value (``key0``,
 ``key1``) gets its block in that layout (``env_block_for``), the same
 pointers and key words.
 
+Each build's ptxas figures are printed kernel by kernel (registers,
+barriers, stack, spills); with ``--other`` the two trees' figures of every
+kernel both libraries hold are compared and the differences printed.
+
 Run on a machine with a CUDA card, from the repository root:
 
     mkdir -p .archive/parent && git archive HEAD~1 dronerl_tpu_torch/ops/csrc \\
@@ -73,6 +77,19 @@ def build(src_dir, out_dir, source, defines):
            + ["-o", lib, os.path.join(src_dir, source)])
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """nvcc's ``-Xptxas -v`` output as {kernel's mangled name: its lines
+    (stack and spills, registers and barriers)}."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.split(":", 1)[-1].strip())
+    return out
 
 
 def load(lib_path, entries):
@@ -194,15 +211,24 @@ def main() -> None:
                 jobs[(tree, k, hidden)] = build(
                     src, out_dir, _build.TICK_SOURCE,
                     _build.tick_defines(params, widths, k))
-    libs = {}
+    libs, ptxas = {}, {}
     for key, (path, proc) in jobs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {key}:\n{log}")
-        spills = [ln.strip() for ln in log.splitlines() if "spill" in ln]
-        print(f"{key}: {' | '.join(spills)}", flush=True)
+        ptxas[key] = ptxas_by_kernel(log)
+        for kernel, lines in ptxas[key].items():
+            print(f"{key} {kernel}: {' | '.join(lines)}", flush=True)
         libs[key] = load(path, ("tick_launch",) if key[2] is None else (
             "full_tick_ring_launch", "full_tick_launch"))
+    for (tree, k, net), figures in ptxas.items():
+        if tree != "this" or ("other", k, net) not in ptxas:
+            continue
+        theirs = ptxas[("other", k, net)]
+        common = sorted(set(figures) & set(theirs))
+        differ = [kern for kern in common if figures[kern] != theirs[kern]]
+        print(f"ptxas this vs other k={k} net {net}: {len(common)} kernels "
+              f"in both, {len(differ)} differ {differ}", flush=True)
 
     rows = []
     for net in NETS + (None,):

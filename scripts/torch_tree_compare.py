@@ -49,7 +49,9 @@ def chunks_worker(out_path: str) -> None:
                 "step": step_kernel.step_batch_fused}
     try:  # a tree with the draw kernel counts its launches apart
         from dronerl_tpu_torch.ops import draws
-        drawn = [draws.draw, draws.ring_sample]
+        drawn = [getattr(draws, name) for name in (
+            "draw", "ring_sample", "stream_sample", "buffer_sample")
+            if hasattr(draws, name)]
     except ImportError:
         drawn = []
 

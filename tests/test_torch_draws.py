@@ -212,9 +212,14 @@ def test_draw_args_mirror_the_source():
     assert ctypes.sizeof(draws._DrawArgs) == 3 * 8 + 3 * 8 + 5 * 4 + 4
     assert draws._DrawArgs.num_keys.offset == 24
     assert draws._DrawArgs.span.offset == 64
-    assert ctypes.sizeof(draws._RingSampleArgs) == 10 * 8 + 5 * 8 + 5 * 4 + 4
+    # The ring's fields, then the replays' modes': two words' pointers,
+    # next_rows, rows_in and rows_out.
+    assert ctypes.sizeof(draws._RingSampleArgs) == (
+        10 * 8 + 5 * 8 + 5 * 4 + 4 + 3 * 8 + 2 * 4)
     assert draws._RingSampleArgs.ring_ld.offset == 80
     assert draws._RingSampleArgs.ring_bf16.offset == 136
+    assert draws._RingSampleArgs.bound.offset == 144
+    assert draws._RingSampleArgs.rows_in.offset == 168
 
 
 @pytest.mark.parametrize("bad", ["cpu_key", "int32_key", "wide_key"])

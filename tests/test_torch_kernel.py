@@ -1,6 +1,8 @@
 """The CUDA kernels' wrappers, builds and launches: the full tick kernel
-(ring and obs launches), the env tick kernel, the row-major step kernel,
-the learner kernel, and the draw and ring sample kernels.
+(ring and obs launches), the env tick kernel, the row-major step kernel
+(with the jnp engine's observation), the learner kernel, and the draw and
+ring sample kernels (the ring's, the StreamReplay's and the row-major
+ReplayBuffer's samples).
 
 No JAX here: the ``gpu`` tests run on a machine with a card, where the
 JAX package is not installed, by
@@ -611,6 +613,70 @@ def test_step_kernel_matches_plain_on_card(kw, num_envs):
     assert step_kernel.step_batch_fused.launches == launches + 3
 
 
+def _assert_obs(got, want, tag):
+    """Observations (..., OBS) bitwise but the charge channel (channel 4
+    of each cell's 6), within CHARGE_ATOL."""
+    got, want = (t.reshape(*t.shape[:-1], -1, 6) for t in (got, want))
+    other = torch.arange(6, device=got.device) != 4
+    assert torch.equal(got[..., other], want[..., other]), tag
+    err = float((got[..., 4] - want[..., 4]).abs().max())
+    assert err <= CHARGE_ATOL, (tag, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("wrapper", ["window", "global"])
+@pytest.mark.parametrize("num_envs", [1, 7, 64, 100])
+def test_step_observation_matches_plain_on_card(num_envs, wrapper, k):
+    """B5 with the jnp engine's observation (``collect`` = k) against its
+    plain version (``core.step_batch`` + ``observe_batch``) for 4 ticks of
+    random actions: state, rewards and dones bitwise, the (E, k, OBS)
+    observation bitwise but the charge channel; the step key as a chunk
+    row's int32 words on the card and as a host key."""
+    dev = _card()
+    tp, states, _ = _row_inputs(dict(KW, wrapper=wrapper), num_envs,
+                                seed=num_envs)
+    states = type(states)(*(getattr(states, f).to(dev) for f in (
+        "ground", "air_x", "air_y", "carrying_package", "charge")))
+    g = torch.Generator().manual_seed(num_envs + k)
+    key = rng.PRNGKey(11)
+    launches = step_kernel.step_batch_fused.launches
+    for t in range(4):
+        key, step_key = rng.split(key, 2)
+        words = ((step_key.to(dev) & rng.MASK32).to(torch.int32)
+                 if t % 2 else step_key)
+        actions = torch.randint(0, 5, (num_envs, tp.n_drones), generator=g,
+                                dtype=torch.int32).to(dev)
+        out_k = step_kernel.step_batch_fused(words, states, actions, tp, k)
+        out_p = step_kernel.step_batch_plain(step_key, states, actions, tp,
+                                             k)
+        for f in ("ground", "air_x", "air_y", "carrying_package", "charge"):
+            assert torch.equal(getattr(out_k[0], f), getattr(out_p[0], f)), (
+                t, f)
+        assert torch.equal(out_k[1], out_p[1]) and torch.equal(out_k[2],
+                                                               out_p[2])
+        assert out_k[3].shape == out_p[3].shape == (
+            num_envs, k, fused_tick.obs_rows(tp))
+        _assert_obs(out_k[3], out_p[3], t)
+        states = out_k[0]
+    assert step_kernel.step_batch_fused.launches == launches + 4
+
+
+def test_step_observation_refused_beyond_the_tick_limits():
+    """The observation exists within 256 cells and 32 drones: the wrapper
+    refuses it beyond them before any build, and a k beyond the drones."""
+    tp, states, actions = _row_inputs(dict(grid_size=20, n_drones=4), 8)
+    with pytest.raises(ValueError, match="400 cells > 256"):
+        step_kernel._kernel_args(rng.PRNGKey(0), states, actions, tp, 1)
+    tp, states, actions = _row_inputs(KW, 8)
+    with pytest.raises(ValueError, match="collect_drones=5"):
+        step_kernel._kernel_args(rng.PRNGKey(0), states, actions, tp, 5)
+    block, outs = step_kernel._kernel_args(rng.PRNGKey(0), states, actions,
+                                           tp, 2)
+    assert outs[3].shape == (8, 2, 294) and block.obs_out == outs[
+        3].data_ptr()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("engine", ["full", "fused"])
 def test_stream_engine_on_card_matches_cpu(engine):
@@ -903,8 +969,10 @@ def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
     state saved and restored between them, the replay wrapping, every
     carry tensor, its numbers and every output bitwise; B3 or B4 counted
     once a replayed tick, and B2, the default learner of a dense net,
-    once a trained one. Also the fused engine with a conv net's own
-    forward (cuDNN) and the autograd learner in the graph."""
+    once a trained one; the jnp engine's step route on B5 (once a tick)
+    and each replay's sample kernel once a trained tick. Also the fused
+    engine with a conv net's own forward (cuDNN) and the autograd learner
+    in the graph."""
     dev = _card()
     tp = EnvParams(**KW)
     conv = dict(network_type="conv") if engine == "fused_conv" else {}
@@ -914,7 +982,9 @@ def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
     if engine == "jnp":
         buf = replay.ReplayBuffer(64, 8, uniform_pushes=True)
         tick = train.build_train_step(agent, buf, tp, 4, 5)
-        init, num_envs, counter = train.init_jnp_carry, 4, None
+        init, num_envs = train.init_jnp_carry, 4
+        counter, sampler = step_kernel.step_batch_fused, draws.buffer_sample
+        assert tick.env_step == train.KERNEL
     else:
         buf = replay.StreamReplay(3 * E, 8, stride=E)
         full = engine == "full"
@@ -922,6 +992,7 @@ def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
                 train.build_train_step_fused)(agent, buf, tp, E, 3)
         init, num_envs = train.init_stream_carry, E
         counter = fused_tick.full_tick_fused if full else fused_tick.tick_fused
+        sampler = draws.stream_sample
 
     def fresh(seed):
         return init(agent, tp, num_envs, buf, rng.PRNGKey(seed))
@@ -931,7 +1002,7 @@ def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
     assert (tick.learner == train.KERNEL) == dense
     carry = fresh(0)
     eager = copy.deepcopy(carry)
-    launches = counter.launches if counter else 0
+    launches, samples = counter.launches, sampler.launches
     steps = learner_kernel.td_adam.launches
     outs = []
     for _ in range(2):
@@ -940,11 +1011,11 @@ def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
         path = str(tmp_path / "state.safetensors")
         train_state_io.save(path, carry)
         carry = train_state_io.restore(path, fresh(1))
-    if counter:
-        assert counter.launches == launches + 14
+    assert counter.launches == launches + 14
     trained = int((torch.cat([o[2] for o in outs]) >= 0).sum())
     assert trained > 0
     assert learner_kernel.td_adam.launches == steps + trained * dense
+    assert sampler.launches == samples + trained
     assert 0 < chunk.graphs <= 14 and chunk.capture_s > 0
     ref = []
     for _ in range(14):
@@ -966,8 +1037,9 @@ def test_sharded_chunk_equals_eager_ticks_on_card(local):
     """A world-1 NCCL ``DistributedTrainer``'s chunk on the card (one CUDA
     graph replay a tick, its gradient all-reduce captured inside) against
     the trainer's eager ticks from one carry: two chunks of 7 ticks, every
-    carry tensor, its numbers and every output bitwise; B1, B3 or B4
-    counted once a replayed tick; one all-reduce a trained tick."""
+    carry tensor, its numbers and every output bitwise; B1, B3, B4 or
+    (the jnp engine's step route) B5 counted once a replayed tick; one
+    all-reduce a trained tick."""
     from dronerl_tpu_torch.agents import dqn as dqn_mod
     from dronerl_tpu_torch.parallel import mesh as mesh_mod
     from dronerl_tpu_torch.parallel.distributed import DistributedTrainer
@@ -981,7 +1053,8 @@ def test_sharded_chunk_equals_eager_ticks_on_card(local):
     num_envs = 4 if local == "jnp" else E
     counter = {"ring": fused_tick.full_tick_fused_ring,
                "full": fused_tick.full_tick_fused,
-               "fused": fused_tick.tick_fused}.get(local)
+               "fused": fused_tick.tick_fused,
+               "jnp": step_kernel.step_batch_fused}[local]
     mesh = mesh_mod.make_env_mesh(device="cuda")
     try:
         agent = DQN(cfg, tp, device=mesh.device)
@@ -994,7 +1067,7 @@ def test_sharded_chunk_equals_eager_ticks_on_card(local):
         assert chunk.chunk.graphed
         carry = trainer.init_carry(rng.PRNGKey(0))
         eager = copy.deepcopy(carry)
-        launches = counter.launches if counter else 0
+        launches = counter.launches
         calls = dqn_mod.all_reduce_mean.calls
         outs = []
         for _ in range(2):
@@ -1002,8 +1075,7 @@ def test_sharded_chunk_equals_eager_ticks_on_card(local):
             outs.append(out)
         torch.cuda.synchronize()
         calls = dqn_mod.all_reduce_mean.calls - calls
-        if counter:
-            assert counter.launches == launches + 14
+        assert counter.launches == launches + 14
         assert 0 < chunk.chunk.graphs <= 14
         tick, ref = trainer.build_tick(), []
         for _ in range(14):
@@ -1128,6 +1200,87 @@ def test_ring_sample_kernel_matches_plain_on_card(k, dtype):
         for name in want:
             assert torch.equal(keyed[name], want[name]), (seed, name)
             assert torch.equal(hosted[name], want[name]), (seed, name)
+
+
+def _replay_storage(dev, capacity, obs_dim, seed, rows):
+    """Random transitions on the card: obs (and next_obs) (capacity,
+    obs_dim) rows or (obs_dim, capacity) columns, actions, rewards,
+    dones."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (capacity, obs_dim) if rows else (obs_dim, capacity)
+    storage = {"obs": torch.randn(shape, generator=gen).to(dev),
+               "actions": torch.randint(0, 5, (capacity,), generator=gen,
+                                        dtype=torch.int32).to(dev),
+               "rewards": torch.randn((capacity,), generator=gen).to(dev),
+               "dones": (torch.rand((capacity,), generator=gen)
+                         < 0.3).to(dev)}
+    if rows:
+        storage["next_obs"] = torch.randn(shape, generator=gen).to(dev)
+    return storage
+
+
+def _words(dev, *values):
+    return [torch.tensor(v, dtype=torch.int32, device=dev) for v in values]
+
+
+@pytest.mark.gpu
+def test_stream_sample_kernel_matches_plain_on_card():
+    """The StreamReplay's sample in one launch, keyed with the bound and
+    base as device words (the graphed tick), keyed with host ints and from
+    host offsets (the eager tick), bitwise to ``sample_batch_plain`` at
+    the full engine's shapes (294 rows, stride 65,536, 5 env-batches,
+    batch 8): cold, filling, and full with the base at the cursor (the
+    successor wrapping)."""
+    dev = _card()
+    stride, obs_dim = 65536, 294
+    buf = replay.StreamReplay(5 * stride, 8, stride)
+    storage = _replay_storage(dev, buf.capacity, obs_dim, 1, rows=False)
+    for seed, (cursor, size) in enumerate(((stride, stride),
+                                           (3 * stride, 3 * stride),
+                                           (2 * stride, 5 * stride))):
+        state = replay.ReplayState(storage, cursor, size)
+        bound = max(size - stride, 1)
+        base = cursor if size == buf.capacity else 0
+        key = rng.PRNGKey(seed)
+        want = buf.sample_batch_plain(key, state)
+        before = draws.stream_sample.launches
+        got = [buf.sample_batch(key.to(dev), state, *_words(dev, bound,
+                                                            base)),
+               buf.sample_batch(key.to(dev), state, bound, base),
+               buf.sample_batch(key, state)]
+        assert draws.stream_sample.launches == before + 3
+        for i, batch in enumerate(got):
+            assert set(batch) == set(want)
+            for name in want:
+                assert torch.equal(batch[name], want[name]), (seed, i, name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("feature_major", [True, False])
+def test_buffer_sample_kernel_matches_plain_on_card(feature_major):
+    """The row-major ReplayBuffer's sample in one launch, feature-major
+    (the learner kernel's batch) and row-major, keyed with the bound as a
+    device word, keyed with a host bound and from host offsets, bitwise to
+    ``sample_batch_plain`` at the CLI's replay (100,000 transitions of 294
+    features, batch 8), cold and full."""
+    dev = _card()
+    buf = replay.ReplayBuffer(100_000, 8, uniform_pushes=True)
+    storage = _replay_storage(dev, buf.capacity, 294, 2, rows=True)
+    for seed, size in enumerate((9, buf.capacity)):
+        state = replay.ReplayState(storage, size % buf.capacity, size)
+        key = rng.PRNGKey(seed)
+        want = buf.sample_batch_plain(key, state,
+                                      feature_major=feature_major)
+        before = draws.buffer_sample.launches
+        got = [buf.sample_batch(key.to(dev), state, _words(dev, size)[0],
+                                feature_major),
+               buf.sample_batch(key.to(dev), state, None, feature_major),
+               buf.sample_batch(key, state, None, feature_major)]
+        assert draws.buffer_sample.launches == before + 3
+        for i, batch in enumerate(got):
+            assert set(batch) == set(want)
+            for name in want:
+                assert torch.equal(batch[name], want[name]), (seed, i, name)
 
 
 @pytest.mark.gpu
