@@ -1,0 +1,4 @@
+"""The per-layer metrics, one module a metric name in ``BENCHMARK.json``:
+each gives ``read(ctx) -> float or None`` (None: nothing to read in this
+cell, and the metric is left out of the line). ``ctx`` is the traced
+run's ``portbench.run.TraceContext``."""

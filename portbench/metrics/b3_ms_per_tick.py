@@ -1,0 +1,10 @@
+"""Tick kernel B3 (the full engine's full tick kernel): device ms a
+tick."""
+
+from portbench import trace
+
+
+def read(ctx):
+    if ctx.engine != "full":
+        return None
+    return trace.seconds_of(ctx.dev, trace.TICK_KERNEL) / ctx.ticks * 1e3 or None

@@ -1,0 +1,12 @@
+"""Device: the model FLOPs of a tick (``roofline.tick_model_flops``) over
+the wall time of a tick of untraced chunks at the dense bf16 peak of
+989 TFLOP/s, in %."""
+
+from portbench import roofline
+
+
+def read(ctx):
+    if ctx.widths is None:
+        return None
+    flops = roofline.tick_model_flops(ctx.widths, ctx.num_envs, ctx.batch)
+    return flops / (ctx.wall_ms_per_tick / 1e3 * roofline.PEAK_BF16) * 100

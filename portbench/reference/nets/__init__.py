@@ -1,0 +1,4 @@
+"""The reference's Q-nets, one module a ``network_type``: each gives
+``init(key, obs_dim, flags) -> leaves`` (the initial weights drawn from
+the key as the program's CLI draws them, on the CPU) and ``forward_t(
+leaves, obs_t, matmul) -> q (A, B)`` for feature-major observations."""
