@@ -111,6 +111,7 @@ Run:  python -m dronerl_tpu_torch.train --num_envs 65536 --num_steps 300
 
 import argparse
 import ast
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -646,11 +647,22 @@ class Chunk:
     collectives) cannot invalidate the capture, as it may in the global
     mode.
 
-    A replay adds the launches its capture recorded to the counters of
-    :data:`COUNTERS` (the kernels' launches, the draws' and the ring
-    sample's among them, and the all-reduces); a
-    capture's warm-up (on a copy of the carry) and the capture leave the
-    counts as they were.
+    A chunk adds the launches each signature's capture recorded, times its
+    replays, to the counters of :data:`COUNTERS` (the kernels' launches,
+    the draws' and the ring sample's among them, and the all-reduces) once
+    before it returns; a capture's warm-up (on a copy of the carry) and the
+    capture leave the counts as they were.
+
+    The chunk times its own host work once a chunk by phase (a
+    ``utils.profiling.PhaseClock``, read by :meth:`phase_ns`): ``keys``
+    (the key table), ``walk`` (the rows and signatures), ``upload`` (the
+    table's copy), ``adopt``, ``capture`` (each capture with its warm-up),
+    ``replay`` (the row copies and graph replays) or ``eager`` (the rows
+    run eagerly), and ``outputs`` (the outputs' clones and the carry's
+    host values). While a profiler collects, ``keys`` and ``walk``, which
+    launch nothing on the device, are also ranges ``phase:chunk.keys``
+    and ``phase:chunk.walk``, so that the card's idle time can be put
+    down to them.
     """
 
     COUNTERS = ((fused_tick, "full_tick_fused_ring", "launches"),
@@ -663,6 +675,7 @@ class Chunk:
                 (draws, "stream_sample", "launches"),
                 (draws, "buffer_sample", "launches"),
                 (dqn_module, "all_reduce_mean", "calls"))
+    COUNTS = ("chunks", "ticks", "captures")   # the clock's counts
 
     def __init__(self, tick):
         if not hasattr(tick.keys, "table"):
@@ -677,7 +690,7 @@ class Chunk:
         self._static = None   # the static carry, its device tensors, row
         self._graphs = None   # GraphSet, outputs and launches a signature
         self._length = 0      # the ticks the output buffers hold
-        self._capture_s = 0.0
+        self._clock = profiling.PhaseClock("chunk.", ranged=("keys", "walk"))
 
     @property
     def graphs(self) -> int:
@@ -687,46 +700,70 @@ class Chunk:
     @property
     def capture_s(self) -> float:
         """Seconds of the captures (warm-ups included), all chunks."""
-        return self._capture_s + (self._graphs[0].capture_s
-                                  if self._graphs is not None else 0.0)
+        return self._clock.ns.get("capture", 0) / 1e9
+
+    def phase_ns(self) -> dict:
+        """Host nanoseconds by phase over all chunks (the class's
+        docstring names them; a phase not yet met is absent), with the
+        counts ``chunks``, ``ticks`` and ``captures``: a copy."""
+        return {**self._clock.ns, **dict.fromkeys(self.COUNTS, 0),
+                **self._clock.counts}
 
     def table(self, carry, length: int):
         """The chunk's rows and signatures and the chain's end: ``(rows
         (length, words) int32, signatures, chain)``."""
+        clock = self._clock
+        clock.look()
         chain = _host_chain(carry)
-        rng, tick_keys = self.tick.keys.table(chain.rng, length, chain.step)
-        rows = np.empty((length, self.tick.layout.words), dtype=np.int32)
-        sigs = []
-        for t in range(length):
-            rows[t], sig, chain = self.tick.walk(chain, t, tick_keys[t])
-            sigs.append(sig)
+        with clock.phase("keys"):
+            rng, tick_keys = self.tick.keys.table(chain.rng, length,
+                                                  chain.step)
+        with clock.phase("walk"):
+            rows = np.empty((length, self.tick.layout.words), dtype=np.int32)
+            sigs = []
+            for t in range(length):
+                rows[t], sig, chain = self.tick.walk(chain, t, tick_keys[t])
+                sigs.append(sig)
         return rows, sigs, chain._replace(rng=rng)
 
     def __call__(self, carry, length: int):
+        clock = self._clock
         rows, sigs, chain = self.table(carry, length)
         device = self.tick.device
-        # The chunk's one host-to-device copy: every tick's words.
-        table = upload(rows.reshape(-1), torch.int32, device).view(
-            length, rows.shape[1])
+        with clock.phase("upload"):
+            # The chunk's one host-to-device copy: every tick's words.
+            table = upload(rows.reshape(-1), torch.int32, device).view(
+                length, rows.shape[1])
         if not self.graphed:
-            outs = ([], [], [])
-            for t in range(length):
-                carry, values = self.tick.body(carry, table[t], sigs[t])
-                for out, value in zip(outs, values):
-                    out.append(value)
-            outs = tuple(torch.stack(o) for o in outs)
+            with clock.phase("eager"):
+                outs = ([], [], [])
+                for t in range(length):
+                    carry, values = self.tick.body(carry, table[t], sigs[t])
+                    for out, value in zip(outs, values):
+                        out.append(value)
+                outs = tuple(torch.stack(o) for o in outs)
         else:
-            carry = self._adopt(carry, length)
+            with clock.phase("adopt"):
+                carry = self._adopt(carry, length)
             graphs, _, recorded = self._graphs
             row = self._static[2]
-            for t, sig in enumerate(sigs):
-                row.copy_(table[t])
-                if sig not in graphs:
-                    self._capture(sig)
-                graphs.replay(sig)
-                self._add_launches(recorded[sig])
-            outs = tuple(b[:length].clone() for b in self._graphs[1])
-        return _settle(carry, chain), outs
+            with clock.phase("replay"):
+                for t, sig in enumerate(sigs):
+                    row.copy_(table[t])
+                    if sig not in graphs:
+                        self._capture(sig)
+                    graphs.replay(sig)
+            replays = collections.Counter(sigs)
+            self._add_launches([sum(n * recorded[sig][i]
+                                    for sig, n in replays.items())
+                                for i in range(len(self.COUNTERS))])
+        with clock.phase("outputs"):
+            if self.graphed:
+                outs = tuple(b[:length].clone() for b in self._graphs[1])
+            carry = _settle(carry, chain)
+        clock.count("chunks")
+        clock.count("ticks", length)
+        return carry, outs
 
     # --- the graphs ----------------------------------------------------------
 
@@ -763,8 +800,6 @@ class Chunk:
         if self._graphs is None or self._length < length:
             # The graphs write into the output buffers (made at the first
             # capture): new buffers, new graphs.
-            if self._graphs is not None:
-                self._capture_s += self._graphs[0].capture_s
             self._graphs = (GraphSet(row.device), None, {})
             self._length = length
         return static
@@ -809,7 +844,9 @@ class Chunk:
                     recorded)
 
         before = self._launches()
-        graphs.capture(sig, step, warm_up, self.capture_mode)
+        with self._clock.phase("capture"):
+            graphs.capture(sig, step, warm_up, self.capture_mode)
+        self._clock.count("captures")
         after = self._launches()
         recorded[sig] = [a - m for a, m in zip(after, marks[0])]
         self._add_launches([b - a for a, b in zip(after, before)])
@@ -1796,7 +1833,9 @@ def train(args, metrics_logger=None) -> dict:
     scalars and histograms into ``metrics_logger``; then
     ``--inspect_memory``, ``--save_final_checkpoint``,
     ``--save_train_state``, the final eval unless ``--skip_final_eval``,
-    ``--render_video`` and ``metrics.json`` in the run dir.
+    ``--render_video`` and ``metrics.json`` in the run dir, which holds
+    ``chunk_host_ms``: the chunk's host ms a chunk by phase over the run's
+    chunks (:meth:`Chunk.phase_ns`), with its captures.
 
     Under ``--use_sharding`` rank 0 alone writes the metrics, the
     checkpoints, the video and ``metrics.json``, runs the evals (the
@@ -1923,6 +1962,13 @@ def train(args, metrics_logger=None) -> dict:
                 elapsed, f"{metrics['obs_per_sec']:,.0f}",
                 torch.cuda.get_device_name(device)
                 if device.type == "cuda" else "cpu", engine_name)
+    clock = tick.phase_ns()
+    host_ms = {name: ns / clock["chunks"] / 1e6 for name, ns in clock.items()
+               if name not in Chunk.COUNTS}
+    metrics["chunk_host_ms"] = {**host_ms, "captures": clock["captures"]}
+    logger.info("Chunk host ms a chunk over %d chunks (%d captures): %s",
+                clock["chunks"], clock["captures"],
+                ", ".join(f"{name} {ms:.3f}" for name, ms in host_ms.items()))
 
     ag_state = carry[3]
     if args.inspect_memory and rank0:

@@ -19,7 +19,6 @@ static tensors that all of them read and write: an engine's chunk
 (``train.Chunk``) replays one of them a tick.
 """
 
-import time
 from typing import Callable, Dict, Hashable, Sequence, Tuple
 
 import torch
@@ -124,7 +123,6 @@ class GraphSet:
         self.device = torch.device(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs: Dict[Hashable, torch.cuda.CUDAGraph] = {}
-        self.capture_s = 0.0
 
     def __contains__(self, key) -> bool:
         return key in self.graphs
@@ -134,7 +132,6 @@ class GraphSet:
 
     def capture(self, key: Hashable, step: Callable[[], None],
                 warm_up: Callable[[], None], mode: str = "global") -> None:
-        t0 = time.perf_counter()
         side = side_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -146,7 +143,6 @@ class GraphSet:
             step()
         self.graphs[key] = graph
         torch.cuda.synchronize(self.device)
-        self.capture_s += time.perf_counter() - t0
 
     def replay(self, key: Hashable) -> None:
         self.graphs[key].replay()

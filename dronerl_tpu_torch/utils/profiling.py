@@ -13,7 +13,9 @@ the functions a tick of each engine spends its host time in,
 :func:`host_split` times them by wrapping each (:func:`phase_timers`),
 and :func:`device_kernels` / :func:`phase_device_ms` read a
 ``torch.profiler`` run of ticks: device time by kernel, and by the phase
-that launched it.
+that launched it. The chunk's split (``train.Chunk.phase_ns``) is a
+:class:`PhaseClock` that the chunk keeps itself, since a graph replay
+calls none of a tick's functions.
 """
 
 import contextlib
@@ -121,6 +123,51 @@ def log_device_memory(prefix: str = "") -> None:
 # --- the split of a trainer tick ---------------------------------------------
 
 PHASE_PREFIX = "phase:"
+
+
+class PhaseClock:
+    """Host nanoseconds by phase, cumulative: ``with clock.phase(name):``
+    adds the block's ``time.perf_counter_ns`` difference to ``name``, less
+    the time of the phases opened inside it (each phase counts its own
+    time alone, so the phases add up to the time they cover); ``count``
+    adds to a count. A phase named in ``ranged`` is also a
+    ``torch.profiler`` range ``PHASE_PREFIX + prefix + name`` where
+    :meth:`look` last found a profiler collecting: the caller looks once
+    for many phases (a chunk's), as a range costs about 10 µs even when
+    nothing collects it. Range only host work: the profiler mirrors a
+    range that launches device work onto the card's timeline."""
+
+    def __init__(self, prefix: str, ranged=()):
+        self.prefix = PHASE_PREFIX + prefix
+        self.ranged = frozenset(ranged)
+        self.ns: Dict[str, int] = {}
+        self.counts: Dict[str, int] = {}
+        self._inner: List[int] = []   # ns of the phases inside each open one
+        self._collecting = False
+
+    def look(self) -> None:
+        """Whether a profiler collects, for the phases until the next
+        look."""
+        self._collecting = torch.autograd.profiler._is_profiler_enabled
+
+    def count(self, name: str, n: int = 1) -> None:
+        self.counts[name] = self.counts.get(name, 0) + n
+
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        with (torch.profiler.record_function(self.prefix + name)
+              if self._collecting and name in self.ranged
+              else contextlib.nullcontext()):
+            self._inner.append(0)
+            t0 = time.perf_counter_ns()
+            try:
+                yield
+            finally:
+                ns = time.perf_counter_ns() - t0
+                inner = self._inner.pop()
+                self.ns[name] = self.ns.get(name, 0) + ns - inner
+                if self._inner:
+                    self._inner[-1] += ns
 
 
 def tick_phases(engine: str) -> Dict[str, Tuple[object, str]]:

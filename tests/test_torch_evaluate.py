@@ -171,8 +171,9 @@ def test_cli_lifecycle_on_cpu(tmp_path, in_kernel_td):
     """chip_smoke.py phase 5a's flags at a small size on the ring engine:
     warm start from dqn-agent-3, 2 chunks with an eval before the second,
     the final eval, both checkpoints and the train state; metrics.json
-    with the JAX CLI's keys; per-chunk scalars with the warm-up
-    NO_TRAIN_LOSS ticks masked; histograms of trained losses only."""
+    with the JAX CLI's keys and ``chunk_host_ms``; per-chunk scalars with
+    the warm-up NO_TRAIN_LOSS ticks masked; histograms of trained losses
+    only."""
     agent_3 = os.path.join(evaluator.BASELINES, "dqn-agent-3.safetensors")
     flags = ["--num_steps", "6", "--max_scan_steps", "3",
              "--eval_while_training", "--num_evals", "2",
@@ -195,7 +196,8 @@ def test_cli_lifecycle_on_cpu(tmp_path, in_kernel_td):
         "--jax_cache_dir", os.path.join(REPO, ".jax_cache")]))
     with open(run_dir / "metrics.json") as f, \
             open(jax_dir / "metrics.json") as g:
-        assert set(json.load(f)) == set(json.load(g))
+        # The port adds its chunk's host split by phase.
+        assert set(json.load(f)) == set(json.load(g)) | {"chunk_host_ms"}
 
     by_tag = {}
     for tag, value, step in probe.records:

@@ -1031,6 +1031,76 @@ def test_engine_chunk_equals_eager_ticks_on_card(engine, tmp_path):
                            torch.stack([o[i] for o in ref])), i
 
 
+def _graphed_chunk(engine, dev):
+    """A graphed ring or full engine chunk at E envs and its carry."""
+    tp = EnvParams(**KW)
+    cfg = DQNConfig(hidden_layers=(16, 16), epsilon_decay_every=2,
+                    target_update_interval=2, gamma=0.9)
+    agent = DQN(cfg, tp, device=dev)
+    if engine == "ring":
+        return (train.build_chunk_ring(agent, tp, E, 2 * E, 8, 3),
+                train.init_ring_carry(agent, tp, E, 2 * E, rng.PRNGKey(0),
+                                      obs_dtype=torch.bfloat16))
+    buf = replay.StreamReplay(3 * E, 8, stride=E)
+    return (train.Chunk(train.build_train_step_full(agent, buf, tp, E, 3)),
+            train.init_stream_carry(agent, tp, E, buf, rng.PRNGKey(0)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["ring", "full"])
+def test_graphed_chunk_tallies_launches_once_a_chunk_on_card(engine):
+    """After each graphed chunk every launch counter has grown by each
+    signature's recorded launches times its replays in the chunk (the
+    captures leave the counts as they were); the clock times the graphed
+    phases, one capture a graph, and ``capture_s`` is its capture
+    phase."""
+    dev = _card()
+    chunk, carry = _graphed_chunk(engine, dev)
+    assert chunk.graphed
+    for length in (7, 7, 9):
+        _, sigs, _ = chunk.table(carry, length)
+        before = chunk._launches()
+        carry, _ = chunk(carry, length)
+        recorded = chunk._graphs[2]
+        want = [sum(recorded[sig][i] for sig in sigs)
+                for i in range(len(train.Chunk.COUNTERS))]
+        assert [a - b for a, b in zip(chunk._launches(), before)] == want
+        assert sum(want) >= length
+    clock = chunk.phase_ns()
+    assert (clock["chunks"], clock["ticks"]) == (3, 23)
+    # 9 ticks outgrow the output buffers: new graphs, captured again.
+    assert clock["captures"] >= chunk.graphs > 0
+    for phase in ("keys", "walk", "upload", "adopt", "capture", "replay",
+                  "outputs"):
+        assert clock[phase] > 0, phase
+    assert "eager" not in clock
+    assert chunk.capture_s == clock["capture"] / 1e9 > 0
+
+
+@pytest.mark.gpu
+def test_chunk_ranges_stay_on_the_host_on_card():
+    """Under ``torch.profiler`` (host and card) a graphed chunk opens one
+    range for its key table and one for its walk on the host, and the
+    card's timeline holds no range of the chunk's: they launch
+    nothing."""
+    dev = _card()
+    chunk, carry = _graphed_chunk("ring", dev)
+    carry, _ = chunk(carry, 7)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        carry, _ = chunk(carry, 7)
+        torch.cuda.synchronize()
+    host = [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CPU
+            and ev.name.startswith("phase:")]
+    card = [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert sorted(host) == ["phase:chunk.keys", "phase:chunk.walk"]
+    assert card and not [n for n in card if n.startswith("phase:")]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("local", ["ring", "full", "fused", "jnp"])
 def test_sharded_chunk_equals_eager_ticks_on_card(local):
