@@ -63,7 +63,13 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 3c. hold B3 (``full_tick_fused``) against ``full_tick_plain`` at 65,536
    envs for both nets over 8 ticks with a reset tick, ε = 0.5: env
    outputs bitwise, the charge channel within 1.3e-7, actions equal
-   outside near ties, ``obs_t`` untouched;
+   outside near ties, ``obs_t`` untouched; then B3 as the full engine
+   launches it, with the push into a StreamReplay of STREAM_CAPACITY
+   slots (``replay=``) at its last, first and middle push and the next
+   observation over ``obs_t``, for both nets at k = 1 and COLLECT, 3
+   ticks with a reset: the replay's four leaves bitwise, ``obs_t`` the
+   returned observation and bitwise but the charge channel, env outputs
+   bitwise;
 3d. hold B4 (``tick_fused``) against ``tick_plain`` at 65,536 envs for 8
    ticks of actions drawn on the card on grid 9 with 4 drones, and for 3
    on the tight board (grid 5, 2 drones) and on grid 16 with 25 drones:
@@ -103,13 +109,14 @@ Phases (any failure exits non-zero, and no phase carries on after one):
 4c. drive the full engine (``build_train_step_full`` over a StreamReplay of
    1,048,576 slots, ``--memory_size 1000000`` rounded up to 16 env-batches)
    the same way for both nets, as the CLI runs it (``train.Chunk``: one
-   CUDA graph replay a tick): B3's launch count equals the ticks and the
-   learner kernel's the trained ticks (no other kernel launches), losses
+   CUDA graph replay a tick): B3's launch count equals the ticks and its
+   pushes (``full_tick_fused.pushes``) its launches, the learner kernel's
+   the trained ticks (no other kernel launches), losses
    finite once trained, params move, ε decays, the replay full; report
    its obs/s beside phase 4's;
 4d. drive the fused engine (``build_train_step_fused``, dense) on the same
-   configuration, as a chunk: B4's launches equal the ticks, the learner
-   kernel's the trained ticks; report its obs/s;
+   configuration, as a chunk: B4's launches equal the ticks (no B3
+   push), the learner kernel's the trained ticks; report its obs/s;
 4e. run the CLI (``dronerl_tpu_torch.train.main``) at ``--num_envs 16384``
    with the default memory size (114,688 slots > 4 x 16,384): it must
    choose the full engine, and B3's launches equal its steps, the learner
@@ -163,8 +170,9 @@ Phases (any failure exits non-zero, and no phase carries on after one):
    each as phase 4 measures it (obs/s beside phase 4's); every other
    build of 3i for COLLECT_DRIVE ticks; the CLI with ``--collect_drones
    4`` at 16,384 envs (``--memory_size 1000000``: the full engine) and at
-   64 (the jnp engine): launches equal ticks, losses finite, params move,
-   ε decays, the replay takes E · k transitions a tick;
+   64 (the jnp engine): launches equal ticks, B3's pushes its launches,
+   losses finite, params move, ε decays, the replay takes E · k
+   transitions a tick;
 5. the trainer's lifecycle through ``train.train(parse_args(...))`` at the
    bench configuration (65,536 envs, memory 100,000, bf16 ring: the ring
    engine, whose chunks the CLI runs as CUDA graphs), for LIFE_RUNS (warm-started from dqn-agent-3, (128,64) from
@@ -651,6 +659,7 @@ def main() -> None:
     def zero_counts():
         for fn in (*counters.values(), *draw_counters.values()):
             fn.launches = 0
+        fused_tick.full_tick_fused.pushes = 0
 
     def counts():
         return {k: fn.launches for k, fn in counters.items()}
@@ -1110,6 +1119,60 @@ def main() -> None:
             f"{COMPARE_RESET_TICK}); env bitwise, charge max err "
             f"{full_err[hidden]:.3e}; near-tie envs {near_ties}")
 
+    # B3 as the full engine launches it: the push into the StreamReplay
+    # inside the launch, the next observation over obs_t.
+    gen = torch.Generator().manual_seed(5)
+    noise = replay_store(torch, gen, device, obs_dim, STREAM_CAPACITY, False)
+    for hidden in NETS:
+        _, ag = make_agent(hidden, 1)
+        for k in (1, COLLECT):
+            tag = f"B3 push net {hidden} k={k}"
+            state = core.reset_batch(rng.PRNGKey(12).to(device), params,
+                                     NUM_ENVS)
+            tstate = fused_tick.to_tstate(state)
+            obs_k = train._stacked_obs(state, params, k)
+            storage = {n: t.clone() for n, t in noise.items()}
+            cols = k * NUM_ENVS
+            starts = (STREAM_CAPACITY - cols, 0,
+                      STREAM_CAPACITY // 2 // cols * cols)
+            eps = torch.tensor(0.5, device=device)
+            key, near_ties = rng.PRNGKey(13), 0
+            for t, start in enumerate(starts):
+                key, step_key = rng.split(key, 2)
+                do_reset = t == 1
+                obs_in = obs_k.clone()
+                obs_p = obs_k.clone()
+                storage_p = {n: v.clone() for n, v in storage.items()}
+                out_k = fused_tick.full_tick_fused(
+                    step_key, tstate, obs_k, ag.params.flat(), eps, do_reset,
+                    params, collect=k, replay=(storage, start))
+                out_p = fused_tick.full_tick_plain(
+                    step_key, tstate, obs_p, ag.params.flat(), eps, do_reset,
+                    params, actions_override=out_k[3], collect=k,
+                    replay=(storage_p, start))
+                torch.cuda.synchronize()
+                ttag = f"{tag} tick {t} start {start}"
+                if out_k[4] is not obs_k or out_p[4] is not obs_p:
+                    fail(f"{ttag}: the next observation is not obs_t")
+                check_state(ttag, out_k[0] + out_k[1:4],
+                            out_p[0] + out_p[1:4], fused_tick.TState._fields
+                            + ("rewards", "dones", "actions"))
+                full_err[hidden] = max(full_err[hidden],
+                                       check_obs(ttag, obs_k, obs_p))
+                for name in storage:
+                    if not torch.equal(storage[name], storage_p[name]):
+                        fail(f"{ttag}: the replay's {name} differ")
+                near_ties += check_actions(ttag, params, ag.params.flat(),
+                                           step_key, out_k[3], obs_in, 0,
+                                           eps)
+                tstate = out_k[0]
+            log(f"B3 push == plain: net {hidden} k={k}, {len(starts)} ticks "
+                f"(reset at 1) at starts {starts} of a {STREAM_CAPACITY}-"
+                f"slot replay; replay bitwise, obs_t the next observation, "
+                f"env bitwise, charge max err {full_err[hidden]:.3e}; "
+                f"near-tie envs {near_ties}")
+    del noise, storage, storage_p
+
     # --- 3d. B4 (the env tick) against its plain version --------------------
     tick_err = 0.0
     for board in TICK_BOARDS:
@@ -1544,6 +1607,11 @@ def main() -> None:
         carry, losses, tick_s, seconds, ticks, n, rewards, eps = run_ticks(
             tag, None, carry, chunk)
         kernel = {"full": "full_tick", "fused": "tick"}[engine]
+        # Each of the full engine's B3 launches pushes; the fused engine's
+        # B4 leaves its push to push_many.
+        pushes = fused_tick.full_tick_fused.pushes
+        if pushes != (n["full_tick"] if engine == "full" else 0):
+            fail(f"{tag}: {pushes} B3 pushes, {n['full_tick']} B3 launches")
         if chunk.tick.learner != train.KERNEL or n != want_launches(
                 train, n, kernel, ticks, chunk.tick.learner,
                 int((losses >= 0).sum())):
@@ -1568,7 +1636,8 @@ def main() -> None:
                  f"{bstate.cursor} after {ticks} pushes")
         log(f"{tag}: {ticks} ticks as chunks ({chunk.graphs} graphs "
             f"captured in {chunk.capture_s:.2f} s), learner "
-            f"{chunk.tick.learner}, launches {n}, draws {drawn}, loss "
+            f"{chunk.tick.learner}, launches {n}, B3 pushes {pushes}, "
+            f"draws {drawn}, loss "
             f"{float(losses[-1]):.5f}, eps {float(eps):.4f}, obs/s "
             f"{NUM_ENVS / tick_s:.1f} (median of {REPEATS} x "
             f"{TICKS_PER_REPEAT} ticks; tick {1e3 * tick_s:.4f} ms; repeats "
@@ -1975,6 +2044,9 @@ def main() -> None:
             fail(f"{tag}: no tick trained")
         if all(torch.equal(a, b) for a, b in zip(p0, carry[3].params.flat())):
             fail(f"{tag}: the params did not move")
+        if fused_tick.full_tick_fused.pushes != n["full_tick"]:
+            fail(f"{tag}: {fused_tick.full_tick_fused.pushes} B3 pushes, "
+                 f"{n['full_tick']} B3 launches")
         if engine != "ring":
             pushed = ticks * NUM_ENVS * k
             if (carry[4].size, carry[4].cursor) != (
@@ -4133,23 +4205,36 @@ def time_env_kernel(torch, tag, lib, entry, fill, plain, args, bound,
 
 def time_obs_kernel(torch, _build, fused_tick, rng, agent, carry, hidden,
                     card):
-    """B3 at the full engine's shapes after its run, every env greedy (ε =
-    0, the most work a tick can need)."""
+    """B3 at the full engine's shapes after its run, as the engine launches
+    it: the push into the run's StreamReplay (at its last push) and the
+    next observation over a copy of the carry's, every env greedy (ε = 0,
+    the most work a tick can need). The bound counts the push's bytes
+    besides the tick's: the input observation read again and stored into
+    the replay, and the action, reward and done of each column (9 B)."""
+    import functools
+
     params = agent.env_params
-    _rng, tstate, obs_t, ag, _bstate, _step = carry
+    _rng, tstate, obs_t, ag, bstate, _step = carry
+    obs_t = obs_t.clone()
     eps = torch.tensor(0.0, device=obs_t.device)
     widths = (obs_t.shape[0], *hidden, 5)
     weight_bytes = 4 * sum(i * o + o for i, o in zip(widths, widths[1:]))
     t_actor, _, flops = actor_ops(widths, "f32")
     n, c = params.n_drones, params.num_cells
-    bound_args = (n, c, 2 * obs_t.numel() * 4, weight_bytes + 4, flops,
-                  4 + (n + 1) + 2 * c)
+    cols = obs_t.shape[-1]
+    push_bytes = 2 * obs_t.numel() * 4 + 9 * cols
+    bound_args = (n, c, 2 * obs_t.numel() * 4, weight_bytes + 4 + push_bytes,
+                  flops, 4 + (n + 1) + 2 * c)
     log(f"B3 net {hidden}: all-CUDA-core bound "
-        f"{env_bound(*bound_args)[0]:.5f} ms")
+        f"{env_bound(*bound_args)[0]:.5f} ms (the push's {push_bytes} B "
+        "included)")
+    push = (bstate.storage, bstate.storage["obs"].shape[-1] - cols)
     return time_env_kernel(
-        torch, f"B3 net {hidden}",
+        torch, f"B3 net {hidden} with the push",
         _build.load(fused_tick.kernel_config(params, ag.params.flat())),
-        "full_tick_launch", fused_tick._full_args, fused_tick.full_tick_plain,
+        "full_tick_launch",
+        functools.partial(fused_tick._full_args, replay=push),
+        functools.partial(fused_tick.full_tick_plain, replay=push),
         (rng.PRNGKey(7), tstate, obs_t, ag.params.flat(), eps, False,
          params),
         env_bound(*bound_args, flop_seconds=t_actor), card)

@@ -9,7 +9,13 @@
 //   keep their contents).
 // * full_tick_launch: as full_tick_fused launches it (B3). The observation
 //   is read from obs_t (COLLECT OBS, E) f32 and the next one written into a
-//   new array of the same shape.
+//   new array of the same shape, or over obs_t itself. Given a StreamReplay's
+//   storage (push_obs), the launch also pushes the tick's transitions into
+//   it: each block stores its envs' input columns, drone d's row group at
+//   the replay's columns start + d E + e (drone-major), with drone d's
+//   action, reward and done, before the next observation goes over obs_t.
+//   That replaces the push a separate index_copy_ made of obs_t after the
+//   launch, and the copy of a new obs_t' into the carry's.
 //
 // With DR_COLLECT = k (collect_drones) a column holds the first k drones'
 // observations as row groups of OBS rows, drone-major; the actor reads
@@ -49,7 +55,7 @@
 //   16-byte stores. Every global access coalesces without one thread per
 //   env. A block reads all of its envs' input columns before it writes
 //   any output column, so the ring's in-place launch (read and write
-//   columns disjoint or equal) is safe.
+//   columns disjoint or equal) and B3's over obs_t are safe.
 // * The keys and the actor's uniforms are hashed one thread per (env,
 //   role) while the copies are in flight.
 // * The dense layers but the last run on the tensor cores (mma.sync
@@ -140,12 +146,21 @@ struct TickArgs {
   int8_t* dones;
   int32_t* actions;
   float* scratch;  // Layout::SCRATCH bytes a block, where ACT_GLOBAL
+  // B3's StreamReplay push: its storage (obs (OBS, push_ld), actions,
+  // rewards, dones (push_ld,)) and the push's start slot in device memory;
+  // push_obs null: no push (B1 always).
+  float* push_obs;
+  int32_t* push_actions;
+  float* push_rewards;
+  int8_t* push_dones;
+  const int32_t* push_start;
   const float* w[MAX_LAYERS];
   const float* b[MAX_LAYERS];
   long long in_ld;
   long long read_col;
   long long out_ld;
   long long write_col;
+  long long push_ld;  // the replay's capacity
   int num_envs;
   int obs_bf16;
   int do_reset;
@@ -257,7 +272,8 @@ struct LayoutOf {
   static constexpr int OFF_CARRY = OFF_KEYS + KEY_WORDS * EB * 4;
   static constexpr int OFF_DONE = OFF_CARRY + up16(N * EB);
   static constexpr int OFF_GREEDY = OFF_DONE + up16(N * EB);
-  // The block's env count, and the output layer's weight and bias pointers.
+  // The block's env count, B3's push start (-1: no push), and the output
+  // layer's weight and bias pointers.
   static constexpr int OFF_META = OFF_GREEDY + up16(EB);
   static constexpr int TOTAL = OFF_META + 32;
 };
@@ -642,6 +658,54 @@ __device__ __forceinline__ void actor(const TickArgs& a, T* tile, unsigned char*
 }
 
 // ---------------------------------------------------------------------------
+// B3's StreamReplay push
+//
+// The block's input columns are read from obs_in after the actor, not
+// stored from the staged tile before it: the actor's activations overwrite
+// the tile, and a push from it, like scalar stores made drone by drone,
+// took registers that the widest nets' actor needs (ptxas spilled at
+// (128, 64)). Nothing writes obs_in's columns before the observation
+// pass, which follows the step's barrier.
+
+// Row r of drone d's row group of the block's input columns to row r of
+// the replay at column start + d E + e0 (16-byte chunks where aligned).
+__device__ __forceinline__ void push_observations(const TickArgs& a, int start, int e0, int ne) {
+  const float* in = static_cast<const float*>(a.obs_in) + a.read_col + e0;
+  float* out = a.push_obs + start + e0;
+  constexpr int N4 = EB / 4;
+  const bool vec = ne == EB && ((start | a.num_envs | (int)a.in_ld | (int)a.read_col) & 3) == 0 &&
+                   (a.push_ld & 3) == 0;
+  if (vec) {
+    for (int i = threadIdx.x; i < COLLECT * OBS * N4; i += BLOCK) {
+      const int c = (i % N4) * 4, dr = i / N4;
+      const int d = dr / OBS, r = dr - d * OBS;
+      *reinterpret_cast<float4*>(out + r * a.push_ld + (long long)d * a.num_envs + c) =
+          __ldcs(reinterpret_cast<const float4*>(in + dr * a.in_ld + c));
+    }
+  } else {
+    for (int i = threadIdx.x; i < COLLECT * OBS * ne; i += BLOCK) {
+      const int c = i % ne, dr = i / ne;
+      const int d = dr / OBS, r = dr - d * OBS;
+      out[r * a.push_ld + (long long)d * a.num_envs + c] = in[dr * a.in_ld + c];
+    }
+  }
+}
+
+// Drone d's action, reward and done of the block's env e into the replay's
+// scalar leaves at column start + d E + e0 + e.
+__device__ __forceinline__ void push_scalars(const TickArgs& a, const int32_t* s_act,
+                                             const float* s_reward, const int8_t* s_done,
+                                             int start, int e0, int ne) {
+  for (int i = threadIdx.x; i < COLLECT * ne; i += BLOCK) {
+    const int d = i / ne, e = i - d * ne;
+    const long long col = (long long)start + (long long)d * a.num_envs + e0 + e;
+    a.push_actions[col] = s_act[d * EB + e];
+    a.push_rewards[col] = s_reward[d * EB + e];
+    a.push_dones[col] = s_done[d * EB + e];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The tick
 
 template <typename T>
@@ -719,6 +783,10 @@ __global__ void __launch_bounds__(BLOCK, Layout<T>::MIN_BLOCKS)
   }
   if (threadIdx.x == 0) {
     s_meta[0] = ne;
+    // The push's start slot, -1 without a push: read back from shared
+    // memory where it is used, as ne, not held in registers across the
+    // actor.
+    if constexpr (sizeof(T) == 4) s_meta[1] = a.push_obs != nullptr ? __ldg(a.push_start) : -1;
     s_last[1] = a.w[NL - 1];
     s_last[2] = a.b[NL - 1];
   }
@@ -744,6 +812,12 @@ __global__ void __launch_bounds__(BLOCK, Layout<T>::MIN_BLOCKS)
   // Read back rather than kept in registers across the actor, which needs
   // all 64 a thread at the widest nets.
   const int ne_b = s_meta[0];
+
+  // --- B3's push of the input observations (B1 never pushes) ----------------
+  if constexpr (sizeof(T) == 4) {
+    const int start = s_meta[1];
+    if (start >= 0) push_observations(a, start, blockIdx.x * EB, ne_b);
+  }
 
   // --- step and reset: one warp an env --------------------------------------
   const int warp_id = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -838,6 +912,10 @@ __global__ void __launch_bounds__(BLOCK, Layout<T>::MIN_BLOCKS)
   Tile::template store_rows<float, EB>(a.rewards, s_reward, a.num_envs, col0, N, ne_b);
   Tile::template store_rows<int8_t, EB>(a.dones, s_done, a.num_envs, col0, N, ne_b);
   Tile::template store_rows<int32_t, EB>(a.actions, s_act, a.num_envs, col0, N, ne_b);
+  if constexpr (sizeof(T) == 4) {
+    const int start_b = s_meta[1];
+    if (start_b >= 0) push_scalars(a, s_act, s_reward, s_done, start_b, col0, ne_b);
+  }
 }
 
 // Internal linkage: a static local of a template with external linkage is
@@ -883,14 +961,21 @@ int blocks_per_sm() {
 
 }  // namespace dronerl
 
-// B1: the replay ring is both obs_in and obs_out.
+// B1: the replay ring is both obs_in and obs_out; no push.
 extern "C" int full_tick_ring_launch(const dronerl::TickArgs* args, void* stream) {
+  if (args->push_obs != nullptr) return (int)cudaErrorInvalidValue;
   return dronerl::launch(args, stream);
 }
 
-// B3: obs_t in, a new obs_t' out (f32, distinct buffers).
+// B3: obs_t in (f32), obs_t' out into a new array or over obs_t; with
+// push_obs, the push into the StreamReplay.
 extern "C" int full_tick_launch(const dronerl::TickArgs* args, void* stream) {
-  if (args->obs_bf16 || args->obs_in == args->obs_out) return (int)cudaErrorInvalidValue;
+  if (args->obs_bf16) return (int)cudaErrorInvalidValue;
+  if (args->push_obs != nullptr &&
+      (args->push_actions == nullptr || args->push_rewards == nullptr ||
+       args->push_dones == nullptr || args->push_start == nullptr || args->push_ld <= 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   return dronerl::launch(args, stream);
 }
 

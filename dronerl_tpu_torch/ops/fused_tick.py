@@ -15,7 +15,10 @@ and three launches:
   + Adam step that the TPU kernel runs on its grid step 0.
 * :func:`full_tick_fused` (B3, the full engine): the same kernel with the
   observation read from ``obs_t`` (obs_dim, E) f32 and the next one
-  written into a new array.
+  written into a new array; or, given a ``replay.StreamReplay``'s storage
+  and the push's start slot, the tick's transitions pushed into the
+  replay by the same launch and the next observation written over
+  ``obs_t``.
 * :func:`tick_fused` (B4, the fused engine): the physics, respawns and
   observation with actions from the caller; no actor, no reset.
 
@@ -53,6 +56,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from dronerl_tpu_torch import replay as replay_mod
 from dronerl_tpu_torch import rng
 from dronerl_tpu_torch.agents.dqn import DenseQNet, QNet, chain_forward_t
 from dronerl_tpu_torch.constants import NUM_ACTIONS, NUM_OBS_CHANNELS
@@ -454,11 +458,16 @@ def full_tick_plain(
     collect: int = 1,
     rng_rounds: int = 20,
     actor_rng_rounds: Optional[int] = None,
+    replay=None,
 ):
     """:func:`full_tick_fused`'s function in plain PyTorch, on any device
     (``actions_override`` as in :func:`full_tick_ring_plain`). Returns
     ``(tstate', rewards (N, E), dones (N, E) bool, actions (N, E) int32,
-    obs_t' (collect · obs_dim, E) f32)``; ``obs_t`` is not written."""
+    obs_t' (collect · obs_dim, E) f32)``; without ``replay`` ``obs_t`` is
+    not written. With ``replay = (storage, start)`` the tick's transitions
+    (:func:`replay.stream_push_batch`) are pushed into the StreamReplay's
+    ``storage`` at ``start`` (``replay.push_many_t``) and ``obs_t'`` is
+    ``obs_t``, overwritten."""
     num_envs = tstate.ground.shape[1]
     keys = rng.split(step_key.to(tstate.ground.device), num_envs + 2,
                      rng_rounds)
@@ -469,7 +478,17 @@ def full_tick_plain(
         keys[:num_envs], tstate, actions,
         keys[num_envs + 1] if do_reset else None, params, collect,
         rng_rounds)
-    return tstate, rewards, dones, actions.contiguous(), obs.contiguous()
+    actions = actions.contiguous()
+    if replay is None:
+        return tstate, rewards, dones, actions, obs.contiguous()
+    storage, start = replay
+    replay_mod.push_many_t(
+        replay_mod.ReplayState(storage, 0, 0),
+        replay_mod.stream_push_batch(obs_t, actions, rewards, dones,
+                                     collect),
+        storage["obs"].shape[-1], start=start)
+    obs_t.copy_(obs)
+    return tstate, rewards, dones, actions, obs_t
 
 
 @rng.plain_draws()
@@ -503,13 +522,15 @@ class _TickArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "obs_in", "obs_out", *_STATE_FIELDS, "eps", "key", *_OUT_FIELDS,
-        "rewards", "dones", "actions", "scratch")] + [
+        "rewards", "dones", "actions", "scratch", "push_obs",
+        "push_actions", "push_rewards", "push_dones", "push_start")] + [
         ("w", ctypes.c_void_p * MAX_LAYERS),
         ("b", ctypes.c_void_p * MAX_LAYERS),
         ("in_ld", ctypes.c_longlong),
         ("read_col", ctypes.c_longlong),
         ("out_ld", ctypes.c_longlong),
         ("write_col", ctypes.c_longlong),
+        ("push_ld", ctypes.c_longlong),
         ("num_envs", ctypes.c_int),
         ("obs_bf16", ctypes.c_int),
         ("do_reset", ctypes.c_int),
@@ -733,18 +754,67 @@ def _kernel_args(step_key, tstate: TState, obs_ring, read_slot: int,
                       **rng_collect)
 
 
+def _push_start(start, device) -> torch.Tensor:
+    """The push's start slot as the int32 0-d tensor on ``device`` whose
+    word the kernel reads through ``TickArgs.push_start``: a row's word
+    there stays as it is (a CUDA graph holds no host value), a host int
+    is copied over (an eager caller's)."""
+    if isinstance(start, torch.Tensor):
+        if (start.dim() != 0 or start.dtype != torch.int32
+                or start.device != torch.device(device)):
+            raise ValueError("the push's start must be an int or a 0-d "
+                             f"int32 tensor on {device}")
+        return start
+    return upload([int(start)], torch.int32, device)[0]
+
+
+def _fill_push(a, replay, obs_dim: int, n: int, device) -> None:
+    """The push's fields of a B3 argument block: ``replay = (storage,
+    start)``, a StreamReplay's storage (obs (obs_dim, capacity) f32,
+    actions int32, rewards f32, dones bool (capacity,)) and the push's
+    start slot, a multiple of the push's ``n`` columns, as every
+    StreamReplay cursor is (so that the push never wraps)."""
+    storage, start = replay
+    obs = storage["obs"]
+    capacity = obs.shape[-1]
+    if capacity % n != 0:
+        raise ValueError(f"replay capacity {capacity} is not a multiple of "
+                         f"the push's {n} columns")
+    if isinstance(start, int) and start % n != 0:
+        raise ValueError(f"push start {start} is not a multiple of {n}")
+    check_tensor(obs, "replay obs", torch.float32, (obs_dim, capacity),
+                 device)
+    for name, dt in (("actions", torch.int32), ("rewards", torch.float32),
+                     ("dones", torch.bool)):
+        check_tensor(storage[name], f"replay {name}", dt, (capacity,),
+                     device)
+    a.start_word = _push_start(start, device)  # kept alive with the block
+    a.push_start = a.start_word.data_ptr()
+    a.push_obs = obs.data_ptr()
+    a.push_actions = storage["actions"].data_ptr()
+    a.push_rewards = storage["rewards"].data_ptr()
+    a.push_dones = storage["dones"].data_ptr()
+    a.push_ld = capacity
+
+
 def _full_args(step_key, tstate: TState, obs_t, chain: Sequence[torch.Tensor],
-               epsilon, do_reset: bool, params: EnvParams, **rng_collect):
+               epsilon, do_reset: bool, params: EnvParams, replay=None,
+               **rng_collect):
     """The obs launch's (B3) argument block: ``obs_t`` (collect · obs_dim,
-    E) f32 is read, a new array of its shape written (``rng_collect`` as
-    :func:`_kernel_args`). Returns ``(args, (tstate', rewards, dones,
-    actions, obs_t'))``."""
+    E) f32 is read and the next observation written into a new array of
+    its shape; with ``replay = (storage, start)`` the push's fields filled
+    (:func:`_fill_push`) and the next observation written over ``obs_t``
+    (``rng_collect`` as :func:`_kernel_args`). Returns ``(args, (tstate',
+    rewards, dones, actions, obs_t'))``."""
     num_envs = tstate.ground.shape[1]
     if obs_t.dtype != torch.float32 or obs_t.shape[-1] != num_envs:
         raise ValueError(f"obs_t must be float32 (obs_dim, {num_envs})")
-    obs_next = torch.empty_like(obs_t)
+    obs_next = torch.empty_like(obs_t) if replay is None else obs_t
     a, outs = _tick_args(step_key, tstate, obs_t, 0, obs_next, 0,
                          chain, epsilon, do_reset, params, **rng_collect)
+    if replay is not None:
+        _fill_push(a, replay, obs_rows(params),
+                   rng_collect.get("collect", 1) * num_envs, obs_t.device)
     return a, outs + (obs_next,)
 
 
@@ -864,7 +934,8 @@ def full_tick_fused(step_key: torch.Tensor, tstate: TState,
                     epsilon: torch.Tensor, do_reset: bool,
                     params: EnvParams, collect: int = 1,
                     rng_rounds: int = 20,
-                    actor_rng_rounds: Optional[int] = None):
+                    actor_rng_rounds: Optional[int] = None,
+                    replay=None):
     """The whole env side of a full-engine tick (B3): the ε-greedy actor
     (the matmul ``chain``) on drone 0's rows of ``obs_t`` (collect ·
     obs_dim, E) f32, the physics and respawns, the reset when ``do_reset``
@@ -873,24 +944,43 @@ def full_tick_fused(step_key: torch.Tensor, tstate: TState,
     f32, dones (N, E) bool, actions (N, E) int32, obs_t' (collect ·
     obs_dim, E) f32)``.
 
+    With ``replay = (storage, start)``, a ``replay.StreamReplay``'s
+    storage and the push's start slot (a host int, or a 0-d int32 tensor
+    on the device that the kernel reads by pointer: a chunk row's word; a
+    multiple of the push's collect · E columns, as every StreamReplay
+    cursor is, so that the push does not wrap),
+    the same launch pushes the tick's transitions into the storage, as
+    ``StreamReplay.push_many`` of :func:`replay.stream_push_batch` at
+    ``start`` would (the caller moves the replay's cursor and size), and
+    writes the next observation over ``obs_t``: ``obs_t'`` is ``obs_t``.
+
     CUDA tensors launch the kernel (counted in ``full_tick_fused.
     launches``, and a captured launch once a replay by the graph's owner);
-    CPU tensors run :func:`full_tick_plain`.
+    CPU tensors run :func:`full_tick_plain`. Both count the calls that
+    push in ``full_tick_fused.pushes``.
     """
     rng_collect = dict(collect=collect, rng_rounds=rng_rounds,
                        actor_rng_rounds=actor_rng_rounds)
     if not tstate.ground.is_cuda:
-        return full_tick_plain(step_key, tstate, obs_t, chain, epsilon,
-                               do_reset, params, **rng_collect)
-    args, outs = _full_args(step_key, tstate, obs_t, chain, epsilon,
-                            do_reset, params, **rng_collect)
-    _launch(kernel_config(params, chain, **rng_collect), "full_tick_launch",
-            args, tstate.ground.device)
-    full_tick_fused.launches += 1
+        outs = full_tick_plain(step_key, tstate, obs_t, chain, epsilon,
+                               do_reset, params, replay=replay,
+                               **rng_collect)
+    else:
+        args, outs = _full_args(step_key, tstate, obs_t, chain, epsilon,
+                                do_reset, params, replay, **rng_collect)
+        _launch(kernel_config(params, chain, **rng_collect),
+                "full_tick_launch", args, tstate.ground.device)
+        full_tick_fused.launches += 1
+    if replay is not None:
+        full_tick_fused.pushes += 1
     return outs
 
 
+# Launches of B3, and the launches or plain calls among them that pushed
+# into a StreamReplay (a captured one once a replay, added by the graph's
+# owner).
 full_tick_fused.launches = 0
+full_tick_fused.pushes = 0
 
 
 def tick_fused(step_key: torch.Tensor, tstate: TState,

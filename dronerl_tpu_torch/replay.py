@@ -324,6 +324,21 @@ class FeatureMajorReplay:
         return can_sample(state, self.batch_size)
 
 
+def stream_push_batch(obs_t: torch.Tensor, actions_t: torch.Tensor,
+                      rewards_t: torch.Tensor, dones_t: torch.Tensor,
+                      k: int) -> Dict[str, torch.Tensor]:
+    """A StreamReplay engine's push of one tick: the first k drones'
+    input observations, ``obs_t`` (k · obs_dim, E) with the drones' row
+    groups side by side, drone-major (obs_dim, k · E), and their actions,
+    rewards and dones ((N, E) each) in the same column order."""
+    num_envs = obs_t.shape[-1]
+    obs = obs_t if k == 1 else obs_t.reshape(k, -1, num_envs).permute(
+        1, 0, 2).reshape(-1, k * num_envs)
+    return {"obs": obs, "actions": actions_t[:k].reshape(-1),
+            "rewards": rewards_t[:k].reshape(-1),
+            "dones": dones_t[:k].reshape(-1)}
+
+
 class StreamReplay:
     """Single-stream feature-major replay: next_obs by ring offset.
 

@@ -32,11 +32,11 @@ raises: nothing gives way to autograd at run time.
 
 Full engine (:func:`build_train_step_full`). One tick: split the host
 key three ways; one launch of the full tick kernel (B3: the actor on the
-carried observation, the env side, the periodic reset, the next
-observation into a new array); push the tick's input observation and
-drone 0's action, reward and done into a ``replay.StreamReplay``; sample
-and take the TD(0) Adam step once the replay can be sampled; the
-schedules.
+carried observation, the env side, the periodic reset, the push of the
+tick's input observation and drone 0's action, reward and done into a
+``replay.StreamReplay`` at the row's start slot, and the next observation
+written over the carried one, in place); sample and take the TD(0) Adam
+step once the replay can be sampled; the schedules.
 
 Fused engine (:func:`build_train_step_fused`). One tick: split the host
 key six ways; random opponents and drone 0's ε-greedy action
@@ -668,6 +668,7 @@ class Chunk:
     COUNTERS = ((fused_tick, "full_tick_fused_ring", "launches"),
                 (learner_kernel, "td_adam", "launches"),
                 (fused_tick, "full_tick_fused", "launches"),
+                (fused_tick, "full_tick_fused", "pushes"),
                 (fused_tick, "tick_fused", "launches"),
                 (step_kernel, "step_batch_fused", "launches"),
                 (draws, "draw", "launches"),
@@ -933,32 +934,34 @@ def _require_kernel_actor(agent: DQN, engine: str) -> None:
 
 # --- the StreamReplay engines -----------------------------------------------
 
+def _sample_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
+                      ag_state, words, trains: bool, learn):
+    """After the tick's push: where the tick ``trains`` sample (the key,
+    bound and base of ``words``, ``RowLayout.replay_words``) and take the
+    TD step (``learn(ag_state, batch) -> (ag_state, loss)``, the tick's
+    :func:`learner_step`), else loss ``NO_TRAIN_LOSS``. Returns
+    ``(ag_state, loss)``."""
+    _, sample_key, bound, base = words
+    if not trains:
+        return ag_state, torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
+                                    device=agent.device)
+    batch = buffer.sample_batch(sample_key, bstate, bound=bound, base=base)
+    return learn(ag_state, batch)
+
+
 def _push_and_learn(agent: DQN, buffer: replay.StreamReplay, bstate,
                     ag_state, words, trains: bool, obs_t, actions_t,
                     rewards_t, dones_t, k: int, learn):
-    """Push the tick's input observations of the first k drones (the
-    drones' row groups side by side, drone-major: (obs_dim, k · E)) with
-    their actions, rewards and dones at the start slot of ``words``
-    (``RowLayout.replay_words``); where the tick ``trains`` sample (its
-    key, bound and base) and take the TD step (``learn(ag_state, batch)
-    -> (ag_state, loss)``, the tick's :func:`learner_step`), else loss
-    ``NO_TRAIN_LOSS``. Returns ``(bstate, ag_state, loss)``."""
-    start, sample_key, bound, base = words
-    obs_dim = agent.obs_dim
-    num_envs = obs_t.shape[-1]
-    obs = obs_t if k == 1 else obs_t.reshape(k, obs_dim, num_envs).permute(
-        1, 0, 2).reshape(obs_dim, k * num_envs)
-    bstate = buffer.push_many(bstate, {
-        "obs": obs, "actions": actions_t[:k].reshape(-1),
-        "rewards": rewards_t[:k].reshape(-1),
-        "dones": dones_t[:k].reshape(-1)}, start=start)
-    if trains:
-        batch = buffer.sample_batch(sample_key, bstate, bound=bound,
-                                    base=base)
-        ag_state, loss = learn(ag_state, batch)
-    else:
-        loss = torch.full((), NO_TRAIN_LOSS, dtype=torch.float32,
-                          device=agent.device)
+    """The fused engine's push and TD step, whose observation comes from
+    the env tick kernel (B4): push the tick's transitions of the first k
+    drones (``replay.stream_push_batch``) at the start slot of ``words``,
+    then :func:`_sample_and_learn`. (The full engine's push is B3's own.)
+    Returns ``(bstate, ag_state, loss)``."""
+    bstate = buffer.push_many(
+        bstate, replay.stream_push_batch(obs_t, actions_t, rewards_t,
+                                         dones_t, k), start=words[0])
+    ag_state, loss = _sample_and_learn(agent, buffer, bstate, ag_state,
+                                       words, trains, learn)
     return bstate, ag_state, loss
 
 
@@ -972,8 +975,13 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
     -> (carry, (rewards (E,), epsilon, loss))`` with the JAX trainer's
     carry ``(rng, tstate, obs_t, ag_state, bstate, step)``
     (:func:`init_stream_carry`). The replay's stride is E ·
-    ``collect_drones``. ``loss`` is ``NO_TRAIN_LOSS`` on ticks where the
-    replay holds fewer than a batch of transitions. ``keys`` and
+    ``collect_drones``. B3 pushes the tick's transitions into the replay
+    at the row's start slot (the caller moves the cursor and size, as
+    :class:`Tick` says) and writes the next observation over the carry's
+    ``obs_t``, in place (``fused_tick.full_tick_fused``'s ``replay``): a
+    caller that keeps a carry passed in clones its ``obs_t`` and replay
+    storage. ``loss`` is ``NO_TRAIN_LOSS`` on ticks where the replay
+    holds fewer than a batch of transitions. ``keys`` and
     ``group`` as :func:`host_keys` (a step key and a sample key).
 
     The tick is a :class:`Tick` on rows of ``RowLayout(2, push=True)``
@@ -991,14 +999,14 @@ def build_train_step_full(agent: DQN, buffer: replay.StreamReplay,
         step_key, sample_key = layout.keys(row)
         chain = fused_tick.flatten_net_params(ag_state.params,
                                               agent.net_spec)
+        words = layout.replay_words(row, sample_key, host, 1)
         tstate, rewards_t, dones_t, actions_t, next_obs_t = (
             fused_tick.full_tick_fused(
                 step_key, tstate, obs_t, chain, ag_state.epsilon,
-                sig.reset, env_params, k, rng_rounds, actor_rng_rounds))
-        bstate, ag_state, loss = _push_and_learn(
-            agent, buffer, bstate, ag_state,
-            layout.replay_words(row, sample_key, host, 1), sig.trains,
-            obs_t, actions_t, rewards_t, dones_t, k,
+                sig.reset, env_params, k, rng_rounds, actor_rng_rounds,
+                replay=(bstate.storage, words[0])))
+        ag_state, loss = _sample_and_learn(
+            agent, buffer, bstate, ag_state, words, sig.trains,
             functools.partial(learner_step, agent, route, row=row,
                               layout=layout, group=group))
         ag_state = agent.apply_schedules(ag_state, None, dones_t[0, 0],

@@ -189,9 +189,8 @@ def tick_phases(engine: str) -> Dict[str, Tuple[object, str]]:
             "gather": (fused_tick, "ring_gather_batch"),
             "scalar_writes": (fused_tick, "ring_scalar_writes"),
         },
-        "full": {
+        "full": {  # B3 pushes into the replay itself
             "kernel": (fused_tick, "full_tick_fused"),
-            "push": (replay.StreamReplay, "push_many"),
             "sample": (replay.StreamReplay, "sample"),
         },
         "fused": {

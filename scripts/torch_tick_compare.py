@@ -23,7 +23,12 @@ straight out in both (the patch touches B1/B3 only).
 
 An older tree's env kernel that takes B4's key by value (``key0``,
 ``key1``) gets its block in that layout (``env_block_for``), the same
-pointers and key words.
+pointers and key words; an older tick kernel without the StreamReplay
+push gets its B1/B3 block without the push's fields
+(``tick_block_for``). This tree's B3 is also timed with the push
+(``B3push``: the launch's StreamReplay push into a 1,048,576-slot replay
+and the next observation written over its input, as the full engine
+launches it); an older tree has no such launch.
 
 Each build's ptxas figures are printed kernel by kernel (registers,
 barriers, stack, spills); with ``--other`` the two trees' figures of every
@@ -131,6 +136,32 @@ def env_block_for(src_dir, block):
     return legacy
 
 
+class PushlessTickArgs(ctypes.Structure):
+    """``TickArgs`` of a tick kernel without B3's StreamReplay push (no
+    ``push_*`` fields), as the kernel was before B3 pushed: the block an
+    older tree's B1 and B3 launches take."""
+
+    _fields_ = [f for f in fused_tick._TickArgs._fields_
+                if not f[0].startswith("push_")]
+
+
+def tick_block_for(src_dir, block):
+    """A B1 or B3 ``block`` (this tree's ``TickArgs``) in the layout that
+    ``src_dir``'s tick kernel takes: itself, or for a kernel without the
+    push a :class:`PushlessTickArgs` with the same fields."""
+    with open(os.path.join(src_dir, _build.TICK_SOURCE)) as f:
+        if "push_obs" in f.read():
+            return block
+    legacy = PushlessTickArgs()
+    for name, ctype in PushlessTickArgs._fields_:
+        value = getattr(block, name)
+        if issubclass(ctype, ctypes.Array):
+            getattr(legacy, name)[:] = value[:]
+        else:
+            setattr(legacy, name, value)
+    return legacy
+
+
 def tensors(tree):
     """Every tensor of nested tuples and lists, in order."""
     if isinstance(tree, torch.Tensor):
@@ -161,6 +192,23 @@ def blocks(params, chain, k, device):
                                        params, collect=k)
         out["B1"] = ("full_tick_ring_launch", b1, (o1, ring, tstate, eps))
         out["B3"] = ("full_tick_launch", b3, (o3, obs, tstate, eps))
+        if k == 1:
+            # The full engine's launch: the push into the bench's
+            # StreamReplay at its last slot, the next obs over its input.
+            capacity = 16 * NUM_ENVS
+            storage = {
+                "obs": torch.zeros((obs.shape[0], capacity), device=device),
+                "actions": torch.zeros(capacity, dtype=torch.int32,
+                                       device=device),
+                "rewards": torch.zeros(capacity, device=device),
+                "dones": torch.zeros(capacity, dtype=torch.bool,
+                                     device=device)}
+            obs_p = obs.clone()
+            bp, op = fused_tick._full_args(
+                key, tstate, obs_p, chain, eps, False, params,
+                replay=(storage, capacity - NUM_ENVS), collect=k)
+            out["B3push"] = ("full_tick_launch", bp,
+                             (op, obs_p, storage, tstate, eps))
     else:
         b4, o4 = fused_tick._env_tick_args(key, tstate, actions, params, k)
         out["B4"] = ("tick_launch", b4, (o4, tstate, actions))
@@ -259,11 +307,13 @@ def main() -> None:
                         if differ:
                             raise SystemExit("the variants differ")
                 for tree, kk in order:
-                    if (tree, kk, net) not in libs:
+                    if (tree, kk, net) not in libs or (
+                            kind == "B3push" and tree != "this"):
                         continue
                     launch = getattr(libs[(tree, kk, net)], entry)
-                    ms = time_launches(launch, env_block_for(
-                        trees[tree], block) if kind == "B4" else block)
+                    ms = time_launches(launch, (
+                        env_block_for if kind == "B4" else tick_block_for)(
+                            trees[tree], block))
                     rows.append({"kind": kind, "net": net, "k": kk,
                                  "tree": tree if kk == 1 else (
                                      "direct" if tree == "this" else "tile"),

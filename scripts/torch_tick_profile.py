@@ -10,10 +10,10 @@ env-batches). It reports:
 
 * wall time per tick (host clock around ticks ending in a synchronise);
 * host wall time per phase of the tick (the kernel's wrapper, the replay
-  gather with its randint or the StreamReplay push and sample, the
-  fused engine's actor and random opponents and its reset, the learner
-  step, the schedules, the host rng split), timed by wrapping each
-  phase's function;
+  gather with its randint or the StreamReplay sample, the fused
+  engine's StreamReplay push (the full engine's is B3's own), actor and
+  random opponents and its reset, the learner step, the schedules, the
+  host rng split), timed by wrapping each phase's function;
 * under ``torch.profiler``: device time per kernel and per phase (each
   phase an annotated range), launches per tick, and the device's busy
   share of the unprofiled tick.

@@ -149,7 +149,7 @@ def test_tick_phases_and_host_split(monkeypatch):
     common = {"learner", "schedules", "rng_split"}
     assert phases == {
         "ring": {"kernel", "gather", "scalar_writes"} | common,
-        "full": {"kernel", "push", "sample"} | common,
+        "full": {"kernel", "sample"} | common,   # B3 pushes itself
         "fused": {"kernel", "push", "sample", "actor", "opponents",
                   "reset"} | common}
     monkeypatch.setattr(bench, "MEMORY_SIZE", 256)

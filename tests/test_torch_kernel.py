@@ -549,6 +549,162 @@ def test_full_tick_kernel_matches_plain_on_card():
     assert fused_tick.full_tick_fused.launches == launches + 3
 
 
+def _push_inputs(k, device, seed=0, num_envs=E):
+    """B3's inputs at ``num_envs`` envs with the first k drones collected,
+    and a StreamReplay's storage of four pushes filled with noise."""
+    tp = EnvParams(**KW)
+    agent = DQN(DQNConfig(hidden_layers=(16, 16)), tp, device=device)
+    chain = agent.init_state(rng.PRNGKey(seed)).params.flat()
+    state = core.reset_batch(rng.PRNGKey(seed + 4).to(device), tp, num_envs)
+    obs_t = train._stacked_obs(state, tp, k)
+    state = core.reset_batch(rng.PRNGKey(seed + 5).to(device), tp, num_envs)
+    capacity = 4 * k * num_envs
+    gen = torch.Generator().manual_seed(seed)
+    storage = {
+        "obs": torch.rand((294, capacity), generator=gen).to(device),
+        "actions": torch.randint(0, 5, (capacity,), generator=gen,
+                                 dtype=torch.int32).to(device),
+        "rewards": torch.rand((capacity,), generator=gen).to(device),
+        "dones": (torch.rand((capacity,), generator=gen) < 0.5).to(device),
+    }
+    return tp, chain, fused_tick.to_tstate(state), obs_t, storage
+
+
+def test_full_args_block_push():
+    """B3's block with a replay: the push's pointers, start word and
+    capacity, the next observation over obs_t; a start off the push's
+    grid, storage of another shape or dtype, and a B1 block refused."""
+    tp, chain, ts, obs_t, storage = _push_inputs(2, "cpu")
+    eps = torch.tensor(0.5)
+    block, outs = fused_tick._full_args(
+        rng.PRNGKey(9), ts, obs_t, chain, eps, False, tp,
+        replay=(storage, 2 * E), collect=2)
+    assert outs[4] is obs_t and block.obs_in == block.obs_out
+    assert block.push_obs == storage["obs"].data_ptr()
+    assert block.push_actions == storage["actions"].data_ptr()
+    assert block.push_rewards == storage["rewards"].data_ptr()
+    assert block.push_dones == storage["dones"].data_ptr()
+    assert block.push_ld == 8 * E
+    assert block.push_start == block.start_word.data_ptr()
+    assert block.start_word.dtype == torch.int32
+    assert int(block.start_word) == 2 * E
+    row = torch.tensor([7, 4 * E], dtype=torch.int32)
+    block, _ = fused_tick._full_args(
+        rng.PRNGKey(9), ts, obs_t, chain, eps, False, tp,
+        replay=(storage, row[1]), collect=2)
+    assert block.push_start == row[1].data_ptr()
+    bad = [(storage, E), (dict(storage, rewards=storage["rewards"].double()),
+                          0),
+           (dict(storage, obs=storage["obs"][:, :6 * E + 1]), 0),
+           (storage, row[1].long())]
+    for replay_arg in bad:
+        with pytest.raises(ValueError):
+            fused_tick._full_args(rng.PRNGKey(9), ts, obs_t, chain, eps,
+                                  False, tp, replay=replay_arg, collect=2)
+    ring_block, _ = fused_tick._kernel_args(*_kernel_inputs())
+    assert ring_block.push_obs is None
+
+
+def _unfused_push(step_key, ts, obs_t, chain, eps, tp, k, storage, start):
+    """B3 without a replay, then ``StreamReplay.push_many`` of its
+    transitions: the push as the full engine made it before B3 took it
+    over. Returns the launch's outputs and the storage."""
+    storage = {n: t.clone() for n, t in storage.items()}
+    out = fused_tick.full_tick_fused(step_key, ts, obs_t, chain, eps, False,
+                                     tp, k)
+    buf = replay.StreamReplay(storage["obs"].shape[-1], 8,
+                              stride=k * obs_t.shape[-1])
+    buf.push_many(replay.ReplayState(storage, 0, 0),
+                  replay.stream_push_batch(obs_t, out[3], out[1], out[2], k),
+                  start=start)
+    return out, storage
+
+
+def _assert_push_equal(got, storage, want, want_storage, obs_t):
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b)
+    for i in (1, 2, 3):
+        assert torch.equal(got[i], want[i]), i
+    assert got[4] is obs_t and torch.equal(obs_t, want[4])
+    for name, t in storage.items():
+        assert torch.equal(t, want_storage[name]), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_envs", [E, 100])
+@pytest.mark.parametrize("start", ["first", "last"])
+@pytest.mark.parametrize("epsilon", [0.0, 1.0])
+@pytest.mark.parametrize("k", [1, 2])
+def test_full_tick_push_matches_unfused_on_card(k, epsilon, start,
+                                                num_envs):
+    """B3 with the replay (the push inside the launch, the next
+    observation over obs_t) against B3 without it followed by
+    ``StreamReplay.push_many``: the replay's storage, obs_t, the state,
+    rewards, dones and actions bitwise, at k = 1 and 2, with every env
+    greedy (ε = 0) and none (ε = 1: no block runs the actor, so the push
+    reads the observation itself), at the replay's first push and its
+    last (``capacity - stride``); one push counted a launch. At 128 envs
+    every block is whole and takes the 16-byte stores; at 100 the last
+    block holds 36 envs and takes the push's scalar stores."""
+    dev = _card()
+    tp, chain, ts, obs_t, storage = _push_inputs(k, dev, num_envs=num_envs)
+    eps = torch.tensor(epsilon, device=dev)
+    capacity = storage["obs"].shape[-1]
+    at = 0 if start == "first" else capacity - k * num_envs
+    key = rng.PRNGKey(11)
+    pushes, launches = (fused_tick.full_tick_fused.pushes,
+                        fused_tick.full_tick_fused.launches)
+    for t in range(2):
+        key, step_key = rng.split(key, 2)
+        want, want_storage = _unfused_push(step_key, ts, obs_t, chain, eps,
+                                           tp, k, storage, at)
+        got = fused_tick.full_tick_fused(step_key, ts, obs_t, chain, eps,
+                                         False, tp, k, replay=(storage, at))
+        torch.cuda.synchronize()
+        _assert_push_equal(got, storage, want, want_storage, obs_t)
+        ts = got[0]
+    assert fused_tick.full_tick_fused.pushes == pushes + 2
+    assert fused_tick.full_tick_fused.launches == launches + 4
+
+
+@pytest.mark.gpu
+def test_full_tick_push_in_graph_on_card():
+    """B3's push captured in a CUDA graph with its start slot read by
+    pointer: replays after the start word changes push at the new slot,
+    bitwise to the unfused launch and push; the capture counts one push
+    and the replays none (a chunk adds them)."""
+    dev = _card()
+    k = 1
+    tp, chain, ts, obs_t, storage = _push_inputs(k, dev, seed=3)
+    eps = torch.tensor(0.25, device=dev)
+    step_key = rng.PRNGKey(12).to(dev)
+    obs_in = obs_t.clone()
+    word = torch.zeros(1, dtype=torch.int32, device=dev)
+    # Built and warmed up outside the capture.
+    fused_tick.full_tick_fused(step_key, ts, obs_t.clone(), chain, eps,
+                               False, tp, k,
+                               replay=({n: t.clone() for n, t in
+                                        storage.items()}, word[0]))
+    torch.cuda.synchronize()
+    pushes = fused_tick.full_tick_fused.pushes
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fused_tick.full_tick_fused(step_key, ts, obs_t, chain, eps,
+                                         False, tp, k,
+                                         replay=(storage, word[0]))
+    assert fused_tick.full_tick_fused.pushes == pushes + 1
+    capacity = storage["obs"].shape[-1]
+    for at in (2 * E, 0, capacity - E):
+        obs_t.copy_(obs_in)
+        want, want_storage = _unfused_push(step_key, ts, obs_in, chain, eps,
+                                           tp, k, storage, at)
+        word.fill_(at)
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_push_equal(got, storage, want, want_storage, obs_t)
+    assert fused_tick.full_tick_fused.pushes == pushes + 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kw,num_envs", [
     (KW, E), (dict(grid_size=16, n_drones=25), E), (KW, 100)])
