@@ -7,8 +7,8 @@ from portbench.metrics import b3_ms_per_tick
 
 def read(ctx):
     ms = b3_ms_per_tick.read(ctx)
-    if not ms or ctx.widths is None:
+    if not ms:
         return None
-    bound = roofline.tick_kernel_bound(ctx.widths, ctx.n_drones, ctx.cells,
+    bound = roofline.tick_kernel_bound(ctx.net, ctx.n_drones, ctx.cells,
                                        ctx.num_envs, 4)[0]
     return bound / ms * 100

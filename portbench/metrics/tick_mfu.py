@@ -6,7 +6,5 @@ from portbench import roofline
 
 
 def read(ctx):
-    if ctx.widths is None:
-        return None
-    flops = roofline.tick_model_flops(ctx.widths, ctx.num_envs, ctx.batch)
+    flops = roofline.tick_model_flops(ctx.net, ctx.num_envs, ctx.batch)
     return flops / (ctx.wall_ms_per_tick / 1e3 * roofline.PEAK_BF16) * 100

@@ -31,8 +31,10 @@ def init(key: torch.Tensor, obs_dim: int, flags: dict):
     return leaves
 
 
-def forward_t(leaves, obs_t: torch.Tensor, matmul) -> torch.Tensor:
-    """(in, B) -> (5, B): ``W^T x + b`` a layer, ReLU between layers."""
+def forward_t(leaves, obs_t: torch.Tensor, matmul,
+              flags=None) -> torch.Tensor:
+    """(in, B) -> (5, B): ``W^T x + b`` a layer, ReLU between layers (the
+    widths are the leaves'; ``flags`` is not needed)."""
     x = obs_t
     n = len(leaves) // 2
     for i in range(n):

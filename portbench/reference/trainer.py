@@ -150,7 +150,7 @@ class Learner:
                    snap["epsilon"].to(device, torch.float32, copy=True))
 
     def q(self, leaves, obs_t):
-        return self.net.forward_t(leaves, obs_t, self.matmul)
+        return self.net.forward_t(leaves, obs_t, self.matmul, self.flags)
 
     def act(self, u: torch.Tensor, obs_t: torch.Tensor):
         """Drone 0's action and the others' random ones from the (N + 1,
@@ -161,7 +161,8 @@ class Learner:
         rand = torch.floor(u[1:] * float(env.NUM_ACTIONS)).to(
             torch.int32).clamp(0, env.NUM_ACTIONS - 1)
         with torch.no_grad():
-            q = self.net.forward_t(self.params, obs_t, self.actor_matmul)
+            q = self.net.forward_t(self.params, obs_t, self.actor_matmul,
+                                   self.flags)
         top = q.topk(2, dim=0).values
         explore = u[0] < self.epsilon
         ties = ~explore & (top[0] - top[1] < NEAR_TIE * q.abs().amax(dim=0))

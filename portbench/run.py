@@ -55,7 +55,7 @@ import types  # noqa: E402
 
 import torch  # noqa: E402
 
-from portbench import check, trace  # noqa: E402
+from portbench import check, roofline, trace  # noqa: E402
 from portbench.reference import trainer  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -280,16 +280,9 @@ def traced(chunk, carry, cell, engine: str, device):
            for op in trace.device_ops(prof)
            if op.end_us > span.start_us and op.start_us < span.end_us]
     flags = cell.flags
-    side = (flags["grid_size"] if flags.get("wrapper") == "global"
-            else 2 * flags["window_radius"] + 1)
-    dense = flags["network_type"] == "dense"
     ctx = types.SimpleNamespace(
         engine=engine, num_envs=flags["num_envs"],
-        batch=flags["batch_size"],
-        # A dense net's layer widths (None for another net: the readers
-        # that count its FLOPs then find nothing to read).
-        widths=(side * side * 6, *flags["hidden_layers"], 5) if dense
-        else None,
+        batch=flags["batch_size"], net=roofline.net_of(flags),
         n_drones=flags["n_drones"], cells=flags["grid_size"] ** 2,
         ticks=cell.trace_chunks * length, dev=dev,
         window_s=(span.end_us - span.start_us) / 1e6,

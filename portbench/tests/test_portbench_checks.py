@@ -51,6 +51,8 @@ def test_harness_and_reference_load_no_jax_and_no_program():
         "import sys, portbench.run, portbench.check, portbench.calibrate\n"
         "import portbench.reference.engines.ring, "
         "portbench.reference.engines.full\n"
+        "import portbench.reference.nets.dense, "
+        "portbench.reference.nets.conv, portbench.roofline\n"
         "tops = {m.split('.')[0] for m in sys.modules}\n"
         "print(sorted(tops & {'jax', 'jaxlib', 'flax', 'dronerl_tpu', "
         "'dronerl_tpu_torch'}))")
