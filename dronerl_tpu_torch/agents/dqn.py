@@ -433,8 +433,12 @@ class DQN:
         explore and action keys: explore where ``uniform(explore_key,
         (B,)) < ε``, with ``randint(action_key, (B,), 0, NUM_ACTIONS)``.
         The draws run where ``obs_t`` lies (B counters each), so a host
-        key goes to that device first.
+        key goes to that device first. A conv net's forward through its
+        module (no ``conv_matmul``: cuDNN on a card) is counted in
+        ``DQN.act_t.module_forwards``.
         """
+        if self.config.network_type != "dense" and self.net_spec is None:
+            DQN.act_t.module_forwards += 1
         with torch.no_grad():
             q = self.q_values_t(state.params, obs_t)
         if greedy:
@@ -488,7 +492,9 @@ class DQN:
                  q_values, axis: int, group=None,
                  corrections=None) -> Tuple[DQNState, torch.Tensor]:
         """The TD(0) step on Q-values ``q_values(params, obs)`` whose action
-        axis is ``axis``."""
+        axis is ``axis``: the autograd learner, counted in
+        ``DQN._td_step.calls``."""
+        DQN._td_step.calls += 1
         cfg = self.config
         params = state.params.flat()
         actions = batch["actions"].long()
@@ -621,3 +627,7 @@ class DQN:
                 torch._foreach_copy_(net.flat(), [
                     p.to(net.flat()[0].device) for p in params.flat()])
         return state
+
+
+DQN.act_t.module_forwards = 0
+DQN._td_step.calls = 0

@@ -75,8 +75,13 @@ def reset_keys(keys: torch.Tensor, params: EnvParams,
 def reset_batch(key: torch.Tensor, params: EnvParams,
                 num_envs: int, rounds: int = 20) -> EnvState:
     """``core.reset_batch``: env e resets with row e of ``split(key, E)``
-    (``rounds`` as :func:`reset_keys`)."""
+    (``rounds`` as :func:`reset_keys`). Counted in ``reset_batch.calls``
+    (a captured call once a replay by the graph's owner)."""
+    reset_batch.calls += 1
     return reset_keys(rng.split(key, num_envs, rounds), params, rounds)
+
+
+reset_batch.calls = 0
 
 
 def step_batch(

@@ -376,12 +376,15 @@ class StreamReplay:
     def push_many(self, state: ReplayState, batch: Dict[str, Any],
                   start=None) -> ReplayState:
         """A stride-sized push at the cursor (``start``: as
-        :func:`push_many_t`'s)."""
+        :func:`push_many_t`'s), in ATen's ops; counted in
+        ``StreamReplay.push_many.calls`` (a captured push once a replay by
+        the graph's owner)."""
         n = next(iter(batch.values())).shape[-1]
         if n != self.stride:
             raise ValueError(
                 f"StreamReplay pushes must be stride-sized ({self.stride}); "
                 f"got {n}: the successor-offset arithmetic depends on it")
+        StreamReplay.push_many.calls += 1
         return push_many_t(state, batch, self.capacity, start=start)
 
     def sample(self, key: torch.Tensor, state: ReplayState, bound=None,
@@ -450,6 +453,9 @@ class StreamReplay:
         size = min(size + self.stride, self.capacity)
         return PushWords(cursor, max(size - self.stride, 1),
                          after if size == self.capacity else 0, after, size)
+
+
+StreamReplay.push_many.calls = 0
 
 
 # --- diagnostics ----------------------------------------------------------------

@@ -649,9 +649,12 @@ class Chunk:
 
     A chunk adds the launches each signature's capture recorded, times its
     replays, to the counters of :data:`COUNTERS` (the kernels' launches,
-    the draws' and the ring sample's among them, and the all-reduces) once
-    before it returns; a capture's warm-up (on a copy of the carry) and the
-    capture leave the counts as they were.
+    the draws' and the ring sample's among them, and the all-reduces; and
+    the work a tick does outside the port's kernels: a conv actor's module
+    forward, the StreamReplay's push in ATen, the autograd learner's
+    steps, the periodic reset in plain PyTorch) once before it returns; a
+    capture's warm-up (on a copy of the carry) and the capture leave the
+    counts as they were.
 
     The chunk times its own host work once a chunk by phase (a
     ``utils.profiling.PhaseClock``, read by :meth:`phase_ns`): ``keys``
@@ -675,7 +678,11 @@ class Chunk:
                 (draws, "ring_sample", "launches"),
                 (draws, "stream_sample", "launches"),
                 (draws, "buffer_sample", "launches"),
-                (dqn_module, "all_reduce_mean", "calls"))
+                (dqn_module, "all_reduce_mean", "calls"),
+                (DQN, "act_t", "module_forwards"),
+                (replay.StreamReplay, "push_many", "calls"),
+                (DQN, "_td_step", "calls"),
+                (env_core, "reset_batch", "calls"))
     COUNTS = ("chunks", "ticks", "captures")   # the clock's counts
 
     def __init__(self, tick):

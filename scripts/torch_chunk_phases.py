@@ -8,7 +8,11 @@ and carry from the seed), warms it up over two chunks, then:
 * untraced, ``--host_chunks`` chunks, each timed from its call to before
   its readback (the benchmark's ``host_ms_per_tick``), with
   ``train.Chunk.phase_ns`` read before and after: the host ms a tick of
-  each phase, and their sum against ``host_ms_per_tick``;
+  each phase, and their sum against ``host_ms_per_tick``; and the
+  counters of ``train.Chunk.COUNTERS`` a tick (``counters_per_tick``, by
+  ``<function>.<count>``: the kernels' launches, a conv actor's module
+  forwards, the StreamReplay's ATen pushes, the autograd learner's steps,
+  the plain resets);
 * traced, ``--trace_chunks`` chunks under ``torch.profiler`` (host and
   card), in the benchmark's own ranges: the card's idle share of the
   window; ``walk_idle_share``, the share of the window in which the card
@@ -101,10 +105,17 @@ def phase_ms(chunk, before: dict, per: str) -> dict:
             for name, ns in after.items() if name not in chunk.COUNTS}
 
 
+def counters(chunk) -> dict:
+    """The values of ``chunk.COUNTERS`` by ``<function>.<count>``."""
+    return dict(zip((f"{name}.{count}" for _, name, count in chunk.COUNTERS),
+                    chunk._launches()))
+
+
 def untraced(chunk, carry, length: int, chunks: int):
     """``(carry, host ms a tick by phase and in all, the enqueue's host ms
-    a tick)`` over ``chunks`` chunks."""
+    a tick, the counters a tick)`` over ``chunks`` chunks."""
     before = chunk.phase_ns()
+    counted = counters(chunk)
     enqueue = 0.0
     for _ in range(chunks):
         t0 = time.perf_counter()
@@ -113,7 +124,10 @@ def untraced(chunk, carry, length: int, chunks: int):
         _readback(outs)
     phases = phase_ms(chunk, before, "ticks")
     phases["sum"] = sum(phases.values())
-    return carry, phases, enqueue / (chunks * length) * 1e3
+    ticks = chunks * length
+    per_tick = {name: (n - counted[name]) / ticks
+                for name, n in counters(chunk).items()}
+    return carry, phases, enqueue / ticks * 1e3, per_tick
 
 
 def traced(chunk, carry, length: int, chunks: int, device):
@@ -220,7 +234,8 @@ def main(argv=None) -> dict:
     for _ in range(run.WARMUP_CHUNKS):
         carry, outs = chunk(carry, length)
         _readback(outs)
-    carry, phases, host_ms = untraced(chunk, carry, length, a.host_chunks)
+    carry, phases, host_ms, per_tick = untraced(chunk, carry, length,
+                                                a.host_chunks)
     carry, tr = traced(chunk, carry, length, a.trace_chunks, a.device)
     cost = []
     for i in range(a.cost):
@@ -241,6 +256,7 @@ def main(argv=None) -> dict:
         "phases_over_host": phases["sum"] / host_ms,
         "walk_ms_per_tick": phases["keys"] + phases["walk"],
         "replay_ms_per_tick": phases.get("replay"),
+        "counters_per_tick": per_tick,
         "traced": tr, "cost": cost,
     }
     text = json.dumps(out, indent=1)
